@@ -2,6 +2,11 @@
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture(autouse=True)
 def _isolated_autotune_cache(tmp_path, monkeypatch):
     """Point the block-size autotune cache at a per-test tmpdir.
