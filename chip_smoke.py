@@ -17,9 +17,10 @@ Phases (none catches an error; any failure exits non-zero):
   3. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
      weights from a seed, default mix), greedy; packing and serving must
      go through quantize_pack and the driver-scale segment GEMM; a second
-     run gives the same tokens; lockstep equals continuous; the kernels
-     agree with the plain versions on the CPU (fp32: reduced config end to
-     end, and each full-width linear on the same input).
+     run gives the same tokens; lockstep equals continuous; the card
+     agrees with the plain versions on the CPU in fp32: the reduced config
+     end to end, and two full-width layers teacher-forced at every serve
+     linear (each op held on its own; flipped activation codes counted).
   4. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
   5. Summary: a ``kernels`` JSON line, the nvidia-smi line, and last the
@@ -320,13 +321,16 @@ def check_lockstep_equals_continuous(eng, cfg, ecfg, vocab, rng, s0, new):
         raise AssertionError(f"lockstep != continuous:\n{a}\n{b}")
 
 
-def _prefill_logits(model, cfg, dev):
+def _prefill_then_decode(model, cfg, dev):
+    """Logits of a 4 x 8 prefill chunk and of one decode step after it."""
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
     pos = np.tile(np.arange(8), (4, 1))
     cache = lm.init_cache(cfg, 4, 64, torch.float32, device=dev)
-    lg, _ = lm.prefill_step(model, cfg, cache, tokens, pos, np.full(4, 7))
-    return lg.double().cpu()
+    a, cache = lm.prefill_step(model, cfg, cache, tokens[:, :8], pos,
+                               np.full(4, 7))
+    b, _ = lm.decode_step(model, cfg, cache, tokens[:, 8], np.full(4, 8))
+    return [a.double().cpu(), b.double().cpu()]
 
 
 def rel_l2(a, b) -> float:
@@ -334,39 +338,125 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def check_against_cpu(qat_cfg, ecfg, dev):
+class LinearTape:
+    """Hooks on every serve linear of a model, recording each call's input
+    and output in call order. With ``feed`` (another tape's inputs) each
+    call runs on the fed input; the input the model's own ops made is
+    still what the tape records."""
+
+    def __init__(self, model, feed=None):
+        self.inputs, self.outputs, self.feed = [], [], feed
+        self.handles = []
+        for name, mod in model.named_modules():
+            if isinstance(mod, smol.SmolLinear):
+                self.handles += [
+                    mod.register_forward_pre_hook(self._pre(name)),
+                    mod.register_forward_hook(self._post)]
+
+    def _pre(self, name):
+        def hook(mod, args):
+            self.inputs.append((name, mod, args[0].detach()))
+            if self.feed is None:
+                return None
+            fed_name, _mod, x = self.feed[len(self.inputs) - 1]
+            if fed_name != name:
+                raise AssertionError(f"call order: {name} vs {fed_name}")
+            return (x.to(args[0].device),) + tuple(args[1:])
+        return hook
+
+    def _post(self, mod, args, out):
+        self.outputs.append(out.detach())
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def code_coords(lin, x, qcfg):
+    """A serve linear's input in activation code units, as
+    ``backend.base.packed_matmul`` quantizes it: the channel perm, the
+    per-token scale, then t = (u / h + 2^p - 1) / 2 at
+    each channel's precision p (h = 2^(1-p)); the code is t rounded half
+    to even and clipped to [0, 2^p - 1]. Returns (codes, t)."""
+    xp = x.reshape(-1, x.shape[-1]).float().cpu().index_select(
+        -1, lin.perm.cpu())
+    k = xp.shape[-1]
+    p = quant.expand_groups(lin.pbits_sorted.float().cpu(), k,
+                            qcfg.eff_group_size(k))
+    u = xp / quant.abs_max_scale(xp, dim=-1)
+    t = (u / torch.exp2(1.0 - p) + (torch.exp2(p) - 1.0)) / 2.0
+    return quant.quantize_to_int(u, p), t
+
+
+def check_against_cpu(qat_cfg, ecfg, dev, full_layers=2):
     """The kernels on the card against the plain versions on the CPU, fp32.
-    (1) Reduced h2o-danube-1.8b end to end: prefill logits within relative
-    L2 1e-5. (2) Full width, 2 layers: every linear of block 0 on the same
-    input within 1e-5; the chained logits' relative L2 is reported, not
-    held: at full width requantization turns 1e-7 differences into whole
-    grid steps (ROADMAP.md §C). Returns the three numbers."""
+
+    (1) Reduced h2o-danube-1.8b end to end: the logits of a prefill chunk
+    and a decode step within relative L2 1e-5.
+    (2) Full width, ``full_layers`` layers, a prefill chunk and a decode
+    step, teacher-forced: the CPU runs them and records every serve
+    linear's input; the card runs them with each linear fed the CPU's
+    input to it. No activation the card computes then reaches a later
+    requantization, so a code that flips cannot cascade, and every op of
+    the card's path is held on its own: each linear's output on the CPU's
+    input (the segment kernels); each linear's input as the card's own
+    ops made it (norms, RoPE, ring write, attention, SwiGLU, residual
+    adds); and the logits. Each within relative L2 1e-5. Where a card
+    input quantizes to another code than the CPU's, both values must sit
+    within 1e-3 of a code step of each other, across the rounding boundary
+    between them: a knife edge, not a fault (ROADMAP.md §C).
+    Returns the numbers."""
     out = {}
     small = dataclasses.replace(qat_cfg.reduced(), dtype="float32")
     eng = engine.DecodeEngine(lm.init_params(small, seed=SEED + 1,
-                                             device=dev), small, ecfg)
-    card = _prefill_logits(eng.model, eng.cfg, dev)
-    cpu = _prefill_logits(copy.deepcopy(eng.model).to("cpu"), eng.cfg, "cpu")
-    out["reduced_logits_rel_l2"] = rel_l2(card, cpu)
-    wide = dataclasses.replace(qat_cfg, num_layers=2, dtype="float32")
+                                             device=dev), small, ecfg,
+                            device=dev)
+    card = _prefill_then_decode(eng.model, eng.cfg, dev)
+    cpu = _prefill_then_decode(copy.deepcopy(eng.model).to("cpu"), eng.cfg,
+                               "cpu")
+    out["reduced_logits_rel_l2"] = max(
+        rel_l2(a, b) for a, b in zip(card, cpu))
+    wide = dataclasses.replace(qat_cfg, num_layers=full_layers,
+                               dtype="float32")
     eng = engine.DecodeEngine(lm.init_params(wide, seed=SEED + 1,
-                                             device=dev), wide, ecfg)
+                                             device=dev), wide, ecfg,
+                            device=dev)
     host = copy.deepcopy(eng.model).to("cpu")
-    gen = torch.Generator().manual_seed(SEED)
-    worst = 0.0
-    for (name, lin), (_n, lin_cpu) in zip(
-            eng.model.blocks[0].named_modules(),
-            host.blocks[0].named_modules()):
-        if not isinstance(lin, smol.SmolLinear):
-            continue
-        x = torch.randn((32, lin.perm.numel()), generator=gen)
-        worst = max(worst, rel_l2(lin(x.to(dev), eng.cfg.quant),
-                                  lin_cpu(x, eng.cfg.quant)))
-    out["full_width_linear_rel_l2"] = worst
-    out["full_width_logits_rel_l2"] = rel_l2(
-        _prefill_logits(eng.model, eng.cfg, dev),
-        _prefill_logits(host, eng.cfg, "cpu"))
-    if not (out["reduced_logits_rel_l2"] <= 1e-5 and worst <= 1e-5):
+    qcfg = eng.cfg.quant
+    tape_cpu = LinearTape(host)
+    logits_cpu = _prefill_then_decode(host, eng.cfg, "cpu")
+    tape_cpu.close()
+    tape_card = LinearTape(eng.model, feed=tape_cpu.inputs)
+    logits_card = _prefill_then_decode(eng.model, eng.cfg, dev)
+    tape_card.close()
+    calls = len(tape_cpu.inputs)
+    if len(tape_card.inputs) != calls or calls != 7 * full_layers * 2:
+        raise AssertionError(f"linear calls: card {len(tape_card.inputs)}, "
+                             f"CPU {calls}")
+    worst_in = worst_out = worst_dt = 0.0
+    flips = []
+    for (name, lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        worst_out = max(worst_out, rel_l2(y_card, y_cpu))
+        worst_in = max(worst_in, rel_l2(x_card, x_cpu))
+        c_card, t_card = code_coords(lin, x_card, qcfg)
+        c_cpu, t_cpu = code_coords(lin, x_cpu, qcfg)
+        flip = c_card != c_cpu
+        if flip.any():
+            flips.append((name, int(flip.sum())))
+            worst_dt = max(worst_dt,
+                           (t_card - t_cpu)[flip].abs().max().item())
+    out.update(full_width_calls=calls,
+               full_width_linear_out_rel_l2=worst_out,
+               full_width_linear_in_rel_l2=worst_in,
+               full_width_logits_rel_l2=max(
+                   rel_l2(a, b) for a, b in zip(logits_card, logits_cpu)),
+               flipped_codes=flips, flipped_max_code_step=worst_dt)
+    held = (out["reduced_logits_rel_l2"] <= 1e-5 and worst_out <= 1e-5
+            and worst_in <= 1e-5 and out["full_width_logits_rel_l2"] <= 1e-5
+            and worst_dt <= 1e-3)
+    if not held:
         raise AssertionError(f"card vs CPU: {out}")
     return out
 

@@ -12,9 +12,9 @@ computes it over the full row (B2, legal when one segment spans K).
 
 On CUDA tensors the wrappers launch ``csrc/segment_gemm.cu`` or raise; on
 CPU tensors they run the plain versions below, which repeat the element
-ops in torch and accumulate in float64 before one rounding to fp32 (so a
-row's result does not depend on the batch shape, and the CUDA kernel's
-fp32 sum is held against a reference within rounding of the exact one).
+ops in torch and sum by the port's row-reduction rule (``core.numerics``:
+float64, one rounding), so the CUDA kernel's fp32 sum is held against a
+reference within rounding of the exact one.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import pack, quant
+from repro_torch.core.numerics import sum_fp64
 from repro_torch.core.qtypes import GROUP_SIZE
 
 from . import _build
@@ -66,7 +67,7 @@ def unpack_dequant(wp: torch.Tensor, p: int,
 
 def plain_matmul(xq: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
     """fp32 [M, K] @ [K, N] summed in float64, rounded once to fp32."""
-    return (xq.double() @ wd.double()).float()
+    return sum_fp64("mk,kn->mn", xq, wd)
 
 
 def segment_matmul_plain(x, wp, scales=None, *, p: int,

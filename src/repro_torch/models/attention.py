@@ -5,9 +5,8 @@ Plain torch ops (no fused SDPA). The ring is updated in place: each live
 lane (pos >= 0) writes its K/V at ``pos % ring_len``; masked lanes
 (pos < 0: idle slots, prefill padding) are filtered out by index before
 the write, the counterpart of the reference's out-of-bounds
-``mode="drop"`` scatter. Scores and the value contraction sum in float64
-and round once (a row's result then does not depend on the batch or
-chunk shape — see ``models.common``).
+``mode="drop"`` scatter. Scores and the value contraction follow the
+port's row-reduction rule (``core.numerics``): float64 sums, one rounding.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import smol
+from repro_torch.core.numerics import sum_fp64
 from repro_torch.core.qtypes import QuantConfig
 from .common import apply_rope_tables
 
@@ -79,17 +79,14 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B,S,Hk,G,D], k/v [B,T,Hk,D], mask [B,S,T] -> [B,S,Hk,G,D] in
     v's dtype. fp32 scores and softmax."""
     dh = q.shape[-1]
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.double(),
-                          k.double()).float()
+    scores = sum_fp64("bqhgd,bkhd->bhgqk", q, k)
     scores = scores * np.float32(1.0 / np.sqrt(dh))
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores,
                              torch.full((), NEG_INF, dtype=scores.dtype,
                                         device=scores.device))
     p = torch.softmax(scores.double(), dim=-1).float()
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).double(),
-                       v.double())
-    return out.to(v.dtype)
+    return sum_fp64("bhgqk,bkhd->bqhgd", p.to(v.dtype), v).to(v.dtype)
 
 
 class Attention(nn.Module):

@@ -1,10 +1,7 @@
 """Shared model components: norms, embeddings, rotary encodings.
 Counterpart of ``repro.models.common``.
 
-The row reductions (the RMS mean) sum in float64 and round once to fp32:
-the result of a row then does not depend on how many rows share the call,
-which keeps continuous batching token-identical to lockstep decoding on
-the card, where the reduction strategy of a kernel changes with the shape.
+The RMS mean follows the port's row-reduction rule (``core.numerics``).
 """
 from __future__ import annotations
 
@@ -15,11 +12,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.numerics import sum_fp64
+
 
 def rms_norm(g: torch.Tensor, x: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    var = xf.double().square().mean(dim=-1, keepdim=True).float()
+    var = sum_fp64("...d,...d->...", xf, xf,
+                   divisor=xf.shape[-1])[..., None]
     y = xf * torch.rsqrt(var + eps)
     return (y * g.float()).to(x.dtype)
 
@@ -81,7 +81,14 @@ def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` op by op in x's dtype, as
+    ``jax.nn.silu`` lowers: in bf16 each of the four ops rounds, where the
+    fused ``F.silu`` rounds once and often lands one bf16 step off."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def activation(name: str):
-    return {"silu": F.silu,
+    return {"silu": silu,
             "gelu": lambda v: F.gelu(v, approximate="tanh"),
             "relu": F.relu}[name]

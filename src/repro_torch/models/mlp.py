@@ -5,12 +5,11 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import smol
 from repro_torch.core.qtypes import QuantConfig
-from .common import activation
+from .common import activation, silu
 
 
 def mlp_init(d_model: int, d_ff: int, qcfg: QuantConfig, *, generator,
@@ -37,7 +36,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
         h = self.up(x, qcfg)
         if self.act == "swiglu":
-            h = F.silu(self.gate(x, qcfg)) * h
+            h = silu(self.gate(x, qcfg)) * h
         else:
             h = activation(self.act)(h)
         return self.down(h, qcfg)
