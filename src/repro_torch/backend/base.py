@@ -4,7 +4,8 @@ template methods).
 
 There is no backend registry in the port yet: the driver picks the kernel
 by the device of its tensors. CUDA tensors launch the hand-written kernels
-of ``repro_torch.kernels``; CPU tensors run their plain versions.
+of ``repro_torch.kernels``; CPU tensors run their plain versions; any
+other device raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from repro_torch.core import pack as pack_lib
 from repro_torch.core import quant
 from repro_torch.core.qtypes import GROUP_SIZE
+from repro_torch.kernels import attn_decode as ad
 from repro_torch.kernels import packed_matmul as pm
 from repro_torch.kernels import quant_pack as qp
 
@@ -130,3 +132,27 @@ def quantize_pack_mixed(w: torch.Tensor, pbits: np.ndarray,
         off += kp
         goff += ng
     return out
+
+
+def qkv_attn_decode(q: torch.Tensor, cache: Dict, q_pos: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over one layer's packed 4-bit ring (``k_codes`` /
+    ``v_codes`` [B, T, Hk, D // 2], ``k_scale`` / ``v_scale`` [B, T, Hk, 1]
+    f16, ``pos`` [B, T]); q [B, S, Hk, G, D] with RoPE applied, ``q_pos``
+    [B, S] (< 0 = masked lane). Returns [B, S, Hk, G, D] fp32 through
+    kernel B4 (on CPU tensors its plain version, the reference's oracle
+    ``qkv_attn_jnp``: ``kernels.attn_decode.qkv_attn_ref``)."""
+    return ad.qkv_attn_decode(
+        q, cache["k_codes"], cache["v_codes"], cache["k_scale"],
+        cache["v_scale"], cache["pos"], q_pos.to(torch.int32), window=window)
+
+
+def qkv_attn_decode_paged(q: torch.Tensor, cache: Dict, q_pos: torch.Tensor,
+                          *, window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over one layer's packed 4-bit paged cache (pool
+    leaves [P, page_size, Hk, ...], ``pos`` [P, page_size], ``page_table``
+    [B, NP]); otherwise as :func:`qkv_attn_decode`, through kernel B5."""
+    return ad.qkv_attn_decode_paged(
+        q, cache["k_codes"], cache["v_codes"], cache["k_scale"],
+        cache["v_scale"], cache["pos"], cache["page_table"],
+        q_pos.to(torch.int32), window=window)

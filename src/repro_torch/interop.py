@@ -1,5 +1,5 @@
-"""Weight bridge: numpy trees in the JAX package's layout -> the port's
-model state.
+"""Weight and cache bridge: numpy trees in the JAX package's layout -> the
+port's model state and decode cache.
 
 The JAX package keeps each plan group's layers stacked ``[L, ...]`` in a
 nested dict/list of arrays — QAT leaves (``w``, ``pbits``) from
@@ -55,6 +55,37 @@ def params_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> lm.LM:
     if "lm_head" in tree:
         out["lm_head"] = _map(tree["lm_head"], lambda a: _tensor(a, dev))
     return lm.LM(cfg, out)
+
+
+def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
+    """The JAX package's decode cache (numpy leaves, each plan group's
+    layers stacked ``[L, ...]`` under ``groups``) -> the port's
+    ``{"layers": [{"kv": {...}}]}`` on ``device``: fp ring, packed 4-bit
+    ring or packed 4-bit page pool. The fp ring's ``pos`` becomes int64
+    (the port's fp ring stamps); the paged layers share one page table,
+    as the reference broadcasts one table to every layer."""
+    dev = resolve_device(device)
+    plan = cfg.layer_plan()
+    if len(tree["groups"]) != len(plan):
+        raise ValueError(f"{len(tree['groups'])} cache groups for plan "
+                         f"{plan}")
+    layers = []
+    table = None
+    for (_kind, count), group in zip(plan, tree["groups"]):
+        kv = group["kv"]
+        for i in range(count):
+            layer = {name: _tensor(a[i], dev) for name, a in kv.items()}
+            if "k" in layer:
+                layer["pos"] = layer["pos"].long()
+            if "page_table" in layer:
+                if table is None:
+                    table = layer["page_table"]
+                elif not torch.equal(table, layer["page_table"]):
+                    raise ValueError("paged layers disagree on the page "
+                                     "table")
+                layer["page_table"] = table
+            layers.append({"kv": layer})
+    return {"layers": layers}
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:

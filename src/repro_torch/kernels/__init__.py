@@ -4,9 +4,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import packed_matmul, quant_pack
+from . import attn_decode, packed_matmul, quant_pack
 
-_COUNTERS = (packed_matmul.LAUNCHES, quant_pack.LAUNCHES)
+_COUNTERS = (packed_matmul.LAUNCHES, quant_pack.LAUNCHES,
+             attn_decode.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

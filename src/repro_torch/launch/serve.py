@@ -7,8 +7,10 @@ Initializes random QAT weights from ``--seed`` (or loads the JAX
 package's checkpoint with ``--ckpt``), packs them to the 1/2/4-bit serve
 format through the ``quantize_pack`` kernel, and streams a mixed-length
 synthetic workload through the continuous-batching ``DecodeEngine``.
-``--lockstep`` runs the fixed-batch baseline instead. ``--device cpu``
-runs the kernels' plain versions (use with ``--reduced``).
+``--lockstep`` runs the fixed-batch baseline instead. ``--kv-bits 4``
+keeps the KV cache as packed 4-bit codes, and ``--kv-layout paged`` (with
+``--page-size``) in a page pool shared by prompt prefixes. ``--device
+cpu`` runs the kernels' plain versions (use with ``--reduced``).
 """
 from __future__ import annotations
 
@@ -60,6 +62,18 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--lockstep", action="store_true",
                     help="run the fixed-batch baseline engine instead")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[4],
+                    help="quantize the decode KV cache to this many bits "
+                         "(packed 4-bit codes + fp16 scales, attention "
+                         "through kernel B4); default: fp cache")
+    ap.add_argument("--kv-layout", default="ring",
+                    choices=["ring", "paged"],
+                    help="KV cache layout: per-slot ring buffers, or the "
+                         "page pool with copy-on-write prefix sharing "
+                         "(kernel B5; continuous engine, --kv-bits 4)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged layout; must divide "
+                         "the effective cache length)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -74,9 +88,16 @@ def main(argv=None):
     ecfg = engine.EngineConfig(max_batch=args.max_batch,
                                cache_len=args.cache_len,
                                temperature=args.temperature,
-                               prefill_chunk=args.prefill_chunk)
+                               prefill_chunk=args.prefill_chunk,
+                               kv_bits=args.kv_bits,
+                               kv_layout=args.kv_layout,
+                               page_size=args.page_size)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device: {name}, arch {cfg.name}, {cfg.num_layers} layers")
+    print(f"device: {name}, arch {cfg.name}, {cfg.num_layers} layers; "
+          f"kv cache: {'fp' if args.kv_bits is None else f'q{args.kv_bits}'}"
+          f", layout: {args.kv_layout}"
+          + (f" (page_size {args.page_size})"
+             if args.kv_layout == "paged" else ""))
     rng = np.random.default_rng(args.seed)
 
     if args.lockstep:
@@ -117,6 +138,15 @@ def main(argv=None):
     print(f"[continuous] {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s, {eng.sched.step_count} engine "
           f"steps, max_batch {args.max_batch})")
+    if args.kv_layout == "paged":
+        st = eng.paged_kv_stats()
+        eng.pool.check()
+        print(f"[paged-kv] {st['num_pages']} pages x {st['page_size']} "
+              f"tokens; peak resident {st['peak_resident_pages']} pages "
+              f"({st['peak_resident_payload_bytes']:,} of "
+              f"{st['reserved_payload_bytes']:,} payload bytes); prefix "
+              f"hits {st['prefix_hits']}/{st['prefix_lookups']}; "
+              f"copy-on-write copies {st['cow_copies']}")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ chunked-prefill steps. Counterpart of ``repro.models.lm``.
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
 ``blocks`` list, where the JAX package stacks layers ``[L, ...]``). Steps
-update the ring cache in place and return it with the logits.
+update the KV cache (fp ring, 4-bit ring or 4-bit page pool) in place and
+return it with the logits.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from repro_torch.core import smol
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serve import kv_quant
 from . import attention, blocks
 from .common import Embed, RMSNorm, embed_logits, embed_lookup, rope_tables
 
@@ -81,22 +83,27 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                device: DeviceLike = None, kv_bits: Optional[int] = None,
-               kv_layout: str = "ring") -> Dict:
-    """Decode cache: one fp ring per layer, ``{"layers": [{"kv": {k, v,
-    pos}}]}``."""
-    if kv_bits is not None:
-        raise NotImplementedError(
-            "the packed 4-bit KV cache (serve/kv_quant.py + kernel B4) is "
-            "the next port slice; use kv_bits=None")
-    if kv_layout != "ring":
-        raise NotImplementedError(
-            "the paged KV layout (serve/kv_pool.py + kernel B5) is a later "
-            "port slice; use kv_layout='ring'")
+               kv_layout: str = "ring", page_size: int = 16,
+               num_pages: Optional[int] = None) -> Dict:
+    """Decode cache, ``{"layers": [{"kv": {...}}]}`` with one dict per
+    layer. ``kv_bits=None`` keeps fp rings in ``dtype``; 4 selects the
+    packed 4-bit family (``serve/kv_quant.py``, attention through kernel
+    B4). ``kv_layout="paged"`` swaps the per-slot rings for a page pool
+    per layer (``serve/kv_pool.py``, kernel B5): ``num_pages`` pages of
+    ``page_size`` tokens shared by the slots through one page table that
+    every layer reads. The paged layout needs the engine's ``PagePool``
+    to drive allocation."""
     dev = resolve_device(device)
-    return {"layers": [blocks.block_cache_init(kind, cfg, batch, cache_len,
-                                               dtype, device=dev)
-                       for kind, count in cfg.layer_plan()
-                       for _ in range(count)]}
+    layers = []
+    table = None
+    for kind, count in cfg.layer_plan():
+        for _ in range(count):
+            layers.append(blocks.block_cache_init(
+                kind, cfg, batch, cache_len, dtype, device=dev,
+                kv_bits=kv_bits, kv_layout=kv_layout, page_size=page_size,
+                num_pages=num_pages, page_table=table))
+            table = layers[-1]["kv"].get("page_table")
+    return {"layers": layers}
 
 
 def _readout(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -109,13 +116,13 @@ def _readout(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
 def _decode_core(model: LM, cfg, cache: Dict, x: torch.Tensor,
                  pos) -> torch.Tensor:
     """Run x [B, S, D] at host positions ``pos`` [B, S] (< 0 = masked lane,
-    its ring writes dropped) through every block, updating the cache in
+    its cache writes dropped) through every block, updating the cache in
     place. Returns the hidden state before the final norm."""
     pos_host = np.asarray(pos, np.int64)
     posb = torch.as_tensor(pos_host, device=x.device)
     rope = rope_tables(posb, cfg.hd, cfg.rope_theta)
-    ring_len = cache["layers"][0]["kv"]["k"].shape[1]
-    write = attention.ring_write_index(pos_host, ring_len, x.device)
+    write = attention.cache_write_index(cache["layers"][0]["kv"], pos_host,
+                                        x.device)
     for block, layer_cache in zip(model.blocks, cache["layers"]):
         x = blocks.block_decode(block, x, layer_cache, posb, cfg, cfg.quant,
                                 rope=rope, write=write)
@@ -163,13 +170,17 @@ def prefill_step(model: LM, cfg, cache: Dict, tokens, pos, last_idx):
 
 
 def reset_cache_slots(cache: Dict, slots) -> Dict:
-    """Wipe the ring rows of the given batch slots in place: K/V to 0,
-    ``pos`` to -1 (entries read as empty)."""
+    """Wipe the cache rows of the given batch slots in place: fp K/V and
+    4-bit codes/scales to 0, ``pos`` to -1 (entries read as empty). A
+    paged layer's pool is shared state owned by the host allocator: only
+    the slots' page-table rows become -1 (every logical page unmapped);
+    ``PagePool.release`` and ``kv_pool.apply_step_ops`` recycle pages."""
     for layer in cache["layers"]:
         kv = layer["kv"]
-        idx = torch.as_tensor(np.asarray(slots, np.int64),
-                              device=kv["k"].device)
-        kv["k"][idx] = 0
-        kv["v"][idx] = 0
-        kv["pos"][idx] = -1
+        if "page_table" in kv:
+            idx = torch.as_tensor(np.asarray(slots, np.int64),
+                                  device=kv["pos"].device)
+            kv["page_table"][idx] = -1
+        else:
+            kv_quant.reset_slots(kv, slots)
     return cache

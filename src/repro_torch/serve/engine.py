@@ -1,5 +1,5 @@
 """Serve engines over packed SONIQ weights. Counterpart of
-``repro.serve.engine`` for the fp ring layout.
+``repro.serve.engine``.
 
 * :class:`LockstepEngine` — fixed-batch generation: full-batch token-level
   prefill, every row decodes until the longest request finishes.
@@ -10,9 +10,12 @@
   temperature-0 tokens equal the lockstep engine's.
 
 Both pack the trained model at construction (``convert_tree`` — the
-``quantize_pack`` kernel on the card) unless handed a packed one. The
-4-bit KV cache, the paged layout and speculative decoding are later port
-slices; their ``EngineConfig`` values raise.
+``quantize_pack`` kernel on the card) unless handed a packed one. The KV
+cache is an fp ring, a packed 4-bit ring (``kv_bits=4``, kernel B4) or,
+for the ``DecodeEngine``, a packed 4-bit page pool (``kv_layout="paged"``,
+kernel B5) whose host ``PagePool`` shares prompt-prefix pages between
+requests with copy-on-write. Speculative decoding is a later port slice
+and raises.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.api import transforms as lifecycle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 
+from . import kv_pool
 from .scheduler import Completion, Request, Scheduler
 
 
@@ -40,9 +44,20 @@ class EngineConfig:
     # Fused activation quantization in the segment-GEMM prologue. False is
     # the two-pass reference form, which has no CUDA kernel yet.
     fuse_act_quant: bool = True
-    # Later port slices (they raise until ported): None / "ring" / 0.
+    # KV-cache precision: None = fp ring in ``cache_dtype``; 4 = packed
+    # 4-bit codes + fp16 scales (~4x fewer payload bytes than fp16).
     kv_bits: Optional[int] = None
+    # "ring" reserves max_batch x cache_len entries up front; "paged"
+    # (DecodeEngine, kv_bits=4) draws ``page_size``-token pages from a
+    # pool on demand, sharing prompt prefixes. ``page_size`` must divide
+    # the effective ring length (cache_len clipped to the window).
     kv_layout: str = "ring"
+    page_size: int = 16
+    # Pool pages including the null page 0; None sizes for full per-slot
+    # residency (max_batch * pages_per_seq + 1). Smaller pools gate
+    # admission on free pages (head-of-line, FIFO kept).
+    num_pages: Optional[int] = None
+    # Speculative decoding: a later port slice (raises unless 0).
     spec_tokens: int = 0
 
 
@@ -50,17 +65,33 @@ def _check_ported(ecfg: EngineConfig) -> None:
     if ecfg.kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {ecfg.kv_layout!r} "
                          f"(expected 'ring' or 'paged')")
-    if ecfg.kv_bits is not None:
+    if ecfg.kv_bits not in (None, 4):
+        raise ValueError(f"kv_bits must be None or 4, got {ecfg.kv_bits}")
+    if ecfg.kv_layout == "paged" and ecfg.kv_bits is None:
         raise NotImplementedError(
-            "kv_bits=4 (serve/kv_quant.py + kernel B4) is the next port "
-            "slice")
-    if ecfg.kv_layout == "paged":
-        raise NotImplementedError(
-            "kv_layout='paged' (serve/kv_pool.py + kernel B5) is a later "
-            "port slice")
+            "kv_layout='paged' with an fp KV cache (kv_bits=None) is a "
+            "later port slice; use kv_bits=4")
     if ecfg.spec_tokens:
         raise NotImplementedError(
             "speculative decoding (spec_tokens > 0) is a later port slice")
+
+
+def _paged_geometry(arch_cfg, ecfg: EngineConfig):
+    """(page_size, pages_per_seq, num_pages) of the paged layout, the
+    engine-side mirror of ``blocks.block_cache_init`` (the table length
+    is the effective ring length in pages)."""
+    clen = min(ecfg.cache_len, arch_cfg.window) if arch_cfg.window \
+        else ecfg.cache_len
+    ps = ecfg.page_size
+    if clen % ps:
+        raise ValueError(
+            f"page_size {ps} must divide the effective ring length {clen} "
+            f"(cache_len clipped to the window) so paged rollover wraps "
+            f"where the ring layout does")
+    pps = clen // ps
+    npages = ecfg.num_pages if ecfg.num_pages is not None \
+        else ecfg.max_batch * pps + 1
+    return ps, pps, npages
 
 
 def _sample_seed(seed: int, n: int) -> int:
@@ -101,9 +132,16 @@ class _PackedEngine:
                 params.tree(), self.cfg.quant, rebudget=True))
 
     def init_cache(self, batch: int):
-        return lm.init_cache(self.cfg, batch, self.ecfg.cache_len,
-                             getattr(torch, self.ecfg.cache_dtype),
-                             device=self.device)
+        ecfg = self.ecfg
+        kwargs = {}
+        if ecfg.kv_layout == "paged":
+            ps, _pps, npages = _paged_geometry(self.cfg, ecfg)
+            kwargs = dict(kv_layout="paged", page_size=ps,
+                          num_pages=npages)
+        return lm.init_cache(self.cfg, batch, ecfg.cache_len,
+                             getattr(torch, ecfg.cache_dtype),
+                             device=self.device, kv_bits=ecfg.kv_bits,
+                             **kwargs)
 
 
 class LockstepEngine(_PackedEngine):
@@ -115,6 +153,11 @@ class LockstepEngine(_PackedEngine):
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """prompts [B, S0] -> [B, S0 + max_new] (greedy unless temperature
         > 0 and a generator is given)."""
+        if self.ecfg.kv_layout != "ring":
+            raise ValueError(
+                "LockstepEngine only supports kv_layout='ring': the paged "
+                "layout needs the DecodeEngine's host-side PagePool to "
+                "drive page allocation")
         prompts = np.asarray(prompts, np.int32)
         b, s0 = prompts.shape
         cache = self.init_cache(b)
@@ -142,7 +185,8 @@ class LockstepEngine(_PackedEngine):
 
 
 class DecodeEngine(_PackedEngine):
-    """Request-level continuous-batching engine (fp ring layout).
+    """Request-level continuous-batching engine (fp ring, 4-bit ring or
+    4-bit page pool).
 
     Usage — streaming::
 
@@ -159,37 +203,108 @@ class DecodeEngine(_PackedEngine):
         b = ecfg.max_batch
         self._seeds = np.zeros((b,), np.int64)
         self._temps = np.zeros((b,), np.float32)
-        self.sched = Scheduler(b)
+        self._init_host_state()
         self.cache = None
+
+    def _init_host_state(self):
+        """(Re)build the scheduler and, in the paged layout, the page-pool
+        allocator that gates its admission."""
+        b = self.ecfg.max_batch
+        if self.ecfg.kv_layout == "paged":
+            ps, pps, npages = _paged_geometry(self.cfg, self.ecfg)
+            self.pool = kv_pool.PagePool(npages, ps, pps, b)
+            self.sched = Scheduler(b, can_admit=self.pool.admissible)
+            self._table_dirty = True       # first flush uploads the table
+        else:
+            self.pool = None
+            self.sched = Scheduler(b)
+        self.cow_copies = 0
 
     # --------------------------------------------------------- requests ----
     def submit(self, request: Request) -> int:
-        return self.sched.submit(request)
+        """Queue a request; returns its request_id. In the paged layout a
+        prompt whose page demand can never fit the pool is rejected here
+        (ValueError) rather than deadlocking the admission queue, and the
+        prompt's page digests are memoized for the prefix-map lookup at
+        admission."""
+        if self.pool is not None:
+            plen = int(np.asarray(request.prompt).reshape(-1).shape[0])
+            if plen and self.pool.target_pages(plen) > self.pool.capacity:
+                raise ValueError(
+                    f"prompt needs {self.pool.target_pages(plen)} KV pages "
+                    f"but the pool only has {self.pool.capacity} "
+                    f"allocatable pages — it could never be admitted. "
+                    f"Raise EngineConfig.num_pages or shorten the prompt.")
+        rid = self.sched.submit(request)
+        if self.pool is not None and request.max_new_tokens > 0:
+            self.pool.note_submit(rid, request.prompt)
+        return rid
 
     def reset(self):
         """Drop all queued/active requests and cache state."""
-        self.sched = Scheduler(self.ecfg.max_batch)
+        self._init_host_state()
         self.cache = None
+
+    # ---------------------------------------------------------- paging ----
+    def _flush_pool_ops(self, ops: kv_pool.StepOps):
+        """Apply one batch of allocator decisions to the device cache:
+        copy-on-write copies, fresh-page wipes and the host page table
+        (:func:`kv_pool.apply_step_ops`), then any debug poisons. No-op
+        when nothing changed."""
+        if ops.any() or self._table_dirty:
+            src = [a for a, _b in ops.copies]
+            dst = [b for _a, b in ops.copies]
+            kv_pool.apply_step_ops(self.cache, self.pool.table, ops.wipes,
+                                   src, dst)
+            self.cow_copies += len(ops.copies)
+            self._table_dirty = False
+        if ops.poisons:
+            kv_pool.apply_poison(self.cache, ops.poisons)
 
     # ------------------------------------------------------------- step ----
     @torch.inference_mode()
     def step(self) -> List[Completion]:
         """Admit arrived requests into free slots (wiping their cache
         rows), feed every active slot (a prefill chunk, or one token),
-        sample, and return any completions."""
+        sample, and return any completions.
+
+        Paged layout: admission maps prefix-map hits into the slot's page
+        table (those prompt tokens skip prefill; the last prompt token is
+        always re-fed); before the device step the allocator makes every
+        page the step writes private (fresh pages wiped, shared or
+        registered pages copied); after it, completed prompt pages
+        register in the prefix map and finished slots release their
+        pages."""
         b = self.ecfg.max_batch
         if self.cache is None:
             self.cache = self.init_cache(b)
+            if self.pool is not None:
+                self._table_dirty = True
         admitted = self.sched.admit()
         if admitted:
             lm.reset_cache_slots(self.cache, [s for s, _ in admitted])
             for slot, req in admitted:
                 self._seeds[slot] = req.seed
                 self._temps[slot] = req.temperature
+                if self.pool is not None:
+                    shared = self.pool.admit(slot, req)
+                    if shared:
+                        # Prefix hit: those tokens are already in mapped
+                        # pages; prefill starts after them.
+                        self.sched.slots[slot].n_fed = shared
+                        self._table_dirty = True
         plan = self.sched.plan(self.chunk)
         if not plan:                       # idle: let queued arrivals age in
             return self.sched.advance({}, {})
         widths = {s: len(t) for s, t in plan.items()}
+        if self.pool is not None:
+            ops = kv_pool.StepOps()
+            for slot, n in widths.items():
+                self.pool.prepare(slot, self.sched.slots[slot].n_fed, n,
+                                  ops)
+            if ops.any():
+                self._table_dirty = True
+            self._flush_pool_ops(ops)
         if max(widths.values()) > 1:
             c = self.chunk                 # fixed width
             tokens = np.zeros((b, c), np.int32)
@@ -213,7 +328,37 @@ class DecodeEngine(_PackedEngine):
             logits, self.cache = lm.decode_step(
                 self.model, self.cfg, self.cache, tokens, pos, active=active)
         sampled = self._pick(logits, plan)
-        return self.sched.advance(widths, sampled)
+        slot_of = {st.request.request_id: s
+                   for s, st in self.sched.slots.items()}
+        # Post-step fed counts, captured before advance() pops finished
+        # slots: note_filled's wrapped-through guard needs the true fed
+        # count (prompt + generated - 1), not the prompt length.
+        fed_of = {st.request.request_id: st.n_fed + widths.get(s, 0)
+                  for s, st in self.sched.slots.items()}
+        done = self.sched.advance(widths, sampled)
+        if self.pool is not None:
+            self._paged_after_advance(done, slot_of, fed_of, plan,
+                                      kv_pool.StepOps())
+        return done
+
+    def _paged_after_advance(self, done, slot_of, fed_of, plan, ops):
+        """Post-advance pool bookkeeping: register finished prompts' full
+        pages (before release parks them in the cached LRU) and release
+        their pages, register freshly completed prompt pages of the
+        still-active slots, then flush the device ops."""
+        for c in done:
+            slot = slot_of.get(c.request_id)
+            if slot is None:               # zero-generation immediate
+                continue
+            self.pool.note_filled(slot, c.request.prompt,
+                                  fed_of[c.request_id])
+            self.pool.release(slot, ops)
+            self._table_dirty = True
+        for slot in plan:
+            st = self.sched.slots.get(slot)
+            if st is not None:
+                self.pool.note_filled(slot, st.request.prompt, st.n_fed)
+        self._flush_pool_ops(ops)
 
     def _pick(self, logits: torch.Tensor, plan) -> dict:
         """Per-slot sampling: greedy argmax at temperature 0 (one [B]-int
@@ -232,19 +377,61 @@ class DecodeEngine(_PackedEngine):
         return out
 
     # ----------------------------------------------------- cancellation ----
+    @torch.inference_mode()
     def cancel(self, request_id: int) -> Optional[Completion]:
         """Cancel a queued or active request; returns its "evicted"
-        Completion, or None when the id is unknown or finished. Call
-        between engine steps (the slot's rows are wiped at its next
-        admission)."""
+        Completion, or None when the id is unknown or finished. A queued
+        request leaves the admission queue (paged: its memoized digests
+        and any admission reservation are dropped); an active one frees
+        its slot and, paged, releases its pages with the table re-uploaded
+        at once. Call between engine steps."""
         comp = self.sched.cancel(request_id)
         if comp is not None:
+            if self.pool is not None:
+                self.pool.forget_submit(request_id)
             return comp
         slot = next((s for s, st in self.sched.slots.items()
                      if st.request.request_id == request_id), None)
         if slot is None:
             return None
+        if self.pool is not None:
+            ops = kv_pool.StepOps()
+            # A cancelled slot's finished prompt pages still register
+            # (valid shared-prefix content for later requests).
+            st = self.sched.slots[slot]
+            self.pool.note_filled(slot, st.request.prompt, st.n_fed)
+            self.pool.release(slot, ops)
+            self._table_dirty = True
+            if self.cache is not None:
+                self._flush_pool_ops(ops)
         return self.sched.evict(slot)
+
+    # ---------------------------------------------------------- metrics ----
+    def paged_kv_stats(self) -> dict:
+        """Occupancy and sharing of the paged KV pool. Byte figures count
+        K/V payload only (codes + scales), as
+        ``kv_quant.cache_payload_bytes`` does for the ring; a page spans
+        every layer. ``cow_copies`` counts copy-on-write page copies."""
+        if self.pool is None:
+            raise ValueError("paged_kv_stats needs kv_layout='paged'")
+        if self.cache is None:
+            raise ValueError("run at least one step first")
+        per_page = kv_pool.paged_payload_bytes_per_page(self.cache)
+        pool = self.pool
+        return {
+            "page_size": pool.page_size,
+            "num_pages": pool.num_pages,
+            "page_payload_bytes": per_page,
+            "resident_pages": pool.resident_pages,
+            "peak_resident_pages": pool.peak_resident,
+            "resident_payload_bytes": pool.resident_pages * per_page,
+            "peak_resident_payload_bytes": pool.peak_resident * per_page,
+            "reserved_payload_bytes": pool.capacity * per_page,
+            "prefix_hits": pool.hits,
+            "prefix_lookups": pool.lookups,
+            "prefix_hit_rate": pool.prefix_hit_rate,
+            "cow_copies": self.cow_copies,
+        }
 
     # -------------------------------------------------------- streaming ----
     def run(self) -> Iterator[Completion]:

@@ -98,3 +98,92 @@ def test_driver_launches_kernels_and_rows_are_batch_invariant(dev):
         backend.packed_matmul(leaf, x, QuantConfig(
             mode="serve", act_scale_mode="per_token", fuse_act_quant=False))
     assert np.isfinite(batch.float().cpu().numpy()).all()
+
+
+# ------------------------------------------- decode attention (B4, B5) ----
+def _kv_codes(g, shape, dev):
+    from repro_torch.serve import kv_quant
+    x = torch.randn(shape, generator=g, device=dev) * 2.0
+    return kv_quant.quantize_kv(x)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("s,t", [(1, 256), (8, 256), (3, 700)])
+def test_qkv_attn_decode_within_bound(dev, s, t, window):
+    """B4 against its plain version: masked lanes, empty entries, a
+    wrapped ring, a ragged last tile (T = 700)."""
+    from repro_torch.kernels import attn_decode as ad
+    from repro_torch.serve import kv_quant
+    g = torch.Generator(device=dev).manual_seed(s * 1000 + t)
+    b, hk, gq, d = 3, 2, 4, 80
+    q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+    kc, ks = _kv_codes(g, (b, t, hk, d), dev)
+    vc, vs = _kv_codes(g, (b, t, hk, d), dev)
+    kv_pos = torch.arange(t, device=dev, dtype=torch.int32).repeat(b, 1)
+    kv_pos[0] = (kv_pos[0] + t // 3) % t + t          # wrapped ring
+    kv_pos[1, t // 2:] = -1
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32)
+             + int(kv_pos.max()) - s + 1).repeat(b, 1)
+    q_pos[2, 0] = -1                                   # masked lane
+    kernels.reset_launch_counts()
+    got = ad.qkv_attn_decode(q, kc, vc, ks, vs, kv_pos, q_pos,
+                             window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qkv_attn_decode"] == 1
+    want = ad.qkv_attn_decode_plain(q, kc, vc, ks, vs, kv_pos, q_pos,
+                                    window=window)
+    k = kv_quant.dequantize_kv(kc, ks, torch.float32)
+    v = kv_quant.dequantize_kv(vc, vs, torch.float32)
+    bound = ad.error_bound(q, k, v, kv_pos, q_pos, window)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("s", [1, 8])
+def test_qkv_attn_decode_paged_within_bound_and_equals_ring(dev, s):
+    """B5 against its plain version over a shuffled table with unmapped
+    pages and a page two slots share; and on the same content laid out
+    as a ring, B5's rows equal B4's bitwise (both round one float64 value
+    once), which is what keeps the paged engine token-identical."""
+    from repro_torch.kernels import attn_decode as ad
+    from repro_torch.serve import kv_pool
+    g = torch.Generator(device=dev).manual_seed(s)
+    b, hk, gq, d, ps, npg = 3, 2, 4, 80, 16, 6
+    npages = b * npg + 1
+    q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+    kc, ks = _kv_codes(g, (npages, ps, hk, d), dev)
+    vc, vs = _kv_codes(g, (npages, ps, hk, d), dev)
+    for t in (kc, ks, vc, vs):
+        t[0] = 0
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    table = perm[:b * npg].reshape(b, npg).to(torch.int32)
+    table[0, 2] = -1                                   # unmapped
+    table[1, 0] = table[0, 0]                          # shared page
+    pool_pos = torch.full((npages, ps), -1, dtype=torch.int32, device=dev)
+    for bi in range(b):
+        for lp in range(npg):
+            pid = int(table[bi, lp])
+            if pid > 0:
+                pool_pos[pid] = lp * ps + torch.arange(ps, device=dev)
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32)
+             + npg * ps - s).repeat(b, 1)
+    q_pos[2, -1] = -1
+    kernels.reset_launch_counts()
+    got = ad.qkv_attn_decode_paged(q, kc, vc, ks, vs, pool_pos, table,
+                                   q_pos, window=40)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qkv_attn_decode_paged"] == 1
+    cache = {"k_codes": kc, "v_codes": vc, "k_scale": ks, "v_scale": vs,
+             "pos": pool_pos, "page_table": table}
+    want = ad.qkv_attn_decode_paged_plain(q, kc, vc, ks, vs, pool_pos,
+                                          table, q_pos, window=40)
+    k, v, k_pos = kv_pool.gather_paged(cache)
+    bound = ad.error_bound(q, k, v, k_pos, q_pos, 40)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - want.double()).abs() <= bound).all()
+    safe = table.long().clamp(min=0)
+    ring = [x[safe].reshape((b, npg * ps) + x.shape[2:]).contiguous()
+            for x in (kc, vc, ks, vs)]
+    ring_out = ad.qkv_attn_decode(q, *ring, k_pos.contiguous(), q_pos,
+                                  window=40)
+    assert torch.equal(ring_out, got)

@@ -25,9 +25,14 @@ PORTED = {
         "repro_torch.kernels.packed_matmul:fused_act_selfscale_matmul",
     ("repro.kernels.quant_pack", "quantize_pack"):
         "repro_torch.kernels.quant_pack:quantize_pack",
+    ("repro.kernels.attn_decode", "qkv_attn_decode"):
+        "repro_torch.kernels.attn_decode:qkv_attn_decode",
+    ("repro.kernels.attn_decode", "qkv_attn_decode_paged"):
+        "repro_torch.kernels.attn_decode:qkv_attn_decode_paged",
 }
 # The CUDA source behind each ported wrapper.
-SOURCES = {"packed_matmul": "segment_gemm.cu", "quant_pack": "quant_pack.cu"}
+SOURCES = {"packed_matmul": "segment_gemm.cu", "quant_pack": "quant_pack.cu",
+           "attn_decode": "attn_decode.cu"}
 
 
 def _port_modules():

@@ -343,6 +343,9 @@ def test_packed_model_bytes_counts_carriers(bridged):
 
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch):
+    """Entry points run on the card unless the CPU is asked for: the 4-bit
+    ring and paged caches included. What is not ported yet (the fp paged
+    pool, speculative decoding) raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(pget_config("h2o-danube-1.8b").reduced(),
                               num_layers=1)
@@ -351,8 +354,127 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     model = plm.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pengine.DecodeEngine(model, cfg, pengine.EngineConfig())
-    for bad in (dict(kv_bits=4), dict(kv_layout="paged"),
-                dict(spec_tokens=2)):
+    for ok in (dict(kv_bits=4), dict(kv_bits=4, kv_layout="paged")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pengine.DecodeEngine(model, cfg, pengine.EngineConfig(**ok))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            plm.init_cache(cfg, 2, 64, **ok)
+        eng = pengine.DecodeEngine(model, cfg, pengine.EngineConfig(**ok),
+                                   device="cpu")
+        assert eng.init_cache(2)["layers"][0]["kv"]["pos"].device.type \
+            == "cpu"
+    for bad in (dict(kv_layout="paged"), dict(spec_tokens=2)):
         with pytest.raises(NotImplementedError):
             pengine.DecodeEngine(model, cfg, pengine.EngineConfig(**bad),
                                  device="cpu")
+    with pytest.raises(ValueError, match="kv_bits"):
+        pengine.DecodeEngine(model, cfg, pengine.EngineConfig(kv_bits=8),
+                             device="cpu")
+    lock = pengine.LockstepEngine(model, cfg, pengine.EngineConfig(
+        kv_bits=4, kv_layout="paged"), device="cpu")
+    with pytest.raises(ValueError, match="ring"):
+        lock.generate(np.ones((1, 3), np.int32), 2)
+
+
+# ------------------------------------------------- packed 4-bit KV cache ----
+def test_kv4_decode_engine_tokens_equal_jax(bridged):
+    """kv_bits=4 ring on the configuration tests/test_qkv_decode.py pins
+    (its tiny config, max_batch 3, cache_len 64, chunk 4, mixed
+    requests): the port's DecodeEngine emits the JAX DecodeEngine's greedy
+    tokens, and its LockstepEngine the same."""
+    *_, qat, jcfg, pcfg = bridged["tiny"]
+    kw = dict(max_batch=3, cache_len=64, prefill_chunk=4, kv_bits=4)
+    jeng = jengine.DecodeEngine(qat, jcfg, jengine.EngineConfig(
+        backend="xla_ref", **kw))
+    peng = pengine.DecodeEngine(interop.params_from_numpy(qat, pcfg, "cpu"),
+                                pcfg, pengine.EngineConfig(**kw),
+                                device="cpu")
+    lock = pengine.LockstepEngine(peng.model, peng.cfg,
+                                  pengine.EngineConfig(**kw),
+                                  already_serve=True, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, 100, (n,)), m)
+            for n, m in zip((3, 7, 5, 2), (4, 8, 3, 6))]
+    want = {c.request_id: c.tokens for c in jeng.serve(
+        [JRequest(prompt=p, max_new_tokens=n, seed=i)
+         for i, (p, n) in enumerate(reqs)])}
+    got = {c.request_id: c.tokens for c in peng.serve(
+        [PRequest(prompt=p, max_new_tokens=n, seed=i)
+         for i, (p, n) in enumerate(reqs)])}
+    assert set(got) == set(want) == set(range(len(reqs)))
+    for i, (p, n) in enumerate(reqs):
+        np.testing.assert_array_equal(got[i], want[i])
+        np.testing.assert_array_equal(lock.generate(p[None], n)[0], want[i])
+    assert isinstance(peng.cache["layers"][0]["kv"]["k_codes"],
+                      torch.Tensor)
+
+
+def test_paged_decode_engine_tokens_equal_jax(bridged):
+    """kv_bits=4 paged on the configuration tests/test_kv_pool.py pins
+    (max_batch 2, cache_len 32, chunk 4, page_size 4, three 7-token
+    prompts, 6 new tokens, so the pool queues a request): the port's paged
+    tokens equal the JAX paged engine's and the port's own ring and
+    lockstep tokens; the pool's invariants hold."""
+    *_, qat, jcfg, pcfg = bridged["tiny"]
+    kw = dict(max_batch=2, cache_len=32, prefill_chunk=4, kv_bits=4)
+    paged_kw = dict(kv_layout="paged", page_size=4, **kw)
+    prompts = np.random.default_rng(3).integers(1, 100, (3, 7)).astype(
+        np.int32)
+    jeng = jengine.DecodeEngine(qat, jcfg, jengine.EngineConfig(
+        backend="xla_ref", **paged_kw))
+    want = jeng.generate(prompts, 6)
+    model = interop.params_from_numpy(qat, pcfg, "cpu")
+    paged = pengine.DecodeEngine(model, pcfg,
+                                 pengine.EngineConfig(**paged_kw),
+                                 device="cpu")
+    np.testing.assert_array_equal(paged.generate(prompts, 6), want)
+    paged.pool.check()
+    for cls in (pengine.DecodeEngine, pengine.LockstepEngine):
+        eng = cls(paged.model, paged.cfg, pengine.EngineConfig(**kw),
+                  already_serve=True, device="cpu")
+        np.testing.assert_array_equal(eng.generate(prompts, 6), want)
+
+
+def test_paged_prefix_sharing_and_copy_on_write(bridged):
+    """Requests sharing a system prompt, on a ring short enough to wrap:
+    the prefix map hits, the wrap copies shared pages on write, tokens
+    equal the 4-bit ring engine's, the pool's invariants hold after every
+    step, and cancel releases an active slot's pages."""
+    _jscfg, pscfg, _served, model, *_ = bridged["tiny"]
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, 100, (9,)).astype(np.int32)
+    reqs = [(np.concatenate([system, rng.integers(1, 100, (2 + i % 3,))
+                             .astype(np.int32)]), 12 + i) for i in range(5)]
+    kw = dict(max_batch=2, cache_len=16, prefill_chunk=4, kv_bits=4)
+    ring = pengine.DecodeEngine(model, pscfg, pengine.EngineConfig(**kw),
+                                already_serve=True, device="cpu")
+    paged = pengine.DecodeEngine(model, pscfg, pengine.EngineConfig(
+        kv_layout="paged", page_size=4, **kw), already_serve=True,
+        device="cpu")
+    want = {c.request_id: c.tokens for c in ring.serve(
+        [PRequest(prompt=p, max_new_tokens=n, seed=i)
+         for i, (p, n) in enumerate(reqs)])}
+    for i, (p, n) in enumerate(reqs):
+        paged.submit(PRequest(prompt=p, max_new_tokens=n, seed=i))
+    got = {}
+    while paged.sched.has_work():
+        for c in paged.step():
+            got[c.request_id] = c.tokens
+        paged.pool.check()
+    assert set(got) == set(want)
+    for i in want:
+        np.testing.assert_array_equal(got[i], want[i])
+    st = paged.paged_kv_stats()
+    assert st["prefix_hits"] > 0 and st["cow_copies"] > 0
+    assert st["peak_resident_pages"] <= paged.pool.capacity
+    # Cancel an active request mid-decode: its pages go back.
+    paged.reset()
+    a = paged.submit(PRequest(prompt=reqs[0][0], max_new_tokens=8))
+    for _ in range(4):
+        paged.step()
+    assert paged.pool.resident_pages > 0
+    assert paged.cancel(a).finish_reason == "evicted"
+    paged.pool.check()
+    assert (paged.pool.table < 0).all()
+    assert torch.equal(paged.cache["layers"][0]["kv"]["page_table"],
+                       torch.from_numpy(paged.pool.table))
