@@ -41,14 +41,38 @@ Phases (none catches an error; any failure exits non-zero):
      copied on write. Greedy tokens must be identical across the three;
      the ring runs must go through B4 and the paged run through B5; the
      pool's invariants must hold. Decode step times and tokens/s of each.
-  7. Summary: a ``kernels`` JSON line, the nvidia-smi line, and last the
-     ``{"ok": true, ...}`` line.
+  7. Training kernels against their plain versions, bitwise, at the full
+     width: B9 noise_inject on the four weight shapes of a layer (with
+     weights beyond the clip and logits at both ends), B8 fake_quant on
+     the same weights with per-group scales (read in place, K along rows)
+     and on [8 * 128, K] bf16 activations with a per-tensor scale
+     broadcast to the rows, precisions {1, 2, 4} mixed per group, with
+     values on rounding ties and beyond the grid. One layer's calls timed
+     beside the plain versions.
+  8. Training: full-width, 24-layer h2o-danube-1.8b through Phase I
+     (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
+     with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
+     per step the phase, loss, gradient norm, step ms, B8/B9 launches and
+     peak memory; a device profile of one step of each phase; the
+     boundary's pattern report. Phase I must launch B9 and not B8, Phase
+     II B8 and not B9; every loss finite.
+  9. The trained model packed (B7) and served: 4 requests through the
+     DecodeEngine and the LockstepEngine, greedy tokens equal.
+ 10. Card vs CPU, teacher-forced: each of one full-width layer's seven
+     NOISE and QAT linears on the same fp32 input, weights and replayed
+     draws; output, dx, dw and ds each within relative L2 1e-5.
+ 11. The launcher, ``repro_torch.launch.train --arch h2o-danube-1.8b
+     --steps 2 --batch 8 --seq 128`` in a subprocess, must exit 0.
+ 12. Summary: a ``kernels`` JSON line, a ``training`` JSON line, the
+     nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -65,12 +89,17 @@ from repro_torch.core import quant  # noqa: E402
 from repro_torch.core import smol  # noqa: E402
 from repro_torch.core.qtypes import U4, QuantConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core import schedule  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import attn_decode as ad  # noqa: E402
+from repro_torch.kernels import fake_quant as fq  # noqa: E402
+from repro_torch.kernels import noise_inject as ni  # noqa: E402
 from repro_torch.kernels import packed_matmul as pm  # noqa: E402
 from repro_torch.kernels import quant_pack as qp  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import engine, kv_pool, kv_quant  # noqa: E402
 from repro_torch.serve.scheduler import DECODE, Request  # noqa: E402
+from repro_torch.train import loop  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -79,16 +108,22 @@ SEED = 0
 B1, B2, B7 = ("fused_act_segment_matmul", "fused_act_selfscale_matmul",
               "quantize_pack")
 B4, B5 = "qkv_attn_decode", "qkv_attn_decode_paged"
+B8, B9 = "fake_quant", "noise_inject"
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B2: "src/repro_torch/csrc/segment_gemm.cu",
            B4: "src/repro_torch/csrc/attn_decode.cu",
            B5: "src/repro_torch/csrc/attn_decode.cu",
-           B7: "src/repro_torch/csrc/quant_pack.cu"}
+           B7: "src/repro_torch/csrc/quant_pack.cu",
+           B8: "src/repro_torch/csrc/fake_quant.cu",
+           B9: "src/repro_torch/csrc/noise_inject.cu"}
 REPLACES = {B1: "src/repro/kernels/packed_matmul.py:108",
             B2: "src/repro/kernels/packed_matmul.py:121",
             B4: "src/repro/kernels/attn_decode.py:54",
             B5: "src/repro/kernels/attn_decode.py:155",
-            B7: "src/repro/kernels/quant_pack.py:21"}
+            B7: "src/repro/kernels/quant_pack.py:21",
+            B8: "src/repro/kernels/fake_quant.py:27",
+            B9: "src/repro/kernels/noise_inject.py:22"}
+TRAIN_BATCH, TRAIN_SEQ, T1, T2 = 8, 128, 3, 6
 
 
 def log(msg: str) -> None:
@@ -101,6 +136,25 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` with the host queued ahead: the stream
+    first sleeps ~0.1 s on the card while the host enqueues every launch,
+    so CUDA events around the launches see the kernels back to back,
+    without the launch gaps that a loop of short kernels leaves when the
+    host is slower than the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -793,6 +847,298 @@ def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches):
     return stats
 
 
+# ------------------------------------------------------ training kernels ----
+TIE_SCALE = 0.0625           # a power of two: x / s is exact
+
+
+def _mixed_pbits(k, gen, dev):
+    return torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (k // 16,), generator=gen, device=dev)]
+
+
+def _tie_values(p, gen):
+    """Per-channel scaled values on a rounding tie of precision p (below
+    the grid top, so the group's abs-max is not moved)."""
+    top = torch.exp2(p) - 1.0
+    j = torch.floor(torch.rand(p.shape, generator=gen, device=p.device)
+                    * torch.clamp(top, min=1.0))
+    return (2.0 * (j + 0.5) - top) * torch.exp2(1.0 - p)
+
+
+def b8_weight_operands(k, n, gen, dev):
+    """A [K, N] weight with per-group precisions; every group's abs-max is
+    1.875 * TIE_SCALE, so its scale is exactly TIE_SCALE and its second
+    row sits on rounding ties."""
+    pb = _mixed_pbits(k, gen, dev)
+    w = torch.clamp(torch.randn((k, n), generator=gen, device=dev) * 0.02,
+                    -0.1, 0.1)
+    rows = torch.arange(0, k, 16, device=dev)
+    w[rows, 0] = 1.875 * TIE_SCALE
+    p_ties = pb[:, None].expand(-1, n)
+    w[rows + 1] = _tie_values(p_ties, gen) * TIE_SCALE
+    return w, pb, quant.per_group_weight_scale(w, 16)
+
+
+def b8_act_operands(m, k, gen, dev):
+    """bf16 activations [M, K] with a per-tensor scale that is a power of
+    two, a row of rounding ties and a row beyond the 1- and 2-bit grids."""
+    pb = _mixed_pbits(k, gen, dev)
+    x = torch.clamp(torch.randn((m, k), generator=gen, device=dev), -7, 7)
+    x[0, 0] = 1.875 * 4.0
+    x[1] = _tie_values(quant.expand_groups(pb, k, 16), gen) * 4.0
+    x[2] = 1.8 * 4.0
+    x = x.to(torch.bfloat16)
+    sx = quant.abs_max_scale(x).reshape(1).expand(m).contiguous()
+    return x, pb, sx
+
+
+def phase_training_kernels(cfg, gen, dev, reps=10):
+    """B9 and B8 against their plain versions (bitwise) on one layer's
+    operands; times one layer's calls (B9: 7 weights; B8: 7 weights and 7
+    activations at 8 x 128 tokens) with CUDA events around a loop of
+    calls (``ms``, as every kernel here is timed, which includes the
+    host's launch gaps between these short kernels) and with the host
+    queued ahead (``device_ms``, the kernels alone)."""
+    m = TRAIN_BATCH * TRAIN_SEQ
+    b9_ops, b8_w, b8_x = [], [], []
+    for _name, k, n in layer_linears(cfg):
+        w = torch.rand((k, n), generator=gen, device=dev) * 2.2 - 1.1
+        w[0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+        s = torch.randn((k // 16,), generator=gen, device=dev) * 2.0 - 0.5
+        s[:2] = torch.tensor([8.0, -8.0], device=dev)
+        seed = torch.randint(0, 1 << 32, (1,), generator=gen, device=dev)
+        b9_ops.append((w, s, seed))
+        b8_w.append(b8_weight_operands(k, n, gen, dev))
+        b8_x.append(b8_act_operands(m, k, gen, dev))
+    for w, s, seed in b9_ops:
+        got = ni.noise_inject(w, s, seed)
+        want = ni.noise_inject_plain(w, ni.group_sigma(s), seed)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"noise_inject {tuple(w.shape)}: "
+                                 f"{(got != want).sum().item()} elements "
+                                 f"differ from the plain version")
+    for (w, pb, sw), (x, pbx, sx) in zip(b8_w, b8_x):
+        for args, kw in (((w, pb, sw), dict(row_scale=False, k_dim=0)),
+                         ((x, pbx, sx), dict(row_scale=True))):
+            got = fq.fake_quant(*args, **kw)
+            want = fq.fake_quant_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"fake_quant {tuple(args[0].shape)} {args[0].dtype}: "
+                    f"{(got != want).sum().item()} elements differ")
+    out = {}
+    b9 = lambda: [ni.noise_inject(*o) for o in b9_ops]  # noqa: E731
+    b9p = lambda: [ni.noise_inject_plain(w, ni.group_sigma(s), sd)  # noqa
+                   for w, s, sd in b9_ops]
+    elems = sum(w.numel() for w, _s, _sd in b9_ops)
+    # Bytes: each weight read and written once in fp32. Operations: ~16 a
+    # element (the hash, eps, the product, sum and clip), integer ones
+    # counted at the fp32 rate.
+    b_ms, b_by = bound(8 * elems + sum(4 * s.numel() + 8
+                                       for _w, s, _sd in b9_ops),
+                       16 * elems)
+    out[B9] = dict(max_abs_err=0.0, ms=time_ms(b9, reps),
+                   device_ms=device_ms(b9),
+                   plain_ms=time_ms(b9p, 2), bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+    b8 = lambda: ([fq.fake_quant(w, pb, sw, row_scale=False, k_dim=0)  # noqa
+                   for w, pb, sw in b8_w]
+                  + [fq.fake_quant(x, pb, sx, row_scale=True)
+                     for x, pb, sx in b8_x])
+    b8p = lambda: ([fq.fake_quant_plain(w, pb, sw, row_scale=False,  # noqa
+                                        k_dim=0) for w, pb, sw in b8_w]
+                   + [fq.fake_quant_plain(x, pb, sx, row_scale=True)
+                      for x, pb, sx in b8_x])
+    nbytes = sum(8 * w.numel() + 8 * pb.numel() for w, pb, _sw in b8_w) \
+        + sum(4 * x.numel() + 4 * (pb.numel() + sx.numel())
+              for x, pb, sx in b8_x)
+    nel = sum(w.numel() for w, _p, _s in b8_w) + \
+        sum(x.numel() for x, _p, _s in b8_x)
+    b_ms, b_by = bound(nbytes, 12 * nel)
+    weights_only = lambda: [fq.fake_quant(  # noqa: E731
+        w, pb, sw, row_scale=False, k_dim=0) for w, pb, sw in b8_w]
+    out[B8] = dict(max_abs_err=0.0, ms=time_ms(b8, reps),
+                   device_ms=device_ms(b8),
+                   plain_ms=time_ms(b8p, 2), bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, weights_ms=time_ms(weights_only, reps))
+    return out
+
+
+# ------------------------------------------------------------- training ----
+def _device_profile(prof):
+    """Device time of one profiled step by kernel: the total, the share of
+    the fp32 GEMMs, of the port's kernels (B8, B9) and of the rest (plain
+    torch ops), and the top kernels. The step's own span annotation
+    ("ProfilerStep*") is not a kernel and is left out."""
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("ProfilerStep")]
+    ms = lambda evs: sum(e.device_time_total for e in evs) / 1e3  # noqa
+    gemm = [e for e in kern if "gemm" in e.key.lower()]
+    ours = [e for e in kern if "noise_inject_kernel" in e.key
+            or "fake_quant_kernel" in e.key]
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
+    return {"kernels": sum(e.count for e in kern),
+            "device_busy_ms": ms(kern), "gemm_ms": ms(gemm),
+            "b8_b9_ms": ms(ours),
+            "other_ms": ms(kern) - ms(gemm) - ms(ours),
+            "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
+                     e.count) for e in top]}
+
+
+def phase_training(cfg, dev):
+    """Full-width two-phase training through ``train.loop.train``. Returns
+    (the trained model, per-step records, profiles, pattern report)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import schedule as prof_schedule
+    from repro_torch.train import state as state_lib
+    tcfg = state_lib.TrainConfig(t1=T1, t2=T2, warmup=1, seed=SEED)
+    stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    records, profiles = [], {}
+    prev = {B8: 0, B9: 0}
+
+    def on_ready(prof):
+        profiles[records[-1]["step"]] = _device_profile(prof)
+
+    def hook(step, _state, met):
+        counts = kernels.launch_counts()
+        rec = dict(step=step, phase=met["phase"], loss=met["loss"],
+                   grad_norm=met["grad_norm"], ms=met["wall"] * 1e3,
+                   b8=counts[B8] - prev[B8], b9=counts[B9] - prev[B9],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        prev.update({B8: counts[B8], B9: counts[B9]})
+        records.append(rec)
+        log(f"[8] step {step} phase {rec['phase']}: loss {rec['loss']:.4f} "
+            f"gnorm {rec['grad_norm']:.4f} {rec['ms']:.1f} ms, launches "
+            f"B8 {rec['b8']} B9 {rec['b9']}, peak "
+            f"{rec['peak_gib']:.2f} GiB")
+        prof.step()
+
+    model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
+                           device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=prof_schedule(wait=1, warmup=0, active=1,
+                                        repeat=T2 // 2),
+                 on_trace_ready=on_ready) as prof:
+        out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                         device=dev, hooks=[hook])
+    wall = time.perf_counter() - t0
+    for r in records:
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"non-finite loss at step {r['step']}")
+        want, other = (B9, B8) if r["phase"] == 1 else (B8, B9)
+        if r[{B8: "b8", B9: "b9"}[want]] == 0 or \
+                r[{B8: "b8", B9: "b9"}[other]] != 0:
+            raise AssertionError(f"step {r['step']} (phase {r['phase']}) "
+                                 f"launches B8 {r['b8']} B9 {r['b9']}")
+    rep = out["pattern_report"]
+    log(f"[8] boundary: average bpp {schedule.average_bpp(rep):.4f} over "
+        f"{len(rep['layers'])} linears; allowed patterns {rep['allowed']}")
+    log(f"[8] {T2} steps in {wall:.2f} s; profiles {profiles}")
+    return out["state"], records, profiles, rep
+
+
+def phase_serve_trained(state, cfg, dev, rng):
+    """Pack the trained QAT model (B7) and serve 4 requests through both
+    engines; greedy tokens must be equal."""
+    qat_cfg = cfg.with_quant_mode("qat")
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    kernels.reset_launch_counts()
+    eng = engine.DecodeEngine(state["model"], qat_cfg, ecfg, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    a = eng.generate(prompts, 8)
+    counts = kernels.launch_counts()
+    if counts[B7] == 0 or counts[B1] == 0:
+        raise AssertionError(f"trained-model serve launches {counts}")
+    lock = engine.LockstepEngine(eng.model, eng.cfg, ecfg,
+                                 already_serve=True, device=dev)
+    b = lock.generate(prompts, 8)
+    if not np.array_equal(a, b):
+        raise AssertionError(f"trained model: lockstep != continuous\n{a}"
+                             f"\n{b}")
+    log(f"[9] trained model packed ({engine.packed_model_bytes(eng.model):,}"
+        f" bytes) and served; lockstep == continuous; tokens "
+        f"{a[:, 16:].tolist()}; launches {counts}")
+
+
+def _train_linear(leaf, x, g, qcfg, draw, dev):
+    """One linear's forward and backward on ``dev``: (y, dx, dw, ds)."""
+    lin = smol.SmolLinear({k: v.to(dev) for k, v in leaf.items()})
+    lin.requires_grad_(True)
+    xt = x.to(dev).requires_grad_(True)
+    d = None if draw is None else smol.NoiseDraw(
+        seed=draw.seed.to(dev), act_eps=draw.act_eps.to(dev))
+    y = smol.linear_apply(lin.leaf(), xt, qcfg, d)
+    (y * g.to(dev)).sum().backward()
+    ds = lin.s.grad if "s" in leaf else None
+    return y.detach(), xt.grad, lin.w.grad, ds
+
+
+def check_training_against_cpu(cfg, dev):
+    """Teacher-forced card vs CPU for every NOISE and QAT linear of one
+    full-width layer (fp32, 2 x 64 tokens, the same weights, input,
+    cotangent and noise draws on both): y, dx, dw, ds within relative L2
+    1e-5."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    worst = {}
+    for mode in ("noise", "qat"):
+        qcfg = QuantConfig(mode=mode)
+        for name, k, n in layer_linears(cfg):
+            leaf = {"w": torch.randn((k, n), generator=gen) / math.sqrt(k)}
+            if mode == "noise":
+                leaf["s"] = torch.randn((k // 16,), generator=gen) * 1.5 - 0.5
+            else:
+                leaf["pbits"] = torch.tensor([1, 2, 4], dtype=torch.int8)[
+                    torch.randint(0, 3, (k // 16,), generator=gen)]
+            x = torch.randn((2, 64, k), generator=gen)
+            g = torch.randn((2, 64, n), generator=gen)
+            draw = None
+            if mode == "noise":
+                draw = smol.NoiseDraw(
+                    seed=torch.randint(0, 1 << 32, (1,), generator=gen),
+                    act_eps=torch.rand(x.shape, generator=gen) * 2 - 1)
+            card = _train_linear(leaf, x, g, qcfg, draw, dev)
+            host = _train_linear(leaf, x, g, qcfg, draw, "cpu")
+            for what, a, b in zip(("y", "dx", "dw", "ds"), card, host):
+                if b is None:
+                    continue
+                err = rel_l2(a, b)
+                key = f"{mode}.{what}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if not err <= 1e-5:
+                    raise AssertionError(f"{mode} {name} {what}: relative "
+                                         f"L2 {err:.3e} card vs CPU")
+    return worst
+
+
+def phase_launcher():
+    """The training launcher at full width in a subprocess."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+           "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ)]
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    tail = (proc.stdout.strip().splitlines() or [""])[-3:]
+    log(f"[11] launcher exit {proc.returncode} in {wall:.1f} s: {tail}")
+    if proc.returncode:
+        raise AssertionError(f"launcher failed:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -911,17 +1257,50 @@ def main() -> int:
 
     # -------------------------------------------------------- phase 6 ----
     kv4 = phase_kv4_serve(qat_cfg, cfg.vocab_size, dev, rng, launches)
+    torch.cuda.empty_cache()
 
     # -------------------------------------------------------- phase 7 ----
+    train_kern = phase_training_kernels(cfg, gen, dev)
+    results.update(train_kern)
+    log(f"[7] noise_inject and fake_quant bit-equal to their plain "
+        f"versions; {train_kern}")
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- phase 8 ----
+    state, records, profiles, report = phase_training(cfg, dev)
+    launches[B8] = sum(r["b8"] for r in records)
+    launches[B9] = sum(r["b9"] for r in records)
+
+    # -------------------------------------------------------- phase 9 ----
+    state["opt"] = None
+    torch.cuda.empty_cache()
+    phase_serve_trained(state, cfg, dev, rng)
+    del state
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- phase 10 ----
+    log(f"[10] training linears, card vs CPU (fp32, relative L2): "
+        f"{check_training_against_cpu(cfg, dev)}")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- phase 11 ----
+    launcher_s = phase_launcher()
+
+    # ------------------------------------------------------- phase 12 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (21 segments)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
             B2: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring)",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
-                "16 pages of 16 a slot"}
+                "16 pages of 16 a slot",
+            B8: "one h2o-danube-1.8b layer of Phase-II fake_quant: 7 "
+                "weights (fp32, group scale) + 7 activations (bf16, "
+                "8 x 128 tokens)",
+            B9: "one h2o-danube-1.8b layer of Phase-I noise_inject: 7 "
+                "weights (fp32)"}
     rows = []
-    for name in (B1, B2, B4, B5, B7):
+    for name in (B1, B2, B4, B5, B7, B8, B9):
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
@@ -929,10 +1308,18 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "work": work[name]})
+        if "device_ms" in r:
+            rows[-1]["device_ms"] = r["device_ms"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kv4_serve": {
         k: {n: x for n, x in v.items() if n != "profile"}
         for k, v in kv4.items()}}))
+    print(json.dumps({"training": {
+        "steps": records, "profiles": profiles,
+        "average_bpp": schedule.average_bpp(report),
+        "allowed_patterns": report["allowed"],
+        "b8_weights_ms_per_layer": results[B8]["weights_ms"],
+        "launcher_s": launcher_s}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Deploy packing: QAT leaves -> packed serve leaves. Counterpart of the
-pytree-level transforms of ``repro.api.transforms`` that the serve path
-uses (``rebudget_pbits``, ``pack_linear``, ``convert_linear``,
+"""Lifecycle transforms. Counterpart of the pytree-level transforms of
+``repro.api.transforms``: the Phase I -> II boundary (``freeze_qat``) and
+the deploy packing of QAT leaves into packed serve leaves
+(``rebudget_pbits``, ``pack_linear``, ``convert_linear``,
 ``convert_tree``).
 
 Large tensors stay on their device; only the [K / 16] group arrays
@@ -9,20 +10,29 @@ decided. Packing runs through the ``quantize_pack`` kernel (B7) on CUDA.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.backend import base as backend
 from repro_torch.core import patterns as patterns_lib
 from repro_torch.core import quant
+from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.qtypes import QuantConfig
 
 
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
         else np.asarray(a)
+
+
+def freeze_qat(model: nn.Module, qcfg: QuantConfig
+               ) -> Tuple[nn.Module, Dict]:
+    """(noise model, qcfg) -> (the same model with QAT linears, pattern
+    report): the Phase I -> II boundary (paper Alg. 3), in place."""
+    return schedule_lib.pattern_match_params(model, qcfg)
 
 
 def rebudget_pbits(pbits, w: torch.Tensor, qcfg: QuantConfig) -> np.ndarray:
@@ -46,6 +56,7 @@ def rebudget_pbits(pbits, w: torch.Tensor, qcfg: QuantConfig) -> np.ndarray:
     return out
 
 
+@torch.no_grad()
 def pack_linear(leaf: Dict, qcfg: QuantConfig) -> Dict:
     """One trained [K, N] linear (w, pbits) -> channel-reordered packed
     carriers + metadata (a serve leaf)."""
@@ -87,6 +98,7 @@ def _stack(leaves):
             for name in first}
 
 
+@torch.no_grad()
 def convert_tree(tree, qcfg: QuantConfig, *, rebudget="auto"):
     """QAT tree (nested dicts/lists of tensors) -> serve tree. A leaf with
     leading stacked dims ([L, K, N]) is packed per slice and re-stacked;

@@ -1,6 +1,7 @@
-"""The shared serve-mode linear driver. Counterpart of
-``repro.backend.base`` (the ``packed_matmul`` and ``quantize_pack_mixed``
-template methods).
+"""The port's kernel-backed ops. Counterpart of ``repro.backend.base``:
+the serve-mode linear driver (``packed_matmul``, ``quantize_pack_mixed``),
+decode attention over the packed KV cache, and the two training ops with
+their backward passes (``noise_inject``, ``fake_quant``).
 
 There is no backend registry in the port yet: the driver picks the kernel
 by the device of its tensors. CUDA tensors launch the hand-written kernels
@@ -9,7 +10,7 @@ other device raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,8 @@ from repro_torch.core import pack as pack_lib
 from repro_torch.core import quant
 from repro_torch.core.qtypes import GROUP_SIZE
 from repro_torch.kernels import attn_decode as ad
+from repro_torch.kernels import fake_quant as fq
+from repro_torch.kernels import noise_inject as ni
 from repro_torch.kernels import packed_matmul as pm
 from repro_torch.kernels import quant_pack as qp
 
@@ -156,3 +159,121 @@ def qkv_attn_decode_paged(q: torch.Tensor, cache: Dict, q_pos: torch.Tensor,
         q, cache["k_codes"], cache["v_codes"], cache["k_scale"],
         cache["v_scale"], cache["pos"], cache["page_table"],
         q_pos.to(torch.int32), window=window)
+
+
+# --------------------------------------------------------------------------
+# Training ops: the kernel forward, the backward in plain torch (the
+# reference's backward is jnp in a shared custom VJP, not a Pallas kernel).
+# --------------------------------------------------------------------------
+
+def hash_eps(shape: Tuple[int, int], seed, device=None) -> torch.Tensor:
+    """The shared Phase-I noise draw: eps ~ U(-1, 1) [K, N] fp32 from the
+    counter hash of the global element index and the seed."""
+    k, n = shape
+    return ni.hash_eps(k, n, seed, device)
+
+
+class _NoiseInject(torch.autograd.Function):
+    """clip(w + sigma(s) * eps, +-(2 - sigma)) through kernel B9; the
+    backward recomputes eps from the hash (``base.py::_noise_inject_bwd``
+    of the reference)."""
+
+    @staticmethod
+    def forward(ctx, w, s, seed, group_size):
+        ctx.save_for_backward(w, s, seed)
+        ctx.group_size = group_size
+        return ni.noise_inject(w, s, seed, group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, s, seed = ctx.saved_tensors
+        gs = ctx.group_size
+        k, n = w.shape
+        sig_g = ni.group_sigma(s)
+        sig = quant.expand_groups(sig_g, k, gs)[:, None]
+        eps = hash_eps((k, n), seed, w.device)
+        z = w.float() + sig * eps
+        inside = z.abs() <= 2.0 - sig
+        g32 = g.float()
+        dw = torch.where(inside, g32, torch.zeros_like(g32)).to(w.dtype)
+        # d out / d sigma: eps inside the clip; at the clamp the limit
+        # +-(2 - sigma) itself moves with sigma (d/dsigma = -+1). Chain
+        # through sigma'(s) = sigma (1 - sigma) and sum each group's block
+        # (fixed-order reductions: no atomics).
+        dsig = torch.where(inside, eps, -torch.sign(z))
+        per_k = torch.sum(g32 * dsig, dim=1)
+        per_group = per_k.reshape(sig_g.shape[0], gs).sum(dim=1)
+        ds = (per_group * sig_g * (1.0 - sig_g)).to(s.dtype)
+        return dw, ds, None, None
+
+
+def noise_inject(w: torch.Tensor, s: torch.Tensor, seed,
+                 group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Phase-I fused perturbation of w [K, N] fp32 with logits s
+    [K // group_size], differentiable in (w, s). ``seed`` is a uint32 (an
+    int or a one-element int64 tensor on w's device)."""
+    return _NoiseInject.apply(w.contiguous(), s,
+                              ni.seed_tensor(seed, w.device), group_size)
+
+
+def _in_range_on_layout(x, pbits, scale, row_scale: bool, k_dim: int,
+                        group_size: int) -> torch.Tensor:
+    xt = x if k_dim == 1 else x.t()
+    s = scale.float().reshape(-1, 1) if row_scale else scale.float()
+    mask = quant.fake_quant_in_range(xt, pbits, s, group_size)
+    return mask if k_dim == 1 else mask.t()
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize through kernel B8 with the clipped-STE
+    backward (dx = g * in_range; ``base.py::_fake_quant_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, pbits, scale, row_scale, k_dim, group_size):
+        ctx.save_for_backward(x, pbits, scale)
+        ctx.layout = (row_scale, k_dim, group_size)
+        return fq.fake_quant(x, pbits, scale, row_scale=row_scale,
+                             k_dim=k_dim, group_size=group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pbits, scale = ctx.saved_tensors
+        mask = _in_range_on_layout(x, pbits, scale, *ctx.layout)
+        return g * mask, None, None, None, None, None
+
+
+def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,
+               group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Clipped-STE quantize-dequantize of x [..., K] along K with
+    per-group ``pbits`` [K // group_size]. ``scale`` is one value per row
+    (a scalar, [1, ..., 1] or [..., 1]: broadcast to every row) or per
+    group [K // group_size]. Differentiable in x."""
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    m = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    ng = max(k // group_size, 1)
+    if s.dim() == 0 or (s.shape[-1] == 1 and s.numel() == 1):
+        s_op, row = s.reshape(1).expand(m).contiguous(), True
+    elif s.shape == lead + (1,):
+        s_op, row = s.reshape(m), True
+    elif s.dim() == 1 and s.shape[0] == ng:
+        s_op, row = s, False
+    else:
+        raise ValueError(f"scale {tuple(s.shape)} is neither per row nor "
+                         f"per group of x {tuple(x.shape)}")
+    y = _FakeQuant.apply(x.reshape(m, k).contiguous(),
+                         pbits.float().contiguous(), s_op, row, 1,
+                         group_size)
+    return y.reshape(x.shape)
+
+
+def fake_quant_weight(w: torch.Tensor, pbits: torch.Tensor,
+                      scale: torch.Tensor,
+                      group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Clipped-STE quantize-dequantize of a weight w [K, N] along K with
+    per-group ``pbits`` and ``scale`` [K // group_size]: the reference's
+    ``fake_quant(swapaxes(w), ...)`` swapped back, read in place."""
+    return _FakeQuant.apply(w.contiguous(), pbits.float().contiguous(),
+                            scale.float().contiguous(), False, 0,
+                            group_size)

@@ -1,13 +1,16 @@
-"""Configuration dataclass for the SONIQ quantization stack (serve subset).
+"""Configuration dataclass for the SONIQ quantization stack.
 
 Counterpart of ``repro.core.qtypes``. Terminology:
   * group   — 16 consecutive input channels, the precision-control unit.
+  * block   — 8 groups = 128 channels, one vector that a precision
+              pattern covers.
   * segment — after channel reordering the K (input channel) dim of a
               weight splits into contiguous runs [K4 | K2 | K1] of uniform
               precision.
 
-The lifecycle phase is a plain mode string here ("fp", "qat", "serve");
-the JAX package's ``Phase`` objects live in a module that imports jax.
+The lifecycle phase is a plain mode string here ("fp", "noise", "qat",
+"serve"); the JAX package's ``Phase`` objects live in a module that
+imports jax.
 """
 from __future__ import annotations
 
@@ -17,16 +20,17 @@ from typing import Tuple
 import numpy as np
 
 GROUP_SIZE = 16          # channels per precision group (paper Obs. 5)
+GROUPS_PER_BLOCK = 8     # groups per 128-channel block (one pattern)
 ALLOWED_BITS = (1, 2, 4)  # paper Obs. 2
-MODES = ("fp", "qat", "serve")
+MODES = ("fp", "noise", "qat", "serve")
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """How SONIQ is applied to the linear layers of a model — the fields
-    the serve path reads."""
+    """How SONIQ is applied to the linear layers of a model."""
 
-    # "fp" full precision; "qat" trained (w, pbits) leaves; "serve" packed.
+    # "fp" full precision; "noise" Phase I (trainable per-group logits s);
+    # "qat" Phase II, frozen (w, pbits) leaves; "serve" packed.
     mode: str = "fp"
     group_size: int = GROUP_SIZE
     # Fraction of input-channel groups held at 4 / 2 / 1 bits.
@@ -41,6 +45,16 @@ class QuantConfig:
     # selects the two-pass form (whole-K fake-quant, then plain segment
     # GEMMs), which the port carries only as a CPU reference so far.
     fuse_act_quant: bool = True
+
+    # Phase-I hyperparameters: the precision every group starts from and
+    # the weight lambda of the bit-count regularizer.
+    p_init: int = 4
+    lam: float = 1e-7
+    # Number of hardware-supported patterns (the paper's design knob:
+    # 4 / 8 / 45) the Phase I -> II boundary may use.
+    num_patterns: int = 4
+    # Layers never quantized (the paper excludes the first and last).
+    skip: Tuple[str, ...] = ("embed", "lm_head", "router", "frontend")
 
     def __post_init__(self):
         if self.mode not in MODES:

@@ -1,4 +1,5 @@
-"""The SMOL/SONIQ grid (serve subset). Counterpart of ``repro.core.quant``.
+"""The SMOL/SONIQ grid and straight-through fake quantization.
+Counterpart of ``repro.core.quant``.
 
 An n-bit code u represents v = (2u - (2^n - 1)) * 2^(1-n): the odd
 multiples of 2^(1-n) in ±(2 - 2^(1-n)). Rounding is half-to-even
@@ -80,12 +81,7 @@ def expand_groups(v: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
     return torch.repeat_interleave(v, group_size, dim=-1)[..., :k]
 
 
-def fake_quant_fwd(x: torch.Tensor, pbits, scale,
-                   group_size: int = 16) -> torch.Tensor:
-    """Forward of the clipped-STE fake quantization along the last dim
-    (``repro.core.quant._fake_quant_fwd_impl``): divide by the scale,
-    snap each group to its precision, rescale, round through x's dtype.
-    ``scale`` broadcasts against x, or is per-group [K // group_size]."""
+def _fake_quant_operands(x: torch.Tensor, pbits, scale, group_size: int):
     k = x.shape[-1]
     p = expand_groups(torch.as_tensor(pbits, device=x.device).float(),
                       k, group_size)
@@ -93,5 +89,49 @@ def fake_quant_fwd(x: torch.Tensor, pbits, scale,
     if s.dim() and s.shape[-1] == max(1, k // group_size) \
             and k > s.shape[-1]:
         s = expand_groups(s, k, group_size)
-    xs = x.float() / s
+    return x.float() / s, p, s
+
+
+def fake_quant_fwd(x: torch.Tensor, pbits, scale,
+                   group_size: int = 16) -> torch.Tensor:
+    """Forward of the clipped-STE fake quantization along the last dim
+    (``repro.core.quant._fake_quant_fwd_impl``): divide by the scale,
+    snap each group to its precision, rescale, round through x's dtype.
+    ``scale`` broadcasts against x, or is per-group [K // group_size]."""
+    xs, p, s = _fake_quant_operands(x, pbits, scale, group_size)
     return (snap_to_grid(xs, p) * s).to(x.dtype)
+
+
+def fake_quant_in_range(x: torch.Tensor, pbits, scale,
+                        group_size: int = 16) -> torch.Tensor:
+    """The clipped-STE mask in x's dtype: 1 where |x / scale| lies inside
+    its group's grid range 2 - 2^(1-p), else 0."""
+    xs, p, _s = _fake_quant_operands(x, pbits, scale, group_size)
+    return (xs.abs() <= 2.0 - torch.exp2(1.0 - p)).to(x.dtype)
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """Plain fake quantization with the clipped straight-through
+    gradient: dx = g * in_range; pbits and scale get none."""
+
+    @staticmethod
+    def forward(ctx, x, pbits, scale, group_size):
+        ctx.save_for_backward(x, pbits, scale)
+        ctx.group_size = group_size
+        return fake_quant_fwd(x, pbits, scale, group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pbits, scale = ctx.saved_tensors
+        return (g * fake_quant_in_range(x, pbits, scale, ctx.group_size),
+                None, None, None)
+
+
+def fake_quant(x: torch.Tensor, pbits, scale,
+               group_size: int = 16) -> torch.Tensor:
+    """Differentiable fake quantization (``repro.core.quant.fake_quant``)
+    in plain torch: the forward of :func:`fake_quant_fwd`, the clipped
+    STE backward."""
+    pbits = torch.as_tensor(pbits, dtype=torch.float32, device=x.device)
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    return _FakeQuantSTE.apply(x, pbits, scale, group_size)

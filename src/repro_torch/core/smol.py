@@ -1,34 +1,93 @@
-"""SmolLinear — the quantized linear primitive (FP and SERVE rules).
+"""SmolLinear — the quantized linear primitive. Counterpart of
+``repro.core.smol``. A linear leaf is a dict of tensors; the mode of the
+``QuantConfig`` picks the forward rule:
 
-Counterpart of ``repro.core.smol``. A linear leaf is a dict of tensors:
-
-  FP     {"w" [K, N], "b"?}                       y = x @ W
-  QAT    {"w", "pbits" [K // G], "b"?}            trained, packed by
-                                                  ``api.transforms``
+  FP     {"w" [K, N], "b"?}               y = x @ W
+  NOISE  {"w", "s" [K // G], "b"?}        Phase I:
+         y = (x + sx sigma(s) eps) @ (sw clip(W / sw + sigma(s) eps', +-(2 - sigma)))
+  QAT    {"w", "pbits" [K // G], "b"?}    Phase II: y = fq(x; p, sx) @ fq(W; p, sw)
   SERVE  {"w4", "w2", "w1" uint8, "perm", "pbits_sorted", "wscale", "b"?}
-                                                  y = q(x) @ unpack(W)
+                                          y = q(x) @ unpack(W)
 
-:class:`SmolLinear` holds one leaf as module buffers. The QAT forward
-(fake-quant, kernel B8) comes with the training slice.
+The weight perturbation is kernel B9 (``backend.noise_inject``), the two
+fake quantizations kernel B8 (``backend.fake_quant``), each with its
+backward in plain torch; the large products stay ``torch.matmul`` in fp32
+(the reference leaves them to XLA). :class:`SmolLinear` holds one leaf:
+``w``, ``s`` and ``b`` as ``nn.Parameter``s (frozen until training asks
+for gradients: ``train.state.init_state``), the integer leaves and the
+packed carriers as buffers.
+
+The reference draws Phase I's noise from ``jax.random``. The port takes an
+explicit :class:`NoiseDraw` per linear call instead, from a source keyed
+by the linear's module path (:class:`StepNoise`: a seeded
+``torch.Generator`` on the device), so a recomputed block (activation
+checkpointing) sees the same draws and a test can replay the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import hashlib
+from typing import Dict, Optional, Protocol
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.backend import base as backend
+from . import noise as noise_lib
+from . import quant
 from .qtypes import QuantConfig
+
+
+@dataclasses.dataclass
+class NoiseDraw:
+    """One Phase-I linear call's randomness: the uint32 seed of the weight
+    noise (a one-element int64 tensor on the device, read by kernel B9)
+    and the activation noise ``act_eps`` ~ U(-1, 1) of x's shape."""
+
+    seed: torch.Tensor
+    act_eps: Optional[torch.Tensor] = None
+
+
+class NoiseSource(Protocol):
+    def draw(self, path: str, x: torch.Tensor) -> NoiseDraw: ...
+
+
+class StepNoise:
+    """The draws of one step: a ``torch.Generator`` on x's device, seeded
+    from (``key``, the linear's module path), draws the weight seed and
+    then the activation noise. The same (key, path) always gives the same
+    draws, on the card without a host sync. ``key`` is an int or a tuple
+    of ints (e.g. (seed, step, microbatch))."""
+
+    def __init__(self, key, quantize_activations: bool = True):
+        self.key = key
+        self.quantize_activations = quantize_activations
+
+    def generator_seed(self, path: str) -> int:
+        digest = hashlib.blake2b(f"{self.key}/{path}".encode(),
+                                 digest_size=8).digest()
+        return int.from_bytes(digest, "little") >> 1
+
+    def draw(self, path: str, x: torch.Tensor) -> NoiseDraw:
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(self.generator_seed(path))
+        seed = torch.randint(0, 1 << 32, (1,), generator=gen,
+                             device=x.device, dtype=torch.int64)
+        eps = None
+        if self.quantize_activations:
+            u = torch.rand(x.shape, generator=gen, device=x.device)
+            eps = (u * 2.0 - 1.0).to(x.dtype)
+        return NoiseDraw(seed=seed, act_eps=eps)
 
 
 def linear_init(k: int, n: int, qcfg: QuantConfig, *,
                 generator: torch.Generator, device: torch.device,
                 use_bias: bool = False, dtype=torch.float32,
                 quantized: bool = True, scale: float = 1.0) -> Dict:
-    """Random FP or QAT leaf (``quantized=False`` for skip layers). The
-    weights come from the port's own seeded generator, not JAX's RNG."""
+    """Random FP, NOISE or QAT leaf (``quantized=False`` for skip layers).
+    The weights come from the port's own seeded generator, not JAX's
+    RNG."""
     std = scale / np.sqrt(k)
     w = torch.randn((k, n), generator=generator, device=device,
                     dtype=torch.float32) * std
@@ -36,6 +95,10 @@ def linear_init(k: int, n: int, qcfg: QuantConfig, *,
     if use_bias:
         leaf["b"] = torch.zeros((n,), dtype=dtype, device=device)
     if not quantized or qcfg.mode == "fp":
+        return leaf
+    if qcfg.mode == "noise":
+        leaf["s"] = noise_lib.init_s(qcfg.num_groups(k), qcfg.p_init,
+                                     device=device)
         return leaf
     if qcfg.mode == "qat":
         leaf["pbits"] = torch.as_tensor(qcfg.group_pbits(k), device=device)
@@ -53,36 +116,156 @@ def _matmul(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def linear_apply(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig
-                 ) -> torch.Tensor:
+def _weight_scales(w: torch.Tensor, qcfg: QuantConfig,
+                   group_size: int) -> torch.Tensor:
+    """Per-group weight scale [K // G] (a data statistic: no gradient)."""
+    with torch.no_grad():
+        if qcfg.scale_mode == "none":
+            return torch.ones((qcfg.num_groups(w.shape[0]),),
+                              dtype=torch.float32, device=w.device)
+        return quant.per_group_weight_scale(w, group_size)
+
+
+def _act_scale(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+    with torch.no_grad():
+        return backend.act_scale(x, qcfg.act_scale_mode)
+
+
+def _quantize_weight(w: torch.Tensor, pbits: torch.Tensor,
+                     qcfg: QuantConfig, group_size: int) -> torch.Tensor:
+    """fake-quant W [K, N] along K with per-group precisions (kernel B8,
+    clipped-STE backward)."""
+    sw = _weight_scales(w, qcfg, group_size)
+    return backend.fake_quant_weight(w, pbits, sw, group_size)
+
+
+def _quantize_act(x: torch.Tensor, pbits: torch.Tensor, qcfg: QuantConfig,
+                  group_size: int) -> torch.Tensor:
+    if not qcfg.quantize_activations:
+        return x
+    return backend.fake_quant(x, pbits, _act_scale(x, qcfg), group_size)
+
+
+def _linear_noise(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig,
+                  noise: Optional[NoiseDraw]) -> torch.Tensor:
+    if noise is None:
+        raise ValueError("a Phase-I (noise) linear needs a NoiseDraw")
+    w, s = leaf["w"], leaf["s"]
+    k = w.shape[0]
+    g = qcfg.eff_group_size(k)
+    # Group abs-max normalized to 1.0, not the grid top 1.875: the clip
+    # +-(2 - sigma) must not bite below sigma ~= 1.
+    sw = _weight_scales(w, qcfg, g) * float(quant.static_grid_max(4))
+    sfull = quant.expand_groups(sw, k, g)[:, None]
+    wn = backend.noise_inject(w.float() / sfull, s, noise.seed, g)
+    wn = (wn * sfull).to(x.dtype)
+    if qcfg.quantize_activations:
+        x = noise_lib.inject_act_noise(x, s, noise.act_eps,
+                                       _act_scale(x, qcfg), g)
+    return _matmul(x, wn, leaf.get("b"))
+
+
+def _linear_qat(leaf: Dict, x: torch.Tensor,
+                qcfg: QuantConfig) -> torch.Tensor:
+    w = leaf["w"]
+    g = qcfg.eff_group_size(w.shape[0])
+    pbits = leaf["pbits"].float()
+    wq = _quantize_weight(w, pbits, qcfg, g).to(x.dtype)
+    xq = _quantize_act(x, pbits, qcfg, g)
+    return _matmul(xq, wq, leaf.get("b"))
+
+
+def linear_apply(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig,
+                 noise: Optional[NoiseDraw] = None) -> torch.Tensor:
     """x [..., K] -> [..., N] under the leaf's rule. A leaf holding only a
     plain weight (skip layer) always runs the FP rule."""
     if "w4" in leaf:
         if qcfg.mode != "serve":
             raise ValueError(f"packed leaf under mode {qcfg.mode!r}")
         return backend.packed_matmul(leaf, x, qcfg)
-    if "pbits" in leaf and qcfg.mode == "serve":
+    quantized = "pbits" in leaf or "s" in leaf
+    if quantized and qcfg.mode == "serve":
         raise ValueError(
             "serve-mode linear got an unconverted leaf (keys "
             f"{sorted(leaf)}); run repro_torch.api.transforms.convert_tree")
-    if "pbits" in leaf and qcfg.mode == "qat":
-        raise NotImplementedError(
-            "the QAT forward (fake_quant, kernel B8) is part of the "
-            "training slice of the port")
+    if quantized and qcfg.mode in ("noise", "qat"):
+        rule = "s" if qcfg.mode == "noise" else "pbits"
+        if rule not in leaf:
+            raise ValueError(f"{qcfg.mode}-mode linear got a leaf with keys "
+                             f"{sorted(leaf)}")
+        if qcfg.mode == "noise":
+            return _linear_noise(leaf, x, qcfg, noise)
+        return _linear_qat(leaf, x, qcfg)
     return _matmul(x, leaf["w"], leaf.get("b"))
 
 
 class SmolLinear(nn.Module):
-    """One linear leaf held as buffers (packed carriers stay uint8)."""
+    """One linear leaf: ``w``, ``s``, ``b`` trainable, the rest buffers
+    (packed carriers stay uint8). ``path`` is the module path the model
+    gives it, which keys its Phase-I noise draws."""
+
+    TRAINABLE = ("w", "s", "b")
 
     def __init__(self, leaf: Dict):
         super().__init__()
         self._names = tuple(leaf)
+        self.path = ""
         for name, t in leaf.items():
-            self.register_buffer(name, t)
+            if name in self.TRAINABLE and t is not None \
+                    and t.is_floating_point():
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
+            else:
+                self.register_buffer(name, t)
 
     def leaf(self) -> Dict:
         return {name: getattr(self, name) for name in self._names}
 
-    def forward(self, x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
-        return linear_apply(self.leaf(), x, qcfg)
+    def forward(self, x: torch.Tensor, qcfg: QuantConfig,
+                noise: Optional[NoiseSource] = None) -> torch.Tensor:
+        draw = None
+        if noise is not None and qcfg.mode == "noise" and "s" in self._names:
+            draw = noise.draw(self.path, x)
+        return linear_apply(self.leaf(), x, qcfg, draw)
+
+    def freeze(self, pbits: torch.Tensor) -> None:
+        """Phase I -> II: drop the logits ``s``, hold frozen per-group
+        precisions ``pbits`` instead."""
+        del self._parameters["s"]
+        self.register_buffer("pbits", pbits)
+        self._names = tuple("pbits" if n == "s" else n for n in self._names)
+
+
+def smol_linears(model: nn.Module):
+    """(module path, SmolLinear) of every linear of a model."""
+    return [(name, mod) for name, mod in model.named_modules()
+            if isinstance(mod, SmolLinear)]
+
+
+def bit_penalty_of_params(model: nn.Module) -> torch.Tensor:
+    """The Phase-I bit regularizer summed over every ``s`` of a model."""
+    total = None
+    for _name, lin in smol_linears(model):
+        if "s" in lin._names:
+            term = noise_lib.bit_penalty(lin.s)
+            total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return total
+
+
+@torch.no_grad()
+def project_noise_weights(model: nn.Module, qcfg: QuantConfig) -> None:
+    """The post-optimizer projection (paper Alg. 1 line 7), in place: every
+    (w, s) linear's w, normalized by its group scale, is clipped to
+    +-(2 - sigma(s))."""
+    for _name, lin in smol_linears(model):
+        if "s" not in lin._names:
+            continue
+        w = lin.w
+        k = w.shape[0]
+        g = qcfg.eff_group_size(k)
+        sw = _weight_scales(w, qcfg, g)
+        sfull = quant.expand_groups(sw, k, g)[:, None]
+        lim = noise_lib.clip_weights(w.float() / sfull, lin.s, g)
+        w.copy_((lim * sfull).to(w.dtype))

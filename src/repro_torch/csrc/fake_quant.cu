@@ -1,0 +1,174 @@
+// QAT quantize-dequantize along K for Hopper (sm_90a), plain C ABI.
+//
+// Replaces the TPU kernel src/repro/kernels/fake_quant.py::_kernel
+// (fake_quant): every element of x is divided by its scale, snapped to the
+// p-bit SMOL grid of its 16-channel group along K, multiplied back and
+// rounded to x's dtype:
+//   h = 2^(1-p), u = clip(rint((x/s/h + 2^p - 1) / 2), 0, 2^p - 1),
+//   y = (2u - (2^p - 1)) * h * s.
+// The scale is per row of the non-K index (a per-token or broadcast
+// per-tensor activation scale, [M]) or per group of K ([K/G], the weight
+// scale). K is either the fast dimension (x [M, K], the reference's
+// layout) or the slow one (w [K, N]: the reference quantizes swapaxes(w),
+// this kernel reads w in place, so no transposed copy is made; every
+// element's arithmetic is the same).
+//
+// What bounds it on the H100: bytes. One read and one write per element
+// (4 + 4 B in fp32, 2 + 2 B in bf16) with ~12 float operations between.
+// Each thread takes four neighbouring elements of one row (one 16-byte
+// load in fp32, 8 bytes in bf16), each block a 1,024-column strip of a
+// row, so loads and stores are coalesced; p and the scale come from tiny
+// arrays that stay in L1.
+//
+// Numerics: bit-equal with the reference's _fake_quant_fwd_impl. The
+// division by the scale is an IEEE division (__fdiv_rn), the powers of
+// two are exact (ldexpf of an integer p), rounding is half to even (rintf),
+// every other step is one correctly rounded operation that nvcc may not
+// contract (__fmul_rn / __fadd_rn), and bf16 results round to nearest
+// even (__float2bfloat16_rn).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int VEC = 4;
+
+template <typename T>
+struct alignas(VEC * sizeof(T)) Pack {
+  T v[VEC];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float fake_quant_elem(float x, float p, float s) {
+  const int pi = __float2int_rn(p);
+  const float h = ldexpf(1.0f, 1 - pi);       // 2^(1-p): half step
+  const float inv_h = ldexpf(1.0f, pi - 1);   // x / h is exact as x * inv_h
+  const float top = ldexpf(1.0f, pi) - 1.0f;  // 2^p - 1
+  const float xs = __fdiv_rn(x, s);
+  float u = rintf(__fmul_rn(__fadd_rn(__fmul_rn(xs, inv_h), top), 0.5f));
+  u = fminf(fmaxf(u, 0.0f), top);
+  const float q = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, u), top), h);
+  return __fmul_rn(q, s);
+}
+
+// x [R, C] row-major. K_ROWS: K is the row index (w [K, N]); else the
+// column index (x [M, K]). ROW_SCALE: scale[non-K index]; else
+// scale[k / group].
+template <typename T, bool K_ROWS, bool ROW_SCALE, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+fake_quant_kernel(const T* __restrict__ x, const float* __restrict__ pbits,
+                  const float* __restrict__ scale, T* __restrict__ out,
+                  int R, int C, int group) {
+  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+  if (c0 >= C) return;
+  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+    const size_t base = (size_t)r * C + c0;
+    float xv[VEC];
+    if (ALIGNED) {
+      const Pack<T> pk = *reinterpret_cast<const Pack<T>*>(x + base);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xv[j] = to_f32(pk.v[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        xv[j] = (c0 + j < C) ? to_f32(x[base + j]) : 0.0f;
+    }
+    Pack<T> res;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int c = c0 + j;
+      const int kidx = K_ROWS ? r : c;
+      const int g = kidx / group;
+      const float p = pbits[g];
+      const float s = ROW_SCALE ? scale[K_ROWS ? c : r] : scale[g];
+      res.v[j] = (c < C) ? from_f32<T>(fake_quant_elem(xv[j], p, s))
+                         : from_f32<T>(0.0f);
+    }
+    if (ALIGNED) {
+      *reinterpret_cast<Pack<T>*>(out + base) = res;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (c0 + j < C) out[base + j] = res.v[j];
+    }
+  }
+}
+
+template <typename T, bool K_ROWS, bool ROW_SCALE>
+void launch(const void* x, const float* pb, const float* sc, void* out,
+            int R, int C, int group, bool aligned, cudaStream_t s) {
+  const dim3 grid((C + THREADS * VEC - 1) / (THREADS * VEC),
+                  R < 65535 ? R : 65535);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (aligned)
+    fake_quant_kernel<T, K_ROWS, ROW_SCALE, true>
+        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, R, C, group);
+  else
+    fake_quant_kernel<T, K_ROWS, ROW_SCALE, false>
+        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, R, C, group);
+}
+
+template <typename T>
+void dispatch(const void* x, const float* pb, const float* sc, void* out,
+              int R, int C, int group, int k_rows, int row_scale,
+              bool aligned, cudaStream_t s) {
+  if (k_rows) {
+    if (row_scale)
+      launch<T, true, true>(x, pb, sc, out, R, C, group, aligned, s);
+    else
+      launch<T, true, false>(x, pb, sc, out, R, C, group, aligned, s);
+  } else {
+    if (row_scale)
+      launch<T, false, true>(x, pb, sc, out, R, C, group, aligned, s);
+    else
+      launch<T, false, false>(x, pb, sc, out, R, C, group, aligned, s);
+  }
+}
+
+}  // namespace
+
+// out[R, C] = fake_quant(x[R, C] contiguous, pbits[K/group] fp32 integral
+// precisions, scale fp32: [non-K extent] if row_scale else [K/group]).
+// dtype: 0 fp32, 1 bf16 (x and out). k_rows: K = R (else K = C). Returns
+// the CUDA error code of the launch (0 on success).
+extern "C" int soniq_fake_quant(const void* x, const void* pbits,
+                                const void* scale, void* out, int R, int C,
+                                int group, int k_rows, int row_scale,
+                                int dtype, void* stream) {
+  const int K = k_rows ? R : C;
+  if (R <= 0 || C <= 0 || group <= 0 || K % group || (dtype != 0 &&
+                                                        dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t esize = dtype == 0 ? 4 : 2;
+  const bool aligned = (C % VEC == 0) &&
+                       (reinterpret_cast<uintptr_t>(x) % (VEC * esize) == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % (VEC * esize) == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pb = static_cast<const float*>(pbits);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    dispatch<float>(x, pb, sc, out, R, C, group, k_rows, row_scale, aligned,
+                    s);
+  else
+    dispatch<__nv_bfloat16>(x, pb, sc, out, R, C, group, k_rows, row_scale,
+                            aligned, s);
+  return (int)cudaGetLastError();
+}

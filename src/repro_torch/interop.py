@@ -1,12 +1,14 @@
-"""Weight and cache bridge: numpy trees in the JAX package's layout -> the
-port's model state and decode cache.
+"""Weight and cache bridge between numpy trees in the JAX package's layout
+and the port's model state and decode cache.
 
 The JAX package keeps each plan group's layers stacked ``[L, ...]`` in a
 nested dict/list of arrays — QAT leaves (``w``, ``pbits``) from
 ``lm.init_params`` or serve leaves (``w4/w2/w1/perm/pbits_sorted/wscale``,
-``b``) from ``convert_tree``. The port holds one module per layer, so
-stacked leaves are unstacked here. Nothing of JAX is imported: callers
-hand over numpy arrays (``jax.device_get``) or a checkpoint file.
+``b``) from ``convert_tree``, or Phase-I leaves (``w``, ``s``). The port
+holds one module per layer, so stacked leaves are unstacked here and
+stacked again on the way back (``tree_to_numpy``). Nothing of JAX is
+imported: callers hand over numpy arrays (``jax.device_get``) or a
+checkpoint file.
 """
 from __future__ import annotations
 
@@ -55,6 +57,33 @@ def params_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> lm.LM:
     if "lm_head" in tree:
         out["lm_head"] = _map(tree["lm_head"], lambda a: _tensor(a, dev))
     return lm.LM(cfg, out)
+
+
+def tree_to_numpy(model: lm.LM) -> Dict:
+    """The port's model -> the JAX package's params layout with numpy
+    leaves (one stacked ``groups`` entry per plan group)."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        return None if node is None else node.detach().cpu().numpy()
+
+    tree = model.tree()
+    blocks = [host(b) for b in tree["blocks"]]
+    out = {k: host(v) for k, v in tree.items() if k != "blocks"}
+    groups, start = [], 0
+    for _kind, count in model.cfg.layer_plan():
+        group = blocks[start:start + count]
+        start += count
+        groups.append(_stack_leaves(group))
+    out["groups"] = groups
+    return out
+
+
+def _stack_leaves(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_leaves([t[k] for t in trees]) for k in first}
+    return None if first is None else np.stack(trees)
 
 
 def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:

@@ -4,10 +4,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import attn_decode, packed_matmul, quant_pack
+from . import (attn_decode, fake_quant, noise_inject, packed_matmul,
+               quant_pack)
 
 _COUNTERS = (packed_matmul.LAUNCHES, quant_pack.LAUNCHES,
-             attn_decode.LAUNCHES)
+             attn_decode.LAUNCHES, noise_inject.LAUNCHES,
+             fake_quant.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

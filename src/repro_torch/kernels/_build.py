@@ -24,7 +24,8 @@ from typing import Callable, Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("segment_gemm.cu", "quant_pack.cu", "attn_decode.cu")
+SOURCES = ("segment_gemm.cu", "quant_pack.cu", "attn_decode.cu",
+           "noise_inject.cu", "fake_quant.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900

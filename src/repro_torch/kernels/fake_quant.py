@@ -1,0 +1,106 @@
+"""QAT quantize-dequantize along K (B8) and its plain version.
+
+Counterpart of ``repro.kernels.fake_quant``: x is quantize-dequantized
+along K with per-16-channel-group precisions ``pbits`` [K // 16] and either
+a per-row scale (one value per index of the non-K dimension: dynamic
+activation scaling) or a per-group scale [K // 16] (weight scaling):
+
+    y = round_to_x_dtype(snap_p(x / s) * s).
+
+``k_dim`` names the dimension of K: 1 for activations x [M, K] (the
+reference's layout), 0 for a weight w [K, N], which the reference
+quantizes as ``swapaxes(w)``; the kernel reads w in place instead of a
+transposed copy, with the same arithmetic per element. The plain version
+is ``core.quant.fake_quant_fwd`` on the reference's layout. On CUDA tensors
+the wrapper launches ``csrc/fake_quant.cu`` or raises; on CPU tensors it
+runs the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.qtypes import GROUP_SIZE
+
+from . import _build
+
+SOURCE = "fake_quant.cu"
+
+# Launches of the CUDA kernel in this process (plain-version calls do not
+# count); reset by whoever reads it.
+LAUNCHES: Dict[str, int] = {"fake_quant": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.soniq_fake_quant
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def _check(x: torch.Tensor, k_dim: int) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    if k_dim not in (0, 1):
+        raise ValueError(f"k_dim must be 0 or 1, got {k_dim}")
+    return k_dim
+
+
+def fake_quant_plain(x: torch.Tensor, pbits: torch.Tensor,
+                     scale: torch.Tensor, *, row_scale: bool, k_dim: int = 1,
+                     group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Plain version on the reference's layout ([M, K]; a [K, N] weight is
+    transposed there and back)."""
+    kd = _check(x, k_dim)
+    xt = x if kd == 1 else x.t()
+    s = scale.float().reshape(-1, 1) if row_scale else scale.float()
+    y = quant.fake_quant_fwd(xt, pbits.float(), s, group_size)
+    return y if kd == 1 else y.t().contiguous()
+
+
+def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor, *,
+               row_scale: bool, k_dim: int = 1,
+               group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """x [R, C] (fp32 or bf16) -> quantize-dequantized x, same dtype and
+    shape. K is dimension ``k_dim``; ``scale`` holds one value per index of
+    the other dimension when ``row_scale``, else one per group of K."""
+    kd = _check(x, k_dim)
+    k = x.shape[0] if kd == 0 else x.shape[1]
+    m = x.shape[1] if kd == 0 else x.shape[0]
+    if k % group_size or pbits.numel() * group_size != k:
+        raise ValueError(f"pbits {tuple(pbits.shape)} do not cover K={k} "
+                         f"in groups of {group_size}")
+    if scale.numel() != (m if row_scale else k // group_size):
+        raise ValueError(f"scale {tuple(scale.shape)} is neither one per "
+                         f"row ({m}) nor one per group ({k // group_size})")
+    if x.device.type == "cpu":
+        return fake_quant_plain(x, pbits, scale, row_scale=row_scale,
+                                k_dim=kd, group_size=group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous fp32 or bf16, got "
+                         f"{x.dtype}")
+    pb = pbits.float().contiguous()
+    sc = scale.float().contiguous()
+    if pb.device != x.device or sc.device != x.device:
+        raise ValueError("pbits and scale must lie on x's device")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _build.library(SOURCE, _bind)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.soniq_fake_quant(
+            x.data_ptr(), pb.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], group_size, int(kd == 0),
+            int(row_scale), _DTYPES[x.dtype], stream)
+    _build.check(code, "soniq_fake_quant")
+    LAUNCHES["fake_quant"] += 1
+    return out

@@ -1,5 +1,8 @@
-"""GQA decode attention over the layer's KV cache. Counterpart of
-``repro.models.attention.attn_decode`` and its cache-family dispatch:
+"""GQA attention. Counterpart of ``repro.models.attention``: the
+full-sequence forward of training (``attn_apply``, dense or in query
+blocks, fp32 scores and softmax in plain torch, as the reference has no
+kernel there) and decode over the layer's KV cache with its cache-family
+dispatch:
 
 * fp ring (``k``/``v``/``pos``): plain torch ops (no fused SDPA);
 * packed 4-bit ring (``k_codes``...): ``serve/kv_quant.py`` writes, kernel
@@ -16,6 +19,7 @@ port's row-reduction rule (``core.numerics``): float64 sums, one rounding.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -28,8 +32,10 @@ from repro_torch.core.numerics import sum_fp64
 from repro_torch.core.qtypes import QuantConfig
 from repro_torch.serve import kv_pool, kv_quant
 from repro_torch.serve.kv_quant import RingWrite, ring_write_index
-from .common import apply_rope_tables
+from .common import apply_rope_tables, rope_tables
 
+CHUNK_THRESHOLD = 2048
+Q_BLOCK = 512
 NEG_INF = -1e30
 
 # The live-lane write index of one step, shared by every layer: a ring's
@@ -98,6 +104,37 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sum_fp64("bhgqk,bkhd->bqhgd", p.to(v.dtype), v).to(v.dtype)
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                   causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Dense path (short sequences): q [B,S,Hk,G,D], k/v [B,T,Hk,D]."""
+    mask = causal_mask(q_pos, k_pos, window) if causal else None
+    return sdpa(q, k, v, mask)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      causal: bool, window: Optional[int],
+                      q_block: int = Q_BLOCK) -> torch.Tensor:
+    """Query blocks of ``q_block`` rows, each with an exact softmax over
+    its keys; under a causal sliding window each block sees only the
+    [lo, lo + band) key band its window reaches, which makes the work
+    O(S * window)."""
+    s = q.shape[1]
+    t = k.shape[1]
+    qb = q_block if s % q_block == 0 else math.gcd(s, q_block)
+    banded = causal and window is not None and (window + qb) < t
+    band = -(-(window + qb) // qb) * qb if banded else t
+    outs = []
+    for i in range(s // qb):
+        qi, qpi = q[:, i * qb:(i + 1) * qb], q_pos[:, i * qb:(i + 1) * qb]
+        lo = min(max(i * qb + qb - band, 0), t - band) if banded else 0
+        outs.append(full_attention(
+            qi, k[:, lo:lo + band], v[:, lo:lo + band], qpi,
+            k_pos[:, lo:lo + band], causal=causal, window=window))
+    return torch.cat(outs, dim=1)
+
+
 class Attention(nn.Module):
     def __init__(self, tree: Dict):
         super().__init__()
@@ -109,6 +146,35 @@ class Attention(nn.Module):
     def tree(self) -> Dict:
         return {name: getattr(self, name).leaf()
                 for name in ("wq", "wk", "wv", "wo")}
+
+
+def attn_apply(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
+               num_heads: int, num_kv_heads: int, head_dim: int,
+               qcfg: QuantConfig, noise: Optional[smol.NoiseSource] = None,
+               rope_theta: float = 1e4, window: Optional[int] = None,
+               causal: bool = True, q_block: int = Q_BLOCK,
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Full-sequence self-attention (training, prefill). x [B, S, D],
+    positions [B, S]; ``rope`` the (cos, sin) tables of the positions when
+    the caller shares them across layers. Above ``CHUNK_THRESHOLD``
+    positions the attention runs in query blocks."""
+    b, s, _ = x.shape
+    q = attn.wq(x, qcfg, noise).reshape(b, s, num_heads, head_dim)
+    k = attn.wk(x, qcfg, noise).reshape(b, s, num_kv_heads, head_dim)
+    v = attn.wv(x, qcfg, noise).reshape(b, s, num_kv_heads, head_dim)
+    cos, sin = rope if rope is not None else rope_tables(
+        positions, head_dim, rope_theta)
+    q = apply_rope_tables(q, cos, sin)
+    k = apply_rope_tables(k, cos, sin)
+    q = q.reshape(b, s, num_kv_heads, num_heads // num_kv_heads, head_dim)
+    if s > q_block and s > CHUNK_THRESHOLD:
+        o = chunked_attention(q, k, v, positions, positions, causal=causal,
+                              window=window, q_block=q_block)
+    else:
+        o = full_attention(q, k, v, positions, positions, causal=causal,
+                           window=window)
+    return attn.wo(o.reshape(b, s, num_heads * head_dim), qcfg, noise)
 
 
 def attn_decode(attn: Attention, x: torch.Tensor, cache: Dict,

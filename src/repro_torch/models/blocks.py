@@ -1,5 +1,7 @@
 """Decoder block assembly (the dense ``attn_mlp`` kind). Counterpart of
-``repro.models.blocks``; the other kinds arrive with their families."""
+``repro.models.blocks``: the full-sequence forward (``block_apply``) and
+the decode step over the KV cache; the other kinds arrive with their
+families."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -11,7 +13,7 @@ from repro_torch.core.qtypes import QuantConfig
 from repro_torch.serve import kv_pool, kv_quant
 from . import attention
 from . import mlp as mlp_lib
-from .common import RMSNorm
+from .common import RMSNorm, rms_norm_init
 
 KINDS = ("attn_mlp",)
 
@@ -27,14 +29,13 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
                device) -> Dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
-    ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
     return {
-        "ln_attn": {"g": ones.clone()},
+        "ln_attn": rms_norm_init(cfg.d_model, device=device),
         "attn": attention.attn_init(
             cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, qcfg,
             generator=generator, device=device, use_bias=cfg.attn_bias,
             dtype=dt),
-        "ln_ffn": {"g": ones.clone()},
+        "ln_ffn": rms_norm_init(cfg.d_model, device=device),
         "mlp": mlp_lib.mlp_init(
             cfg.d_model, cfg.d_ff, qcfg, generator=generator, device=device,
             act=cfg.mlp_act, use_bias=cfg.attn_bias, dtype=dt),
@@ -95,6 +96,19 @@ class Block(nn.Module):
     def tree(self) -> Dict:
         return {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree(),
                 "ln_ffn": self.ln_ffn.tree(), "mlp": self.mlp.tree()}
+
+
+def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
+                qcfg: QuantConfig, noise=None, *, rope=None) -> torch.Tensor:
+    """Full-sequence pre-norm residual block (training forward)."""
+    h = block.ln_attn(x, cfg.norm_eps)
+    x = x + attention.attn_apply(
+        block.attn, h, positions, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, qcfg=qcfg,
+        noise=noise, rope_theta=cfg.rope_theta, window=cfg.window,
+        q_block=cfg.q_block, rope=rope)
+    h = block.ln_ffn(x, cfg.norm_eps)
+    return x + block.mlp(h, qcfg, noise)
 
 
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,

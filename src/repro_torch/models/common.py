@@ -1,5 +1,6 @@
 """Shared model components: norms, embeddings, rotary encodings.
-Counterpart of ``repro.models.common``.
+Counterpart of ``repro.models.common``. The norm gains and the embedding
+table are parameters (frozen until training asks for gradients).
 
 The RMS mean follows the port's row-reduction rule (``core.numerics``).
 """
@@ -15,6 +16,10 @@ from torch import nn
 from repro_torch.core.numerics import sum_fp64
 
 
+def rms_norm_init(d: int, *, device=None) -> Dict:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
 def rms_norm(g: torch.Tensor, x: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
@@ -27,7 +32,7 @@ def rms_norm(g: torch.Tensor, x: torch.Tensor,
 class RMSNorm(nn.Module):
     def __init__(self, leaf: Dict):
         super().__init__()
-        self.register_buffer("g", leaf["g"])
+        self.g = nn.Parameter(leaf["g"], requires_grad=False)
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         return rms_norm(self.g, x, eps)
@@ -38,8 +43,9 @@ class RMSNorm(nn.Module):
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    """Rows of the table in the compute dtype (gathered, then cast)."""
-    return table[tokens].to(compute_dtype)
+    """Rows of the table in the compute dtype (gathered, then cast; the
+    gather's backward sums repeated rows in a fixed order)."""
+    return F.embedding(tokens, table).to(compute_dtype)
 
 
 def embed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +56,7 @@ def embed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class Embed(nn.Module):
     def __init__(self, leaf: Dict):
         super().__init__()
-        self.register_buffer("table", leaf["table"])
+        self.table = nn.Parameter(leaf["table"], requires_grad=False)
 
     def tree(self) -> Dict:
         return {"table": self.table}

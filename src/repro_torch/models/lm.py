@@ -1,25 +1,35 @@
-"""Top-level language model for serving: init, decode cache, decode and
-chunked-prefill steps. Counterpart of ``repro.models.lm``.
+"""Top-level language model: init, the full-sequence forward and the
+training loss, the decode cache, decode and chunked-prefill steps.
+Counterpart of ``repro.models.lm``.
 
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
 ``blocks`` list, where the JAX package stacks layers ``[L, ...]``). Steps
 update the KV cache (fp ring, 4-bit ring or 4-bit page pool) in place and
-return it with the logits.
+return it with the logits. The training forward recomputes each block in
+its backward (``torch.utils.checkpoint``) unless ``cfg.remat == "none"``,
+as the reference remats every layer; the Phase-I draws are keyed by the
+linear's path, so the recomputation sees the same noise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import smol
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve import kv_quant
 from . import attention, blocks
-from .common import Embed, RMSNorm, embed_logits, embed_lookup, rope_tables
+from .common import (Embed, RMSNorm, embed_logits, embed_lookup,
+                     rms_norm_init, rope_tables)
+
+LOSS_CHUNK = 1024
+Z_LOSS = 1e-4
 
 
 class LM(nn.Module):
@@ -42,6 +52,8 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             blocks.Block(kind, bt, act=cfg.mlp_act)
             for kind, bt in zip(kinds, tree["blocks"]))
+        for name, lin in smol.smol_linears(self):
+            lin.path = name
 
     def tree(self) -> Dict:
         out = {"embed": self.embed.tree(),
@@ -57,9 +69,10 @@ class LM(nn.Module):
 
 
 def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
-    """Random model in the phase ``cfg.quant.mode`` selects (QAT for
-    serving: the engine packs it), drawn from a ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (default: the card)."""
+    """Random model in the phase ``cfg.quant.mode`` selects (NOISE to
+    start training, QAT for serving: the engine packs it), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (default: the
+    card)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -68,8 +81,7 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
     table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=dev) * 0.02
     tree: Dict = {"embed": {"table": table.to(dt)},
-                  "final_norm": {"g": torch.ones((cfg.d_model,),
-                                                 device=dev)}}
+                  "final_norm": rms_norm_init(cfg.d_model, device=dev)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = smol.linear_init(
             cfg.d_model, cfg.vocab_size, qcfg, generator=gen, device=dev,
@@ -111,6 +123,81 @@ def _readout(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return embed_logits(model.embed.table, h)
     return smol.linear_apply(model.lm_head.leaf(), h.float(), cfg.quant)
+
+
+# ------------------------------------------------------------- training ----
+def _recompute(cfg) -> bool:
+    return cfg.remat != "none" and torch.is_grad_enabled()
+
+
+def forward(model: LM, cfg, tokens, *, positions=None,
+            noise: Optional[smol.NoiseSource] = None) -> torch.Tensor:
+    """Full-sequence forward: tokens [B, S] -> the hidden state after the
+    final norm [B, S, D] (the loss applies the readout in chunks).
+    ``noise`` supplies the Phase-I draws (``cfg.quant.mode == "noise"``)."""
+    dev = model.device
+    tok = torch.as_tensor(tokens, device=dev).long()
+    b, s = tok.shape
+    x = embed_lookup(model.embed.table, tok, getattr(torch, cfg.dtype))
+    if positions is None:
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+    positions = torch.as_tensor(positions, device=dev).long()
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    for block in model.blocks:
+        if _recompute(cfg):
+            x = checkpoint(blocks.block_apply, block, x, positions, cfg,
+                           cfg.quant, noise, rope=rope, use_reentrant=False)
+        else:
+            x = blocks.block_apply(block, x, positions, cfg, cfg.quant,
+                                   noise, rope=rope)
+    return model.final_norm(x, cfg.norm_eps)
+
+
+def _chunk_loss(model: LM, cfg, h: torch.Tensor, y: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    lg = _readout(model, cfg, h)                        # [B, c, V] fp32
+    mask = (y >= 0).float()
+    yc = torch.clamp(y, min=0)
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, yc[..., None])[..., 0]
+    ce = torch.sum((logz - ll) * mask)
+    zl = torch.sum(torch.square(logz) * mask)
+    return ce + Z_LOSS * zl, torch.sum(mask)
+
+
+def lm_loss(model: LM, cfg, hidden: torch.Tensor, labels,
+            chunk: int = LOSS_CHUNK) -> torch.Tensor:
+    """Softmax cross-entropy plus the z-loss over the vocabulary, in
+    sequence chunks (each recomputed in the backward, so the [B, S, V]
+    logits are never all resident). Labels < 0 are masked out."""
+    y = torch.as_tensor(labels, device=hidden.device).long()
+    s = hidden.shape[1]
+    c = chunk if s % chunk == 0 else math.gcd(s, chunk)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for i in range(s // c):
+        h, yi = hidden[:, i * c:(i + 1) * c], y[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_chunk_loss, model, cfg, h, yi,
+                                 use_reentrant=False)
+        else:
+            part, n = _chunk_loss(model, cfg, h, yi)
+        tot = tot + part
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(model: LM, batch: Dict, cfg,
+            noise: Optional[smol.NoiseSource] = None):
+    """Scalar training loss: CE + z-loss + (Phase I) the SONIQ bit
+    regularizer lambda * ||log2(1 + e^-s)||_1. Returns (loss, metrics)."""
+    hidden = forward(model, cfg, batch["tokens"],
+                     positions=batch.get("positions"), noise=noise)
+    loss = lm_loss(model, cfg, hidden, batch["labels"])
+    if cfg.quant.mode == "noise":
+        loss = loss + cfg.quant.lam * smol.bit_penalty_of_params(
+            model).to(loss.device)
+    return loss, {"ce": loss}
 
 
 def _decode_core(model: LM, cfg, cache: Dict, x: torch.Tensor,

@@ -2,7 +2,7 @@
 Counterpart of ``repro.models.mlp``."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -33,13 +33,14 @@ class MLP(nn.Module):
         self.gate = smol.SmolLinear(tree["gate"]) if act == "swiglu" \
             else None
 
-    def forward(self, x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
-        h = self.up(x, qcfg)
+    def forward(self, x: torch.Tensor, qcfg: QuantConfig,
+                noise: Optional[smol.NoiseSource] = None) -> torch.Tensor:
+        h = self.up(x, qcfg, noise)
         if self.act == "swiglu":
-            h = silu(self.gate(x, qcfg)) * h
+            h = silu(self.gate(x, qcfg, noise)) * h
         else:
             h = activation(self.act)(h)
-        return self.down(h, qcfg)
+        return self.down(h, qcfg, noise)
 
     def tree(self) -> Dict:
         out = {"up": self.up.leaf(), "down": self.down.leaf()}

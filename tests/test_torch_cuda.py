@@ -187,3 +187,71 @@ def test_qkv_attn_decode_paged_within_bound_and_equals_ring(dev, s):
     ring_out = ad.qkv_attn_decode(q, *ring, k_pos.contiguous(), q_pos,
                                   window=40)
     assert torch.equal(ring_out, got)
+
+
+# ------------------------------------------------------------ training ----
+@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+def test_noise_inject_bit_equal(dev, k, n):
+    from repro_torch.kernels import noise_inject as ni
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w = torch.rand((k, n), generator=g, device=dev) * 2.2 - 1.1
+    w[0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+    s = torch.randn((k // 16,), generator=g, device=dev) * 2.0
+    seed = torch.randint(0, 1 << 32, (1,), generator=g, device=dev)
+    kernels.reset_launch_counts()
+    got = ni.noise_inject(w, s, seed)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["noise_inject"] == 1
+    assert torch.equal(got, ni.noise_inject_plain(w, ni.group_sigma(s),
+                                                  seed))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
+                                             (False, 0)])
+def test_fake_quant_bit_equal(dev, dtype, row_scale, k_dim):
+    from repro_torch.kernels import fake_quant as fq
+    g = torch.Generator(device=dev).manual_seed(3)
+    r, c = 96, 2560
+    x = (torch.randn((r, c), generator=g, device=dev) * 2).to(dtype)
+    x[1] = 0
+    k = c if k_dim == 1 else r
+    m = r if k_dim == 1 else c
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (k // 16,), generator=g, device=dev)]
+    if row_scale:
+        scale = quant.abs_max_scale(x, dim=k_dim).reshape(m)
+    else:
+        xt = x if k_dim == 0 else x.t()
+        scale = quant.per_group_weight_scale(xt, 16)
+    got = fq.fake_quant(x, pb, scale, row_scale=row_scale, k_dim=k_dim)
+    want = fq.fake_quant_plain(x, pb, scale, row_scale=row_scale,
+                               k_dim=k_dim)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_full_width_train_step_repeats_bitwise(dev):
+    """Two layers of h2o-danube-1.8b at full width, bf16 compute: a Phase-I
+    and a Phase-II step run on the kernels and give bitwise the same
+    losses and gradient norms twice from the same seed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.train import loop
+    from repro_torch.train import state as state_lib
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2)
+    tcfg = state_lib.TrainConfig(t1=1, t2=2, warmup=1)
+
+    def run():
+        stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, batch_size=4, seed=0))
+        kernels.reset_launch_counts()
+        out = loop.train(cfg, tcfg, stream.batches(), device=dev)
+        counts = kernels.launch_counts()
+        assert counts["noise_inject"] > 0 and counts["fake_quant"] > 0
+        return [(m["loss"], m["grad_norm"]) for m in out["history"]]
+
+    first, second = run(), run()
+    assert all(np.isfinite(v) for pair in first for v in pair)
+    assert first == second

@@ -29,10 +29,15 @@ PORTED = {
         "repro_torch.kernels.attn_decode:qkv_attn_decode",
     ("repro.kernels.attn_decode", "qkv_attn_decode_paged"):
         "repro_torch.kernels.attn_decode:qkv_attn_decode_paged",
+    ("repro.kernels.noise_inject", "noise_inject"):
+        "repro_torch.kernels.noise_inject:noise_inject",
+    ("repro.kernels.fake_quant", "fake_quant"):
+        "repro_torch.kernels.fake_quant:fake_quant",
 }
 # The CUDA source behind each ported wrapper.
 SOURCES = {"packed_matmul": "segment_gemm.cu", "quant_pack": "quant_pack.cu",
-           "attn_decode": "attn_decode.cu"}
+           "attn_decode": "attn_decode.cu",
+           "noise_inject": "noise_inject.cu", "fake_quant": "fake_quant.cu"}
 
 
 def _port_modules():

@@ -38,8 +38,11 @@ from repro_torch.models import attention as pattention
 from repro_torch.models import blocks as pblocks
 from repro_torch.models import common as pcommon
 from repro_torch.models import lm as plm
+from repro_torch.launch import train as ptrain_launch
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
+from repro_torch.train import loop as ploop
+from repro_torch.train import state as pstate
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 AS_WRITTEN = {"xla_allow_excess_precision": False}
@@ -344,8 +347,9 @@ def test_packed_model_bytes_counts_carriers(bridged):
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch):
     """Entry points run on the card unless the CPU is asked for: the 4-bit
-    ring and paged caches included. What is not ported yet (the fp paged
-    pool, speculative decoding) raises."""
+    ring and paged caches included, and the trainer and its launcher.
+    What is not ported yet (the fp paged pool, speculative decoding)
+    raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(pget_config("h2o-danube-1.8b").reduced(),
                               num_layers=1)
@@ -374,6 +378,20 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
         kv_bits=4, kv_layout="paged"), device="cpu")
     with pytest.raises(ValueError, match="ring"):
         lock.generate(np.ones((1, 3), np.int32), 2)
+    tcfg = pstate.TrainConfig(t1=1, t2=2, warmup=1)
+    batches = iter([{"tokens": np.ones((2, 4), np.int32),
+                     "labels": np.ones((2, 4), np.int32)}] * 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ploop.train(cfg, tcfg, batches)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ptrain_launch.main(["--arch", "h2o-danube-1.8b", "--reduced",
+                            "--steps", "1"])
+    out = ploop.train(cfg, tcfg, batches, device="cpu")
+    assert [m["phase"] for m in out["history"]] == [1, 2]
+    assert out["state"]["model"].device.type == "cpu"
+    assert ptrain_launch.main(["--arch", "h2o-danube-1.8b", "--reduced",
+                               "--device", "cpu", "--steps", "2", "--t1",
+                               "1", "--batch", "2", "--seq", "8"]) == 0
 
 
 # ------------------------------------------------- packed 4-bit KV cache ----
