@@ -5,8 +5,8 @@
 
 Phases (none catches an error; any failure exits non-zero):
   1. Card and build: the card's name and power limit, then every CUDA
-     kernel of the serve path built with nvcc for sm_90a (one nvcc per
-     source, all started together; timed).
+     kernel built with nvcc for sm_90a (one nvcc per source, all started
+     together; timed). Every phase logs its wall seconds.
   2. Segment kernels against their plain PyTorch versions on the card, at
      the main path's shapes (h2o-danube-1.8b: K = 2560 / 6912 split into
      [K4|K2|K1] segments, N in {640, 2560, 6912}, bf16 activations, M = 4
@@ -14,6 +14,12 @@ Phases (none catches an error; any failure exits non-zero):
      segment GEMMs within the fp32 reordering bound
      |kernel - plain| <= 1e-5 * (|xq| @ |wd|) + 1e-6. Each is timed with
      CUDA events beside its plain version and a torch.matmul of the same
+     dequantized operands. B3 (the plain segment GEMM of the two-pass
+     form) on one layer's 21 calls at M = 4, and B6 (the grouped GEMM)
+     on one deepseek-moe-16b layer's 9 calls (E = 64 experts, T = 4
+     dispatch rows, most of them zero), held to the same bound, each
+     expert of B6 bitwise B3 on that expert's operands; timed beside
+     their plain versions and a torch.matmul / torch.bmm of the
      dequantized operands.
   3. Decode attention over the packed 4-bit KV cache against the plain
      versions, at the full width (Hk = 8, G = 4, D = 80, batch 4): B4 on
@@ -31,7 +37,10 @@ Phases (none catches an error; any failure exits non-zero):
      continuous; the card agrees with the plain versions on the CPU in
      fp32: the reduced config end to end, and two full-width layers
      teacher-forced at every serve linear (each op held on its own;
-     flipped activation codes counted).
+     flipped activation codes counted). The two-pass activation form
+     (fuse_act_quant=False: B8, then B3) equals the fused form bitwise at
+     every linear of layer 0, and serving the packed model in it gives
+     the fused run's tokens through B8 and B3 alone.
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
   6. 4-bit KV serve at full width and depth: the ring DecodeEngine (built
@@ -63,7 +72,19 @@ Phases (none catches an error; any failure exits non-zero):
      draws; output, dx, dw and ds each within relative L2 1e-5.
  11. The launcher, ``repro_torch.launch.train --arch h2o-danube-1.8b
      --steps 2 --batch 8 --seq 128`` in a subprocess, must exit 0.
- 12. Summary: a ``kernels`` JSON line, a ``training`` JSON line, the
+ 12. MoE serve: full-width, 28-layer deepseek-moe-16b from random QAT
+     weights of the seed (60.8 GiB in fp32, so every earlier model is
+     freed first), packed (B7) and served through the DecodeEngine with
+     the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
+     must go through B6, B8 and B1; a second run gives the same tokens;
+     lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
+     give equal tokens. Peak memory, decode step ms and its device
+     profile.
+ 13. Card vs CPU, teacher-forced, on full-width deepseek-moe-16b cut to
+     its dense layer and one MoE layer: every linear, expert bank, the
+     router and the logits within relative L2 1e-5.
+ 14. Summary: a ``kernels`` JSON line (B1-B9), the ``kv4_serve``,
+     ``training``, ``moe_serve`` and ``phase_seconds`` JSON lines, the
      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -84,6 +105,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.backend import base as backend  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.core import smol  # noqa: E402
@@ -109,8 +131,12 @@ B1, B2, B7 = ("fused_act_segment_matmul", "fused_act_selfscale_matmul",
               "quantize_pack")
 B4, B5 = "qkv_attn_decode", "qkv_attn_decode_paged"
 B8, B9 = "fake_quant", "noise_inject"
+B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
+MOE_ARCH = "deepseek-moe-16b"
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B2: "src/repro_torch/csrc/segment_gemm.cu",
+           B3: "src/repro_torch/csrc/segment_gemm.cu",
+           B6: "src/repro_torch/csrc/segment_gemm.cu",
            B4: "src/repro_torch/csrc/attn_decode.cu",
            B5: "src/repro_torch/csrc/attn_decode.cu",
            B7: "src/repro_torch/csrc/quant_pack.cu",
@@ -118,6 +144,8 @@ SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B9: "src/repro_torch/csrc/noise_inject.cu"}
 REPLACES = {B1: "src/repro/kernels/packed_matmul.py:108",
             B2: "src/repro/kernels/packed_matmul.py:121",
+            B3: "src/repro/kernels/packed_matmul.py:100",
+            B6: "src/repro/kernels/packed_matmul.py:260",
             B4: "src/repro/kernels/attn_decode.py:54",
             B5: "src/repro/kernels/attn_decode.py:155",
             B7: "src/repro/kernels/quant_pack.py:21",
@@ -128,6 +156,20 @@ TRAIN_BATCH, TRAIN_SEQ, T1, T2 = 8, 128, 3, 6
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase, logged as it ends."""
+
+    def __init__(self):
+        self.laps = {}
+        self.t = time.perf_counter()
+
+    def lap(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.laps[phase] = round(now - self.t, 2)
+        self.t = now
+        log(f"[{phase}] phase done in {self.laps[phase]:.2f} s")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -209,79 +251,82 @@ class LayerOperands:
                                        scales=sc, p=p, n=n, kp=kp))
 
 
+def _segment_fns(name):
+    """(kernel, plain version, the x the GEMM multiplies) of one call of
+    B1, B2 or B3."""
+    if name == B1:
+        return (lambda c: pm.fused_act_segment_matmul(
+                    c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]),
+                lambda c: pm.fused_act_segment_matmul_plain(
+                    c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]),
+                lambda c: pm.act_quant(c["x"], c["sx"], c["p"]))
+    if name == B2:
+        return (lambda c: pm.fused_act_selfscale_matmul(
+                    c["x"], c["wp"], c["scales"], p=c["p"]),
+                lambda c: pm.fused_act_selfscale_matmul_plain(
+                    c["x"], c["wp"], c["scales"], p=c["p"]),
+                lambda c: pm.act_quant(
+                    c["x"], quant.abs_max_scale(c["x"], -1), c["p"]))
+    return (lambda c: pm.packed_segment_matmul(c["x"], c["wp"], c["scales"],
+                                               p=c["p"]),
+            lambda c: pm.segment_matmul_plain(c["x"], c["wp"], c["scales"],
+                                              p=c["p"]),
+            lambda c: c["x"].float())
+
+
+def _held(name, got, want, xq, wd):
+    """|kernel - plain| within the fp32 reordering bound
+    1e-5 * (|xq| @ |wd|) + 1e-6; returns the max |error|."""
+    mag = xq.abs().double() @ wd.abs().double()
+    err = (got.double() - want.double()).abs()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    if (err > 1e-5 * mag + 1e-6).any():
+        raise AssertionError(f"{name} {tuple(xq.shape)}x{tuple(wd.shape)}: "
+                             f"|err| {err.max().item():.3e} over the fp32 "
+                             f"reordering bound")
+    return err.max().item()
+
+
 def check_segment_gemm(name, ops_list):
     """Kernel vs plain for every call; returns the max |error|."""
+    kern, plain, xq = _segment_fns(name)
     worst = 0.0
     for ops in ops_list:
         for c in ops.calls:
-            if name == B1:
-                got = pm.fused_act_segment_matmul(c["x"], c["sx"], c["wp"],
-                                                  c["scales"], p=c["p"])
-                want = pm.fused_act_segment_matmul_plain(
-                    c["x"], c["sx"], c["wp"], c["scales"], p=c["p"])
-                xq = pm.act_quant(c["x"], c["sx"], c["p"])
-            else:
-                got = pm.fused_act_selfscale_matmul(c["x"], c["wp"],
-                                                    c["scales"], p=c["p"])
-                want = pm.fused_act_selfscale_matmul_plain(
-                    c["x"], c["wp"], c["scales"], p=c["p"])
-                xq = pm.act_quant(c["x"], quant.abs_max_scale(c["x"], -1),
-                                  c["p"])
+            got, want = kern(c), plain(c)
             torch.cuda.synchronize()
-            wd = pm.unpack_dequant(c["wp"], c["p"], c["scales"])
-            mag = xq.abs().double() @ wd.abs().double()
-            err = (got.double() - want.double()).abs()
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: non-finite output")
-            over = err > 1e-5 * mag + 1e-6
-            if over.any():
-                raise AssertionError(
-                    f"{name} {tuple(c['x'].shape)}x{tuple(c['wp'].shape)} "
-                    f"p={c['p']}: |err| {err.max().item():.3e} over the "
-                    f"fp32 reordering bound")
-            worst = max(worst, err.max().item())
+            worst = max(worst, _held(name, got, want, xq(c),
+                                     pm.unpack_dequant(c["wp"], c["p"],
+                                                       c["scales"])))
     return worst
 
 
 def time_segment_gemm(name, sets, reps=20):
     """ms of one layer's calls (rotating operand sets so the weights come
-    from device memory, as in a 24-layer step), plain and library ms."""
-    def run(fn):
-        def go():
-            for ops in sets:
-                for c in ops.calls:
-                    fn(c)
-        return go
+    from device memory, as in a 24-layer step), plain and library ms (a
+    torch.matmul of the same quantized x and dequantized weights)."""
+    kern, plain, xq = _segment_fns(name)
 
-    if name == B1:
-        kern = run(lambda c: pm.fused_act_segment_matmul(
-            c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]))
-        plain = run(lambda c: pm.fused_act_segment_matmul_plain(
-            c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]))
-    else:
-        kern = run(lambda c: pm.fused_act_selfscale_matmul(
-            c["x"], c["wp"], c["scales"], p=c["p"]))
-        plain = run(lambda c: pm.fused_act_selfscale_matmul_plain(
-            c["x"], c["wp"], c["scales"], p=c["p"]))
-    lib_ops = []
-    for ops in sets:
-        for c in ops.calls:
-            sx = c["sx"] if name == B1 else quant.abs_max_scale(c["x"], -1)
-            lib_ops.append((pm.act_quant(c["x"], sx, c["p"]).contiguous(),
-                            pm.unpack_dequant(c["wp"], c["p"], c["scales"])))
+    def run(fn):
+        return lambda: [fn(c) for ops in sets for c in ops.calls]
+
+    lib_ops = [(xq(c).contiguous(),
+                pm.unpack_dequant(c["wp"], c["p"], c["scales"]))
+               for ops in sets for c in ops.calls]
 
     def library():
-        for xq, wd in lib_ops:
-            torch.matmul(xq, wd)
+        for a, b in lib_ops:
+            torch.matmul(a, b)
 
     n = len(sets)
-    ms = time_ms(kern, reps) / n
-    plain_ms = time_ms(plain, 2) / n
+    ms = time_ms(run(kern), reps) / n
+    plain_ms = time_ms(run(plain), 2) / n
     library_ms = time_ms(library, reps) / n
     c0 = sets[0].calls
-    nbytes = sum(c["x"].shape[0] * c["kp"] * 2 + c["x"].shape[0] * 4
-                 + c["wp"].numel() + c["scales"].numel() * 4
-                 + 2 * c["x"].shape[0] * c["n"] * 4 for c in c0)
+    nbytes = sum(c["x"].shape[0] * c["kp"] * 2 + c["wp"].numel()
+                 + c["scales"].numel() * 4 + 2 * c["x"].shape[0] * c["n"] * 4
+                 + (c["x"].shape[0] * 4 if name == B1 else 0) for c in c0)
     flops = sum(2 * c["x"].shape[0] * c["kp"] * c["n"] for c in c0)
     b_ms, b_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -321,6 +366,107 @@ def phase_quant_pack(cfg, qcfg, gen, dev, reps=10):
     b_ms, b_by = bound(nbytes, flops)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+# ---------------------------------------------------- grouped GEMM ----
+class GroupedOperands:
+    """B6 operands of one MoE layer's three expert projections (up, gate,
+    down) at T dispatch rows a expert: x [E, T, K] bf16 with the rows no
+    token was routed to zero (T * top_k of the E * T rows live), carriers
+    [E, Kp * p / 8, N], per-expert group scales read as column slices of
+    [E, K / 16], as the grouped driver passes them."""
+
+    def __init__(self, cfg, qcfg, t, gen, dev):
+        e = cfg.num_experts
+        self.calls = []
+        for k, n in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                     (cfg.d_ff, cfg.d_model)):
+            x = torch.randn((e, t, k), generator=gen, device=dev)
+            live = torch.randperm(e * t, generator=gen, device=dev)[
+                :t * cfg.top_k]
+            mask = torch.zeros(e * t, device=dev)
+            mask[live] = 1.0
+            x = (x * mask.reshape(e, t, 1)).to(torch.bfloat16)
+            wscale = torch.rand((e, k // 16), generator=gen, device=dev) \
+                * 0.02 + 0.001
+            for p, off, kp, goff in segment_shapes(qcfg, k):
+                wp = torch.randint(0, 256, (e, kp * p // 8, n),
+                                   generator=gen, device=dev,
+                                   dtype=torch.uint8)
+                self.calls.append(dict(
+                    x=x[:, :, off:off + kp], wp=wp, p=p, n=n, kp=kp,
+                    scales=wscale[:, goff:goff + kp // 16]))
+
+
+def phase_grouped_segment(ops):
+    """B6 against its plain version on one MoE layer's 9 calls (3
+    projections x 3 segments), each expert held to the fp32 reordering
+    bound, and each expert's rows bitwise B3's launch on that expert's
+    operands; timed beside the plain version and a torch.bmm of the
+    dequantized operands."""
+    worst = 0.0
+    for c in ops.calls:
+        got = pm.packed_segment_matmul_grouped(c["x"], c["wp"], c["scales"],
+                                               p=c["p"])
+        want = pm.grouped_matmul_plain(c["x"], c["wp"], c["scales"],
+                                       p=c["p"])
+        torch.cuda.synchronize()
+        for e in range(c["x"].shape[0]):
+            sc = c["scales"][e].contiguous()
+            worst = max(worst, _held(B6, got[e], want[e], c["x"][e],
+                                     pm.unpack_dequant(c["wp"][e], c["p"],
+                                                       sc)))
+            alone = pm.packed_segment_matmul(c["x"][e], c["wp"][e], sc,
+                                             p=c["p"])
+            if not torch.equal(alone, got[e]):
+                raise AssertionError(f"B6 expert {e} differs from B3 on "
+                                     f"its operands (p={c['p']})")
+    kern = lambda: [pm.packed_segment_matmul_grouped(  # noqa: E731
+        c["x"], c["wp"], c["scales"], p=c["p"]) for c in ops.calls]
+    plain = lambda: [pm.grouped_matmul_plain(  # noqa: E731
+        c["x"], c["wp"], c["scales"], p=c["p"]) for c in ops.calls]
+    lib_ops = [(c["x"].float().contiguous(), torch.stack([
+        pm.unpack_dequant(c["wp"][e], c["p"], c["scales"][e].contiguous())
+        for e in range(c["x"].shape[0])])) for c in ops.calls]
+    e, t = ops.calls[0]["x"].shape[:2]
+    nbytes = sum(e * t * c["kp"] * 2 + c["wp"].numel()
+                 + c["scales"].numel() * 4 + 2 * e * t * c["n"] * 4
+                 for c in ops.calls)
+    flops = sum(2 * e * t * c["kp"] * c["n"] for c in ops.calls)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(max_abs_err=worst, ms=time_ms(kern, 20),
+                plain_ms=time_ms(plain, 1),
+                library_ms=time_ms(lambda: [torch.bmm(a, b)
+                                            for a, b in lib_ops], 20),
+                bound_ms=b_ms, bound_by=b_by,
+                carrier_bytes=sum(c["wp"].numel() for c in ops.calls))
+
+
+def check_two_pass_equals_fused(model, qcfg, gen, dev):
+    """Every serve linear of the model's first layer on bf16 activations
+    (M = 4 and M = 32): the two-pass form (B8, then B3) bitwise the fused
+    form (B1 / B2), under per-token and per-tensor scales. Returns the
+    number of outputs compared."""
+    n = 0
+    for name, lin in smol.smol_linears(model.blocks[0]):
+        leaf = lin.leaf()
+        if "w4" not in leaf:
+            continue
+        k = leaf["perm"].shape[-1]
+        for m in (4, 32):
+            x = (torch.randn((m, k), generator=gen, device=dev)
+                 * 3).to(torch.bfloat16)
+            for mode in ("per_token", "per_tensor"):
+                fused = dataclasses.replace(qcfg, act_scale_mode=mode,
+                                            fuse_act_quant=True)
+                two = dataclasses.replace(fused, fuse_act_quant=False)
+                a = backend.packed_matmul(leaf, x, fused)
+                b = backend.packed_matmul(leaf, x, two)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"two-pass != fused at {name} "
+                                         f"(M={m}, {mode})")
+                n += 1
+    return n
 
 
 # ------------------------------------------------------ decode attention ----
@@ -572,7 +718,7 @@ def profile_decode(eng, steps=3):
     top = sorted(kern, key=lambda e: -e.device_time_total)[:4]
     return {"kernels_per_step": sum(e.count for e in kern) / steps,
             "device_busy_ms_per_step": busy,
-            "top": [(e.key[:48], round(e.device_time_total / steps / 1e3, 3))
+            "top": [(e.key[:72], round(e.device_time_total / steps / 1e3, 3))
                     for e in top]}
 
 
@@ -1139,11 +1285,157 @@ def phase_launcher():
     return wall
 
 
+# ------------------------------------------------------------ MoE serve ----
+def phase_moe_serve(dev, rng, launches):
+    """Full-width, 28-layer deepseek-moe-16b from random QAT weights of the
+    seed, packed (B7) and served through the DecodeEngine with the fp
+    ring (B6 for every routed-expert projection after B8 over [E, T, K];
+    B1 for attention, the dense layer and the shared experts), then
+    lockstep == continuous, and the 4-bit ring (B4) and page pool (B5)
+    with equal tokens. Returns the numbers."""
+    cfg = get_config(MOE_ARCH).with_quant_mode("qat")
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED + 5, device=dev)
+    torch.cuda.synchronize()
+    stats["init_s"] = time.perf_counter() - t0
+    stats["qat_gib"] = sum(t.numel() * t.element_size() for t in
+                           params.state_dict().values()) / 2 ** 30
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.DecodeEngine(params, cfg, ecfg)
+    torch.cuda.synchronize()
+    stats["pack_s"] = time.perf_counter() - t0
+    stats["pack_launches"] = kernels.launch_counts()[B7]
+    del params
+    torch.cuda.empty_cache()
+    stats["peak_gib_init_and_pack"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    stats["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    log(f"[12] {MOE_ARCH}: {cfg.num_layers} layers, QAT tree "
+        f"{stats['qat_gib']:.2f} GiB in {stats['init_s']:.2f} s, packed "
+        f"to {stats['packed_bytes']:,} bytes in {stats['pack_s']:.2f} s "
+        f"({stats['pack_launches']} B7 launches); peak "
+        f"{stats['peak_gib_init_and_pack']:.2f} GiB")
+    if stats["pack_launches"] == 0:
+        raise AssertionError("MoE packing ran no B7 launch")
+    reqs = requests(cfg.vocab_size, rng, n=8, lo=16, hi=32, new=12)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, wall = serve_all(eng, reqs)
+    counts = kernels.launch_counts()
+    launches[B6] = counts[B6]
+    stats["serve_launches"] = counts
+    log(f"[12] fp ring launches {counts}")
+    if counts[B6] == 0 or counts[B8] == 0 or counts[B1] == 0 \
+            or counts[B3] != 0:
+        raise AssertionError(f"MoE fp ring path launches {counts}")
+    for c in out:
+        if c.new_tokens.size != 12 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad completion {c.new_tokens}")
+    again, _wall = serve_all(eng, reqs)
+    for a, b in zip(out, again):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError("MoE: a second identical run gave other "
+                                 "tokens")
+    new = sum(c.new_tokens.size for c in out)
+    stats["fp_ring"] = dict(tok_s=new / wall, wall_s=wall,
+                            steps=eng.sched.step_count,
+                            decode_step_ms=decode_step_ms(eng),
+                            peak_gib_serve=torch.cuda.max_memory_allocated()
+                            / 2 ** 30)
+    prof = profile_decode(eng)
+    stats["fp_ring"]["profile"] = prof
+    log(f"[12] fp ring: {len(reqs)} requests, {new} tokens in {wall:.2f} s;"
+        f" {stats['fp_ring']}; device idle share "
+        f"{1 - prof['device_busy_ms_per_step'] / stats['fp_ring']['decode_step_ms']:.3f}")
+    log(f"[12] tokens {[c.new_tokens[:6].tolist() for c in out[:3]]}")
+    check_lockstep_equals_continuous(eng, eng.cfg, ecfg, cfg.vocab_size,
+                                     rng, 16, 6)
+    log("[12] lockstep == continuous on same-length prompts")
+    kw = dict(max_batch=4, cache_len=256, prefill_chunk=8, kv_bits=4)
+    runs = {}
+    for layout in ("ring", "paged"):
+        e = engine.DecodeEngine(eng.model, eng.cfg, engine.EngineConfig(
+            kv_layout=layout, page_size=16, **kw), already_serve=True,
+            device=dev)
+        kernels.reset_launch_counts()
+        runs[layout], wall, step = timed_serve(e, reqs)
+        counts = kernels.launch_counts()
+        want = B4 if layout == "ring" else B5
+        if counts[want] == 0 or counts[B6] == 0:
+            raise AssertionError(f"MoE kv4 {layout} launches {counts}")
+        stats[f"kv4_{layout}"] = dict(tok_s=new / wall, wall_s=wall,
+                                      decode_step_ms=step)
+        log(f"[12] kv4 {layout}: {stats[f'kv4_{layout}']}")
+        del e
+    for a, b in zip(runs["ring"], runs["paged"]):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"MoE kv4 paged != ring (request "
+                                 f"{a.request_id})")
+    log("[12] kv4 ring == paged")
+    del eng
+    torch.cuda.empty_cache()
+    return stats
+
+
+def check_moe_against_cpu(ecfg, dev):
+    """The kernels on the card against the plain versions on the CPU, fp32,
+    teacher-forced (as ``check_against_cpu``) on full-width
+    deepseek-moe-16b cut to its first two layers (the dense layer and one
+    MoE layer): every serve linear and expert bank, the router and the
+    readout, on a prefill chunk and a decode step; each output on the
+    CPU's input and each input as the card's own ops made it (norms,
+    attention, routing, dispatch, SwiGLU, combine) within relative L2
+    1e-5."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=2,
+                              dtype="float32").with_quant_mode("qat")
+    eng = engine.DecodeEngine(lm.init_params(cfg, seed=SEED + 6,
+                                             device=dev), cfg, ecfg,
+                              device=dev)
+    host = copy.deepcopy(eng.model).to("cpu")
+    tape_cpu = LinearTape(host)
+    logits_cpu = _prefill_then_decode(host, eng.cfg, "cpu")
+    tape_cpu.close()
+    tape_card = LinearTape(eng.model, feed=tape_cpu.inputs)
+    logits_card = _prefill_then_decode(eng.model, eng.cfg, dev)
+    tape_card.close()
+    calls = len(tape_cpu.inputs)
+    if len(tape_card.inputs) != calls:
+        raise AssertionError(f"calls: card {len(tape_card.inputs)}, CPU "
+                             f"{calls}")
+    worst = {}
+    for (name, _lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        kind = name.rsplit(".", 1)[-1]
+        for what, a, b in (("out", y_card, y_cpu), ("in", x_card, x_cpu)):
+            err = rel_l2(a, b)
+            key = f"{kind}.{what}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            if not err <= 1e-5:
+                raise AssertionError(f"card vs CPU at {name} ({what}): "
+                                     f"relative L2 {err:.3e}")
+    worst["logits"] = max(rel_l2(a, b) for a, b in zip(logits_card,
+                                                       logits_cpu))
+    if not worst["logits"] <= 1e-5:
+        raise AssertionError(f"card vs CPU logits: {worst['logits']:.3e}")
+    worst["calls"] = calls
+    del eng, host
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    clock = PhaseClock()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -1159,6 +1451,8 @@ def main() -> int:
         for line in report.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"    ptxas {src}: {line.strip()}")
+
+    clock.lap(1)
 
     # -------------------------------------------------------- phase 2 ----
     cfg = get_config(ARCH)
@@ -1181,10 +1475,25 @@ def main() -> int:
             f"one layer at M=4: {res}")
         del decode_sets, prefill
     torch.cuda.empty_cache()
+    b3_sets = [LayerOperands(cfg, mixed, 4, gen, dev) for _ in range(4)]
+    results[B3] = dict(time_segment_gemm(B3, b3_sets),
+                       max_abs_err=check_segment_gemm(B3, b3_sets[:1]))
+    log(f"[2] {B3} within the fp32 bound; one layer at M=4 (x as it is: "
+        f"the second pass reads the fake-quantized activations): "
+        f"{results[B3]}")
+    del b3_sets
+    results[B6] = phase_grouped_segment(GroupedOperands(
+        get_config(MOE_ARCH), mixed, 4, gen, dev))
+    log(f"[2] {B6} within the fp32 bound, every expert bitwise {B3}; one "
+        f"{MOE_ARCH} layer (E=64, T=4): {results[B6]}")
+    torch.cuda.empty_cache()
+    clock.lap(2)
 
     # -------------------------------------------------------- phase 3 ----
     results.update(phase_attention(cfg, gen, dev))
     torch.cuda.empty_cache()
+
+    clock.lap(3)
 
     # -------------------------------------------------------- phase 4 ----
     launches = {}
@@ -1229,11 +1538,31 @@ def main() -> int:
     check_lockstep_equals_continuous(eng, qat_cfg, ecfg, cfg.vocab_size,
                                      rng, 16, 8)
     log("[4] lockstep == continuous on same-length prompts")
-    del eng
+    log(f"[4] two-pass == fused bitwise at "
+        f"{check_two_pass_equals_fused(eng.model, eng.cfg.quant, gen, dev)}"
+        f" outputs of layer 0's linears")
+    two = engine.DecodeEngine(eng.model, qat_cfg, dataclasses.replace(
+        ecfg, fuse_act_quant=False), already_serve=True, device=dev)
+    kernels.reset_launch_counts()
+    two_out, wall = serve_all(two, reqs)
+    counts = kernels.launch_counts()
+    launches[B3] = counts[B3]
+    log(f"[4] two-pass serve: {wall:.2f} s; launches {counts}")
+    if counts[B3] == 0 or counts[B8] == 0 or counts[B1] or counts[B2]:
+        raise AssertionError(f"two-pass serve path launches {counts}")
+    for a, b in zip(second, two_out):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"two-pass tokens != fused tokens (request "
+                                 f"{a.request_id})")
+    log(f"[4] two-pass tokens == fused tokens; decode step at batch 4: "
+        f"{decode_step_ms(two):.2f} ms")
+    del eng, two
     torch.cuda.empty_cache()
     log(f"[4] card kernels vs CPU plain versions (fp32, relative L2): "
         f"{check_against_cpu(qat_cfg, ecfg, dev)}")
     torch.cuda.empty_cache()
+
+    clock.lap(4)
 
     # -------------------------------------------------------- phase 5 ----
     u4_cfg = dataclasses.replace(cfg, num_layers=2, quant=u4)
@@ -1255,9 +1584,13 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    clock.lap(5)
+
     # -------------------------------------------------------- phase 6 ----
     kv4 = phase_kv4_serve(qat_cfg, cfg.vocab_size, dev, rng, launches)
     torch.cuda.empty_cache()
+
+    clock.lap(6)
 
     # -------------------------------------------------------- phase 7 ----
     train_kern = phase_training_kernels(cfg, gen, dev)
@@ -1266,10 +1599,14 @@ def main() -> int:
         f"versions; {train_kern}")
     torch.cuda.empty_cache()
 
+    clock.lap(7)
+
     # -------------------------------------------------------- phase 8 ----
     state, records, profiles, report = phase_training(cfg, dev)
     launches[B8] = sum(r["b8"] for r in records)
     launches[B9] = sum(r["b9"] for r in records)
+
+    clock.lap(8)
 
     # -------------------------------------------------------- phase 9 ----
     state["opt"] = None
@@ -1278,18 +1615,37 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
 
+    clock.lap(9)
+
     # ------------------------------------------------------- phase 10 ----
     log(f"[10] training linears, card vs CPU (fp32, relative L2): "
         f"{check_training_against_cpu(cfg, dev)}")
     torch.cuda.empty_cache()
 
+    clock.lap(10)
+
     # ------------------------------------------------------- phase 11 ----
     launcher_s = phase_launcher()
+    clock.lap(11)
 
     # ------------------------------------------------------- phase 12 ----
+    moe = phase_moe_serve(dev, rng, launches)
+    clock.lap(12)
+
+    # ------------------------------------------------------- phase 13 ----
+    log(f"[13] {MOE_ARCH} layers 0-1, card vs CPU (fp32, relative L2): "
+        f"{check_moe_against_cpu(ecfg, dev)}")
+    clock.lap(13)
+
+    # ------------------------------------------------------- phase 14 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (21 segments)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
             B2: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
+            B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
+                "(21 calls; launches: the two-pass serve run)",
+            B6: "one deepseek-moe-16b layer of grouped expert GEMMs at "
+                "E=64, T=4 (3 projections x 3 segments; launches: the fp "
+                "ring MoE serve run)",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring)",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
@@ -1300,7 +1656,7 @@ def main() -> int:
             B9: "one h2o-danube-1.8b layer of Phase-I noise_inject: 7 "
                 "weights (fp32)"}
     rows = []
-    for name in (B1, B2, B4, B5, B7, B8, B9):
+    for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9):
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
@@ -1320,6 +1676,10 @@ def main() -> int:
         "allowed_patterns": report["allowed"],
         "b8_weights_ms_per_layer": results[B8]["weights_ms"],
         "launcher_s": launcher_s}}))
+    print(json.dumps({"moe_serve": {
+        k: ({n: x for n, x in v.items() if n != "profile"}
+            if isinstance(v, dict) else v) for k, v in moe.items()}}))
+    print(json.dumps({"phase_seconds": clock.laps}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """The port's kernel-backed ops. Counterpart of ``repro.backend.base``:
-the serve-mode linear driver (``packed_matmul``, ``quantize_pack_mixed``),
+the serve-mode linear drivers (``packed_matmul``, the grouped
+``packed_matmul_grouped`` over a stacked expert bank,
+``quantize_pack_mixed``),
 decode attention over the packed KV cache, and the two training ops with
 their backward passes (``noise_inject``, ``fake_quant``).
 
@@ -26,11 +28,6 @@ from repro_torch.kernels import quant_pack as qp
 
 ACT_SCALE_EPS = quant.ACT_SCALE_EPS
 
-TWO_PASS_SLICE = ("the two-pass activation-quant form (plain segment GEMM "
-                  "B3 + fake_quant B8) has no CUDA kernel yet; it is a "
-                  "later port slice — serve with fuse_act_quant=True")
-
-
 def act_scale(x: torch.Tensor, act_scale_mode: str,
               eps: float = ACT_SCALE_EPS) -> torch.Tensor:
     """Dynamic activation scale: ``per_token`` reduces over the last dim
@@ -43,17 +40,43 @@ def act_scale(x: torch.Tensor, act_scale_mode: str,
     return quant.abs_max_scale(x, eps=eps)
 
 
+def _segments(bufs: Dict, g: int, expert: bool):
+    """The non-empty segments of a packed leaf's carriers; a stacked
+    bank's geometry is expert 0's (identical across E: ``convert_tree``
+    rebudgets every expert onto one [K4|K2|K1] split)."""
+    if expert:
+        bufs = {name: t[0] for name, t in bufs.items()}
+    return list(pack_lib.iter_packed_segments(bufs, g))
+
+
+def _sorted_pbits(serve_params: Dict, segs, device) -> torch.Tensor:
+    """The sorted per-group precisions of the (first expert's) packed
+    leaf; legacy dicts without the leaf rebuild them from the
+    segments."""
+    pbits = serve_params.get("pbits_sorted")
+    if pbits is None:
+        return torch.as_tensor(np.concatenate(
+            [np.full(ng, p, np.float32)
+             for _n, p, _o, _kp, _go, ng in segs]), device=device)
+    return (pbits[0] if pbits.dim() == 2 else pbits).float()
+
+
 def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
     """Serve-mode SmolLinear over a packed leaf, in the reference's order:
     channel perm; per-token scale on the permuted row; the self-scale gate
     (per_token mode and one segment spanning K); one GEMM per non-empty
-    [K4|K2|K1] segment accumulated in fp32; bias; cast to x's dtype."""
+    [K4|K2|K1] segment accumulated in fp32; bias; cast to x's dtype.
+
+    The fused form (``qcfg.fuse_act_quant``) quantizes the activations in
+    the segment kernels' prologue (B1, B2). The two-pass form runs one
+    whole-K ``fake_quant`` (B8), then the plain segment GEMM (B3), which
+    also serves ``quantize_activations=False`` directly; both forms give
+    bitwise the same output."""
     bufs = {name: serve_params[name] for name, _p, _v in pack_lib.SEGMENTS}
     k = sum(bufs[name].shape[0] * v for name, _p, v in pack_lib.SEGMENTS)
     g = qcfg.eff_group_size(k)
-    segs = list(pack_lib.iter_packed_segments(bufs, g))
+    segs = _segments(bufs, g, expert=False)
     x = x.index_select(-1, serve_params["perm"])
-    on_cpu = x.device.type == "cpu"
     fused = self_scale = False
     sx = None
     if qcfg.quantize_activations:
@@ -63,16 +86,8 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
         if not self_scale:
             sx = act_scale(x, qcfg.act_scale_mode)
         if not fused:
-            if not on_cpu:
-                raise NotImplementedError(TWO_PASS_SLICE)
-            pbits = serve_params.get("pbits_sorted")
-            if pbits is None:
-                pbits = torch.as_tensor(np.concatenate(
-                    [np.full(ng, p, np.float32)
-                     for _n, p, _o, _kp, _go, ng in segs]))
-            x = quant.fake_quant_fwd(x, pbits.float(), sx, g)
-    elif not on_cpu:
-        raise NotImplementedError(TWO_PASS_SLICE)
+            x = fake_quant(x, _sorted_pbits(serve_params, segs, x.device),
+                           sx, g)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
@@ -94,12 +109,56 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
             pm.fused_act_segment_matmul(xs, sx2, bufs[name], seg_scales,
                                         p=p, group_size=g, out=y)
         else:
-            y += pm.segment_matmul_plain(xs, bufs[name], seg_scales, p=p,
-                                         group_size=g)
+            pm.packed_segment_matmul(xs, bufs[name], seg_scales, p=p,
+                                     group_size=g, out=y)
     b = serve_params.get("b")
     if b is not None:
         y = y + b.float()
     return y.reshape(lead + (n,)).to(x.dtype)
+
+
+def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor,
+                          qcfg) -> torch.Tensor:
+    """Serve-mode SmolLinear over a stacked packed expert bank ([E, ...]
+    leaves from ``convert_tree``), x [E, M, K] -> [E, M, N] in x's dtype:
+    the reference's ``Backend.packed_matmul_grouped`` step by step.
+    Per-expert channel perm; the activation scale (``per_tensor`` reduces
+    each expert's slice); one whole-K ``fake_quant`` (B8) over [E, M, K];
+    one grouped GEMM (B6) per non-empty segment into one fp32 [E, M, N]
+    accumulator; bias; cast. It always takes the two-pass form, as the
+    reference does, so expert e's output is bitwise the dense two-pass
+    ``packed_matmul`` on expert e's leaf."""
+    bufs = {name: serve_params[name] for name, _p, _v in pack_lib.SEGMENTS}
+    e = x.shape[0]
+    k = sum(bufs[name].shape[1] * v for name, _p, v in pack_lib.SEGMENTS)
+    g = qcfg.eff_group_size(k)
+    segs = _segments(bufs, g, expert=True)
+    perm = serve_params["perm"].long()                      # [E, K]
+    x = torch.gather(x, -1, perm[:, None, :].expand(x.shape))
+    if qcfg.quantize_activations:
+        if qcfg.act_scale_mode == "none":
+            sx = torch.ones((), dtype=torch.float32, device=x.device)
+        elif qcfg.act_scale_mode == "per_token":
+            sx = quant.abs_max_scale(x, dim=-1)
+        else:
+            # per_tensor: each expert's slice, as the reference's vmap
+            # oracle reduces it.
+            sx = quant.abs_max_scale(x, dim=(1, 2))
+        x = fake_quant(x, _sorted_pbits(serve_params, segs, x.device), sx,
+                       g)
+    wscale = serve_params.get("wscale")                     # [E, NG]
+    n = max(bufs[name].shape[2] for name, _p, _v in pack_lib.SEGMENTS)
+    y = torch.zeros((e, x.shape[1], n), dtype=torch.float32,
+                    device=x.device)
+    for name, p, off, kp, goff, ng in segs:
+        seg_scales = None if wscale is None else wscale[:, goff:goff + ng]
+        pm.packed_segment_matmul_grouped(x[:, :, off:off + kp], bufs[name],
+                                         seg_scales, p=p, group_size=g,
+                                         out=y)
+    b = serve_params.get("b")
+    if b is not None:
+        y = y + b[:, None, :].float()
+    return y.to(x.dtype)
 
 
 def quantize_pack_mixed(w: torch.Tensor, pbits: np.ndarray,
@@ -246,8 +305,9 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,
                group_size: int = GROUP_SIZE) -> torch.Tensor:
     """Clipped-STE quantize-dequantize of x [..., K] along K with
     per-group ``pbits`` [K // group_size]. ``scale`` is one value per row
-    (a scalar, [1, ..., 1] or [..., 1]: broadcast to every row) or per
-    group [K // group_size]. Differentiable in x."""
+    (a scalar, or any [..., 1] shape that broadcasts over x's rows:
+    [1, ..., 1], one per row, one per expert [E, 1, 1] of x [E, M, K]) or
+    per group [K // group_size]. Differentiable in x."""
     k = x.shape[-1]
     lead = x.shape[:-1]
     m = int(np.prod(lead, dtype=np.int64)) if lead else 1
@@ -255,8 +315,9 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,
     ng = max(k // group_size, 1)
     if s.dim() == 0 or (s.shape[-1] == 1 and s.numel() == 1):
         s_op, row = s.reshape(1).expand(m).contiguous(), True
-    elif s.shape == lead + (1,):
-        s_op, row = s.reshape(m), True
+    elif s.shape[-1] == 1 and s.dim() == x.dim() and all(
+            a in (1, b) for a, b in zip(s.shape[:-1], lead)):
+        s_op, row = s.expand(lead + (1,)).reshape(m).contiguous(), True
     elif s.dim() == 1 and s.shape[0] == ng:
         s_op, row = s, False
     else:

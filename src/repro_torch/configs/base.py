@@ -1,7 +1,8 @@
 """ArchConfig: one dataclass describes an architecture. Counterpart of
 ``repro.configs.base`` — same fields, so a config built for the JAX
 package maps onto the port field by field; the port serves the dense
-``attn_mlp`` plan so far."""
+``attn_mlp`` plan and the MoE plan (``attn_mlp`` then ``attn_moe``) so
+far."""
 from __future__ import annotations
 
 import dataclasses

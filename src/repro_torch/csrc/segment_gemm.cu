@@ -1,14 +1,24 @@
-// Fused activation-quant segment GEMM for Hopper (sm_90a), plain C ABI.
+// Segment GEMM for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernels of src/repro/kernels/packed_matmul.py:
-//   _fused_kernel            (fused_act_segment_matmul, driver scale), and
-//   _fused_selfscale_kernel  (fused_act_selfscale_matmul, in-kernel scale).
-// One templated kernel covers p in {1, 2, 4}, x in bf16 or fp32, and both
-// scale modes:
+//   _fused_kernel            (fused_act_segment_matmul, driver scale),
+//   _fused_selfscale_kernel  (fused_act_selfscale_matmul, in-kernel scale),
+//   _kernel                  (packed_segment_matmul, plain), and
+//   _grouped_kernel          (packed_segment_matmul_grouped, plain over a
+//                             stacked expert bank).
+// One templated kernel body covers p in {1, 2, 4}, x in bf16 or fp32, and
+// four prologue modes:
 //   y[M, N] += xq[M, Kp] @ (unpack_dequant(wp[Kp*p/8, N]) * wscale[Kp/16])
-//   xq = round_through_x_dtype(snap_p(x / sx) * sx)
-// with sx the driver's per-token scale or, in self-scale mode, the fp32
-// abs-max of the full row clamped at 1e-6 and divided by 1.875.
+//   fused:  xq = round_through_x_dtype(snap_p(x / sx) * sx), sx the
+//           driver's per-token scale;
+//   self:   the same with sx the fp32 abs-max of the full row clamped at
+//           1e-6 and divided by 1.875;
+//   plain:  xq = x (the second pass of the two-pass form, and the
+//           unquantized-activation path);
+//   snap:   xq = snap_p(x), x already in scale units (act_quant).
+// The grouped form is the same body with blockIdx.z over experts: x, wp,
+// wscale and y each advance by their own expert stride, so expert e's
+// result is bitwise the single-expert launch on expert e's operands.
 //
 // What bounds it on the H100: the packed weight bytes at decode (M = 4:
 // ~2.9 bits per weight against 8 FMAs of work per byte), fp32 FMA issue at
@@ -22,13 +32,18 @@
 // computes, so a stage costs about one memory latency. No tensor
 // cores: TF32 or bf16 MMA would break the fp32 contract of the reference;
 // wgmma/TMA pipelining is later work. Each output element is summed by
-// one thread in one fixed order, so a row's result does not depend on how
-// many rows share the launch (continuous batching relies on that).
+// one thread in one fixed order, the same in every mode, so a row's
+// result does not depend on how many rows share the launch (continuous
+// batching relies on that), and the two-pass form (fake_quant, then the
+// plain mode) is bitwise the fused form. The grouped form runs every
+// expert over every row of the drop-free dispatch buffer, as the TPU
+// kernel does; skipping experts with no routed token is later work.
 //
 // Numerics follow the reference element for element: IEEE divisions by
 // sx (__fdiv_rn), round half to even (rintf), the 1.875 divide kept a
 // true division (the counterpart of the optimization_barrier in the
-// reference), and the bf16 round trip through __float2bfloat16_rn.
+// reference), the bf16 round trip through __float2bfloat16_rn, and the
+// grid step 2^(1-p) a power of two, so scaling by it is exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,14 +96,16 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-template <int P, typename XT, bool SELF>
+enum Mode { FUSED = 0, SELF = 1, PLAIN = 2, SNAP = 3 };
+
+template <int P, typename XT, int MODE>
 __global__ void __launch_bounds__(THREADS)
-segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
+segment_gemm_kernel(const XT* __restrict__ x, long long ldx, long long x_es,
                     const float* __restrict__ sx,
-                    const uint8_t* __restrict__ wp,
-                    const float* __restrict__ wscale,
-                    float* __restrict__ y, int M, int N, int kp,
-                    int group) {
+                    const uint8_t* __restrict__ wp, long long wp_es,
+                    const float* __restrict__ wscale, long long ws_es,
+                    float* __restrict__ y, long long y_es, int M, int N,
+                    int kp, int group) {
   constexpr int VPB = 8 / P;                       // codes per byte
   static_assert(XPT * THREADS == BM * BK && WPT * THREADS == BK * BN,
                 "tiles must divide among the threads");
@@ -104,8 +121,14 @@ segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  // This block's expert (0 for a single-segment launch).
+  const long long e = blockIdx.z;
+  x += e * x_es;
+  wp += e * wp_es;
+  if (wscale != nullptr) wscale += e * ws_es;
+  y += e * y_es;
 
-  if (SELF) {
+  if (MODE == SELF) {
     // 16 lanes per row reduce max|x| over the full K row (exact in any
     // order), then one IEEE divide by the 4-bit grid top.
     const int r = tid / 16;
@@ -119,7 +142,7 @@ segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
     for (int off = 8; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) s_row[r] = __fdiv_rn(fmaxf(m, 1e-6f), 1.875f);
-  } else if (tid < BM) {
+  } else if (MODE == FUSED && tid < BM) {
     s_row[tid] = (m0 + tid < M) ? sx[m0 + tid] : 1.f;
   }
   __syncthreads();
@@ -137,8 +160,7 @@ segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
   load_stage<P>(x, ldx, wp, M, N, kp, m0, n0, 0, tid, xr, wr);
 
   for (int k0 = 0; k0 < kp; k0 += BK) {
-    // Activation prologue: divide, snap to the p-bit grid, rescale, round
-    // through x's dtype. Lanes past M or Kp stage zeros.
+    // Activation prologue. Lanes past M or Kp stage zeros.
 #pragma unroll
     for (int it = 0; it < XPT; ++it) {
       const int i = tid + it * THREADS;
@@ -146,11 +168,22 @@ segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
       const int kk = i % BK;
       float v = 0.f;
       if (m0 + r < M && k0 + kk < kp) {
-        const float s = s_row[r];
-        const float q = __fdiv_rn(xr[it], s);
-        float u = rintf((q * INV_H + TOP) * 0.5f);
-        u = fminf(fmaxf(u, 0.f), TOP);
-        v = round_through(((2.f * u - TOP) * H) * s, x);
+        if (MODE == PLAIN) {
+          v = xr[it];
+        } else if (MODE == SNAP) {
+          // snap_p of a value already in scale units.
+          float u = rintf((xr[it] * INV_H + TOP) * 0.5f);
+          u = fminf(fmaxf(u, 0.f), TOP);
+          v = (2.f * u - TOP) * H;
+        } else {
+          // Divide, snap to the p-bit grid, rescale, round through x's
+          // dtype.
+          const float s = s_row[r];
+          const float q = __fdiv_rn(xr[it], s);
+          float u = rintf((q * INV_H + TOP) * 0.5f);
+          u = fminf(fmaxf(u, 0.f), TOP);
+          v = round_through(((2.f * u - TOP) * H) * s, x);
+        }
       }
       xs[r][kk] = v;
     }
@@ -193,67 +226,77 @@ segment_gemm_kernel(const XT* __restrict__ x, long long ldx,
   }
 }
 
+// Operands of one launch: E experts (1 for a single segment), each with
+// its own x, wp, wscale and y at the given element strides.
+struct Args {
+  const void* x;
+  long long ldx, x_es;
+  const float* sx;
+  const uint8_t* wp;
+  long long wp_es;
+  const float* wscale;
+  long long ws_es;
+  float* y;
+  long long y_es;
+  int E, M, N, kp, group;
+};
+
+template <int P, typename XT, int MODE>
+void launch_mode(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.E);
+  segment_gemm_kernel<P, XT, MODE><<<grid, THREADS, 0, stream>>>(
+      static_cast<const XT*>(a.x), a.ldx, a.x_es, a.sx, a.wp, a.wp_es,
+      a.wscale, a.ws_es, a.y, a.y_es, a.M, a.N, a.kp, a.group);
+}
+
 template <int P, typename XT>
-void launch(const void* x, long long ldx, const float* sx,
-            const uint8_t* wp, const float* wscale, float* y, int M,
-            int N, int kp, int group, int self_scale, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const XT* xt = static_cast<const XT*>(x);
-  if (self_scale)
-    segment_gemm_kernel<P, XT, true><<<grid, THREADS, 0, stream>>>(
-        xt, ldx, sx, wp, wscale, y, M, N, kp, group);
-  else
-    segment_gemm_kernel<P, XT, false><<<grid, THREADS, 0, stream>>>(
-        xt, ldx, sx, wp, wscale, y, M, N, kp, group);
+int launch(const Args& a, int mode, cudaStream_t stream) {
+  switch (mode) {
+    case FUSED: launch_mode<P, XT, FUSED>(a, stream); return 0;
+    case SELF: launch_mode<P, XT, SELF>(a, stream); return 0;
+    case PLAIN: launch_mode<P, XT, PLAIN>(a, stream); return 0;
+    case SNAP: launch_mode<P, XT, SNAP>(a, stream); return 0;
+    default: return 1;
+  }
 }
 
 template <typename XT>
-int dispatch_p(int p, const void* x, long long ldx, const float* sx,
-               const uint8_t* wp, const float* wscale, float* y, int M,
-               int N, int kp, int group, int self_scale,
-               cudaStream_t stream) {
+int dispatch_p(int p, const Args& a, int mode, cudaStream_t stream) {
   switch (p) {
-    case 4:
-      launch<4, XT>(x, ldx, sx, wp, wscale, y, M, N, kp, group, self_scale,
-                    stream);
-      return 0;
-    case 2:
-      launch<2, XT>(x, ldx, sx, wp, wscale, y, M, N, kp, group, self_scale,
-                    stream);
-      return 0;
-    case 1:
-      launch<1, XT>(x, ldx, sx, wp, wscale, y, M, N, kp, group, self_scale,
-                    stream);
-      return 0;
-    default:
-      return 1;
+    case 4: return launch<4, XT>(a, mode, stream);
+    case 2: return launch<2, XT>(a, mode, stream);
+    case 1: return launch<1, XT>(a, mode, stream);
+    default: return 1;
   }
 }
 
 }  // namespace
 
-// y[M, N] (fp32, contiguous) += the fused segment GEMM. x: [M, kp] with
-// row stride ldx elements and unit column stride, bf16 if x_bf16 else
-// fp32. sx: [M] fp32 (ignored when self_scale). wp: [kp*p/8, N] uint8,
-// contiguous. wscale: [ceil(kp/group)] fp32 or null. Returns the CUDA
-// error code of the launch (0 on success).
-extern "C" int soniq_segment_gemm(const void* x, long long ldx, int x_bf16,
+// y (fp32) += the segment GEMM of each of E experts (E = 1: one segment).
+// Expert e reads x + e*x_es: [M, kp] with row stride ldx elements and unit
+// column stride, bf16 if x_bf16 else fp32; wp + e*wp_es: [kp*p/8, N]
+// uint8, contiguous; wscale + e*ws_es: [ceil(kp/group)] fp32, or null;
+// and adds into y + e*y_es: [M, N] fp32, contiguous. mode: 0 fused (sx:
+// [M] fp32, one per row, shared by the experts), 1 self-scale, 2 plain,
+// 3 plain with the snap to the p-bit grid. Returns the CUDA error code of
+// the launch (0 on success).
+extern "C" int soniq_segment_gemm(const void* x, long long ldx,
+                                  long long x_es, int x_bf16,
                                   const void* sx, const void* wp,
-                                  const void* wscale, void* y, int M, int N,
-                                  int kp, int p, int group, int self_scale,
-                                  void* stream) {
-  if (M <= 0 || N <= 0 || kp <= 0 || group <= 0)
+                                  long long wp_es, const void* wscale,
+                                  long long ws_es, void* y, long long y_es,
+                                  int E, int M, int N, int kp, int p,
+                                  int group, int mode, void* stream) {
+  if (E <= 0 || E > 65535 || M <= 0 || N <= 0 || kp <= 0 || group <= 0)
     return (int)cudaErrorInvalidValue;
+  if (mode == FUSED && sx == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{x, ldx, x_es, static_cast<const float*>(sx),
+               static_cast<const uint8_t*>(wp), wp_es,
+               static_cast<const float*>(wscale), ws_es,
+               static_cast<float*>(y), y_es, E, M, N, kp, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sxf = static_cast<const float*>(sx);
-  const uint8_t* wpb = static_cast<const uint8_t*>(wp);
-  const float* wsf = static_cast<const float*>(wscale);
-  float* yf = static_cast<float*>(y);
-  const int bad =
-      x_bf16 ? dispatch_p<__nv_bfloat16>(p, x, ldx, sxf, wpb, wsf, yf, M, N,
-                                         kp, group, self_scale, s)
-             : dispatch_p<float>(p, x, ldx, sxf, wpb, wsf, yf, M, N, kp,
-                                 group, self_scale, s);
+  const int bad = x_bf16 ? dispatch_p<__nv_bfloat16>(p, a, mode, s)
+                         : dispatch_p<float>(p, a, mode, s);
   if (bad) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -2,6 +2,7 @@
 a request queue, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 
 Initializes random QAT weights from ``--seed`` (or loads the JAX
 package's checkpoint with ``--ckpt``), packs them to the 1/2/4-bit serve

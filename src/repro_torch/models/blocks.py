@@ -1,7 +1,9 @@
-"""Decoder block assembly (the dense ``attn_mlp`` kind). Counterpart of
-``repro.models.blocks``: the full-sequence forward (``block_apply``) and
-the decode step over the KV cache; the other kinds arrive with their
-families."""
+"""Decoder block assembly: the dense ``attn_mlp`` kind and the MoE
+``attn_moe`` kind. Counterpart of ``repro.models.blocks``: the
+full-sequence forward (``block_apply``) and the decode step over the KV
+cache; the other kinds arrive with their families. As in the reference,
+every ``attn_mlp`` layer is ``cfg.d_ff`` wide (the reference's plan never
+selects ``dense_d_ff``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -13,9 +15,10 @@ from repro_torch.core.qtypes import QuantConfig
 from repro_torch.serve import kv_pool, kv_quant
 from . import attention
 from . import mlp as mlp_lib
+from . import moe as moe_lib
 from .common import RMSNorm, rms_norm_init
 
-KINDS = ("attn_mlp",)
+KINDS = ("attn_mlp", "attn_moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -29,17 +32,24 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
                device) -> Dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
-    return {
+    p = {
         "ln_attn": rms_norm_init(cfg.d_model, device=device),
         "attn": attention.attn_init(
             cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, qcfg,
             generator=generator, device=device, use_bias=cfg.attn_bias,
             dtype=dt),
         "ln_ffn": rms_norm_init(cfg.d_model, device=device),
-        "mlp": mlp_lib.mlp_init(
-            cfg.d_model, cfg.d_ff, qcfg, generator=generator, device=device,
-            act=cfg.mlp_act, use_bias=cfg.attn_bias, dtype=dt),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe_lib.moe_init(
+            cfg.d_model, cfg.d_ff, cfg.num_experts, qcfg,
+            generator=generator, device=device,
+            num_shared=cfg.num_shared_experts, act=cfg.mlp_act, dtype=dt)
+    else:
+        p["mlp"] = mlp_lib.mlp_init(
+            cfg.d_model, cfg.d_ff, qcfg, generator=generator, device=device,
+            act=cfg.mlp_act, use_bias=cfg.attn_bias, dtype=dt)
+    return p
 
 
 def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
@@ -91,11 +101,28 @@ class Block(nn.Module):
         self.ln_attn = RMSNorm(tree["ln_attn"])
         self.attn = attention.Attention(tree["attn"])
         self.ln_ffn = RMSNorm(tree["ln_ffn"])
-        self.mlp = mlp_lib.MLP(tree["mlp"], act=act)
+        if kind == "attn_moe":
+            self.moe = moe_lib.MoE(tree["moe"], act=act)
+        else:
+            self.mlp = mlp_lib.MLP(tree["mlp"], act=act)
 
     def tree(self) -> Dict:
-        return {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree(),
-                "ln_ffn": self.ln_ffn.tree(), "mlp": self.mlp.tree()}
+        out = {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree(),
+               "ln_ffn": self.ln_ffn.tree()}
+        if self.kind == "attn_moe":
+            out["moe"] = self.moe.tree()
+        else:
+            out["mlp"] = self.mlp.tree()
+        return out
+
+
+def _ffn(block: Block, h: torch.Tensor, cfg, qcfg: QuantConfig,
+         noise=None) -> torch.Tensor:
+    if block.kind == "attn_moe":
+        return moe_lib.moe_apply(block.moe, h, qcfg,
+                                 num_experts=cfg.num_experts,
+                                 top_k=cfg.top_k)
+    return block.mlp(h, qcfg, noise)
 
 
 def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -108,7 +135,7 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
         noise=noise, rope_theta=cfg.rope_theta, window=cfg.window,
         q_block=cfg.q_block, rope=rope)
     h = block.ln_ffn(x, cfg.norm_eps)
-    return x + block.mlp(h, qcfg, noise)
+    return x + _ffn(block, h, cfg, qcfg, noise)
 
 
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,
@@ -122,4 +149,4 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, qcfg=qcfg,
         rope=rope, write=write, window=cfg.window)
     h = block.ln_ffn(x, cfg.norm_eps)
-    return x + block.mlp(h, qcfg)
+    return x + _ffn(block, h, cfg, qcfg)

@@ -94,7 +94,66 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+# XLA's CPU tanh for fp32 (Eigen's rational approximation, evaluated with
+# fused multiply-adds): the input clamped to +-TANH_CLAMP, odd numerator
+# and even denominator polynomials in x^2, and x itself below
+# TANH_LINEAR.
+TANH_CLAMP = 7.99881172180175781
+TANH_LINEAR = 0.0004
+TANH_NUM = tuple(float(np.float32(c)) for c in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03))
+TANH_DEN = tuple(float(np.float32(c)) for c in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03))
+GELU_C = np.sqrt(2 / np.pi)
+GELU_A = 0.044715
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """fp32 ``a * b + c`` (c an fp32 value or tensor) rounded once: the
+    product of two fp32 values is exact in float64 and the sum is rounded
+    to float64 first, which can differ from one rounding only on an exact
+    fp32 tie."""
+    return (a.double() * b.double() + c).float()
+
+
+def _const(c: float, like: torch.Tensor) -> torch.Tensor:
+    """A constant in x's dtype, as JAX casts a weakly typed one."""
+    return torch.tensor(c, dtype=like.dtype, device=like.device)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` as XLA computes it on the CPU, in fp32, cast to x's
+    dtype (torch's tanh differs in the last bits on more than half of all
+    inputs)."""
+    xf = x.float()
+    c = torch.clamp(xf, -TANH_CLAMP, TANH_CLAMP)
+    c2 = c * c
+    num = torch.full_like(c2, TANH_NUM[0])
+    for coef in TANH_NUM[1:]:
+        num = _fma(c2, num, coef)
+    den = torch.full_like(c2, TANH_DEN[0])
+    for coef in TANH_DEN[1:]:
+        den = _fma(c2, den, coef)
+    out = (c * num) / den
+    return torch.where(xf.abs() < TANH_LINEAR, xf, out).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) op by op in x's dtype:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``. In fp32
+    XLA's CPU lowering fuses ``x + 0.044715 * x**3`` into one multiply-add,
+    and so does this; in bf16 every op rounds."""
+    x3 = x * x * x
+    a = _const(GELU_A, x)
+    if x.dtype == torch.float32:
+        inner = _fma(x3, a, x)
+    else:
+        inner = x + a * x3
+    return x * (0.5 * (1.0 + tanh(_const(GELU_C, x) * inner)))
+
+
 def activation(name: str):
-    return {"silu": silu,
-            "gelu": lambda v: F.gelu(v, approximate="tanh"),
-            "relu": F.relu}[name]
+    return {"silu": silu, "gelu": gelu, "relu": F.relu}[name]

@@ -14,8 +14,9 @@ Both pack the trained model at construction (``convert_tree`` — the
 cache is an fp ring, a packed 4-bit ring (``kv_bits=4``, kernel B4) or,
 for the ``DecodeEngine``, a packed 4-bit page pool (``kv_layout="paged"``,
 kernel B5) whose host ``PagePool`` shares prompt-prefix pages between
-requests with copy-on-write. Speculative decoding is a later port slice
-and raises.
+requests with copy-on-write. Both serve the dense and the MoE decoders
+(expert banks through the grouped segment GEMM, kernel B6). Speculative
+decoding is a later port slice and raises.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ class EngineConfig:
     # Prompt tokens fed per slot per prefill step (1 = token-level).
     prefill_chunk: int = 8
     # Fused activation quantization in the segment-GEMM prologue. False is
-    # the two-pass reference form, which has no CUDA kernel yet.
+    # the two-pass reference form (fake_quant, then the plain segment
+    # GEMM), which gives bitwise the same tokens.
     fuse_act_quant: bool = True
     # KV-cache precision: None = fp ring in ``cache_dtype``; 4 = packed
     # 4-bit codes + fp16 scales (~4x fewer payload bytes than fp16).

@@ -77,11 +77,13 @@ def test_segment_gemm_within_reorder_bound(dev, p, dtype, self_scale, m, kp,
 def test_driver_launches_kernels_and_rows_are_batch_invariant(dev):
     """The serve driver on CUDA tensors goes through B1 (mixed leaf) and
     B2 (uniform leaf); each row's output is bitwise the same alone or in
-    a batch."""
+    a batch. The two-pass form (B8, then B3) gives bitwise the fused
+    output, and unquantized activations go through B3."""
+    import dataclasses
+    from repro_torch.api import transforms
     g = torch.Generator(device=dev).manual_seed(0)
     for mix, key in (((0.5, 0.375, 0.125), "fused_act_segment_matmul"),
                      ((1.0, 0.0, 0.0), "fused_act_selfscale_matmul")):
-        from repro_torch.api import transforms
         q = QuantConfig(mode="qat", mix=mix)
         w = torch.randn((256, 96), generator=g, device=dev)
         leaf = transforms.pack_linear(
@@ -94,10 +96,78 @@ def test_driver_launches_kernels_and_rows_are_batch_invariant(dev):
         for i in range(7):
             alone = backend.packed_matmul(leaf, x[i:i + 1], serve)
             assert torch.equal(alone[0], batch[i])
-    with pytest.raises(NotImplementedError):
-        backend.packed_matmul(leaf, x, QuantConfig(
-            mode="serve", act_scale_mode="per_token", fuse_act_quant=False))
+        for mode in ("per_token", "per_tensor"):
+            fused = dataclasses.replace(serve, act_scale_mode=mode)
+            two = dataclasses.replace(fused, fuse_act_quant=False)
+            kernels.reset_launch_counts()
+            assert torch.equal(backend.packed_matmul(leaf, x, two),
+                               backend.packed_matmul(leaf, x, fused))
+            counts = kernels.launch_counts()
+            assert counts["fake_quant"] == 1
+            assert counts["packed_segment_matmul"] > 0
+        kernels.reset_launch_counts()
+        raw = backend.packed_matmul(leaf, x, dataclasses.replace(
+            serve, quantize_activations=False))
+        assert kernels.launch_counts()["packed_segment_matmul"] > 0
+        assert kernels.launch_counts()["fake_quant"] == 0
+        assert torch.isfinite(raw.float()).all()
     assert np.isfinite(batch.float().cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("m,kp,n", [(1, 16, 8), (5, 96, 70), (33, 320, 130)])
+def test_plain_segment_gemm_within_reorder_bound(dev, p, dtype, act_quant,
+                                                 m, kp, n):
+    """B3 against its plain version: a column slice of a wider row, a zero
+    row and an outlier row, x as it is or snapped (``act_quant``)."""
+    g = torch.Generator(device=dev).manual_seed(m * 10 + p)
+    wide = torch.randn((m, kp + 32), generator=g, device=dev).to(dtype)
+    x = wide[:, 16:16 + kp]
+    x[0] = 0
+    x[-1] *= 100
+    wp = torch.randint(0, 256, (kp * p // 8, n), generator=g, device=dev,
+                       dtype=torch.uint8)
+    sc = torch.rand((kp // 16,), generator=g, device=dev) + 0.01
+    kernels.reset_launch_counts()
+    got = pm.packed_segment_matmul(x, wp, sc, p=p, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["packed_segment_matmul"] == 1
+    want = pm.segment_matmul_plain(x, wp, sc, p=p, act_quant=act_quant)
+    xq = quant.snap_to_grid(x.float(), p) if act_quant else x.float()
+    assert torch.isfinite(got).all()
+    assert _within_reorder_bound(got, want, xq, pm.unpack_dequant(wp, p, sc))
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_grouped_segment_gemm_equals_b3_per_expert(dev, p, scaled):
+    """B6 over E = 5 experts (a column slice of x and of the per-expert
+    scales, as the grouped driver passes them): within the reordering
+    bound of its plain version, and expert e bitwise B3 on expert e."""
+    g = torch.Generator(device=dev).manual_seed(100 + p)
+    e, m, kp, n = 5, 4, 160, 72
+    wide = torch.randn((e, m, kp + 48), generator=g, device=dev).to(
+        torch.bfloat16)
+    x = wide[:, :, 32:32 + kp]
+    x[:, 1] = 0                                 # empty dispatch rows
+    x[2, -1] *= 100
+    wp = torch.randint(0, 256, (e, kp * p // 8, n), generator=g, device=dev,
+                       dtype=torch.uint8)
+    sc_all = torch.rand((e, kp // 16 + 3), generator=g, device=dev) + 0.01
+    sc = sc_all[:, 3:] if scaled else None
+    kernels.reset_launch_counts()
+    got = pm.packed_segment_matmul_grouped(x, wp, sc, p=p)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["packed_segment_matmul_grouped"] == 1
+    want = pm.grouped_matmul_plain(x, wp, sc, p=p)
+    for i in range(e):
+        si = None if sc is None else sc[i].contiguous()
+        assert _within_reorder_bound(got[i], want[i], x[i].float(),
+                                     pm.unpack_dequant(wp[i], p, si))
+        assert torch.equal(got[i], pm.packed_segment_matmul(x[i], wp[i], si,
+                                                            p=p))
 
 
 # ------------------------------------------- decode attention (B4, B5) ----

@@ -23,6 +23,10 @@ PORTED = {
         "repro_torch.kernels.packed_matmul:fused_act_segment_matmul",
     ("repro.kernels.packed_matmul", "fused_act_selfscale_matmul"):
         "repro_torch.kernels.packed_matmul:fused_act_selfscale_matmul",
+    ("repro.kernels.packed_matmul", "packed_segment_matmul"):
+        "repro_torch.kernels.packed_matmul:packed_segment_matmul",
+    ("repro.kernels.packed_matmul", "packed_segment_matmul_grouped"):
+        "repro_torch.kernels.packed_matmul:packed_segment_matmul_grouped",
     ("repro.kernels.quant_pack", "quantize_pack"):
         "repro_torch.kernels.quant_pack:quantize_pack",
     ("repro.kernels.attn_decode", "qkv_attn_decode"):

@@ -1,7 +1,7 @@
-"""Port parity for the fused segment GEMMs (plain versions of kernels B1,
-B2) and the shared serve driver, against the JAX package's Pallas kernels
-(interpret mode) and its ``xla_ref`` driver, at the JAX suite's bound of
-rtol = atol = 1e-5 (tests/test_fused_act_quant.py).
+"""Port parity for the segment GEMMs (plain versions of kernels B1, B2,
+B3 and B6) and the shared serve driver, against the JAX package's Pallas
+kernels (interpret mode) and its ``xla_ref`` driver, at the JAX suite's
+bound of rtol = atol = 1e-5 (tests/test_fused_act_quant.py).
 
 The plain versions sum in float64 and round once; the Pallas kernels sum
 in fp32. On the outlier row (x * 100) an output that cancels can then
@@ -197,16 +197,91 @@ def test_fused_equals_two_pass_plain_bitwise(leaf, mode, dtype):
 
 def test_two_pass_and_wrappers_refuse_non_cpu_tensors():
     """Off the CPU a wrapper launches its kernel or raises — there is no
-    quiet fallback to the plain version, and the two-pass form (kernels
-    B3 + B8, not ported yet) raises instead of running plain."""
+    quiet fallback to the plain version. The two-pass form (B8, then B3)
+    and the unquantized-activation form reach the kernels and raise there
+    on a device that is neither the CPU nor the card."""
     pleaf = _port_leaf((4, 2), 32, 8, seed=1)
     meta = {k: None if v is None else v.to("meta") for k, v in pleaf.items()}
     x = torch.empty((2, 32), device="meta")
-    two = PQuantConfig(mode="serve", act_scale_mode="per_token",
-                       fuse_act_quant=False)
-    with pytest.raises(NotImplementedError, match="B3"):
-        pbackend.packed_matmul(meta, x, two)
+    for q in (dict(fuse_act_quant=False), dict(quantize_activations=False)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            pbackend.packed_matmul(meta, x, PQuantConfig(
+                mode="serve", act_scale_mode="per_token", **q))
     with pytest.raises(ValueError, match="unsupported device"):
         ppm.fused_act_segment_matmul(x[:, :16],
                                      torch.ones((2, 1), device="meta"),
                                      meta["w4"], None, p=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ppm.packed_segment_matmul(x[:, :16], meta["w4"], None, p=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ppm.packed_segment_matmul_grouped(x[None, :, :16], meta["w4"][None],
+                                          None, p=4)
+
+
+# ------------------------------------------------- plain segment GEMM, B3 ----
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_plain_segment_plain_matches_pallas(p, scaled, act_quant):
+    """B3's plain version against ``packed_segment_matmul`` in interpret
+    mode: x as it is, or snapped to the grid (``act_quant``: x already in
+    scale units); with and without group scales."""
+    xt, xj, wp, scales = _operands(p, torch.float32, 5, "both", seed=11)
+    if act_quant:
+        xt, xj = xt / 40.0, xj / 40.0          # mostly inside the grid
+    st = torch.from_numpy(scales) if scaled else None
+    got = ppm.packed_segment_matmul(xt, torch.from_numpy(wp), st, p=p,
+                                    act_quant=act_quant)
+    want = jpm.packed_segment_matmul(
+        xj, jnp.asarray(wp), jnp.asarray(scales) if scaled else None, p=p,
+        act_quant=act_quant, interpret=True)
+    assert np.isfinite(got.numpy()).all()
+    xq = pquant.snap_to_grid(xt, p) if act_quant else xt
+    wd = ppm.unpack_dequant(torch.from_numpy(wp), p, st)
+    _assert_matches_pallas(got, want, xq, wd, "both")
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_grouped_segment_plain_matches_pallas(p, act_quant):
+    """B6's plain version against ``packed_segment_matmul_grouped`` in
+    interpret mode over E = 3 experts (per-expert group scales; the
+    second case without scales)."""
+    rng = np.random.default_rng(40 + p)
+    e, m, kp, n = 3, 5, 64, 32
+    x = np.stack([_x(rng, m, kp, "both") for _ in range(e)])
+    if act_quant:
+        x = x / 40.0
+    wp = rng.integers(0, 256, (e, kp * p // 8, n), dtype=np.uint8)
+    scales = None if act_quant else \
+        (rng.random((e, kp // 16)) * 0.2 + 0.05).astype(np.float32)
+    st = None if scales is None else torch.from_numpy(scales)
+    got = ppm.packed_segment_matmul_grouped(
+        torch.from_numpy(x), torch.from_numpy(wp), st, p=p,
+        act_quant=act_quant)
+    want = np.asarray(jpm.packed_segment_matmul_grouped(
+        jnp.asarray(x), jnp.asarray(wp),
+        None if scales is None else jnp.asarray(scales), p=p,
+        act_quant=act_quant, interpret=True))
+    assert got.shape == (e, m, n)
+    for i in range(e):
+        xi = torch.from_numpy(x[i])
+        xq = pquant.snap_to_grid(xi, p) if act_quant else xi
+        wd = ppm.unpack_dequant(torch.from_numpy(wp[i]), p,
+                                None if st is None else st[i])
+        _assert_matches_pallas(got[i], want[i], xq, wd, "both")
+
+
+@pytest.mark.parametrize("leaf", sorted(LEAVES))
+def test_unquantized_activations_match_jax_xla_ref(leaf):
+    """``quantize_activations=False``: the perm, then the plain segment
+    GEMMs on x as it is (B3)."""
+    pbits, k = LEAVES[leaf]
+    jleaf, pleaf = _served_leaf(pbits, k, 24, seed=k)
+    x = _x(np.random.default_rng(k + 2), 5, k, "zero").reshape(5, k)
+    jq = JQuantConfig(mode="serve", quantize_activations=False)
+    pq = PQuantConfig(mode="serve", quantize_activations=False)
+    want = jax.jit(lambda leaf, v: jresolve("xla_ref").packed_matmul(
+        leaf, v, jq))(jleaf, jnp.asarray(x))
+    got = pbackend.packed_matmul(pleaf, torch.from_numpy(x), pq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

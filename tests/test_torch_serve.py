@@ -289,6 +289,27 @@ def test_continuous_equals_lockstep(bridged, arch):
                                   lock.generate(prompts, 5))
 
 
+def test_two_pass_serve_tokens_equal_fused(bridged):
+    """Reduced h2o-danube-1.8b served in the two-pass activation form
+    (``fuse_act_quant=False``: kernel B8's plain version, then B3's)
+    emits the fused form's greedy tokens."""
+    _jscfg, pscfg, _served, model, *_ = bridged["h2o-danube-1.8b"]
+    reqs = _mixed_prompts(np.random.default_rng(7))
+    runs = []
+    for fuse in (True, False):
+        eng = pengine.DecodeEngine(
+            model, pscfg, pengine.EngineConfig(
+                max_batch=3, cache_len=64, prefill_chunk=4,
+                fuse_act_quant=fuse), already_serve=True, device="cpu")
+        assert eng.cfg.quant.fuse_act_quant == fuse
+        got = {c.request_id: c.tokens for c in eng.serve(
+            [PRequest(prompt=p, max_new_tokens=n, seed=i)
+             for i, (p, n) in enumerate(reqs)])}
+        runs.append([got[k] for k in sorted(got)])
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_temperature_sampling_reproducible(bridged):
     _jscfg, pscfg, _served, model, *_ = bridged["tiny"]
     eng = pengine.DecodeEngine(
