@@ -11,16 +11,24 @@ Phases (none catches an error; any failure exits non-zero):
      the main path's shapes (h2o-danube-1.8b: K = 2560 / 6912 split into
      [K4|K2|K1] segments, N in {640, 2560, 6912}, bf16 activations, M = 4
      decode rows and M = 32 prefill rows): quantize_pack bit-equal; the
-     segment GEMMs within the fp32 reordering bound
-     |kernel - plain| <= 1e-5 * (|xq| @ |wd|) + 1e-6. Each is timed with
-     CUDA events beside its plain version and a torch.matmul of the same
-     dequantized operands. B3 (the plain segment GEMM of the two-pass
-     form) on one layer's 21 calls at M = 4, and B6 (the grouped GEMM)
-     on one deepseek-moe-16b layer's 9 calls (E = 64 experts, T = 4
-     dispatch rows, most of them zero), held to the same bound, each
-     expert of B6 bitwise B3 on that expert's operands; timed beside
-     their plain versions and a torch.matmul / torch.bmm of the
-     dequantized operands.
+     segment GEMMs (one launch a linear over its segments) within the
+     fp32 reordering bound |kernel - plain| <= 1e-5 * (|xq| @ |wd|) +
+     1e-6. B1, B2 (uniform 4-bit) and B3 (x as it is) each timed on one
+     layer's 7 launches at M = 4 and M = 32 with CUDA events, as a loop
+     of calls (``ms``, the host's launch gaps included) and with the
+     host's launches queued ahead while the card sleeps (``device_ms``,
+     the kernels back to back), beside the plain version and one
+     torch.matmul a linear of the same dequantized operands on both
+     rulers. One launch over a leaf's segments equals the
+     single-segment launches bitwise in every mode; rows are bitwise equal
+     across M in {1, 4, 5, 16, 17, 32, 33}. B6 (the grouped GEMM) on one
+     deepseek-moe-16b layer's 3 launches (E = 64 experts, T = 4 rows in
+     the dispatch layout of a top-6 route of 4 tokens), held to the same
+     bound, each expert bitwise the dense launch on its operands, and with
+     ``rows`` (each expert's live rows) bitwise the launch without it on
+     every live row, rows past the count untouched; timed on both rulers
+     with and without ``rows`` beside its plain version and a torch.bmm
+     of the dequantized operands over the same experts.
   3. Decode attention over the packed 4-bit KV cache against the plain
      versions, at the full width (Hk = 8, G = 4, D = 80, batch 4): B4 on
      rings of T = 256 and T = 4096 (window 1024, so the window binds), B5
@@ -33,7 +41,8 @@ Phases (none catches an error; any failure exits non-zero):
   4. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
      weights from a seed, default mix), fp ring KV cache, greedy; packing
      and serving must go through quantize_pack and the driver-scale
-     segment GEMM; a second run gives the same tokens; lockstep equals
+     segment GEMM, one launch a linear (168 a decode step); a second run
+     gives the same tokens; lockstep equals
      continuous; the card agrees with the plain versions on the CPU in
      fp32: the reduced config end to end, and two full-width layers
      teacher-forced at every serve linear (each op held on its own;
@@ -76,7 +85,8 @@ Phases (none catches an error; any failure exits non-zero):
      weights of the seed (60.8 GiB in fp32, so every earlier model is
      freed first), packed (B7) and served through the DecodeEngine with
      the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
-     must go through B6, B8 and B1; a second run gives the same tokens;
+     must go through B6 (one launch an expert bank: 81 a decode step), B8
+     and B1; a second run gives the same tokens;
      lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
      give equal tokens. Peak memory, decode step ms and its device
      profile.
@@ -119,6 +129,7 @@ from repro_torch.kernels import noise_inject as ni  # noqa: E402
 from repro_torch.kernels import packed_matmul as pm  # noqa: E402
 from repro_torch.kernels import quant_pack as qp  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serve import engine, kv_pool, kv_quant  # noqa: E402
 from repro_torch.serve.scheduler import DECODE, Request  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
@@ -232,46 +243,47 @@ def segment_shapes(qcfg, k):
 
 
 class LayerOperands:
-    """Random operands of one layer's segment GEMMs at batch M."""
+    """Random operands of one layer's seven linears at batch M: per linear
+    the bf16 input x [M, K] (an outlier row), its per-token scale and the
+    leaf's non-empty segments [(carriers, group scales, p, k_off)], as
+    ``backend.packed_matmul`` passes them to one launch."""
 
     def __init__(self, cfg, qcfg, m, gen, dev):
-        self.calls = []
+        self.linears = []
         for _name, k, n in layer_linears(cfg):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             x[0, : k // 2] *= 40.0                     # an outlier row
-            sx = quant.abs_max_scale(x, dim=-1)
+            sx = quant.abs_max_scale(x, dim=-1).float().contiguous()
             wscale = torch.rand((k // 16,), generator=gen, device=dev) \
                 * 0.02 + 0.001
+            ops = []
             for p, off, kp, goff in segment_shapes(qcfg, k):
                 wp = torch.randint(0, 256, (kp * p // 8, n), generator=gen,
                                    device=dev, dtype=torch.uint8)
-                sc = wscale[goff:goff + kp // 16].contiguous()
-                self.calls.append(dict(x=x[:, off:off + kp], sx=sx, wp=wp,
-                                       scales=sc, p=p, n=n, kp=kp))
+                ops.append((wp, wscale[goff:goff + kp // 16], p, off))
+            self.linears.append(dict(x=x, sx=sx, ops=ops, n=n))
 
 
-def _segment_fns(name):
-    """(kernel, plain version, the x the GEMM multiplies) of one call of
-    B1, B2 or B3."""
+def _segment_kwargs(name, lin):
+    """The mode of B1 (driver scale), B2 (self-scale) or B3 (x as it is)
+    as ``segments_matmul`` arguments."""
     if name == B1:
-        return (lambda c: pm.fused_act_segment_matmul(
-                    c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]),
-                lambda c: pm.fused_act_segment_matmul_plain(
-                    c["x"], c["sx"], c["wp"], c["scales"], p=c["p"]),
-                lambda c: pm.act_quant(c["x"], c["sx"], c["p"]))
-    if name == B2:
-        return (lambda c: pm.fused_act_selfscale_matmul(
-                    c["x"], c["wp"], c["scales"], p=c["p"]),
-                lambda c: pm.fused_act_selfscale_matmul_plain(
-                    c["x"], c["wp"], c["scales"], p=c["p"]),
-                lambda c: pm.act_quant(
-                    c["x"], quant.abs_max_scale(c["x"], -1), c["p"]))
-    return (lambda c: pm.packed_segment_matmul(c["x"], c["wp"], c["scales"],
-                                               p=c["p"]),
-            lambda c: pm.segment_matmul_plain(c["x"], c["wp"], c["scales"],
-                                              p=c["p"]),
-            lambda c: c["x"].float())
+        return dict(sx=lin["sx"])
+    return dict(self_scale=name == B2)
+
+
+def _xq_wd(name, lin, sel=lambda t: t):
+    """The x the GEMM multiplies and the dequantized weights, over the
+    linear's segments (``sel`` picks one expert of a grouped operand)."""
+    x, xq, wd = sel(lin["x"]), [], []
+    sx = quant.abs_max_scale(x, dim=-1) if name == B2 else lin.get("sx")
+    for wp, sc, p, off in lin["ops"]:
+        xs = x[:, off:off + sel(wp).shape[0] * 8 // p]
+        xq.append(pm.act_quant(xs, sx, p) if name in (B1, B2)
+                  else xs.float())
+        wd.append(pm.unpack_dequant(sel(wp), p, sel(sc).contiguous()))
+    return torch.cat(xq, dim=-1), torch.cat(wd)
 
 
 def _held(name, got, want, xq, wd):
@@ -289,48 +301,134 @@ def _held(name, got, want, xq, wd):
 
 
 def check_segment_gemm(name, ops_list):
-    """Kernel vs plain for every call; returns the max |error|."""
-    kern, plain, xq = _segment_fns(name)
+    """Kernel vs plain for every linear (one launch over its segments);
+    returns the max |error|."""
     worst = 0.0
     for ops in ops_list:
-        for c in ops.calls:
-            got, want = kern(c), plain(c)
+        for lin in ops.linears:
+            kw = _segment_kwargs(name, lin)
+            got = pm.segments_matmul(lin["x"], lin["ops"], **kw)
+            want = pm.segments_matmul_plain(lin["x"], lin["ops"], **kw)
             torch.cuda.synchronize()
-            worst = max(worst, _held(name, got, want, xq(c),
-                                     pm.unpack_dequant(c["wp"], c["p"],
-                                                       c["scales"])))
+            worst = max(worst, _held(name, got, want, *_xq_wd(name, lin)))
     return worst
 
 
 def time_segment_gemm(name, sets, reps=20):
-    """ms of one layer's calls (rotating operand sets so the weights come
-    from device memory, as in a 24-layer step), plain and library ms (a
-    torch.matmul of the same quantized x and dequantized weights)."""
-    kern, plain, xq = _segment_fns(name)
-
+    """ms of one layer's 7 launches (one a linear; rotating operand sets
+    so the weights come from device memory, as in a 24-layer step) as a
+    loop of calls, the host's launch gaps included, and ``device_ms`` with
+    the host queued ahead (the kernels back to back); plain ms; library
+    ms (one torch.matmul a linear of the same quantized x and dequantized
+    weights) on both rulers."""
     def run(fn):
-        return lambda: [fn(c) for ops in sets for c in ops.calls]
+        return lambda: [fn(lin["x"], lin["ops"], **_segment_kwargs(name, lin))
+                        for ops in sets for lin in ops.linears]
 
-    lib_ops = [(xq(c).contiguous(),
-                pm.unpack_dequant(c["wp"], c["p"], c["scales"]))
-               for ops in sets for c in ops.calls]
+    lib_ops = [_xq_wd(name, lin) for ops in sets for lin in ops.linears]
 
     def library():
         for a, b in lib_ops:
             torch.matmul(a, b)
 
     n = len(sets)
-    ms = time_ms(run(kern), reps) / n
-    plain_ms = time_ms(run(plain), 2) / n
+    ms = time_ms(run(pm.segments_matmul), reps) / n
+    dev_ms = device_ms(run(pm.segments_matmul), reps) / n
+    plain_ms = time_ms(run(pm.segments_matmul_plain), 2) / n
     library_ms = time_ms(library, reps) / n
-    c0 = sets[0].calls
-    nbytes = sum(c["x"].shape[0] * c["kp"] * 2 + c["wp"].numel()
-                 + c["scales"].numel() * 4 + 2 * c["x"].shape[0] * c["n"] * 4
-                 + (c["x"].shape[0] * 4 if name == B1 else 0) for c in c0)
-    flops = sum(2 * c["x"].shape[0] * c["kp"] * c["n"] for c in c0)
+    library_dev_ms = device_ms(library, reps) / n
+    nbytes = flops = 0
+    for lin in sets[0].linears:
+        m, k = lin["x"].shape
+        nbytes += (m * k * 2 + 2 * m * lin["n"] * 4
+                   + (m * 4 if name == B1 else 0)
+                   + sum(wp.numel() + sc.numel() * 4
+                         for wp, sc, _p, _o in lin["ops"]))
+        flops += 2 * m * k * lin["n"]
     b_ms, b_by = bound(nbytes, flops)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_dev_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def check_multi_segment_launches(cfg, gen, dev):
+    """One launch over a leaf's segments is bitwise the single-segment
+    launches into the same accumulator, in every mode: B1, B3 (x as it is
+    and snapped), B6 (both) on h2o-danube-1.8b's k_proj shape (K = 2560,
+    N = 640, default mix) at M = 4 and 32, and B2 (one segment) against
+    its per-segment wrapper. Returns the number of comparisons."""
+    qcfg = QuantConfig(mode="qat")
+    n = 0
+    for m in (4, 32):
+        lin = LayerOperands(cfg, qcfg, m, gen, dev).linears[1]
+        x, ops = lin["x"], lin["ops"]
+        grouped = [(torch.stack([wp, wp.flip(0)]),
+                    torch.stack([sc, sc.flip(0)]), p, off)
+                   for wp, sc, p, off in ops]
+        xg = torch.stack([x, x.flip(0)])
+        for mode in ("fused", "plain", "snap", "grouped", "grouped_snap"):
+            snap = mode.endswith("snap")
+            xx, oo = (xg, grouped) if mode.startswith("grouped") else (x, ops)
+            sx = lin["sx"] if mode == "fused" else None
+            base = torch.randn(tuple(xx.shape[:-1]) + (lin["n"],),
+                               generator=gen, device=dev)
+            one = pm.segments_matmul(xx, oo, sx=sx, act_quant=snap,
+                                     out=base.clone())
+            three = base.clone()
+            for wp, sc, p, off in oo:
+                xs = xx[..., off:off + wp.shape[-2] * 8 // p]
+                if xx.dim() == 3:
+                    pm.packed_segment_matmul_grouped(xs, wp, sc, p=p,
+                                                     act_quant=snap,
+                                                     out=three)
+                elif sx is not None:
+                    pm.fused_act_segment_matmul(xs, sx, wp, sc, p=p,
+                                                out=three)
+                else:
+                    pm.packed_segment_matmul(xs, wp, sc.contiguous(), p=p,
+                                             act_quant=snap, out=three)
+            torch.cuda.synchronize()
+            if not torch.equal(one, three):
+                raise AssertionError(f"one launch over the segments != "
+                                     f"the single launches ({mode}, M={m})")
+            n += 1
+    u4 = LayerOperands(cfg, U4, 4, gen, dev).linears[0]
+    wp, sc, p, _off = u4["ops"][0]
+    if not torch.equal(
+            pm.segments_matmul(u4["x"], u4["ops"], self_scale=True),
+            pm.fused_act_selfscale_matmul(u4["x"], wp, sc, p=p)):
+        raise AssertionError("self-scale: segments_matmul != its wrapper")
+    return n + 1
+
+
+def check_rows_across_batch(cfg, gen, dev):
+    """A row's output is bitwise the same whatever the number of rows in
+    the launch, M in {1, 4, 5, 16, 17, 32, 33} (every row tile the kernel
+    picks), for B1, B2, B3 and B6 on h2o-danube-1.8b's k_proj shape.
+    Returns the number of comparisons."""
+    n = 0
+    for name, qcfg in ((B1, QuantConfig(mode="qat")), (B2, U4),
+                       (B3, QuantConfig(mode="qat")), (B6, None)):
+        lin = LayerOperands(cfg, qcfg or QuantConfig(mode="qat"), 33, gen,
+                            dev).linears[1]
+        x, ops = lin["x"], lin["ops"]
+        if name == B6:
+            x = torch.stack([x, x.flip(0)])
+            ops = [(torch.stack([wp, wp]), torch.stack([sc, sc]), p, off)
+                   for wp, sc, p, off in ops]
+        ref = None
+        for m in (33, 32, 17, 16, 5, 4, 1):
+            kw = _segment_kwargs(name, lin) if name != B6 else {}
+            if name == B1:
+                kw = dict(sx=lin["sx"][:m].contiguous())
+            got = pm.segments_matmul(x[..., :m, :], ops, **kw)
+            if ref is None:
+                ref = got
+            elif not torch.equal(got, ref[..., :m, :]):
+                raise AssertionError(f"{name}: rows at M={m} differ from "
+                                     f"the same rows at M=33")
+            n += 1
+    return n
 
 
 def phase_quant_pack(cfg, qcfg, gen, dev, reps=10):
@@ -371,75 +469,121 @@ def phase_quant_pack(cfg, qcfg, gen, dev, reps=10):
 # ---------------------------------------------------- grouped GEMM ----
 class GroupedOperands:
     """B6 operands of one MoE layer's three expert projections (up, gate,
-    down) at T dispatch rows a expert: x [E, T, K] bf16 with the rows no
-    token was routed to zero (T * top_k of the E * T rows live), carriers
-    [E, Kp * p / 8, N], per-expert group scales read as column slices of
-    [E, K / 16], as the grouped driver passes them."""
+    down) in the dispatch layout: a top-k route of T random router logits
+    gives each expert its count of rows, its live rows come first in
+    x [E, T, K] bf16 and the rest are zero; ``rows`` [E] int32 holds the
+    counts. Carriers [E, Kp * p / 8, N], per-expert group scales read as
+    column slices of [E, K / 16], as the grouped driver passes them."""
 
     def __init__(self, cfg, qcfg, t, gen, dev):
         e = cfg.num_experts
-        self.calls = []
+        _gates, ids = moe_lib.route(
+            torch.randn((t, e), generator=gen, device=dev), cfg.top_k)
+        flat = ids.reshape(-1)
+        self.rows = torch.zeros(e, dtype=torch.int32, device=dev)
+        self.rows.scatter_add_(0, flat, torch.ones_like(flat,
+                                                        dtype=torch.int32))
+        live = (torch.arange(t, device=dev)[None, :]
+                < self.rows[:, None]).float()
+        self.projs = []
         for k, n in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
                      (cfg.d_ff, cfg.d_model)):
             x = torch.randn((e, t, k), generator=gen, device=dev)
-            live = torch.randperm(e * t, generator=gen, device=dev)[
-                :t * cfg.top_k]
-            mask = torch.zeros(e * t, device=dev)
-            mask[live] = 1.0
-            x = (x * mask.reshape(e, t, 1)).to(torch.bfloat16)
+            x = (x * live[..., None]).to(torch.bfloat16)
             wscale = torch.rand((e, k // 16), generator=gen, device=dev) \
                 * 0.02 + 0.001
+            ops = []
             for p, off, kp, goff in segment_shapes(qcfg, k):
                 wp = torch.randint(0, 256, (e, kp * p // 8, n),
                                    generator=gen, device=dev,
                                    dtype=torch.uint8)
-                self.calls.append(dict(
-                    x=x[:, :, off:off + kp], wp=wp, p=p, n=n, kp=kp,
-                    scales=wscale[:, goff:goff + kp // 16]))
+                ops.append((wp, wscale[:, goff:goff + kp // 16], p, off))
+            self.projs.append(dict(x=x, ops=ops, n=n))
+
+
+def _grouped_bound(ops, experts, live_rows):
+    """(bound ms, by what) of the projections over the given experts, each
+    with every row or with its live rows only: each read carrier, scale
+    and activation byte once, each output read and written once."""
+    t = ops.projs[0]["x"].shape[1]
+    rows = ops.rows.tolist() if live_rows else [t] * len(ops.rows)
+    nbytes = flops = 0
+    for pr in ops.projs:
+        k = pr["x"].shape[-1]
+        for e in experts:
+            nbytes += (rows[e] * k * 2 + 2 * rows[e] * pr["n"] * 4
+                       + sum(wp[e].numel() + sc[e].numel() * 4
+                             for wp, sc, _p, _o in pr["ops"]))
+            flops += 2 * rows[e] * k * pr["n"]
+    return bound(nbytes, flops)
 
 
 def phase_grouped_segment(ops):
-    """B6 against its plain version on one MoE layer's 9 calls (3
-    projections x 3 segments), each expert held to the fp32 reordering
-    bound, and each expert's rows bitwise B3's launch on that expert's
-    operands; timed beside the plain version and a torch.bmm of the
-    dequantized operands."""
+    """B6 on one MoE layer's 3 projections (one launch over the three
+    segments each) against its plain version: every expert held to the
+    fp32 reordering bound and bitwise the dense launch on its operands;
+    with ``rows`` bitwise the launch without it on every live row, every
+    row past the count untouched. Timed with and without ``rows``, as a
+    loop of calls (``ms``) and with the host queued ahead (``device_ms``),
+    beside the plain version and a torch.bmm of the dequantized operands
+    over the same experts (all of them; the live ones) on both rulers."""
     worst = 0.0
-    for c in ops.calls:
-        got = pm.packed_segment_matmul_grouped(c["x"], c["wp"], c["scales"],
-                                               p=c["p"])
-        want = pm.grouped_matmul_plain(c["x"], c["wp"], c["scales"],
-                                       p=c["p"])
+    counts = ops.rows.tolist()
+    for pr in ops.projs:
+        x = pr["x"]
+        got = pm.segments_matmul(x, pr["ops"])
+        want = pm.segments_matmul_plain(x, pr["ops"])
+        sentinel = torch.full_like(got, 3.25)
+        full = pm.segments_matmul(x, pr["ops"], out=sentinel.clone())
+        part = pm.segments_matmul(x, pr["ops"], rows=ops.rows,
+                                  out=sentinel.clone())
         torch.cuda.synchronize()
-        for e in range(c["x"].shape[0]):
-            sc = c["scales"][e].contiguous()
-            worst = max(worst, _held(B6, got[e], want[e], c["x"][e],
-                                     pm.unpack_dequant(c["wp"][e], c["p"],
-                                                       sc)))
-            alone = pm.packed_segment_matmul(c["x"][e], c["wp"][e], sc,
-                                             p=c["p"])
+        for e in range(x.shape[0]):
+            sel = lambda t, e=e: t[e]  # noqa: E731
+            worst = max(worst, _held(B6, got[e], want[e],
+                                     *_xq_wd(B3, pr, sel)))
+            alone = pm.segments_matmul(
+                x[e], [(wp[e], sc[e].contiguous(), p, off)
+                       for wp, sc, p, off in pr["ops"]])
             if not torch.equal(alone, got[e]):
-                raise AssertionError(f"B6 expert {e} differs from B3 on "
-                                     f"its operands (p={c['p']})")
-    kern = lambda: [pm.packed_segment_matmul_grouped(  # noqa: E731
-        c["x"], c["wp"], c["scales"], p=c["p"]) for c in ops.calls]
-    plain = lambda: [pm.grouped_matmul_plain(  # noqa: E731
-        c["x"], c["wp"], c["scales"], p=c["p"]) for c in ops.calls]
-    lib_ops = [(c["x"].float().contiguous(), torch.stack([
-        pm.unpack_dequant(c["wp"][e], c["p"], c["scales"][e].contiguous())
-        for e in range(c["x"].shape[0])])) for c in ops.calls]
-    e, t = ops.calls[0]["x"].shape[:2]
-    nbytes = sum(e * t * c["kp"] * 2 + c["wp"].numel()
-                 + c["scales"].numel() * 4 + 2 * e * t * c["n"] * 4
-                 for c in ops.calls)
-    flops = sum(2 * e * t * c["kp"] * c["n"] for c in ops.calls)
-    b_ms, b_by = bound(nbytes, flops)
+                raise AssertionError(f"B6 expert {e} differs from the dense "
+                                     f"launch on its operands")
+            r = counts[e]
+            if not torch.equal(part[e, :r], full[e, :r]) or \
+                    not (part[e, r:] == 3.25).all():
+                raise AssertionError(f"B6 with rows: expert {e} ({r} live "
+                                     f"rows) differs")
+    kern = lambda rows=None: [pm.segments_matmul(  # noqa: E731
+        pr["x"], pr["ops"], rows=rows) for pr in ops.projs]
+    plain = lambda: [pm.segments_matmul_plain(  # noqa: E731
+        pr["x"], pr["ops"]) for pr in ops.projs]
+    every = list(range(ops.projs[0]["x"].shape[0]))
+    live = [e for e in every if counts[e] > 0]
+
+    def bmm_ops(experts):
+        idx = torch.tensor(experts, device=ops.rows.device)
+        return [(pr["x"][idx].float().contiguous(), torch.stack(
+            [_xq_wd(B3, pr, lambda t, e=e: t[e])[1] for e in experts]))
+            for pr in ops.projs]
+
+    lib_all, lib_live = bmm_ops(every), bmm_ops(live)
+    b_all, by_all = _grouped_bound(ops, every, live_rows=False)
+    b_live, by_live = _grouped_bound(ops, live, live_rows=True)
+    bmm_all = lambda: [torch.bmm(a, b) for a, b in lib_all]  # noqa: E731
+    bmm_live = lambda: [torch.bmm(a, b) for a, b in lib_live]  # noqa: E731
     return dict(max_abs_err=worst, ms=time_ms(kern, 20),
-                plain_ms=time_ms(plain, 1),
-                library_ms=time_ms(lambda: [torch.bmm(a, b)
-                                            for a, b in lib_ops], 20),
-                bound_ms=b_ms, bound_by=b_by,
-                carrier_bytes=sum(c["wp"].numel() for c in ops.calls))
+                device_ms=device_ms(kern, 20), plain_ms=time_ms(plain, 1),
+                library_ms=time_ms(bmm_all, 20),
+                library_device_ms=device_ms(bmm_all, 20),
+                bound_ms=b_all, bound_by=by_all,
+                rows_ms=time_ms(lambda: kern(ops.rows), 20),
+                rows_device_ms=device_ms(lambda: kern(ops.rows), 20),
+                rows_bound_ms=b_live, rows_bound_by=by_live,
+                rows_library_ms=time_ms(bmm_live, 20),
+                rows_library_device_ms=device_ms(bmm_live, 20),
+                live_experts=len(live), live_rows=sum(counts),
+                carrier_bytes=sum(wp.numel() for pr in ops.projs
+                                  for wp, _s, _p, _o in pr["ops"]))
 
 
 def check_two_pass_equals_fused(model, qcfg, gen, dev):
@@ -688,6 +832,19 @@ def decode_step_ms(eng, steps=10):
         tokens = logits.argmax(-1).cpu().numpy().astype(np.int32)
         times.append(time.perf_counter() - t0)
     return float(np.median(times[2:]) * 1e3)
+
+
+def step_launches(eng):
+    """Launches of each kernel in one greedy decode step at batch
+    max_batch."""
+    b = eng.ecfg.max_batch
+    cache = eng.init_cache(b)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lm.decode_step(eng.model, eng.cfg, cache,
+                   np.arange(1, b + 1, dtype=np.int32), np.full(b, 64))
+    torch.cuda.synchronize()
+    return kernels.launch_counts()
 
 
 def profile_decode(eng, steps=3):
@@ -1286,7 +1443,7 @@ def phase_launcher():
 
 
 # ------------------------------------------------------------ MoE serve ----
-def phase_moe_serve(dev, rng, launches):
+def phase_moe_serve(dev, rng, launches, per_step):
     """Full-width, 28-layer deepseek-moe-16b from random QAT weights of the
     seed, packed (B7) and served through the DecodeEngine with the fp
     ring (B6 for every routed-expert projection after B8 over [E, T, K];
@@ -1350,6 +1507,12 @@ def phase_moe_serve(dev, rng, launches):
                             / 2 ** 30)
     prof = profile_decode(eng)
     stats["fp_ring"]["profile"] = prof
+    banks = sum(isinstance(m, moe_lib.ExpertBank) for m in eng.model.modules())
+    per_step[B6] = step_launches(eng)[B6]
+    stats["fp_ring"]["b6_launches_per_step"] = per_step[B6]
+    if per_step[B6] != banks:
+        raise AssertionError(f"{per_step[B6]} {B6} launches a MoE step for "
+                             f"{banks} expert banks")
     log(f"[12] fp ring: {len(reqs)} requests, {new} tokens in {wall:.2f} s;"
         f" {stats['fp_ring']}; device idle share "
         f"{1 - prof['device_busy_ms_per_step'] / stats['fp_ring']['decode_step_ms']:.3f}")
@@ -1462,30 +1625,33 @@ def main() -> int:
     gen.manual_seed(SEED)
     results = {B7: phase_quant_pack(cfg, mixed, gen, dev)}
     log(f"[2] quantize_pack bit-equal; {results[B7]}")
-    for name, qcfg in ((B1, mixed), (B2, u4)):
+    for name, qcfg in ((B1, mixed), (B2, u4), (B3, mixed)):
         decode_sets = [LayerOperands(cfg, qcfg, 4, gen, dev)
                        for _ in range(4)]
         prefill = LayerOperands(cfg, qcfg, 32, gen, dev)
         err = check_segment_gemm(name, decode_sets[:1] + [prefill])
         res = time_segment_gemm(name, decode_sets)
         res["max_abs_err"] = err
-        res["prefill_ms"] = time_segment_gemm(name, [prefill])["ms"]
+        pre = time_segment_gemm(name, [prefill])
+        res.update(prefill_ms=pre["ms"], prefill_device_ms=pre["device_ms"],
+                   prefill_library_ms=pre["library_ms"],
+                   prefill_library_device_ms=pre["library_device_ms"],
+                   prefill_bound_ms=pre["bound_ms"])
         results[name] = res
-        log(f"[2] {name} within the fp32 bound (max |err| {err:.3e}); "
-            f"one layer at M=4: {res}")
+        log(f"[2] {name} within the fp32 bound (max |err| {err:.3e}); one "
+            f"layer, 7 launches, at M=4 (M=32: prefill_*): {res}")
         del decode_sets, prefill
-    torch.cuda.empty_cache()
-    b3_sets = [LayerOperands(cfg, mixed, 4, gen, dev) for _ in range(4)]
-    results[B3] = dict(time_segment_gemm(B3, b3_sets),
-                       max_abs_err=check_segment_gemm(B3, b3_sets[:1]))
-    log(f"[2] {B3} within the fp32 bound; one layer at M=4 (x as it is: "
-        f"the second pass reads the fake-quantized activations): "
-        f"{results[B3]}")
-    del b3_sets
+        torch.cuda.empty_cache()
+    log(f"[2] one launch over a leaf's segments == the single-segment "
+        f"launches bitwise: {check_multi_segment_launches(cfg, gen, dev)} "
+        f"comparisons")
+    log(f"[2] rows bitwise equal across M in {{1, 4, 5, 16, 17, 32, 33}}: "
+        f"{check_rows_across_batch(cfg, gen, dev)} comparisons")
     results[B6] = phase_grouped_segment(GroupedOperands(
         get_config(MOE_ARCH), mixed, 4, gen, dev))
-    log(f"[2] {B6} within the fp32 bound, every expert bitwise {B3}; one "
-        f"{MOE_ARCH} layer (E=64, T=4): {results[B6]}")
+    log(f"[2] {B6} within the fp32 bound, every expert bitwise the dense "
+        f"launch, rows= bitwise on live rows and past rows untouched; one "
+        f"{MOE_ARCH} layer (E=64, T=4, 3 launches): {results[B6]}")
     torch.cuda.empty_cache()
     clock.lap(2)
 
@@ -1496,7 +1662,7 @@ def main() -> int:
     clock.lap(3)
 
     # -------------------------------------------------------- phase 4 ----
-    launches = {}
+    launches, per_step = {}, {}
     qat_cfg = cfg.with_quant_mode("qat")
     ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
     params = lm.init_params(qat_cfg, seed=SEED, device=dev)
@@ -1535,6 +1701,10 @@ def main() -> int:
     log(f"[4] decode step profile (batch 4): {prof}; device idle share "
         f"{1 - prof['device_busy_ms_per_step'] / step_ms:.3f} of the "
         f"unprofiled {step_ms:.2f} ms step")
+    per_step[B1] = step_launches(eng)[B1]
+    if per_step[B1] != 7 * cfg.num_layers:
+        raise AssertionError(f"{per_step[B1]} {B1} launches a decode step, "
+                             f"not one a linear")
     check_lockstep_equals_continuous(eng, qat_cfg, ecfg, cfg.vocab_size,
                                      rng, 16, 8)
     log("[4] lockstep == continuous on same-length prompts")
@@ -1554,8 +1724,13 @@ def main() -> int:
         if not np.array_equal(a.tokens, b.tokens):
             raise AssertionError(f"two-pass tokens != fused tokens (request "
                                  f"{a.request_id})")
+    per_step[B3] = step_launches(two)[B3]
     log(f"[4] two-pass tokens == fused tokens; decode step at batch 4: "
-        f"{decode_step_ms(two):.2f} ms")
+        f"{decode_step_ms(two):.2f} ms; {per_step[B1]} {B1} launches a "
+        f"fused step, {per_step[B3]} {B3} a two-pass step")
+    if per_step[B3] != 7 * cfg.num_layers:
+        raise AssertionError(f"{per_step[B3]} {B3} launches a two-pass "
+                             f"decode step, not one a linear")
     del eng, two
     torch.cuda.empty_cache()
     log(f"[4] card kernels vs CPU plain versions (fp32, relative L2): "
@@ -1579,7 +1754,10 @@ def main() -> int:
         raise AssertionError(f"U4 path launches {counts}")
     check_lockstep_equals_continuous(eng, u4_cfg, ecfg, cfg.vocab_size, rng,
                                      12, 6)
-    log("[5] lockstep == continuous")
+    per_step[B2] = step_launches(eng)[B2]
+    log(f"[5] lockstep == continuous; {per_step[B2]} {B2} launches a step")
+    if per_step[B2] != 7 * u4_cfg.num_layers:
+        raise AssertionError(f"{per_step[B2]} {B2} launches a U4 step")
 
     del eng
     torch.cuda.empty_cache()
@@ -1629,7 +1807,7 @@ def main() -> int:
     clock.lap(11)
 
     # ------------------------------------------------------- phase 12 ----
-    moe = phase_moe_serve(dev, rng, launches)
+    moe = phase_moe_serve(dev, rng, launches, per_step)
     clock.lap(12)
 
     # ------------------------------------------------------- phase 13 ----
@@ -1639,13 +1817,17 @@ def main() -> int:
 
     # ------------------------------------------------------- phase 14 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (21 segments)",
-            B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
-            B2: "one h2o-danube-1.8b layer of decode GEMMs at M=4",
+            B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
+                "launches, one a linear; prefill_*: M=32)",
+            B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
+                "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
-                "(21 calls; launches: the two-pass serve run)",
+                "(7 launches; prefill_*: M=32; launches: the two-pass "
+                "serve run)",
             B6: "one deepseek-moe-16b layer of grouped expert GEMMs at "
-                "E=64, T=4 (3 projections x 3 segments; launches: the fp "
-                "ring MoE serve run)",
+                "E=64, T=4, every row live (3 launches, one a projection; "
+                "rows_*: the same with the live rows of a top-6 route of "
+                "4 tokens; launches: the fp ring MoE serve run)",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring)",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
@@ -1664,8 +1846,16 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "work": work[name]})
-        if "device_ms" in r:
-            rows[-1]["device_ms"] = r["device_ms"]
+        for key in ("device_ms", "library_device_ms", "prefill_ms",
+                    "prefill_device_ms", "prefill_library_ms",
+                    "prefill_library_device_ms", "prefill_bound_ms",
+                    "rows_ms", "rows_device_ms", "rows_bound_ms",
+                    "rows_library_ms", "rows_library_device_ms",
+                    "live_experts"):
+            if key in r:
+                rows[-1][key] = r[key]
+        if name in per_step:
+            rows[-1]["launches_per_decode_step"] = per_step[name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kv4_serve": {
         k: {n: x for n, x in v.items() if n != "profile"}

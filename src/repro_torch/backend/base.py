@@ -64,8 +64,9 @@ def _sorted_pbits(serve_params: Dict, segs, device) -> torch.Tensor:
 def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
     """Serve-mode SmolLinear over a packed leaf, in the reference's order:
     channel perm; per-token scale on the permuted row; the self-scale gate
-    (per_token mode and one segment spanning K); one GEMM per non-empty
-    [K4|K2|K1] segment accumulated in fp32; bias; cast to x's dtype.
+    (per_token mode and one segment spanning K); the GEMMs of the
+    non-empty [K4|K2|K1] segments in one launch, accumulated in fp32 one
+    segment after the other; bias; cast to x's dtype.
 
     The fused form (``qcfg.fuse_act_quant``) quantizes the activations in
     the segment kernels' prologue (B1, B2). The two-pass form runs one
@@ -91,6 +92,7 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
+    sx2 = None
     if fused and not self_scale:
         # One [M, 1] scale operand for every segment kernel (per_tensor /
         # "none" broadcast one value to each row).
@@ -99,35 +101,32 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
     wscale = serve_params.get("wscale")
     n = max(bufs[name].shape[1] for name, _p, _v in pack_lib.SEGMENTS)
     y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for name, p, off, kp, goff, ng in segs:
-        seg_scales = None if wscale is None else wscale[goff:goff + ng]
-        xs = x2[:, off:off + kp]
-        if self_scale:
-            pm.fused_act_selfscale_matmul(xs, bufs[name], seg_scales, p=p,
-                                          group_size=g, out=y)
-        elif fused:
-            pm.fused_act_segment_matmul(xs, sx2, bufs[name], seg_scales,
-                                        p=p, group_size=g, out=y)
-        else:
-            pm.packed_segment_matmul(xs, bufs[name], seg_scales, p=p,
-                                     group_size=g, out=y)
+    ops = [(bufs[name], None if wscale is None else wscale[goff:goff + ng],
+            p, off) for name, p, off, _kp, goff, ng in segs]
+    pm.segments_matmul(x2, ops, sx=sx2, self_scale=self_scale,
+                       group_size=g, out=y)
     b = serve_params.get("b")
     if b is not None:
         y = y + b.float()
     return y.reshape(lead + (n,)).to(x.dtype)
 
 
-def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor,
-                          qcfg) -> torch.Tensor:
+def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor, qcfg,
+                          rows: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Serve-mode SmolLinear over a stacked packed expert bank ([E, ...]
     leaves from ``convert_tree``), x [E, M, K] -> [E, M, N] in x's dtype:
     the reference's ``Backend.packed_matmul_grouped`` step by step.
     Per-expert channel perm; the activation scale (``per_tensor`` reduces
     each expert's slice); one whole-K ``fake_quant`` (B8) over [E, M, K];
-    one grouped GEMM (B6) per non-empty segment into one fp32 [E, M, N]
-    accumulator; bias; cast. It always takes the two-pass form, as the
-    reference does, so expert e's output is bitwise the dense two-pass
-    ``packed_matmul`` on expert e's leaf."""
+    one grouped GEMM launch (B6) over the non-empty segments into one fp32
+    [E, M, N] accumulator; bias; cast. It always takes the two-pass form,
+    as the reference does, so expert e's output is bitwise the dense
+    two-pass ``packed_matmul`` on expert e's leaf. ``rows`` [E] int32 (on
+    x's device): the live rows of each expert (0..rows[e]-1, the layout
+    of the MoE dispatch buffer); B6 leaves the others out, and they come
+    back as the bias alone. None: every row is live, the reference's
+    semantics."""
     bufs = {name: serve_params[name] for name, _p, _v in pack_lib.SEGMENTS}
     e = x.shape[0]
     k = sum(bufs[name].shape[1] * v for name, _p, v in pack_lib.SEGMENTS)
@@ -150,11 +149,9 @@ def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor,
     n = max(bufs[name].shape[2] for name, _p, _v in pack_lib.SEGMENTS)
     y = torch.zeros((e, x.shape[1], n), dtype=torch.float32,
                     device=x.device)
-    for name, p, off, kp, goff, ng in segs:
-        seg_scales = None if wscale is None else wscale[:, goff:goff + ng]
-        pm.packed_segment_matmul_grouped(x[:, :, off:off + kp], bufs[name],
-                                         seg_scales, p=p, group_size=g,
-                                         out=y)
+    ops = [(bufs[name], None if wscale is None else wscale[:, goff:goff + ng],
+            p, off) for name, p, off, _kp, goff, ng in segs]
+    pm.segments_matmul(x, ops, rows=rows, group_size=g, out=y)
     b = serve_params.get("b")
     if b is not None:
         y = y + b[:, None, :].float()

@@ -1,9 +1,10 @@
 """Segment GEMMs (B1, B2, B3, B6) and their plain versions.
 
-Counterpart of ``repro.kernels.packed_matmul``: one uniform-precision
-segment per call, x [M, Kp] @ unpack_dequant(wp [Kp*p//8, N]) * wscale,
-accumulated in fp32 into ``out`` [M, N]. The fused forms quantize the
-activations in the prologue,
+Counterpart of ``repro.kernels.packed_matmul``: x [M, Kp] @
+unpack_dequant(wp [Kp*p//8, N]) * wscale, accumulated in fp32 into
+``out`` [M, N], for one uniform-precision segment or, in one launch, for
+up to three segments of a leaf in [K4|K2|K1] order (``segments_matmul``).
+The fused forms quantize the activations in the prologue,
 
     xq = round_through_x_dtype(snap_p(x / sx) * sx),
 
@@ -13,9 +14,11 @@ self-scale form, legal when one segment spans K). The plain form (B3,
 ``packed_segment_matmul``) takes x as it is, or snapped to the grid when
 ``act_quant`` (x already in scale units): the second pass of the two-pass
 form. The grouped form (B6, ``packed_segment_matmul_grouped``) is B3 over
-a stacked expert bank, x [E, M, Kp] @ wp [E, Kp*p//8, N] -> [E, M, N].
-All four are one CUDA kernel body with a mode, so they share one order of
-accumulation.
+a stacked expert bank, x [E, M, Kp] @ wp [E, Kp*p//8, N] -> [E, M, N],
+optionally with ``rows`` [E]: each expert's live rows (0..rows[e]-1),
+the others left as they were. All of them are one CUDA kernel body with a
+mode, so they share one order of accumulation, and a launch over three
+segments equals three single-segment launches bitwise.
 
 On CUDA tensors the wrappers launch ``csrc/segment_gemm.cu`` or raise; on
 CPU tensors they run the plain versions below, which repeat the element
@@ -26,7 +29,7 @@ reference within rounding of the exact one.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +42,8 @@ from . import _build
 SOURCE = "segment_gemm.cu"
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count); reset by whoever reads them.
+# count); reset by whoever reads them. A launch over several segments
+# counts once, under its mode's key.
 LAUNCHES: Dict[str, int] = {"fused_act_segment_matmul": 0,
                             "fused_act_selfscale_matmul": 0,
                             "packed_segment_matmul": 0,
@@ -48,12 +52,32 @@ LAUNCHES: Dict[str, int] = {"fused_act_segment_matmul": 0,
 # Prologue modes of the kernel (csrc/segment_gemm.cu).
 FUSED, SELF, PLAIN, SNAP = 0, 1, 2, 3
 
+# One segment of a launch: carriers [(E,) Kp*p//8, N], group scales
+# [(E,) Kp // group] or None, the precision p, and the segment's first
+# channel in x.
+Segment = Tuple[torch.Tensor, Optional[torch.Tensor], int, int]
+
+MAX_SEGMENTS = 3
+
+
+class _SegmentArg(ctypes.Structure):
+    """One segment of a launch (``SegmentArg`` in csrc/segment_gemm.cu)."""
+    _fields_ = [("wp", ctypes.c_void_p), ("wp_es", ctypes.c_longlong),
+                ("ws", ctypes.c_void_p), ("ws_es", ctypes.c_longlong),
+                ("p", ctypes.c_int), ("k_off", ctypes.c_int),
+                ("kp", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class _SegmentArgs(ctypes.Structure):
+    """A launch's segments, passed to the kernel entry by value."""
+    _fields_ = [("s", _SegmentArg * MAX_SEGMENTS)]
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.soniq_segment_gemm
     ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [vp, ll, ll, i, vp, vp, ll, vp, ll, vp, ll,
-                   i, i, i, i, i, i, i, vp]
+    fn.argtypes = [vp, ll, ll, i, vp, i, _SegmentArgs, vp, ll, vp,
+                   i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
 
 
@@ -95,14 +119,25 @@ def segment_matmul_plain(x, wp, scales=None, *, p: int,
 
 def grouped_matmul_plain(x, wp, scales=None, *, p: int,
                          act_quant: bool = False,
-                         group_size: int = GROUP_SIZE) -> torch.Tensor:
+                         group_size: int = GROUP_SIZE,
+                         rows: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Plain version of B6: B3's plain version per expert, x [E, M, Kp],
     wp [E, Kp*p//8, N], scales [E, Kp // group_size] or None ->
-    fp32 [E, M, N]."""
-    return torch.stack([segment_matmul_plain(
-        x[e], wp[e], None if scales is None else scales[e], p=p,
-        act_quant=act_quant, group_size=group_size)
-        for e in range(x.shape[0])])
+    fp32 [E, M, N]. With ``rows`` [E], only rows 0..rows[e]-1 of expert e
+    are computed; the others are zero, so a caller that adds the result
+    leaves them as they were."""
+    e, m = x.shape[:2]
+    live = [m] * e if rows is None else [min(int(r), m)
+                                         for r in rows.tolist()]
+    out = torch.zeros((e, m, wp.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for i in range(e):
+        if live[i] > 0:
+            out[i, :live[i]] = segment_matmul_plain(
+                x[i, :live[i]], wp[i], None if scales is None else scales[i],
+                p=p, act_quant=act_quant, group_size=group_size)
+    return out
 
 
 def fused_act_segment_matmul_plain(x, sx, wp, scales=None, *, p: int,
@@ -124,21 +159,63 @@ def fused_act_selfscale_matmul_plain(x, wp, scales=None, *, p: int,
 
 
 # ------------------------------------------------------------- wrappers ----
-def _prepare(x, wp, scales, out, p):
-    """Shapes of a launch: ``x`` [(E,) M, Kp] against ``wp`` [(E,)
-    Kp*p//8, N]; returns ``out`` (a fresh zero fp32 [(E,) M, N] when not
-    given)."""
+def _mode(sx, self_scale: bool, act_quant: bool) -> int:
+    if self_scale:
+        if sx is not None:
+            raise ValueError("the self-scale form computes its own scale")
+        return SELF
+    if sx is not None:
+        return FUSED
+    return SNAP if act_quant else PLAIN
+
+
+def _key(mode: int, grouped: bool) -> str:
+    if mode == FUSED:
+        return "fused_act_segment_matmul"
+    if mode == SELF:
+        return "fused_act_selfscale_matmul"
+    return ("packed_segment_matmul_grouped" if grouped
+            else "packed_segment_matmul")
+
+
+def _kp(wp: torch.Tensor, p: int) -> int:
+    if p not in (1, 2, 4):
+        raise ValueError(f"p={p} not in (1, 2, 4)")
+    return wp.shape[-2] * (8 // p)
+
+
+def _check(x, segments, sx, rows, mode, out):
+    """Shapes of a launch: ``x`` [(E,) M, K] against each segment's
+    carriers [(E,) Kp*p//8, N]; returns ``out`` (a fresh zero fp32
+    [(E,) M, N] when not given)."""
     grouped = x.dim() == 3
-    if x.dim() not in (2, 3) or wp.dim() != x.dim():
-        raise ValueError(f"x {tuple(x.shape)} and wp {tuple(wp.shape)} "
-                         "must both be 2-D (one segment) or 3-D (experts)")
-    kp = x.shape[-1]
-    if p not in (1, 2, 4) or wp.shape[-2] * (8 // p) != kp:
-        raise ValueError(f"wp {tuple(wp.shape)} does not carry {kp} "
-                         f"channels at p={p}")
-    if grouped and wp.shape[0] != x.shape[0]:
-        raise ValueError(f"x has {x.shape[0]} experts, wp {wp.shape[0]}")
-    shape = tuple(x.shape[:-1]) + (wp.shape[-1],)
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x {tuple(x.shape)} must be 2-D (one leaf) or "
+                         "3-D (experts)")
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"{len(segments)} segments; a launch takes 1 to "
+                         f"{MAX_SEGMENTS}")
+    if mode == SELF and len(segments) != 1:
+        raise ValueError("the self-scale form takes one segment spanning K")
+    if grouped and mode in (FUSED, SELF):
+        raise ValueError("the grouped form takes the plain or snap mode")
+    if rows is not None and not grouped:
+        raise ValueError("rows applies to the grouped form only")
+    n = None
+    for wp, _sc, p, off in segments:
+        kp = _kp(wp, p)
+        if wp.dim() != x.dim():
+            raise ValueError(f"x {tuple(x.shape)} and wp {tuple(wp.shape)} "
+                             "must both be 2-D or both 3-D")
+        if grouped and wp.shape[0] != x.shape[0]:
+            raise ValueError(f"x has {x.shape[0]} experts, wp {wp.shape[0]}")
+        if off < 0 or off + kp > x.shape[-1]:
+            raise ValueError(f"segment [{off}, {off + kp}) outside x's "
+                             f"{x.shape[-1]} channels")
+        if n is not None and wp.shape[-1] != n:
+            raise ValueError("segments of one launch share N")
+        n = wp.shape[-1]
+    shape = tuple(x.shape[:-1]) + (n,)
     if out is None:
         out = torch.zeros(shape, dtype=torch.float32, device=x.device)
     elif tuple(out.shape) != shape or out.dtype != torch.float32:
@@ -147,50 +224,98 @@ def _prepare(x, wp, scales, out, p):
     return out
 
 
-def _launch(x, sx, wp, scales, out, *, p, group_size, mode, key):
-    """One launch over E experts (a 2-D x is one expert)."""
+def segments_matmul_plain(x: torch.Tensor, segments: Sequence[Segment], *,
+                          sx: Optional[torch.Tensor] = None,
+                          self_scale: bool = False, act_quant: bool = False,
+                          rows: Optional[torch.Tensor] = None,
+                          group_size: int = GROUP_SIZE,
+                          out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of :func:`segments_matmul`: each segment's plain
+    version added into ``out`` (a fresh zero fp32 tensor when not given)
+    one after the other, as the kernel adds each segment's sum."""
+    mode = _mode(sx, self_scale, act_quant)
+    out = _check(x, segments, sx, rows, mode, out)
+    for wp, sc, p, off in segments:
+        xs = x[..., off:off + _kp(wp, p)]
+        if x.dim() == 3:
+            part = grouped_matmul_plain(xs, wp, sc, p=p,
+                                        act_quant=mode == SNAP,
+                                        group_size=group_size, rows=rows)
+        elif mode == FUSED:
+            part = fused_act_segment_matmul_plain(xs, sx, wp, sc, p=p,
+                                                  group_size=group_size)
+        elif mode == SELF:
+            part = fused_act_selfscale_matmul_plain(xs, wp, sc, p=p,
+                                                    group_size=group_size)
+        else:
+            part = segment_matmul_plain(xs, wp, sc, p=p,
+                                        act_quant=mode == SNAP,
+                                        group_size=group_size)
+        out.add_(part)
+    return out
+
+
+def _launch(x, segments, sx, rows, mode, group_size, out):
+    """One launch over the segments and E experts (a 2-D x is one
+    expert)."""
     dev = x.device
-    for name, t in (("sx", sx), ("wp", wp), ("scales", scales),
-                    ("out", out)):
+    for name, t in (("sx", sx), ("rows", rows), ("out", out)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be fp32 or bf16, got {x.dtype}")
-    x3, wp3, out3 = (t if t.dim() == 3 else t[None] for t in (x, wp, out))
-    e, m, kp = x3.shape
-    n = wp3.shape[-1]
-    if x.numel() and x3.stride(2) != 1:
+    grouped = x.dim() == 3
+    e, m = (x.shape[0], x.shape[1]) if grouped else (1, x.shape[0])
+    n = out.shape[-1]
+    if x.numel() and x.stride(-1) != 1:
         raise ValueError("x needs a unit column stride")
-    if wp.dtype != torch.uint8 or not wp.is_contiguous():
-        raise ValueError("wp must be contiguous uint8")
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
-    if sx is not None:
-        if sx.dtype != torch.float32 or sx.numel() != m \
-                or not sx.is_contiguous():
-            raise ValueError("sx must be a contiguous fp32 [M, 1] tensor")
-    ws_es = 0
-    if scales is not None:
-        s2 = scales if scales.dim() == 2 else scales[None]
-        if scales.dtype != torch.float32 or s2.shape[0] != e \
-                or s2.shape[1] * group_size < kp or s2.stride(1) != 1:
-            raise ValueError("scales must be fp32 [(E,) Kp // group] with a "
-                             "unit group stride")
-        ws_es = s2.stride(0)
+    if sx is not None and (sx.dtype != torch.float32 or sx.numel() != m
+                           or not sx.is_contiguous()):
+        raise ValueError("sx must be a contiguous fp32 [M, 1] tensor")
+    if rows is not None and (rows.dtype != torch.int32
+                             or tuple(rows.shape) != (e,)
+                             or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous int32 [{e}] tensor")
+    table = _SegmentArgs()
+    for slot, (wp, sc, p, off) in zip(table.s, segments):
+        if wp.device != dev or (sc is not None and sc.device != dev):
+            raise ValueError(f"a segment is off x's device {dev}")
+        if wp.dtype != torch.uint8 or not wp.is_contiguous():
+            raise ValueError("wp must be contiguous uint8")
+        kp = _kp(wp, p)
+        es = 0
+        if sc is not None:
+            ng = sc.shape[-1]
+            if sc.dtype != torch.float32 or sc.stride(-1) != 1 \
+                    or ng * group_size < kp \
+                    or (grouped and (sc.dim() != 2 or sc.shape[0] != e)):
+                raise ValueError("scales must be fp32 [(E,) Kp // group] "
+                                 "with a unit group stride")
+            es = sc.stride(0) if grouped else 0
+        slot.wp, slot.wp_es = wp.data_ptr(), wp.stride(0) if grouped else 0
+        slot.ws = None if sc is None else sc.data_ptr()
+        slot.ws_es, slot.p, slot.k_off, slot.kp = es, p, off, kp
     if e == 0 or m == 0 or n == 0:
         return out
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.soniq_segment_gemm(
-            x3.data_ptr(), x3.stride(1), x3.stride(0),
+    args = (x.data_ptr(), x.stride(-2), x.stride(0) if grouped else 0,
             int(x.dtype == torch.bfloat16),
-            None if sx is None else sx.data_ptr(), wp3.data_ptr(),
-            wp3.stride(0), None if scales is None else scales.data_ptr(),
-            ws_es, out3.data_ptr(), out3.stride(0), e, m, n, kp, p,
-            group_size, mode, stream)
+            None if sx is None else sx.data_ptr(), len(segments), table,
+            out.data_ptr(), out.stride(0) if grouped else 0,
+            None if rows is None else rows.data_ptr(), e, m, n, group_size,
+            mode)
+    if dev.index == torch.cuda.current_device():
+        code = lib.soniq_segment_gemm(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            code = lib.soniq_segment_gemm(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "soniq_segment_gemm")
-    LAUNCHES[key] += 1
+    LAUNCHES[_key(mode, grouped)] += 1
     return out
 
 
@@ -204,6 +329,41 @@ def _on_device(x) -> bool:
     return True
 
 
+def segments_matmul(x: torch.Tensor, segments: Sequence[Segment], *,
+                    sx: Optional[torch.Tensor] = None,
+                    self_scale: bool = False, act_quant: bool = False,
+                    rows: Optional[torch.Tensor] = None,
+                    group_size: int = GROUP_SIZE,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch over a leaf's non-empty segments ``[(wp, scales, p,
+    k_off)]`` (1 to 3, in [K4|K2|K1] order): ``out += sum_s xq[...,
+    k_off_s:k_off_s + Kp_s] @ unpack_dequant(wp_s)``, each segment's sum
+    added into ``out`` in turn, so the result is bitwise that of one
+    per-segment launch after the other. The mode follows the arguments:
+    ``sx`` [M, 1] is B1's driver scale, ``self_scale`` B2 (one segment
+    spanning K), otherwise B3 (B6 for x [E, M, K] and carriers [E, ...],
+    with ``rows`` [E] int32 the live rows of each expert), snapped to the
+    grid first when ``act_quant``. ``out`` is a fresh zero fp32 [(E,) M, N]
+    tensor when not given."""
+    mode = _mode(sx, self_scale, act_quant)
+    out = _check(x, segments, sx, rows, mode, out)
+    if not _on_device(x):
+        return segments_matmul_plain(x, segments, sx=sx,
+                                     self_scale=self_scale,
+                                     act_quant=act_quant, rows=rows,
+                                     group_size=group_size, out=out)
+    return _launch(x, segments, sx, rows, mode, group_size, out)
+
+
+def _one_segment(x, wp, p, dims):
+    if x.dim() != dims:
+        raise ValueError(f"x {tuple(x.shape)} must be "
+                         f"{'2-D' if dims == 2 else '[E, M, Kp]'}")
+    if wp.dim() == dims and _kp(wp, p) != x.shape[-1]:
+        raise ValueError(f"wp {tuple(wp.shape)} does not carry "
+                         f"{x.shape[-1]} channels at p={p}")
+
+
 def fused_act_segment_matmul(x: torch.Tensor, sx: torch.Tensor,
                              wp: torch.Tensor,
                              scales: Optional[torch.Tensor] = None, *,
@@ -214,14 +374,9 @@ def fused_act_segment_matmul(x: torch.Tensor, sx: torch.Tensor,
     scale ``sx`` [M, 1]; ``out`` is a fresh zero [M, N] fp32 tensor when
     not given. x may be a column slice of a wider row (unit column
     stride)."""
-    if x.dim() != 2:
-        raise ValueError(f"x {tuple(x.shape)} must be 2-D")
-    out = _prepare(x, wp, scales, out, p)
-    if not _on_device(x):
-        return out.add_(fused_act_segment_matmul_plain(
-            x, sx, wp, scales, p=p, group_size=group_size))
-    return _launch(x, sx, wp, scales, out, p=p, group_size=group_size,
-                   mode=FUSED, key="fused_act_segment_matmul")
+    _one_segment(x, wp, p, 2)
+    return segments_matmul(x, [(wp, scales, p, 0)], sx=sx,
+                           group_size=group_size, out=out)
 
 
 def fused_act_selfscale_matmul(x: torch.Tensor, wp: torch.Tensor,
@@ -231,14 +386,9 @@ def fused_act_selfscale_matmul(x: torch.Tensor, wp: torch.Tensor,
                                ) -> torch.Tensor:
     """B2: B1 with the per-token scale ``max(max|x_row|, 1e-6) / 1.875``
     computed in the kernel over the full row (one segment spans K)."""
-    if x.dim() != 2:
-        raise ValueError(f"x {tuple(x.shape)} must be 2-D")
-    out = _prepare(x, wp, scales, out, p)
-    if not _on_device(x):
-        return out.add_(fused_act_selfscale_matmul_plain(
-            x, wp, scales, p=p, group_size=group_size))
-    return _launch(x, None, wp, scales, out, p=p, group_size=group_size,
-                   mode=SELF, key="fused_act_selfscale_matmul")
+    _one_segment(x, wp, p, 2)
+    return segments_matmul(x, [(wp, scales, p, 0)], self_scale=True,
+                           group_size=group_size, out=out)
 
 
 def packed_segment_matmul(x: torch.Tensor, wp: torch.Tensor,
@@ -251,34 +401,24 @@ def packed_segment_matmul(x: torch.Tensor, wp: torch.Tensor,
     a column slice allowed), snapped to the p-bit grid first when
     ``act_quant``; ``out`` is a fresh zero [M, N] fp32 tensor when not
     given."""
-    if x.dim() != 2:
-        raise ValueError(f"x {tuple(x.shape)} must be 2-D")
-    out = _prepare(x, wp, scales, out, p)
-    if not _on_device(x):
-        return out.add_(segment_matmul_plain(
-            x, wp, scales, p=p, act_quant=act_quant, group_size=group_size))
-    return _launch(x, None, wp, scales, out, p=p, group_size=group_size,
-                   mode=SNAP if act_quant else PLAIN,
-                   key="packed_segment_matmul")
+    _one_segment(x, wp, p, 2)
+    return segments_matmul(x, [(wp, scales, p, 0)], act_quant=act_quant,
+                           group_size=group_size, out=out)
 
 
 def packed_segment_matmul_grouped(x: torch.Tensor, wp: torch.Tensor,
                                   scales: Optional[torch.Tensor] = None, *,
                                   p: int, act_quant: bool = False,
                                   group_size: int = GROUP_SIZE,
-                                  out: Optional[torch.Tensor] = None
+                                  out: Optional[torch.Tensor] = None,
+                                  rows: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """B6: B3 per expert in one launch, ``out[e] += x[e] @
     unpack_dequant(wp[e])`` with x [E, M, Kp] (a column slice allowed),
     wp [E, Kp*p//8, N] contiguous and scales [E, Kp // group_size] (a
     column slice of the per-expert scales allowed) or None; ``out`` is a
-    fresh zero [E, M, N] fp32 tensor when not given."""
-    if x.dim() != 3:
-        raise ValueError(f"x {tuple(x.shape)} must be [E, M, Kp]")
-    out = _prepare(x, wp, scales, out, p)
-    if not _on_device(x):
-        return out.add_(grouped_matmul_plain(
-            x, wp, scales, p=p, act_quant=act_quant, group_size=group_size))
-    return _launch(x, None, wp, scales, out, p=p, group_size=group_size,
-                   mode=SNAP if act_quant else PLAIN,
-                   key="packed_segment_matmul_grouped")
+    fresh zero [E, M, N] fp32 tensor when not given. ``rows`` [E] int32:
+    only rows 0..rows[e]-1 of expert e are read and written."""
+    _one_segment(x, wp, p, 3)
+    return segments_matmul(x, [(wp, scales, p, 0)], act_quant=act_quant,
+                           rows=rows, group_size=group_size, out=out)

@@ -9,7 +9,9 @@ a stable sort of the (token, rank) assignments by expert gives each its
 row in the [E, T, D] dispatch buffer (drop-free: capacity T, so no
 assignment is dropped and a token's output never depends on its batch
 neighbours); the three expert projections run as grouped GEMMs over the
-stacked packed banks (``backend.packed_matmul_grouped``: kernel B6); the
+stacked packed banks (``backend.packed_matmul_grouped``: kernel B6), each
+told how many rows of each expert are live, so no work goes to rows and
+experts that no token was routed to; the
 expert outputs are gathered back, weighted by the gates and summed per
 token as a left fold in top-k order in the activation dtype, which is how
 the reference's ``segment_sum`` adds them (one rounding per add, the same
@@ -20,7 +22,7 @@ slice: there ``moe_apply`` raises.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -70,12 +72,13 @@ class ExpertBank(smol.SmolLinear):
     driver over a packed bank; the module path (e.g. ``blocks.3.moe.up``)
     is what keys a bank's noise draws in training."""
 
-    def forward(self, x: torch.Tensor, qcfg: QuantConfig,
-                noise=None) -> torch.Tensor:
-        """x [E, C, K] -> [E, C, N] in x's dtype."""
+    def forward(self, x: torch.Tensor, qcfg: QuantConfig, noise=None,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [E, C, K] -> [E, C, N] in x's dtype; ``rows`` [E] int32, the
+        live rows of each expert (``backend.packed_matmul_grouped``)."""
         if "w4" not in self._names or qcfg.mode != "serve":
             raise NotImplementedError(TRAINING_SLICE)
-        return backend.packed_matmul_grouped(self.leaf(), x, qcfg)
+        return backend.packed_matmul_grouped(self.leaf(), x, qcfg, rows=rows)
 
 
 class MoE(nn.Module):
@@ -154,15 +157,21 @@ def moe_apply(moe: MoE, x: torch.Tensor, qcfg: QuantConfig, *,
     flat_expert = ids.reshape(-1)
     rank = dispatch_rows(ids, num_experts)
     token_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
-    # Drop-free capacity: every expert has a row for every token.
+    # Drop-free capacity: every expert has a row for every token. Expert
+    # e's assignments fill its rows 0..count_e-1; the grouped GEMMs skip
+    # the rest. The counts stay on the device (torch.bincount would read
+    # its maximum back to the host to size its output).
     x_e = torch.zeros((num_experts, t, d), dtype=x.dtype, device=x.device)
     x_e.index_put_((flat_expert, rank), xt[token_idx], accumulate=True)
-    h = moe.up(x_e, qcfg)
+    counts = torch.zeros(num_experts, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, flat_expert, torch.ones_like(flat_expert,
+                                                        dtype=torch.int32))
+    h = moe.up(x_e, qcfg, rows=counts)
     if moe.gate is not None:
-        h = silu(moe.gate(x_e, qcfg)) * h
+        h = silu(moe.gate(x_e, qcfg, rows=counts)) * h
     else:
         h = activation(moe.act)(h)
-    y_e = moe.down(h, qcfg)                                   # [E, T, D]
+    y_e = moe.down(h, qcfg, rows=counts)                      # [E, T, D]
     y = combine(y_e[flat_expert, rank].reshape(t, top_k, d), gates)
     if moe.shared is not None:
         y = y + moe.shared(xt[None], qcfg)[0]

@@ -170,6 +170,165 @@ def test_grouped_segment_gemm_equals_b3_per_expert(dev, p, scaled):
                                                             p=p))
 
 
+def _segment_operands(g, dev, m, segs, n, dtype, e=None, group=16):
+    """x [(E,) M, K] (a column slice of a wider row) and one leaf's
+    segments [(wp, scales, p, k_off)] for the precisions ``segs`` [(p,
+    kp)], with a zero row and an outlier row."""
+    k = sum(kp for _p, kp in segs)
+    lead = () if e is None else (e,)
+    wide = torch.randn(lead + (m, k + 32), generator=g, device=dev)
+    x = wide[..., 16:16 + k]
+    x[..., 0, :] = 0
+    x[..., -1, :] *= 100
+    x = x.to(dtype)
+    ops, off = [], 0
+    for p, kp in segs:
+        wp = torch.randint(0, 256, lead + (kp * p // 8, n), generator=g,
+                           device=dev, dtype=torch.uint8)
+        sc = torch.rand(lead + (-(-kp // group),), generator=g,
+                        device=dev) + 0.01
+        ops.append((wp, sc, p, off))
+        off += kp
+    return x, ops
+
+
+MIXED = [(4, 160), (2, 96), (1, 64)]
+# h2o-danube-1.8b's K = 2560 split: 160 slices, so a narrow N takes the
+# split-K cluster at M <= 16 and not at M > 16.
+WIDE = [(4, 1280), (2, 960), (1, 320)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fused", "plain", "snap", "grouped",
+                                  "grouped_snap"])
+@pytest.mark.parametrize("segs", [MIXED, WIDE], ids=["mixed", "wide"])
+@pytest.mark.parametrize("m", [1, 4, 33])
+def test_multi_segment_launch_equals_single_launches_bitwise(dev, mode,
+                                                             dtype, m,
+                                                             segs):
+    """One launch over a leaf's three segments is bitwise the three
+    single-segment launches into the same accumulator, in every mode."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    grouped = mode.startswith("grouped")
+    x, ops = _segment_operands(g, dev, m, segs, 100, dtype,
+                               e=3 if grouped else None)
+    base = torch.randn(tuple(x.shape[:-1]) + (100,), generator=g,
+                       device=dev)
+    sx = quant.abs_max_scale(x, dim=-1).float().contiguous() \
+        if mode == "fused" else None
+    kw = dict(act_quant=mode.endswith("snap"))
+    kernels.reset_launch_counts()
+    one = pm.segments_matmul(x, ops, sx=sx, out=base.clone(), **kw)
+    key = ("packed_segment_matmul_grouped" if grouped else
+           "fused_act_segment_matmul" if mode == "fused" else
+           "packed_segment_matmul")
+    assert kernels.launch_counts()[key] == 1
+    three = base.clone()
+    for wp, sc, p, off in ops:
+        xs = x[..., off:off + wp.shape[-2] * 8 // p]
+        if grouped:
+            pm.packed_segment_matmul_grouped(xs, wp, sc, p=p, out=three,
+                                             **kw)
+        elif mode == "fused":
+            pm.fused_act_segment_matmul(xs, sx, wp, sc, p=p, out=three)
+        else:
+            pm.packed_segment_matmul(xs, wp, sc, p=p, out=three, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, three)
+    cpu = pm.segments_matmul(x.cpu(), [(wp.cpu(), sc.cpu(), p, off)
+                                       for wp, sc, p, off in ops],
+                             sx=None if sx is None else sx.cpu(),
+                             out=base.cpu(), **kw)
+    def quantized(xs, p):
+        if mode == "fused":
+            return pm.act_quant(xs, sx, p)
+        return quant.snap_to_grid(xs.float(), p) if kw["act_quant"] \
+            else xs.float()
+
+    xq = torch.cat([quantized(x[..., off:off + wp.shape[-2] * 8 // p], p)
+                    for wp, _sc, p, off in ops], dim=-1)
+    for i in range(3 if grouped else 1):
+        sel = (lambda t: t[i]) if grouped else (lambda t: t)
+        wd = torch.cat([pm.unpack_dequant(sel(wp), p, sel(sc).contiguous())
+                        for wp, sc, p, off in ops])
+        assert _within_reorder_bound(sel(one) - sel(base),
+                                     sel(cpu).to(dev) - sel(base),
+                                     sel(xq), wd)
+
+
+@pytest.mark.parametrize("mode", ["fused", "self", "plain", "grouped"])
+def test_rows_are_bitwise_equal_across_batch_sizes(dev, mode):
+    """A row's output does not depend on how many rows share the launch
+    (M in {1, 4, 5, 16, 17, 32, 33}: every row tile the kernel picks, with
+    the split-K cluster and without)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    segs = [(4, 2560)] if mode == "self" else WIDE
+    x, ops = _segment_operands(g, dev, 33, segs, 72, torch.bfloat16,
+                               e=2 if mode == "grouped" else None)
+    sx = quant.abs_max_scale(x, dim=-1).float().contiguous()
+    ref = None
+    for m in (33, 32, 17, 16, 5, 4, 1):
+        xm = x[..., :m, :]
+        got = pm.segments_matmul(
+            xm, ops, sx=sx[:m].contiguous() if mode == "fused" else None,
+            self_scale=mode == "self")
+        if ref is None:
+            ref = got
+        assert torch.equal(got, ref[..., :m, :]), m
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_grouped_rows_skip_dead_rows_and_experts(dev, act_quant):
+    """B6 with ``rows``: the live rows equal the launch without it, rows
+    past each expert's count (and experts with none) are left as they
+    were."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    e, m = 6, 5
+    x, ops = _segment_operands(g, dev, m, MIXED, 70, torch.bfloat16, e=e)
+    rows = torch.tensor([0, 5, 2, 0, 1, 4], dtype=torch.int32, device=dev)
+    sentinel = torch.full((e, m, 70), 3.25, device=dev)
+    full = pm.segments_matmul(x, ops, act_quant=act_quant,
+                              out=sentinel.clone())
+    kernels.reset_launch_counts()
+    part = pm.segments_matmul(x, ops, act_quant=act_quant, rows=rows,
+                              out=sentinel.clone())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["packed_segment_matmul_grouped"] == 1
+    for i, r in enumerate(rows.tolist()):
+        assert torch.equal(part[i, :r], full[i, :r])
+        assert (part[i, r:] == 3.25).all()
+    cpu = pm.segments_matmul(x.cpu(), [(wp.cpu(), sc.cpu(), p, off)
+                                       for wp, sc, p, off in ops],
+                             act_quant=act_quant, rows=rows.cpu(),
+                             out=sentinel.cpu())
+    for i, r in enumerate(rows.tolist()):
+        assert (cpu[i, r:] == 3.25).all()
+
+
+# Kp that leave a partial round of slices, at group 16 and at group sizes
+# that cut the 16-channel slices mid-group.
+KP_GROUPS = [(kp, 16) for kp in (16, 48, 320, 1296)] + [
+    (kp, grp) for kp in (48, 1296) for grp in (6, 24)]
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("kp,group", KP_GROUPS)
+def test_segment_gemm_any_kp_and_group_within_bound(dev, kp, group, p):
+    """B1 against its plain version on segments whose Kp is no multiple of
+    a round of slices, and on group sizes other than 16."""
+    g = torch.Generator(device=dev).manual_seed(kp + p)
+    x, ops = _segment_operands(g, dev, 5, [(p, kp)], 96, torch.bfloat16,
+                               group=group)
+    wp, sc, _p, _off = ops[0]
+    sx = quant.abs_max_scale(x, dim=-1).float().contiguous()
+    got = pm.fused_act_segment_matmul(x, sx, wp, sc, p=p, group_size=group)
+    want = pm.fused_act_segment_matmul_plain(x, sx, wp, sc, p=p,
+                                             group_size=group)
+    torch.cuda.synchronize()
+    assert _within_reorder_bound(got, want, pm.act_quant(x, sx, p),
+                                 pm.unpack_dequant(wp, p, sc, group))
+
+
 # ------------------------------------------- decode attention (B4, B5) ----
 def _kv_codes(g, shape, dev):
     from repro_torch.serve import kv_quant

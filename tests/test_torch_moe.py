@@ -383,3 +383,59 @@ def test_two_pass_serve_tokens_equal_fused(bridged):
         runs.append(_serve(eng, reqs, PRequest))
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------- live rows of each expert ----
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_grouped_plain_rows_leave_the_other_rows(act_quant):
+    """B6's plain version with ``rows`` [E]: rows 0..rows[e]-1 of expert e
+    as without it, every other row left as it was (a wrapper adding into
+    ``out``); ``rows=None`` is the per-expert B3 plain version, bitwise."""
+    from repro_torch.kernels import packed_matmul as ppm
+    rng = np.random.default_rng(9)
+    e, m, kp, n = 4, 5, 64, 24
+    x = torch.from_numpy((rng.standard_normal((e, m, kp)) * 1.5)
+                         .astype(np.float32))
+    x = x / 40.0 if act_quant else x
+    wp = torch.from_numpy(rng.integers(0, 256, (e, kp // 2, n),
+                                       dtype=np.uint8))
+    sc = torch.from_numpy((rng.random((e, kp // 16)) * 0.2 + 0.05)
+                          .astype(np.float32))
+    full = ppm.grouped_matmul_plain(x, wp, sc, p=4, act_quant=act_quant)
+    for i in range(e):
+        one = ppm.segment_matmul_plain(x[i], wp[i], sc[i], p=4,
+                                       act_quant=act_quant)
+        np.testing.assert_array_equal(full[i].numpy(), one.numpy())
+    rows = torch.tensor([0, 5, 2, 1], dtype=torch.int32)
+    out = ppm.packed_segment_matmul_grouped(
+        x, wp, sc, p=4, act_quant=act_quant, rows=rows,
+        out=torch.full((e, m, n), 3.25))
+    for i, r in enumerate(rows.tolist()):
+        np.testing.assert_allclose(out[i, :r].numpy(),
+                                   (full[i, :r] + 3.25).numpy(), **TOL)
+        assert (out[i, r:] == 3.25).all()
+
+
+@pytest.mark.parametrize("mode", ["per_token", "per_tensor"])
+def test_grouped_driver_rows_match_jax_on_live_rows(mode):
+    """The grouped driver told each expert's live rows (the dispatch
+    layout: live rows first, the rest zero) gives the reference's output
+    on every live row; the other rows are the bias alone."""
+    _qat, jleaf, pleaf = _bank()
+    rng = np.random.default_rng(4)
+    rows = np.array([2, 0, 5], np.int32)
+    x = (rng.standard_normal((E, M, K)) * 1.5).astype(np.float32)
+    x[np.arange(M)[None, :] >= rows[:, None]] = 0.0
+    jq = JQuantConfig(mode="serve", act_scale_mode=mode)
+    fn = _compile_as_written(lambda leaf, v: jresolve(
+        "xla_ref").packed_matmul_grouped(leaf, v, jq), jleaf, jnp.asarray(x))
+    want = np.asarray(fn(jleaf, jnp.asarray(x)))
+    q = PQuantConfig(mode="serve", act_scale_mode=mode)
+    got = pbackend.packed_matmul_grouped(pleaf, torch.from_numpy(x), q,
+                                         rows=torch.from_numpy(rows))
+    bias = np.zeros((E, N), np.float32) if pleaf.get("b") is None \
+        else pleaf["b"].numpy()
+    for e, r in enumerate(rows):
+        np.testing.assert_allclose(got[e, :r].numpy(), want[e, :r], **TOL)
+        np.testing.assert_array_equal(
+            got[e, r:].numpy(), np.broadcast_to(bias[e], (M - r, N)))

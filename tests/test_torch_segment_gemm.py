@@ -285,3 +285,83 @@ def test_unquantized_activations_match_jax_xla_ref(leaf):
         leaf, v, jq))(jleaf, jnp.asarray(x))
     got = pbackend.packed_matmul(pleaf, torch.from_numpy(x), pq)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ------------------------------------- one launch over a leaf's segments ----
+MIXED_SEGS = [(4, 64), (2, 48), (1, 32)]
+
+
+def _leaf_segments(segs, n, seed):
+    """A leaf's segments [(wp, scales, p, k_off)] and its K."""
+    rng = np.random.default_rng(seed)
+    ops, off = [], 0
+    for p, kp in segs:
+        wp = torch.from_numpy(rng.integers(0, 256, (kp * p // 8, n),
+                                           dtype=np.uint8))
+        sc = torch.from_numpy((rng.random(kp // 16) * 0.2 + 0.05)
+                              .astype(np.float32))
+        ops.append((wp, sc, p, off))
+        off += kp
+    return ops, off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fused", "self", "plain", "snap"])
+def test_segments_wrapper_plain_equals_per_segment_wrappers(mode, dtype):
+    """The CPU path of the one-launch wrapper adds each segment's plain
+    version into ``out`` in [K4|K2|K1] order: bitwise the per-segment
+    wrappers one after the other, and its plain version."""
+    segs = [(4, 128)] if mode == "self" else MIXED_SEGS
+    ops, k = _leaf_segments(segs, 24, seed=3)
+    x = torch.from_numpy(_x(np.random.default_rng(5), 5, k, "both"))
+    x = (x / 40.0 if mode == "snap" else x).to(dtype)
+    sx = pquant.abs_max_scale(x, dim=-1) if mode == "fused" else None
+    kw = dict(sx=sx, self_scale=mode == "self", act_quant=mode == "snap")
+    base = torch.full((5, 24), 0.25)
+    got = ppm.segments_matmul(x, ops, out=base.clone(), **kw)
+    want = base.clone()
+    for wp, sc, p, off in ops:
+        xs = x[:, off:off + wp.shape[0] * 8 // p]
+        if mode == "fused":
+            ppm.fused_act_segment_matmul(xs, sx, wp, sc, p=p, out=want)
+        elif mode == "self":
+            ppm.fused_act_selfscale_matmul(xs, wp, sc, p=p, out=want)
+        else:
+            ppm.packed_segment_matmul(xs, wp, sc, p=p,
+                                      act_quant=mode == "snap", out=want)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    plain = ppm.segments_matmul_plain(x, ops, out=base.clone(), **kw)
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("mode", ["per_token", "per_tensor", "unquantized"])
+@pytest.mark.parametrize("leaf", sorted(LEAVES))
+def test_segments_wrapper_matches_jax_xla_ref(leaf, mode):
+    """The one-launch wrapper over a JAX-packed leaf's segments, on the
+    permuted activations with the driver's scale (or none: unquantized
+    activations), against the reference's ``xla_ref`` driver, on rows
+    without an outlier (a zero row first): rtol = atol = 1e-5 on every
+    row."""
+    pbits, k = LEAVES[leaf]
+    jleaf, pleaf = _served_leaf(pbits, k, 24, seed=k)
+    x = _x(np.random.default_rng(k + 4), 5, k, "zero")
+    quantized = mode != "unquantized"
+    jq = JQuantConfig(mode="serve", quantize_activations=quantized,
+                      act_scale_mode=mode if quantized else "per_token")
+    want = jax.jit(lambda leaf, v: jresolve("xla_ref").packed_matmul(
+        leaf, v, jq))(jleaf, jnp.asarray(x))
+    g = PQuantConfig(mode="serve").eff_group_size(k)
+    bufs = {name: pleaf[name] for name in ("w4", "w2", "w1")}
+    wscale = pleaf.get("wscale")
+    ops = [(bufs[name], None if wscale is None else wscale[go:go + ng], p,
+            off) for name, p, off, _kp, go, ng in
+           pbackend._segments(bufs, g, expert=False)]
+    xp = torch.from_numpy(x).index_select(-1, pleaf["perm"])
+    sx = None
+    if quantized:
+        sx = torch.broadcast_to(pbackend.act_scale(xp, mode).reshape(-1, 1),
+                                (5, 1)).contiguous()
+    got = ppm.segments_matmul(xp, ops, sx=sx, group_size=g)
+    if pleaf.get("b") is not None:
+        got = got + pleaf["b"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
