@@ -30,14 +30,20 @@ Phases (none catches an error; any failure exits non-zero):
      with and without ``rows`` beside its plain version and a torch.bmm
      of the dequantized operands over the same experts.
   3. Decode attention over the packed 4-bit KV cache against the plain
-     versions, at the full width (Hk = 8, G = 4, D = 80, batch 4): B4 on
-     rings of T = 256 and T = 4096 (window 1024, so the window binds), B5
-     on a page pool (page_size 16, 16 pages a slot, shuffled tables,
-     unmapped pages, a page two slots share), each at S = 1 and S = 8 with
-     masked lanes, held to |kernel - plain| <= 1e-6 * (P @ |V|) + 1e-12;
-     B5's rows equal B4's on the same content laid out as a ring. Timed
-     with CUDA events beside the plain versions and one
-     scaled_dot_product_attention on the dequantized fp32 K/V.
+     versions, at full width, batch 4 (``ATTENTION_CASES``):
+     h2o-danube-1.8b (Hk = 8, G = 4, D = 80) B4 on rings of T = 256 and
+     T = 4096 (window 1024, so the window binds), B5 on page pools
+     (page_size 16; 16 pages a slot with and without a window, 17 pages
+     (272 entries, not a multiple of the split's chunk), 256 pages with
+     window 1024; shuffled tables, unmapped pages, a page two slots
+     share); deepseek-moe-16b (Hk = 16, G = 1, D = 128) B4 at T = 256 and
+     B5 at 16 and 17 pages; at S = 1 and (most) S = 8 with masked lanes,
+     held to |kernel - plain| <= 1e-6 * (P @ |V|) + 1e-12; B5's rows
+     equal B4's bitwise on the same content laid out as a ring. The S = 1
+     decode shapes timed with CUDA events on both rulers (a loop of calls;
+     queued ahead) beside the plain versions and one
+     scaled_dot_product_attention on the dequantized fp32 K/V (also on
+     both rulers).
   4. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
      weights from a seed, default mix), fp ring KV cache, greedy; packing
      and serving must go through quantize_pack and the driver-scale
@@ -57,8 +63,10 @@ Phases (none catches an error; any failure exits non-zero):
      DecodeEngine on requests that share a 224-token prompt prefix and
      wrap the 256-entry ring, so the prefix map hits and shared pages are
      copied on write. Greedy tokens must be identical across the three;
-     the ring runs must go through B4 and the paged run through B5; the
-     pool's invariants must hold. Decode step times and tokens/s of each.
+     the ring runs must go through B4 and the paged run through B5, one
+     launch a layer (24 a decode step); the pool's invariants must hold.
+     Decode step times and tokens/s of each; a device profile of the ring
+     and the paged decode step (busy time, B4/B5's share).
   7. Training kernels against their plain versions, bitwise, at the full
      width: B9 noise_inject on the four weight shapes of a layer (with
      weights beyond the clip and logits at both ends), B8 fake_quant on
@@ -750,53 +758,78 @@ def check_attention(name, ops):
 def time_attention(name, ops, reps=50):
     """ms of the kernel, its plain version and one
     scaled_dot_product_attention on the dequantized fp32 K/V under the
-    same mask (heads expanded beforehand; timing only), with the bound."""
+    same mask (heads expanded beforehand; timing only), with the bound.
+    The kernel and SDPA on both rulers: a loop of calls (``ms``,
+    ``library_ms``) and queued ahead (``device_ms``,
+    ``library_device_ms``)."""
     import torch.nn.functional as F
     fn = ad.qkv_attn_decode if name == B4 else ad.qkv_attn_decode_paged
     plain = ad.qkv_attn_decode_plain if name == B4 \
         else ad.qkv_attn_decode_paged_plain
     args = ops.args()
-    ms = time_ms(lambda: fn(*args, window=ops.window), reps)
-    plain_ms = time_ms(lambda: plain(*args, window=ops.window), 5)
+
+    def kernel():
+        fn(*args, window=ops.window)
+
     k, v, k_pos = ops.dense()
     b, s, hk, g, d = ops.q.shape
     q4 = ops.q.reshape(b, s, hk * g, d).transpose(1, 2).contiguous()
     k4 = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     v4 = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     mask = ad.attention_mask(ops.q_pos, k_pos, ops.window)[:, None]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask), reps)
+
+    def library():
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
     b_ms, b_by = bound(ops.nbytes(), ops.flops())
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=time_ms(kernel, reps), device_ms=device_ms(kernel, reps),
+                plain_ms=time_ms(lambda: plain(*args, window=ops.window), 5),
+                library_ms=time_ms(library, reps),
+                library_device_ms=device_ms(library, reps),
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_attention(cfg, gen, dev):
-    """B4 and B5 against their plain versions on every listed shape;
-    times at the decode shape (S = 1) of the serve phase (T = 256) and of
-    the model's window (T = 4096)."""
-    results = {}
-    for name, shapes in (
-            (B4, [(s, t, w) for t, w in ((256, None), (4096, 1024))
-                  for s in (1, 8)]),
-            (B5, [(s, 16, w) for w in (None, 100) for s in (1, 8)])):
-        worst = 0.0
-        timed = {}
-        for s, t, w in shapes:
-            ops = RingOperands(cfg, s, t, w, gen, dev) if name == B4 \
-                else PagedOperands(cfg, s, t, w, gen, dev)
+# (label, kernel, config, T or pages a slot, window, S checked, timed at
+# S = 1): the decode shapes of the two serve configurations, a window that
+# binds, entry counts not a multiple of the split's chunk (17 pages of 16)
+# and the long paged row.
+ATTENTION_CASES = (
+    ("h2o_T256", B4, ARCH, 256, None, (1, 8), True),
+    ("h2o_T4096_w1024", B4, ARCH, 4096, 1024, (1, 8), True),
+    ("h2o_16x16", B5, ARCH, 16, None, (1, 8), True),
+    ("h2o_16x16_w100", B5, ARCH, 16, 100, (1, 8), False),
+    ("h2o_17x16_w100", B5, ARCH, 17, 100, (1,), False),
+    ("h2o_256x16_w1024", B5, ARCH, 256, 1024, (1,), True),
+    ("deepseek_T256", B4, MOE_ARCH, 256, None, (1, 8), True),
+    ("deepseek_16x16", B5, MOE_ARCH, 16, None, (1, 8), True),
+    ("deepseek_17x16_w100", B5, MOE_ARCH, 17, 100, (1,), False),
+)
+
+
+def phase_attention(gen, dev):
+    """B4 and B5 against their plain versions at every case of
+    ``ATTENTION_CASES`` (B5 also bitwise B4 on its content laid out as a
+    ring), timed at S = 1 where marked. A kernel's row: its h2o decode
+    shape (T = 256; 16 pages of 16) at the top, every timed case under
+    ``shapes``."""
+    results = {B4: {"max_abs_err": 0.0, "shapes": {}},
+               B5: {"max_abs_err": 0.0, "shapes": {}}}
+    for label, name, arch, size, w, svals, timed in ATTENTION_CASES:
+        cfg = get_config(arch)
+        for s in svals:
+            ops = RingOperands(cfg, s, size, w, gen, dev) if name == B4 \
+                else PagedOperands(cfg, s, size, w, gen, dev)
             err = check_attention(name, ops)
-            worst = max(worst, err)
-            log(f"[3] {name} S={s} {'T' if name == B4 else 'pages'}={t} "
-                f"window={w}: max |err| {err:.3e} within the bound")
-            if s == 1 and w in (None, 1024):
-                timed[t] = time_attention(name, ops)
-                log(f"[3] {name} S=1 {'T' if name == B4 else 'pages'}={t}: "
-                    f"{timed[t]}")
-        head = timed[256] if name == B4 else timed[16]
-        results[name] = dict(head, max_abs_err=worst)
-        if name == B4:
-            results[name]["ms_t4096_window1024"] = timed[4096]["ms"]
+            res = results[name]
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            log(f"[3] {name} {label} S={s}: max |err| {err:.3e} within the "
+                f"bound{'' if name == B4 else '; == B4 on the ring layout'}")
+            if timed and s == 1:
+                res["shapes"][label] = time_attention(name, ops)
+                log(f"[3] {name} {label} S=1: {res['shapes'][label]}")
+            del ops
+    results[B4].update(results[B4]["shapes"]["h2o_T256"])
+    results[B5].update(results[B5]["shapes"]["h2o_16x16"])
     return results
 
 
@@ -821,7 +854,7 @@ def serve_all(eng, reqs):
 def decode_step_ms(eng, steps=10):
     """Host-clock time of one greedy decode step at batch max_batch."""
     b = eng.ecfg.max_batch
-    cache = eng.init_cache(b)
+    cache = fresh_cache(eng)
     tokens = np.arange(1, b + 1, dtype=np.int32)
     times = []
     for t in range(steps + 2):
@@ -834,11 +867,24 @@ def decode_step_ms(eng, steps=10):
     return float(np.median(times[2:]) * 1e3)
 
 
+def fresh_cache(eng):
+    """A fresh decode cache at batch max_batch; a paged one maps each slot
+    to its own run of pages (what the engine's allocator would hand out),
+    so the step writes and attends as in serving."""
+    b = eng.ecfg.max_batch
+    cache = eng.init_cache(b)
+    if eng.ecfg.kv_layout == "paged":
+        table = kv_pool.paged_layers(cache)[0]["page_table"]
+        table.copy_(1 + torch.arange(table.numel(), device=table.device,
+                                     dtype=torch.int32).reshape(table.shape))
+    return cache
+
+
 def step_launches(eng):
     """Launches of each kernel in one greedy decode step at batch
     max_batch."""
     b = eng.ecfg.max_batch
-    cache = eng.init_cache(b)
+    cache = fresh_cache(eng)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     lm.decode_step(eng.model, eng.cfg, cache,
@@ -853,7 +899,7 @@ def profile_decode(eng, steps=3):
     device time, per step."""
     from torch.profiler import ProfilerActivity, profile
     b = eng.ecfg.max_batch
-    state = {"cache": eng.init_cache(b),
+    state = {"cache": fresh_cache(eng),
              "tokens": np.arange(1, b + 1, dtype=np.int32)}
 
     def step(t):
@@ -873,8 +919,11 @@ def profile_decode(eng, steps=3):
             if str(e.device_type).endswith("CUDA")]
     busy = sum(e.device_time_total for e in kern) / steps / 1e3
     top = sorted(kern, key=lambda e: -e.device_time_total)[:4]
+    attn = [e for e in kern if "attn_kernel" in e.key]
     return {"kernels_per_step": sum(e.count for e in kern) / steps,
             "device_busy_ms_per_step": busy,
+            "attn_ms_per_step": sum(e.device_time_total for e in attn)
+            / steps / 1e3,
             "top": [(e.key[:72], round(e.device_time_total / steps / 1e3, 3))
                     for e in top]}
 
@@ -1073,7 +1122,7 @@ def timed_serve(eng, reqs):
             float(np.median(decode_ms)))
 
 
-def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches):
+def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches, per_step):
     """Full-width 4-bit KV serving, ring (continuous and lockstep) and
     paged, with identical greedy tokens. Returns the per-engine numbers."""
     kw = dict(max_batch=4, cache_len=256, prefill_chunk=8, kv_bits=4)
@@ -1098,8 +1147,12 @@ def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches):
     stats["ring"]["kv_payload_bytes"] = kv_quant.cache_payload_bytes(cache)
     del cache
     stats["ring"]["profile"] = profile_decode(ring)
+    per_step[B4] = step_launches(ring)[B4]
     log(f"[6] ring DecodeEngine: {new} tokens in {wall:.2f} s; "
-        f"{stats['ring']}")
+        f"{stats['ring']}; {per_step[B4]} {B4} launches a decode step")
+    if per_step[B4] != qat_cfg.num_layers:
+        raise AssertionError(f"{per_step[B4]} {B4} launches a 4-bit ring "
+                             f"decode step, not one a layer")
 
     lock = engine.LockstepEngine(ring.model, ring.cfg,
                                  engine.EngineConfig(**kw),
@@ -1142,7 +1195,13 @@ def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches):
                              f"{pool_stats}")
     paged.pool.check()
     stats["paged"] = dict(tok_s=new / wall, decode_step_ms=step,
-                          steps=paged.sched.step_count, pool=pool_stats)
+                          steps=paged.sched.step_count, pool=pool_stats,
+                          fresh_cache_step_ms=decode_step_ms(paged),
+                          profile=profile_decode(paged))
+    per_step[B5] = step_launches(paged)[B5]
+    if per_step[B5] != qat_cfg.num_layers:
+        raise AssertionError(f"{per_step[B5]} {B5} launches a paged "
+                             f"decode step, not one a layer")
     log(f"[6] paged DecodeEngine == ring: {new} tokens in {wall:.2f} s; "
         f"{stats['paged']}")
     for c in ring_out[:2] + ring_out[4:6]:
@@ -1656,7 +1715,7 @@ def main() -> int:
     clock.lap(2)
 
     # -------------------------------------------------------- phase 3 ----
-    results.update(phase_attention(cfg, gen, dev))
+    results.update(phase_attention(gen, dev))
     torch.cuda.empty_cache()
 
     clock.lap(3)
@@ -1765,7 +1824,8 @@ def main() -> int:
     clock.lap(5)
 
     # -------------------------------------------------------- phase 6 ----
-    kv4 = phase_kv4_serve(qat_cfg, cfg.vocab_size, dev, rng, launches)
+    kv4 = phase_kv4_serve(qat_cfg, cfg.vocab_size, dev, rng, launches,
+                          per_step)
     torch.cuda.empty_cache()
 
     clock.lap(6)
@@ -1829,9 +1889,11 @@ def main() -> int:
                 "rows_*: the same with the live rows of a top-6 route of "
                 "4 tokens; launches: the fp ring MoE serve run)",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
-                "T=256 (the kv4 serve ring)",
+                "T=256 (the kv4 serve ring); shapes: T=4096 with window "
+                "1024, and deepseek-moe-16b (Hk=16, G=1, D=128) at T=256",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
-                "16 pages of 16 a slot",
+                "16 pages of 16 a slot; shapes: 256 pages with window "
+                "1024, and deepseek-moe-16b at 16 pages",
             B8: "one h2o-danube-1.8b layer of Phase-II fake_quant: 7 "
                 "weights (fp32, group scale) + 7 activations (bf16, "
                 "8 x 128 tokens)",
@@ -1851,7 +1913,7 @@ def main() -> int:
                     "prefill_library_device_ms", "prefill_bound_ms",
                     "rows_ms", "rows_device_ms", "rows_bound_ms",
                     "rows_library_ms", "rows_library_device_ms",
-                    "live_experts"):
+                    "live_experts", "shapes"):
             if key in r:
                 rows[-1][key] = r[key]
         if name in per_step:

@@ -110,7 +110,7 @@ constexpr int LANE_WORDS = MAX_ROWS * CG + 8;
 constexpr int STAGE_WORDS = LANES * LANE_WORDS;
 constexpr int MAX_SEG = 3;
 // The launch shape; none of these changes a bit of the result.
-// tools/segment_gemm_ab.py --set NAME=VALUE times another value on a
+// tools/kernel_ab.py --set NAME=VALUE times another value on a
 // scratch build (PERF.md records the alternatives).
 // The largest thread-block cluster of the split-K (1 keeps the split
 // inside the block).
@@ -726,7 +726,7 @@ extern "C" int soniq_segment_gemm(const void* x, long long ldx,
   // quarters of the SMs idle (k_proj and v_proj at decode): there a cluster
   // takes the rounds of slices down to one or two. Elsewhere the
   // cluster's barriers and remote reads cost more than the rounds they
-  // save (tools/segment_gemm_ab.py, PERF.md).
+  // save (tools/kernel_ab.py, PERF.md).
   const long long base =
       (long long)tiles * ((M + rt - 1) / rt) * (long long)E;
   const int need = (slices + LANES - 1) / LANES;

@@ -109,6 +109,17 @@ def library(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     return lib
 
 
+def launch(dev, fn: Callable, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with ``dev`` the
+    current CUDA device and its current stream (a device switch only when
+    ``dev`` is not already current). Returns the entry's error code."""
+    import torch
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def check(code: int, what: str) -> None:
     """Raise when a kernel entry returned a CUDA error code."""
     if code:

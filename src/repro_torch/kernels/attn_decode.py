@@ -14,8 +14,12 @@ uniform average, as the reference's softmax over an all-masked row).
   page pool [P, page_size, Hk, ..] with an online softmax; unmapped pages
   read the null page 0 and are masked.
 
-On CUDA tensors the wrappers launch ``csrc/attn_decode.cu`` or raise; on
-CPU tensors they run the plain versions: the reference's oracle
+On CUDA tensors the wrappers launch ``csrc/attn_decode.cu`` or raise: one
+flash-decode body for both layouts, split over the cache by
+``split_entries`` (chunks fixed by the entry count alone, each an online
+softmax, folded left in chunk order inside the launch), so B5 equals B4
+bitwise on the same content laid out as a ring. On CPU tensors they run
+the plain versions: the reference's oracle
 (``repro.backend.base.qkv_attn_jnp``) over the dequantized ring or the
 gathered pages. Both follow the port's row-reduction rule
 (``core.numerics``): every sum and the softmax in float64, one rounding
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,7 +43,9 @@ SOURCE = "attn_decode.cu"
 NEG_INF = -1e30
 # |kernel - plain| <= RTOL * (P @ |V|) + ATOL, P the plain softmax.
 TOLERANCE = dict(rtol=1e-6, atol=1e-12)
-MAX_HEAD_DIM = 128       # the kernels' shared-memory tiles
+MAX_HEAD_DIM = 128       # the kernels' register and shared-memory tiles
+TILE = 32                # entries a warp takes per step (one a lane)
+MAX_CHUNKS = 64          # chunks a row is split into at most
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count); reset by whoever reads them.
@@ -51,7 +57,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.soniq_qkv_attn_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, ptr]
+        i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.soniq_qkv_attn_decode_paged.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
@@ -123,25 +129,41 @@ def qkv_attn_decode_paged_plain(q, k_codes, v_codes, k_scale, v_scale,
 
 
 # ------------------------------------------------------------- wrappers ----
-def _check_operands(q, codes, scales, pos_like, extra):
+def split_entries(n: int) -> Tuple[int, int]:
+    """The kernels' split of a row's ``n`` cache entries (T for the ring,
+    NP * page_size for the pool): ``(chunk, count)``, chunks of ``chunk``
+    entries (a multiple of ``TILE``; the last one shorter) and at most
+    ``MAX_CHUNKS`` of them. It depends on ``n`` alone, never on the batch,
+    the query rows or the card, so the order of every sum in a row is fixed
+    by the cache size (``csrc/attn_decode.cu``: each chunk an online
+    softmax, the chunks folded left in order)."""
+    if n <= 0:
+        raise ValueError(f"a row needs entries, got {n}")
+    chunk = TILE * -(-n // (TILE * MAX_CHUNKS))
+    return chunk, -(-n // chunk)
+
+
+_RING_DTYPES = (torch.uint8, torch.uint8, torch.float16, torch.float16,
+                torch.int32, torch.int32)
+_PAGED_DTYPES = _RING_DTYPES + (torch.int32,)
+
+
+def _check_operands(q, ops, dtypes, shapes):
+    """One pass over the kernel's operands: each on q's device, of its
+    dtype, contiguous, of its shape; the codes 4-byte aligned."""
+    d = q.shape[-1]
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 and <= "
+                         f"{MAX_HEAD_DIM}")
     dev = q.device
-    b, s, hk, g, d = q.shape
-    if d % 2 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
-    if codes.shape[-2:] != (hk, d // 2) or scales.shape[-2:] != (hk, 1):
-        raise ValueError(f"codes {tuple(codes.shape)} / scales "
-                         f"{tuple(scales.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    for name, t, dt in extra + [("pos", pos_like, torch.int32)]:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dt}, got "
-                             f"{t.dtype}")
-    for name, t, dt in (("codes", codes, torch.uint8),
-                        ("scales", scales, torch.float16)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dt} on {dev}")
+    for t, dt, shape in zip(ops, dtypes, shapes):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+                or t.shape != shape:
+            raise ValueError(
+                f"operand {tuple(t.shape)} {t.dtype} on {t.device} must be "
+                f"contiguous {dt} {shape} on {dev}")
+    if (ops[0].data_ptr() | ops[1].data_ptr()) % 4:
+        raise ValueError("the K/V codes must be 4-byte aligned")
 
 
 def _window_arg(window: Optional[int]) -> int:
@@ -169,27 +191,23 @@ def qkv_attn_decode(q: torch.Tensor, k_codes: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     b, s, hk, g, d = q.shape
     t = k_codes.shape[1]
-    q = q.float().contiguous()
-    _check_operands(q, k_codes, k_scale, kv_pos,
-                    [("q_pos", q_pos, torch.int32)])
-    _check_operands(q, v_codes, v_scale, kv_pos, [])
-    if k_codes.shape[:2] != (b, t) or v_codes.shape != k_codes.shape \
-            or kv_pos.shape != (b, t) or q_pos.shape != (b, s) \
-            or k_scale.shape[:2] != (b, t) or v_scale.shape != k_scale.shape:
-        raise ValueError("ring operands disagree on [B, T] / [B, S]")
     if t == 0:
         raise ValueError("the ring must be non-empty")
+    codes, scales = (b, t, hk, d // 2), (b, t, hk, 1)
+    _check_operands(q, (k_codes, v_codes, k_scale, v_scale, kv_pos, q_pos),
+                    _RING_DTYPES,
+                    (codes, codes, scales, scales, (b, t), (b, s)))
+    q = q.float().contiguous()
     out = torch.empty((b, s, hk, g, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.soniq_qkv_attn_decode(
-            q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), kv_pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), b, s, hk, g, d, t,
-            _window_arg(window), stream)
+    code = _build.launch(
+        q.device, lib.soniq_qkv_attn_decode, q.data_ptr(),
+        k_codes.data_ptr(), v_codes.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+        out.data_ptr(), b, s, hk, g, d, t, split_entries(t)[0],
+        _window_arg(window))
     _build.check(code, "soniq_qkv_attn_decode")
     LAUNCHES["qkv_attn_decode"] += 1
     return out
@@ -215,32 +233,25 @@ def qkv_attn_decode_paged(q: torch.Tensor, k_codes: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     b, s, hk, g, d = q.shape
     npages, ps = pool_pos.shape
-    npg = page_table.shape[1]
+    npg = page_table.shape[-1]
+    codes, scales = (npages, ps, hk, d // 2), (npages, ps, hk, 1)
+    _check_operands(q, (k_codes, v_codes, k_scale, v_scale, pool_pos, q_pos,
+                        page_table), _PAGED_DTYPES,
+                    (codes, codes, scales, scales, (npages, ps), (b, s),
+                     (b, npg)))
     q = q.float().contiguous()
-    extra = [("q_pos", q_pos, torch.int32),
-             ("page_table", page_table, torch.int32)]
-    _check_operands(q, k_codes, k_scale, pool_pos, extra)
-    _check_operands(q, v_codes, v_scale, pool_pos, [])
-    if k_codes.shape[:2] != (npages, ps) or v_codes.shape != k_codes.shape \
-            or k_scale.shape[:2] != (npages, ps) \
-            or v_scale.shape != k_scale.shape \
-            or page_table.shape[0] != b or q_pos.shape != (b, s):
-        raise ValueError("paged operands disagree on [P, ps] / [B, ..]")
     out = torch.empty((b, s, hk, g, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     if npg == 0 or ps == 0:
         raise ValueError("the page table and the pages must be non-empty")
-    tile = max(c for c in range(1, min(ps, 128) + 1) if ps % c == 0)
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.soniq_qkv_attn_decode_paged(
-            q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), pool_pos.data_ptr(),
-            page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-            b, s, hk, g, d, npages, ps, npg, tile, _window_arg(window),
-            stream)
+    code = _build.launch(
+        q.device, lib.soniq_qkv_attn_decode_paged, q.data_ptr(),
+        k_codes.data_ptr(), v_codes.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), pool_pos.data_ptr(), page_table.data_ptr(),
+        q_pos.data_ptr(), out.data_ptr(), b, s, hk, g, d, npages, ps, npg,
+        split_entries(npg * ps)[0], _window_arg(window))
     _build.check(code, "soniq_qkv_attn_decode_paged")
     LAUNCHES["qkv_attn_decode_paged"] += 1
     return out

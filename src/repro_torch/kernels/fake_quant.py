@@ -95,12 +95,10 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.soniq_fake_quant(
-            x.data_ptr(), pb.data_ptr(), sc.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[1], group_size, int(kd == 0),
-            int(row_scale), _DTYPES[x.dtype], stream)
+    code = _build.launch(
+        x.device, lib.soniq_fake_quant, x.data_ptr(), pb.data_ptr(),
+        sc.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], group_size,
+        int(kd == 0), int(row_scale), _DTYPES[x.dtype])
     _build.check(code, "soniq_fake_quant")
     LAUNCHES["fake_quant"] += 1
     return out

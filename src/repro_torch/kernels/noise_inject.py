@@ -100,11 +100,9 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
     if out.numel() == 0:
         return out
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        code = lib.soniq_noise_inject(w.data_ptr(), sig.data_ptr(),
-                                      seed_t.data_ptr(), out.data_ptr(), k,
-                                      n, group_size, stream)
+    code = _build.launch(w.device, lib.soniq_noise_inject, w.data_ptr(),
+                         sig.data_ptr(), seed_t.data_ptr(), out.data_ptr(),
+                         k, n, group_size)
     _build.check(code, "soniq_noise_inject")
     LAUNCHES["noise_inject"] += 1
     return out

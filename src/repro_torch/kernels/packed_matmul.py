@@ -307,14 +307,8 @@ def _launch(x, segments, sx, rows, mode, group_size, out):
             out.data_ptr(), out.stride(0) if grouped else 0,
             None if rows is None else rows.data_ptr(), e, m, n, group_size,
             mode)
-    if dev.index == torch.cuda.current_device():
-        code = lib.soniq_segment_gemm(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            code = lib.soniq_segment_gemm(
-                *args, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "soniq_segment_gemm")
+    _build.check(_build.launch(dev, lib.soniq_segment_gemm, *args),
+                 "soniq_segment_gemm")
     LAUNCHES[_key(mode, grouped)] += 1
     return out
 

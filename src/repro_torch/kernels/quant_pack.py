@@ -68,11 +68,10 @@ def quantize_pack(w: torch.Tensor, scales: Optional[torch.Tensor] = None, *,
     if out.numel() == 0:
         return out
     lib = _build.library(SOURCE, _bind)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        code = lib.soniq_quant_pack(
-            w.data_ptr(), None if scales is None else scales.data_ptr(),
-            out.data_ptr(), k, n, p, group_size, stream)
+    code = _build.launch(
+        w.device, lib.soniq_quant_pack, w.data_ptr(),
+        None if scales is None else scales.data_ptr(), out.data_ptr(), k, n,
+        p, group_size)
     _build.check(code, "soniq_quant_pack")
     LAUNCHES["quantize_pack"] += 1
     return out

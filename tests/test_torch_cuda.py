@@ -418,6 +418,107 @@ def test_qkv_attn_decode_paged_within_bound_and_equals_ring(dev, s):
     assert torch.equal(ring_out, got)
 
 
+def _attn_pool(g, dev, b, s, hk, gq, d, ps, npg):
+    """A shuffled pool with page 2 of slot 0 and the last page of slot 1
+    unmapped and a page slots 0 and 1 share, stamped as a ring of npg * ps
+    entries; and the same content laid out as B4's ring."""
+    from repro_torch.serve import kv_pool
+    npages = b * npg + 1
+    q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+    kc, ks = _kv_codes(g, (npages, ps, hk, d), dev)
+    vc, vs = _kv_codes(g, (npages, ps, hk, d), dev)
+    for t in (kc, ks, vc, vs):
+        t[0] = 0
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    table = perm[:b * npg].reshape(b, npg).to(torch.int32)
+    table[0, min(2, npg - 1)] = -1
+    if b > 1:
+        table[1, 0] = table[0, 0]
+        table[1, -1] = -1
+    pool_pos = torch.full((npages, ps), -1, dtype=torch.int32, device=dev)
+    for bi in range(b):
+        for lp in range(npg):
+            pid = int(table[bi, lp])
+            if pid > 0:
+                pool_pos[pid] = lp * ps + torch.arange(ps, device=dev)
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32)
+             + npg * ps - s).repeat(b, 1)
+    q_pos[-1, 0] = -1                                  # masked lane
+    paged = (q, kc, vc, ks, vs, pool_pos, table, q_pos)
+    cache = {"k_codes": kc, "v_codes": vc, "k_scale": ks, "v_scale": vs,
+             "pos": pool_pos, "page_table": table}
+    k_pos = kv_pool.gather_paged(cache)[2]
+    safe = table.long().clamp(min=0)
+    ring = [x[safe].reshape((b, npg * ps) + x.shape[2:]).contiguous()
+            for x in (kc, vc, ks, vs)]
+    return paged, (q, *ring, k_pos.contiguous(), q_pos)
+
+
+@pytest.mark.parametrize("hk,gq,d", [(2, 4, 80), (2, 1, 128)],
+                         ids=["h2o", "deepseek"])
+@pytest.mark.parametrize("ps,npg,window", [(4, 37, None), (16, 17, 100),
+                                           (16, 160, 1000)])
+def test_paged_equals_ring_bitwise(dev, ps, npg, window, hk, gq, d):
+    """One body, two address modes: B5 equals B4 bitwise on the same
+    content laid out as a ring, at page sizes 4 and 16, entry counts not a
+    multiple of the chunk length (148, 272) and one split into 64-entry
+    chunks (2560), and at the G = 1, D = 128 shape; both within the bound
+    of their plain version, one launch each."""
+    from repro_torch.kernels import attn_decode as ad
+    from repro_torch.serve import kv_quant
+    g = torch.Generator(device=dev).manual_seed(ps * 1000 + npg + d)
+    paged, ring = _attn_pool(g, dev, 3, 1, hk, gq, d, ps, npg)
+    kernels.reset_launch_counts()
+    got = ad.qkv_attn_decode_paged(*paged, window=window)
+    ring_out = ad.qkv_attn_decode(*ring, window=window)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["qkv_attn_decode_paged"] == 1
+    assert counts["qkv_attn_decode"] == 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(ring_out, got)
+    want = ad.qkv_attn_decode_plain(*ring, window=window)
+    kd = kv_quant.dequantize_kv(ring[1], ring[3], torch.float32)
+    vd = kv_quant.dequantize_kv(ring[2], ring[4], torch.float32)
+    bound = ad.error_bound(ring[0], kd, vd, ring[5], ring[6], window)
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("hk,gq,d", [(8, 4, 80), (16, 1, 128)],
+                         ids=["h2o", "deepseek"])
+@pytest.mark.parametrize("t,window", [(256, None), (4096, 1024), (100, 7)])
+def test_attention_rows_alone_batched_and_repeated_bitwise(dev, t, window,
+                                                           hk, gq, d):
+    """A row's output is bitwise the same alone and in a batch of 4, in a
+    decode step (S = 1) and as a row of a prefill chunk (S = 8), and from
+    run to run: the split and every order are fixed by T alone."""
+    from repro_torch.kernels import attn_decode as ad
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    b, s = 4, 8
+    q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+    kc, ks = _kv_codes(g, (b, t, hk, d), dev)
+    vc, vs = _kv_codes(g, (b, t, hk, d), dev)
+    kv_pos = torch.arange(t, device=dev, dtype=torch.int32).repeat(b, 1)
+    kv_pos[0] = (kv_pos[0] + t // 3) % t + t          # wrapped ring
+    kv_pos[1, t // 2:] = -1
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32)
+             + int(kv_pos.max()) - s + 1).repeat(b, 1)
+    q_pos[3, s - 1] = -1                               # masked lane
+    ops = (kc, vc, ks, vs, kv_pos)
+    full = ad.qkv_attn_decode(q, *ops, q_pos, window=window)
+    again = ad.qkv_attn_decode(q, *ops, q_pos, window=window)
+    assert torch.equal(full, again)
+    last = ad.qkv_attn_decode(q[:, -1:].contiguous(), *ops,
+                              q_pos[:, -1:].contiguous(), window=window)
+    assert torch.equal(last[:, 0], full[:, -1])
+    for bi in range(b):
+        one = ad.qkv_attn_decode(
+            q[bi:bi + 1, -1:].contiguous(),
+            *(x[bi:bi + 1].contiguous() for x in ops),
+            q_pos[bi:bi + 1, -1:].contiguous(), window=window)
+        assert torch.equal(one[0], last[bi])
+
+
 # ------------------------------------------------------------ training ----
 @pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
 def test_noise_inject_bit_equal(dev, k, n):

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the segment GEMM kernels (B1, B2, B3, B6) of one checkout of the
-PyTorch port on the card, so two checkouts, or two builds of one, can be
-compared in one call:
+"""Time the segment GEMM kernels (B1, B2, B3, B6) and the decode
+attention kernels (B4, B5) of one checkout of the PyTorch port on the
+card, so two checkouts, or two builds of one, can be compared in one call:
 
-    python3 tools/segment_gemm_ab.py --src /path/to/parent/src --label parent
-    python3 tools/segment_gemm_ab.py --src src --label change
-    python3 tools/segment_gemm_ab.py --src src --label cluster1 \\
+    python3 tools/kernel_ab.py --src /path/to/parent/src --label parent
+    python3 tools/kernel_ab.py --src src --label change
+    python3 tools/kernel_ab.py --src src --label cluster1 \\
         --set MAX_CLUSTER=1
+    python3 tools/kernel_ab.py --src src --label attn --only attn
 
-``--set NAME=VALUE`` times a scratch build of ``csrc/segment_gemm.cu``
-with ``constexpr int NAME`` (one of the launch-shape constants at the top
-of the source, none of which changes a bit of the result) set to VALUE,
-compiled into the checkout's build directory.
+``--only gemm`` or ``--only attn`` times one family. ``--set NAME=VALUE``
+times a scratch build of the source (``csrc/segment_gemm.cu`` or
+``csrc/attn_decode.cu``) that declares ``constexpr int NAME`` (one of the
+launch-shape constants at the top of each source, none of which changes a
+bit of the result) with NAME set to VALUE, compiled into the checkout's
+build directory.
 
 Work per row, at full width with random operands from a fixed seed (the
 same in every checkout): the segment GEMMs of one h2o-danube-1.8b layer
@@ -25,7 +28,18 @@ per segment. Rotating operand sets keep the carriers coming from device
 memory. Each row has two readings, both with CUDA events: ``device_ms``
 with the host's launches queued ahead while the card sleeps (the kernels
 back to back) and ``loop_ms`` as a loop of calls (host launch gaps
-included), the two timers of ``chip_smoke.py``. Prints one JSON line.
+included), the two timers of ``chip_smoke.py``. Attention rows add
+``host_ms``: the host clock of one call while the card sleeps (the
+wrapper's checks and the ctypes launch).
+
+Attention rows, one call each at batch 4, S = 1, full width, the same
+operands every call (the codes stay in L2, as in ``chip_smoke.py``):
+h2o-danube-1.8b (Hk = 8, G = 4, D = 80) B4 on rings of T = 256 and
+T = 4096 (window 1024), B5 on 16 and 256 pages of 16 a slot (the latter
+with window 1024); deepseek-moe-16b (Hk = 16, G = 1, D = 128) B4 at
+T = 256 and B5 on 16 pages of 16. Rings hold one wrapped and one half-empty
+row, each query at its row's newest position; tables are shuffled.
+Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -55,34 +70,41 @@ def loop_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
+def queued_ms(torch, fn, reps):
     """The same with the stream first sleeping ~0.1 s on the card while
-    the host enqueues every launch: the kernels back to back."""
+    the host enqueues every launch: (device ms, the kernels back to back;
+    host ms, the enqueue of one call on the host clock)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host
 
 
-def build_variant(_build, pm, settings):
-    """Compile segment_gemm.cu with each ``NAME=VALUE`` of ``settings``
-    replacing ``constexpr int NAME = ...;`` and make it the library ``pm``
+def device_ms(torch, fn, reps):
+    return queued_ms(torch, fn, reps)[0]
+
+
+def build_variant(_build, mod, settings):
+    """Compile ``mod.SOURCE`` with each ``NAME=VALUE`` of ``settings``
+    replacing ``constexpr int NAME = ...;`` and make it the library ``mod``
     launches."""
-    text = (_build.CSRC / pm.SOURCE).read_text()
+    text = (_build.CSRC / mod.SOURCE).read_text()
     for item in settings:
         name, value = item.split("=")
         text, n = re.subn(rf"constexpr int {name} = \d+;",
                           f"constexpr int {name} = {int(value)};", text)
         if n != 1:
-            raise SystemExit(f"no constant {name} in {pm.SOURCE}")
-    stem = "segment_gemm-" + hashlib.sha256(
+            raise SystemExit(f"no constant {name} in {mod.SOURCE}")
+    stem = Path(mod.SOURCE).stem + "-" + hashlib.sha256(
         (text + " ".join(_build.NVCC_FLAGS)).encode()).hexdigest()[:16]
     src = _build.BUILD_DIR / f"{stem}.cu"
     out = _build.BUILD_DIR / f"{stem}.so"
@@ -95,8 +117,66 @@ def build_variant(_build, pm, settings):
                        capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    pm._bind(lib)
-    _build._LIBS[pm.SOURCE] = lib
+    mod._bind(lib)
+    _build._LIBS[mod.SOURCE] = lib
+
+
+def declares(_build, mod, name):
+    return re.search(rf"constexpr int {name} = \d+;",
+                     (_build.CSRC / mod.SOURCE).read_text()) is not None
+
+
+def attention_rows(torch, ad, kv_quant, get_config, dev, gen, rows):
+    """B4 and B5 at the decode shapes of the two serve configurations, on
+    both rulers."""
+    def ring(cfg, t, b=4):
+        hk, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+            cfg.hd
+        q = torch.randn((b, 1, hk, g, d), generator=gen, device=dev)
+        kc, ks = kv_quant.quantize_kv(
+            torch.randn((b, t, hk, d), generator=gen, device=dev) * 2.0)
+        vc, vs = kv_quant.quantize_kv(
+            torch.randn((b, t, hk, d), generator=gen, device=dev))
+        pos = torch.arange(t, device=dev, dtype=torch.int32).repeat(b, 1)
+        pos[0] = (pos[0] + t // 3) % t + t
+        pos[1, t // 2:] = -1
+        q_pos = pos.amax(dim=1, keepdim=True).contiguous()  # each newest
+        return ad.qkv_attn_decode, (q, kc, vc, ks, vs, pos, q_pos)
+
+    def paged(cfg, npg, b=4, ps=16):
+        hk, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+            cfg.hd
+        npages = b * npg + 1
+        q = torch.randn((b, 1, hk, g, d), generator=gen, device=dev)
+        kc, ks = kv_quant.quantize_kv(
+            torch.randn((npages, ps, hk, d), generator=gen, device=dev))
+        vc, vs = kv_quant.quantize_kv(
+            torch.randn((npages, ps, hk, d), generator=gen, device=dev))
+        perm = torch.randperm(npages - 1, generator=gen, device=dev) + 1
+        table = perm[:b * npg].reshape(b, npg).to(torch.int32)
+        pos = torch.full((npages, ps), -1, dtype=torch.int32, device=dev)
+        lp = (torch.arange(npg, device=dev)[:, None] * ps
+              + torch.arange(ps, device=dev)[None]).to(torch.int32)
+        for bi in range(b):
+            pos[table[bi].long()] = lp
+        q_pos = torch.full((b, 1), npg * ps - 1, dtype=torch.int32,
+                           device=dev)
+        return ad.qkv_attn_decode_paged, (q, kc, vc, ks, vs, pos, table,
+                                          q_pos)
+
+    h2o = get_config("h2o-danube-1.8b")
+    moe = get_config("deepseek-moe-16b")
+    for key, (fn, args), window in (
+            ("B4_h2o_T256", ring(h2o, 256), None),
+            ("B4_h2o_T4096_w1024", ring(h2o, 4096), 1024),
+            ("B5_h2o_16x16", paged(h2o, 16), None),
+            ("B5_h2o_256x16_w1024", paged(h2o, 256), 1024),
+            ("B4_deepseek_T256", ring(moe, 256), None),
+            ("B5_deepseek_16x16", paged(moe, 16), None)):
+        call = (lambda f, a, w: lambda: f(*a, window=w))(fn, args, window)
+        rows[f"{key}_device_ms"], rows[f"{key}_host_ms"] = queued_ms(
+            torch, call, 50)
+        rows[f"{key}_loop_ms"] = loop_ms(torch, call, 50)
 
 
 def main() -> int:
@@ -105,7 +185,9 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--set", action="append", default=[],
                     help="NAME=VALUE: a launch-shape constant of the "
-                         "segment GEMM build")
+                         "segment GEMM or attention build")
+    ap.add_argument("--only", choices=("gemm", "attn"), default=None,
+                    help="time one kernel family")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -113,16 +195,26 @@ def main() -> int:
     from repro_torch.core import quant
     from repro_torch.core.qtypes import U4, QuantConfig
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attn_decode as ad
     from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.serve import kv_quant
 
     if not torch.cuda.is_available():
-        print("segment_gemm_ab: no CUDA device", file=sys.stderr)
+        print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    if args.set:
-        build_variant(_build, pm, args.set)
-    else:
-        _build.build([pm.SOURCE])
+    families = [m for m, name in ((pm, "gemm"), (ad, "attn"))
+                if args.only in (None, name)]
+    _build.build([m.SOURCE for m in families])
+    for item in args.set:
+        if not any(declares(_build, m, item.split("=")[0])
+                   for m in families):
+            raise SystemExit(f"no constant {item} in the timed sources")
+    for mod in families:
+        mine = [s for s in args.set
+                if declares(_build, mod, s.split("=")[0])]
+        if mine:
+            build_variant(_build, mod, mine)
     multi = hasattr(pm, "segments_matmul")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -191,10 +283,14 @@ def main() -> int:
         rows[f"{key}_device_ms"] = device_ms(torch, fn, reps) / per
         rows[f"{key}_loop_ms"] = loop_ms(torch, fn, reps) / per
 
+    rows = {}
+    if ad in families:
+        attention_rows(torch, ad, kv_quant, get_config, dev, gen, rows)
+    if pm not in families:
+        return report(args, rows, None)
     h2o = get_config("h2o-danube-1.8b")
     moe = get_config("deepseek-moe-16b")
     mixed = QuantConfig(mode="qat")
-    rows = {}
     for m in (4, 32):
         for name, qcfg, mode in (("B1", mixed, "fused"), ("B2", U4, "self"),
                                  ("B3", mixed, "plain")):
@@ -222,6 +318,10 @@ def main() -> int:
         both(f"B6_T{t_rows}", lambda: run_grouped(sets), 10, 2)
         del sets
         torch.cuda.empty_cache()
+    return report(args, rows, multi)
+
+
+def report(args, rows, multi):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
