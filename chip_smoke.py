@@ -73,15 +73,20 @@ Phases (none catches an error; any failure exits non-zero):
      the same weights with per-group scales (read in place, K along rows)
      and on [8 * 128, K] bf16 activations with a per-tensor scale
      broadcast to the rows, precisions {1, 2, 4} mixed per group, with
-     values on rounding ties and beyond the grid. One layer's calls timed
-     beside the plain versions.
+     values on rounding ties and beyond the grid. Their backward kernels
+     on the same operands and a random cotangent: dw and dx bitwise (-0
+     included), ds within ``noise_inject.ds_bound``. One layer's calls of
+     each timed on both rulers beside the plain versions.
   8. Training: full-width, 24-layer h2o-danube-1.8b through Phase I
      (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
      with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
-     per step the phase, loss, gradient norm, step ms, B8/B9 launches and
-     peak memory; a device profile of one step of each phase; the
-     boundary's pattern report. Phase I must launch B9 and not B8, Phase
-     II B8 and not B9; every loss finite.
+     per step the phase, loss, gradient norm, step ms, B8/B9 launches
+     (forward and backward) and peak memory; a device profile of one step
+     of each phase, its plain ops split by the op that launched them
+     (``tools/step_profile.py``); the boundary's pattern report. Phase I
+     must launch B9 and not B8, with one B9 backward a linear (168 a
+     step); Phase II B8 and not B9, with one B8 backward a weight and one
+     an activation (336 a step); every loss finite.
   9. The trained model packed (B7) and served: 4 requests through the
      DecodeEngine and the LockstepEngine, greedy tokens equal.
  10. Card vs CPU, teacher-forced: each of one full-width layer's seven
@@ -101,7 +106,8 @@ Phases (none catches an error; any failure exits non-zero):
  13. Card vs CPU, teacher-forced, on full-width deepseek-moe-16b cut to
      its dense layer and one MoE layer: every linear, expert bank, the
      router and the logits within relative L2 1e-5.
- 14. Summary: a ``kernels`` JSON line (B1-B9), the ``kv4_serve``,
+ 14. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+     B8 and B9), the ``kv4_serve``,
      ``training``, ``moe_serve`` and ``phase_seconds`` JSON lines, the
      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
@@ -121,6 +127,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.backend import base as backend  # noqa: E402
@@ -141,6 +148,7 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serve import engine, kv_pool, kv_quant  # noqa: E402
 from repro_torch.serve.scheduler import DECODE, Request  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
+import step_profile  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -150,6 +158,7 @@ B1, B2, B7 = ("fused_act_segment_matmul", "fused_act_selfscale_matmul",
               "quantize_pack")
 B4, B5 = "qkv_attn_decode", "qkv_attn_decode_paged"
 B8, B9 = "fake_quant", "noise_inject"
+B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
@@ -160,7 +169,9 @@ SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B5: "src/repro_torch/csrc/attn_decode.cu",
            B7: "src/repro_torch/csrc/quant_pack.cu",
            B8: "src/repro_torch/csrc/fake_quant.cu",
-           B9: "src/repro_torch/csrc/noise_inject.cu"}
+           B9: "src/repro_torch/csrc/noise_inject.cu",
+           B8_BWD: "src/repro_torch/csrc/fake_quant.cu",
+           B9_BWD: "src/repro_torch/csrc/noise_inject.cu"}
 REPLACES = {B1: "src/repro/kernels/packed_matmul.py:108",
             B2: "src/repro/kernels/packed_matmul.py:121",
             B3: "src/repro/kernels/packed_matmul.py:100",
@@ -169,7 +180,10 @@ REPLACES = {B1: "src/repro/kernels/packed_matmul.py:108",
             B5: "src/repro/kernels/attn_decode.py:155",
             B7: "src/repro/kernels/quant_pack.py:21",
             B8: "src/repro/kernels/fake_quant.py:27",
-            B9: "src/repro/kernels/noise_inject.py:22"}
+            B9: "src/repro/kernels/noise_inject.py:22",
+            # The backward passes port the custom VJPs around B8 and B9.
+            B8_BWD: "src/repro/backend/base.py:190",
+            B9_BWD: "src/repro/backend/base.py:145"}
 TRAIN_BATCH, TRAIN_SEQ, T1, T2 = 8, 128, 3, 6
 
 
@@ -465,13 +479,14 @@ def phase_quant_pack(cfg, qcfg, gen, dev, reps=10):
     plain = lambda: [qp.quantize_pack_plain(w, sc, p=p)  # noqa: E731
                      for calls in sets for w, sc, p in calls]
     ms = time_ms(kern, reps) / 4
+    dev_ms = device_ms(kern, reps) / 4
     plain_ms = time_ms(plain, 2) / 4
     nbytes = sum(w.numel() * 4 + sc.numel() * 4 + w.numel() * p // 8
                  for w, sc, p in sets[0])
     flops = sum(6 * w.numel() for w, _sc, _p in sets[0])
     b_ms, b_by = bound(nbytes, flops)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------- grouped GEMM ----
@@ -1325,31 +1340,78 @@ def phase_training_kernels(cfg, gen, dev, reps=10):
                    device_ms=device_ms(b8),
                    plain_ms=time_ms(b8p, 2), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, weights_ms=time_ms(weights_only, reps))
+    out.update(training_backward_kernels(b9_ops, b8_w, b8_x, gen, dev, reps))
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def training_backward_kernels(b9_ops, b8_w, b8_x, gen, dev, reps):
+    """B9's and B8's backward kernels against their plain versions on one
+    layer's operands and a random cotangent: dw and dx bitwise (-0
+    included), ds within ``noise_inject.ds_bound``; one layer's backward
+    calls timed on both rulers."""
+    b9 = [(w, s, seed, torch.randn(w.shape, generator=gen, device=dev))
+          for w, s, seed in b9_ops]
+    ds_err = 0.0
+    for w, s, seed, g in b9:
+        dw, ds = ni.noise_inject_bwd(w, s, seed, g)
+        dw_p, ds_p = ni.noise_inject_bwd_plain(w, s, seed, g)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(dw), _bits(dw_p)):
+            raise AssertionError(f"noise_inject_bwd {tuple(w.shape)}: dw "
+                                 f"differs from the plain version in "
+                                 f"{(_bits(dw) != _bits(dw_p)).sum().item()}"
+                                 f" elements")
+        err = (ds - ds_p).abs()
+        if not (err <= ni.ds_bound(w, s, seed, g)).all():
+            raise AssertionError(f"noise_inject_bwd {tuple(w.shape)}: ds "
+                                 f"off the plain version by {err.max()}")
+        ds_err = max(ds_err, err.max().item())
+    b8 = [((w, pb, sw, torch.randn(w.shape, generator=gen, device=dev)),
+           dict(row_scale=False, k_dim=0)) for w, pb, sw in b8_w]
+    b8 += [((x, pb, sx, torch.randn(x.shape, generator=gen, device=dev).to(
+        x.dtype)), dict(row_scale=True)) for x, pb, sx in b8_x]
+    for args, kw in b8:
+        got = fq.fake_quant_bwd(*args, **kw)
+        want = fq.fake_quant_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got), _bits(want)):
+            raise AssertionError(
+                f"fake_quant_bwd {tuple(args[0].shape)} {args[0].dtype}: "
+                f"{(_bits(got) != _bits(want)).sum().item()} elements "
+                f"differ from the plain version")
+    out = {}
+    kern = lambda: [ni.noise_inject_bwd(*o) for o in b9]  # noqa: E731
+    plain = lambda: [ni.noise_inject_bwd_plain(*o) for o in b9]  # noqa
+    elems = sum(w.numel() for w, _s, _sd, _g in b9)
+    # Bytes: w and g read, dw written, fp32; s read and ds written per
+    # group. Operations: ~20 an element (the hash, eps, z, the mask, the
+    # select, the product and its sum), integer ones at the fp32 rate.
+    b_ms, b_by = bound(12 * elems + sum(8 * s.numel() + 8
+                                        for _w, s, _sd, _g in b9),
+                       20 * elems)
+    out[B9_BWD] = dict(max_abs_err=ds_err, ms=time_ms(kern, reps),
+                       device_ms=device_ms(kern), plain_ms=time_ms(plain, 2),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    kern = lambda: [fq.fake_quant_bwd(*a, **kw) for a, kw in b8]  # noqa
+    plain = lambda: [fq.fake_quant_bwd_plain(*a, **kw)  # noqa: E731
+                     for a, kw in b8]
+    # Bytes: x and g read, dx written, in x's dtype; pbits and the scale
+    # once. Operations: ~6 an element (the division, the bound, the
+    # compare, the product).
+    nbytes = sum(3 * a[0].numel() * a[0].element_size()
+                 + 4 * (a[1].numel() + a[2].numel()) for a, _kw in b8)
+    b_ms, b_by = bound(nbytes, 6 * sum(a[0].numel() for a, _kw in b8))
+    out[B8_BWD] = dict(max_abs_err=0.0, ms=time_ms(kern, reps),
+                       device_ms=device_ms(kern), plain_ms=time_ms(plain, 2),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
 
 
 # ------------------------------------------------------------- training ----
-def _device_profile(prof):
-    """Device time of one profiled step by kernel: the total, the share of
-    the fp32 GEMMs, of the port's kernels (B8, B9) and of the rest (plain
-    torch ops), and the top kernels. The step's own span annotation
-    ("ProfilerStep*") is not a kernel and is left out."""
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and not e.key.startswith("ProfilerStep")]
-    ms = lambda evs: sum(e.device_time_total for e in evs) / 1e3  # noqa
-    gemm = [e for e in kern if "gemm" in e.key.lower()]
-    ours = [e for e in kern if "noise_inject_kernel" in e.key
-            or "fake_quant_kernel" in e.key]
-    top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
-    return {"kernels": sum(e.count for e in kern),
-            "device_busy_ms": ms(kern), "gemm_ms": ms(gemm),
-            "b8_b9_ms": ms(ours),
-            "other_ms": ms(kern) - ms(gemm) - ms(ours),
-            "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
-                     e.count) for e in top]}
-
-
 def phase_training(cfg, dev):
     """Full-width two-phase training through ``train.loop.train``. Returns
     (the trained model, per-step records, profiles, pattern report)."""
@@ -1361,23 +1423,25 @@ def phase_training(cfg, dev):
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         batch_size=TRAIN_BATCH, seed=0))
     records, profiles = [], {}
-    prev = {B8: 0, B9: 0}
+    counted = {"b8": B8, "b9": B9, "b8_bwd": B8_BWD, "b9_bwd": B9_BWD}
+    prev = dict.fromkeys(counted.values(), 0)
 
     def on_ready(prof):
-        profiles[records[-1]["step"]] = _device_profile(prof)
+        profiles[records[-1]["step"]] = step_profile.device_summary(prof)
 
     def hook(step, _state, met):
         counts = kernels.launch_counts()
         rec = dict(step=step, phase=met["phase"], loss=met["loss"],
                    grad_norm=met["grad_norm"], ms=met["wall"] * 1e3,
-                   b8=counts[B8] - prev[B8], b9=counts[B9] - prev[B9],
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        prev.update({B8: counts[B8], B9: counts[B9]})
+        rec.update({key: counts[name] - prev[name]
+                    for key, name in counted.items()})
+        prev.update({name: counts[name] for name in counted.values()})
         records.append(rec)
         log(f"[8] step {step} phase {rec['phase']}: loss {rec['loss']:.4f} "
             f"gnorm {rec['grad_norm']:.4f} {rec['ms']:.1f} ms, launches "
-            f"B8 {rec['b8']} B9 {rec['b9']}, peak "
-            f"{rec['peak_gib']:.2f} GiB")
+            f"B8 {rec['b8']} B9 {rec['b9']} B8 backward {rec['b8_bwd']} B9 "
+            f"backward {rec['b9_bwd']}, peak {rec['peak_gib']:.2f} GiB")
         prof.step()
 
     model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
@@ -1385,22 +1449,33 @@ def phase_training(cfg, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    undo_spans = step_profile.install_spans()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=prof_schedule(wait=1, warmup=0, active=1,
-                                        repeat=T2 // 2),
-                 on_trace_ready=on_ready) as prof:
-        out = loop.train(cfg, tcfg, stream.batches(), model=model,
-                         device=dev, hooks=[hook])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=prof_schedule(wait=1, warmup=0, active=1,
+                                            repeat=T2 // 2),
+                     on_trace_ready=on_ready) as prof:
+            out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                             device=dev, hooks=[hook])
+    finally:
+        undo_spans()
     wall = time.perf_counter() - t0
+    # One backward a linear a step: 7 noise_inject_bwd a Phase-I layer;
+    # 7 weights and 7 activations through fake_quant_bwd a Phase-II layer.
+    per_layer = {1: dict(b9_bwd=7, b8_bwd=0), 2: dict(b8_bwd=14, b9_bwd=0)}
     for r in records:
         if not math.isfinite(r["loss"]):
             raise AssertionError(f"non-finite loss at step {r['step']}")
-        want, other = (B9, B8) if r["phase"] == 1 else (B8, B9)
-        if r[{B8: "b8", B9: "b9"}[want]] == 0 or \
-                r[{B8: "b8", B9: "b9"}[other]] != 0:
+        fwd, off = ("b9", "b8") if r["phase"] == 1 else ("b8", "b9")
+        want = {k: n * cfg.num_layers
+                for k, n in per_layer[r["phase"]].items()}
+        if r[fwd] == 0 or r[off] != 0 or any(r[k] != n
+                                             for k, n in want.items()):
             raise AssertionError(f"step {r['step']} (phase {r['phase']}) "
-                                 f"launches B8 {r['b8']} B9 {r['b9']}")
+                                 f"launches { {k: r[k] for k in counted} }, "
+                                 f"backward wanted {want}")
     rep = out["pattern_report"]
     log(f"[8] boundary: average bpp {schedule.average_bpp(rep):.4f} over "
         f"{len(rep['layers'])} linears; allowed patterns {rep['allowed']}")
@@ -1834,15 +1909,19 @@ def main() -> int:
     train_kern = phase_training_kernels(cfg, gen, dev)
     results.update(train_kern)
     log(f"[7] noise_inject and fake_quant bit-equal to their plain "
-        f"versions; {train_kern}")
+        f"versions, their backward passes dw and dx bitwise and ds within "
+        f"its bound; {train_kern}")
     torch.cuda.empty_cache()
 
     clock.lap(7)
 
     # -------------------------------------------------------- phase 8 ----
     state, records, profiles, report = phase_training(cfg, dev)
-    launches[B8] = sum(r["b8"] for r in records)
-    launches[B9] = sum(r["b9"] for r in records)
+    for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
+                      (B9_BWD, "b9_bwd")):
+        launches[name] = sum(r[key] for r in records)
+    per_train_step = {B9_BWD: records[0]["b9_bwd"],
+                      B8_BWD: records[-1]["b8_bwd"]}
 
     clock.lap(8)
 
@@ -1898,9 +1977,16 @@ def main() -> int:
                 "weights (fp32, group scale) + 7 activations (bf16, "
                 "8 x 128 tokens)",
             B9: "one h2o-danube-1.8b layer of Phase-I noise_inject: 7 "
-                "weights (fp32)"}
+                "weights (fp32)",
+            B8_BWD: "one h2o-danube-1.8b layer of Phase-II fake_quant "
+                    "backward: 7 weights (fp32) + 7 activations (bf16, "
+                    "8 x 128 tokens); launches_per_train_step: a Phase-II "
+                    "step",
+            B9_BWD: "one h2o-danube-1.8b layer of Phase-I noise_inject "
+                    "backward: 7 weights (fp32); launches_per_train_step: "
+                    "a Phase-I step"}
     rows = []
-    for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9):
+    for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
@@ -1918,6 +2004,8 @@ def main() -> int:
                 rows[-1][key] = r[key]
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
+        if name in per_train_step:
+            rows[-1]["launches_per_train_step"] = per_train_step[name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kv4_serve": {
         k: {n: x for n, x in v.items() if n != "profile"}

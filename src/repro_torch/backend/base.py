@@ -218,8 +218,8 @@ def qkv_attn_decode_paged(q: torch.Tensor, cache: Dict, q_pos: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Training ops: the kernel forward, the backward in plain torch (the
-# reference's backward is jnp in a shared custom VJP, not a Pallas kernel).
+# Training ops: a kernel forward and a kernel backward each (the reference's
+# backward is jnp in a shared custom VJP, which XLA fuses on the TPU).
 # --------------------------------------------------------------------------
 
 def hash_eps(shape: Tuple[int, int], seed, device=None) -> torch.Tensor:
@@ -231,8 +231,8 @@ def hash_eps(shape: Tuple[int, int], seed, device=None) -> torch.Tensor:
 
 class _NoiseInject(torch.autograd.Function):
     """clip(w + sigma(s) * eps, +-(2 - sigma)) through kernel B9; the
-    backward recomputes eps from the hash (``base.py::_noise_inject_bwd``
-    of the reference)."""
+    backward through B9's backward kernel, which recomputes eps from the
+    hash (``base.py::_noise_inject_bwd`` of the reference)."""
 
     @staticmethod
     def forward(ctx, w, s, seed, group_size):
@@ -243,23 +243,8 @@ class _NoiseInject(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w, s, seed = ctx.saved_tensors
-        gs = ctx.group_size
-        k, n = w.shape
-        sig_g = ni.group_sigma(s)
-        sig = quant.expand_groups(sig_g, k, gs)[:, None]
-        eps = hash_eps((k, n), seed, w.device)
-        z = w.float() + sig * eps
-        inside = z.abs() <= 2.0 - sig
-        g32 = g.float()
-        dw = torch.where(inside, g32, torch.zeros_like(g32)).to(w.dtype)
-        # d out / d sigma: eps inside the clip; at the clamp the limit
-        # +-(2 - sigma) itself moves with sigma (d/dsigma = -+1). Chain
-        # through sigma'(s) = sigma (1 - sigma) and sum each group's block
-        # (fixed-order reductions: no atomics).
-        dsig = torch.where(inside, eps, -torch.sign(z))
-        per_k = torch.sum(g32 * dsig, dim=1)
-        per_group = per_k.reshape(sig_g.shape[0], gs).sum(dim=1)
-        ds = (per_group * sig_g * (1.0 - sig_g)).to(s.dtype)
+        dw, ds = ni.noise_inject_bwd(w, s, seed, g.contiguous(),
+                                     ctx.group_size)
         return dw, ds, None, None
 
 
@@ -272,17 +257,10 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed,
                               ni.seed_tensor(seed, w.device), group_size)
 
 
-def _in_range_on_layout(x, pbits, scale, row_scale: bool, k_dim: int,
-                        group_size: int) -> torch.Tensor:
-    xt = x if k_dim == 1 else x.t()
-    s = scale.float().reshape(-1, 1) if row_scale else scale.float()
-    mask = quant.fake_quant_in_range(xt, pbits, s, group_size)
-    return mask if k_dim == 1 else mask.t()
-
-
 class _FakeQuant(torch.autograd.Function):
     """Quantize-dequantize through kernel B8 with the clipped-STE
-    backward (dx = g * in_range; ``base.py::_fake_quant_bwd``)."""
+    backward through B8's backward kernel (dx = g * in_range;
+    ``base.py::_fake_quant_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, pbits, scale, row_scale, k_dim, group_size):
@@ -294,8 +272,11 @@ class _FakeQuant(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, pbits, scale = ctx.saved_tensors
-        mask = _in_range_on_layout(x, pbits, scale, *ctx.layout)
-        return g * mask, None, None, None, None, None
+        row_scale, k_dim, group_size = ctx.layout
+        dx = fq.fake_quant_bwd(x, pbits, scale, g.contiguous(),
+                               row_scale=row_scale, k_dim=k_dim,
+                               group_size=group_size)
+        return dx, None, None, None, None, None
 
 
 def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,

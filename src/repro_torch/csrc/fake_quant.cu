@@ -1,24 +1,32 @@
-// QAT quantize-dequantize along K for Hopper (sm_90a), plain C ABI.
+// QAT quantize-dequantize along K for Hopper (sm_90a) and its clipped
+// straight-through backward, plain C ABI.
 //
-// Replaces the TPU kernel src/repro/kernels/fake_quant.py::_kernel
+// Forward: replaces the TPU kernel src/repro/kernels/fake_quant.py::_kernel
 // (fake_quant): every element of x is divided by its scale, snapped to the
 // p-bit SMOL grid of its 16-channel group along K, multiplied back and
 // rounded to x's dtype:
 //   h = 2^(1-p), u = clip(rint((x/s/h + 2^p - 1) / 2), 0, 2^p - 1),
 //   y = (2u - (2^p - 1)) * h * s.
+// Backward: replaces the custom VJP src/repro/backend/base.py::
+// _fake_quant_bwd (jnp, fused by XLA on the TPU): dx = g * in_range, with
+// in_range = 1 where |x / s| <= 2 - 2^(1-p), else 0, in x's dtype. The
+// mask is rebuilt from x with the forward's element arithmetic; dx is the
+// product g * mask, as the reference computes it, so -0, inf * 0 and NaN
+// come out as they do there.
 // The scale is per row of the non-K index (a per-token or broadcast
 // per-tensor activation scale, [M]) or per group of K ([K/G], the weight
 // scale). K is either the fast dimension (x [M, K], the reference's
 // layout) or the slow one (w [K, N]: the reference quantizes swapaxes(w),
-// this kernel reads w in place, so no transposed copy is made; every
+// these kernels read w in place, so no transposed copy is made; every
 // element's arithmetic is the same).
 //
-// What bounds it on the H100: bytes. One read and one write per element
-// (4 + 4 B in fp32, 2 + 2 B in bf16) with ~12 float operations between.
-// Each thread takes four neighbouring elements of one row (one 16-byte
-// load in fp32, 8 bytes in bf16), each block a 1,024-column strip of a
-// row, so loads and stores are coalesced; p and the scale come from tiny
-// arrays that stay in L1.
+// What bounds both on the H100: bytes. The forward reads and writes each
+// element once (4 + 4 B in fp32, 2 + 2 B in bf16) with ~12 float
+// operations between; the backward reads x and g and writes dx (12 B in
+// fp32, 6 B in bf16) with ~5. Each block takes a 1,024-column strip of a
+// row (forward: four elements a thread) or 16 bytes of each operand a
+// thread (backward: four fp32 or eight bf16 elements), so loads and stores
+// are coalesced; p and the scale come from tiny arrays that stay in L1.
 //
 // Numerics: bit-equal with the reference's _fake_quant_fwd_impl. The
 // division by the scale is an IEEE division (__fdiv_rn), the powers of
@@ -36,9 +44,9 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC = 4;
 
-template <typename T>
-struct alignas(VEC * sizeof(T)) Pack {
-  T v[VEC];
+template <typename T, int N = VEC>
+struct alignas(N * sizeof(T)) Pack {
+  T v[N];
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -66,6 +74,13 @@ __device__ __forceinline__ float fake_quant_elem(float x, float p, float s) {
   u = fminf(fmaxf(u, 0.0f), top);
   const float q = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, u), top), h);
   return __fmul_rn(q, s);
+}
+
+// 1 where |x / s| lies inside the p-bit grid's range 2 - 2^(1-p), else 0.
+__device__ __forceinline__ float in_range_elem(float x, float p, float s) {
+  const int pi = __float2int_rn(p);
+  const float top = __fsub_rn(2.0f, ldexpf(1.0f, 1 - pi));
+  return fabsf(__fdiv_rn(x, s)) <= top ? 1.0f : 0.0f;
 }
 
 // x [R, C] row-major. K_ROWS: K is the row index (w [K, N]); else the
@@ -143,6 +158,100 @@ void dispatch(const void* x, const float* pb, const float* sc, void* out,
   }
 }
 
+// dx = g * in_range(x), all [R, C] row-major of one dtype; layouts as
+// fake_quant_kernel. Each thread takes 16 bytes of each operand.
+template <typename T, bool K_ROWS, bool ROW_SCALE, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+fake_quant_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ pbits,
+                      const float* __restrict__ scale, T* __restrict__ dx,
+                      int R, int C, int group) {
+  constexpr int V = 16 / sizeof(T);
+  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * V;
+  if (c0 >= C) return;
+  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+    const size_t base = (size_t)r * C + c0;
+    float xv[V], gv[V];
+    if (ALIGNED) {
+      const Pack<T, V> px = *reinterpret_cast<const Pack<T, V>*>(x + base);
+      const Pack<T, V> pg = *reinterpret_cast<const Pack<T, V>*>(g + base);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        xv[j] = to_f32(px.v[j]);
+        gv[j] = to_f32(pg.v[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const bool in = c0 + j < C;
+        xv[j] = in ? to_f32(x[base + j]) : 0.0f;
+        gv[j] = in ? to_f32(g[base + j]) : 0.0f;
+      }
+    }
+    Pack<T, V> res;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = c0 + j;
+      const int kidx = K_ROWS ? r : c;
+      const int grp = kidx / group;
+      const float p = (c < C) ? pbits[grp] : 0.0f;
+      const float s = (c < C) ? (ROW_SCALE ? scale[K_ROWS ? c : r]
+                                           : scale[grp])
+                              : 1.0f;
+      res.v[j] = from_f32<T>(__fmul_rn(gv[j], in_range_elem(xv[j], p, s)));
+    }
+    if (ALIGNED) {
+      *reinterpret_cast<Pack<T, V>*>(dx + base) = res;
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (c0 + j < C) dx[base + j] = res.v[j];
+    }
+  }
+}
+
+template <typename T, bool K_ROWS, bool ROW_SCALE>
+void launch_bwd(const void* x, const void* g, const float* pb,
+                const float* sc, void* dx, int R, int C, int group,
+                bool aligned, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const dim3 grid((C + THREADS * V - 1) / (THREADS * V),
+                  R < 65535 ? R : 65535);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dt = static_cast<T*>(dx);
+  if (aligned)
+    fake_quant_bwd_kernel<T, K_ROWS, ROW_SCALE, true>
+        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, R, C, group);
+  else
+    fake_quant_bwd_kernel<T, K_ROWS, ROW_SCALE, false>
+        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, R, C, group);
+}
+
+template <typename T>
+void dispatch_bwd(const void* x, const void* g, const float* pb,
+                  const float* sc, void* dx, int R, int C, int group,
+                  int k_rows, int row_scale, bool aligned, cudaStream_t s) {
+  if (k_rows) {
+    if (row_scale)
+      launch_bwd<T, true, true>(x, g, pb, sc, dx, R, C, group, aligned, s);
+    else
+      launch_bwd<T, true, false>(x, g, pb, sc, dx, R, C, group, aligned, s);
+  } else {
+    if (row_scale)
+      launch_bwd<T, false, true>(x, g, pb, sc, dx, R, C, group, aligned, s);
+    else
+      launch_bwd<T, false, false>(x, g, pb, sc, dx, R, C, group, aligned,
+                                  s);
+  }
+}
+
+bool bad_shape(int R, int C, int group, int k_rows, int dtype) {
+  const int K = k_rows ? R : C;
+  return R <= 0 || C <= 0 || group <= 0 || K % group ||
+         (dtype != 0 && dtype != 1);
+}
+
 }  // namespace
 
 // out[R, C] = fake_quant(x[R, C] contiguous, pbits[K/group] fp32 integral
@@ -153,9 +262,7 @@ extern "C" int soniq_fake_quant(const void* x, const void* pbits,
                                 const void* scale, void* out, int R, int C,
                                 int group, int k_rows, int row_scale,
                                 int dtype, void* stream) {
-  const int K = k_rows ? R : C;
-  if (R <= 0 || C <= 0 || group <= 0 || K % group || (dtype != 0 &&
-                                                        dtype != 1))
+  if (bad_shape(R, C, group, k_rows, dtype))
     return (int)cudaErrorInvalidValue;
   const size_t esize = dtype == 0 ? 4 : 2;
   const bool aligned = (C % VEC == 0) &&
@@ -170,5 +277,33 @@ extern "C" int soniq_fake_quant(const void* x, const void* pbits,
   else
     dispatch<__nv_bfloat16>(x, pb, sc, out, R, C, group, k_rows, row_scale,
                             aligned, s);
+  return (int)cudaGetLastError();
+}
+
+// dx[R, C] = g * in_range(x) for x, g [R, C] contiguous of one dtype (0
+// fp32, 1 bf16), with pbits, scale, group, k_rows and row_scale as
+// soniq_fake_quant takes them. Returns the CUDA error code of the launch
+// (0 on success).
+extern "C" int soniq_fake_quant_bwd(const void* x, const void* g,
+                                    const void* pbits, const void* scale,
+                                    void* dx, int R, int C, int group,
+                                    int k_rows, int row_scale, int dtype,
+                                    void* stream) {
+  if (bad_shape(R, C, group, k_rows, dtype))
+    return (int)cudaErrorInvalidValue;
+  const int v = dtype == 0 ? 4 : 8;   // elements in 16 bytes
+  const bool aligned = (C % v == 0) &&
+                       ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dx)) % 16 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pb = static_cast<const float*>(pbits);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    dispatch_bwd<float>(x, g, pb, sc, dx, R, C, group, k_rows, row_scale,
+                        aligned, s);
+  else
+    dispatch_bwd<__nv_bfloat16>(x, g, pb, sc, dx, R, C, group, k_rows,
+                                row_scale, aligned, s);
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,15 @@ activation scaling) or a per-group scale [K // 16] (weight scaling):
 reference's layout), 0 for a weight w [K, N], which the reference
 quantizes as ``swapaxes(w)``; the kernel reads w in place instead of a
 transposed copy, with the same arithmetic per element. The plain version
-is ``core.quant.fake_quant_fwd`` on the reference's layout. On CUDA tensors
-the wrapper launches ``csrc/fake_quant.cu`` or raises; on CPU tensors it
-runs the plain version.
+is ``core.quant.fake_quant_fwd`` on the reference's layout.
+
+``fake_quant_bwd`` is the clipped straight-through backward, the
+reference's custom VJP (``repro.backend.base._fake_quant_bwd``): dx = g *
+in_range(x), the mask rebuilt from x with the forward's arithmetic, in x's
+dtype, on every layout the forward takes (bitwise the plain version).
+
+On CUDA tensors the wrappers launch ``csrc/fake_quant.cu`` or raise; on
+CPU tensors they run the plain versions.
 """
 from __future__ import annotations
 
@@ -31,17 +37,19 @@ SOURCE = "fake_quant.cu"
 
 # Launches of the CUDA kernel in this process (plain-version calls do not
 # count); reset by whoever reads it.
-LAUNCHES: Dict[str, int] = {"fake_quant": 0}
+LAUNCHES: Dict[str, int] = {"fake_quant": 0, "fake_quant_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.soniq_fake_quant
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.soniq_fake_quant.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                     i32, i32, ptr]
+    lib.soniq_fake_quant_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                         i32, i32, i32, i32, ptr]
+    lib.soniq_fake_quant.restype = i32
+    lib.soniq_fake_quant_bwd.restype = i32
 
 
 def _check(x: torch.Tensor, k_dim: int) -> int:
@@ -50,6 +58,21 @@ def _check(x: torch.Tensor, k_dim: int) -> int:
     if k_dim not in (0, 1):
         raise ValueError(f"k_dim must be 0 or 1, got {k_dim}")
     return k_dim
+
+
+def _check_layout(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor,
+                  row_scale: bool, k_dim: int, group_size: int) -> int:
+    """k_dim, once pbits and scale are known to cover x's layout."""
+    kd = _check(x, k_dim)
+    k = x.shape[0] if kd == 0 else x.shape[1]
+    m = x.shape[1] if kd == 0 else x.shape[0]
+    if k % group_size or pbits.numel() * group_size != k:
+        raise ValueError(f"pbits {tuple(pbits.shape)} do not cover K={k} "
+                         f"in groups of {group_size}")
+    if scale.numel() != (m if row_scale else k // group_size):
+        raise ValueError(f"scale {tuple(scale.shape)} is neither one per "
+                         f"row ({m}) nor one per group ({k // group_size})")
+    return kd
 
 
 def fake_quant_plain(x: torch.Tensor, pbits: torch.Tensor,
@@ -64,21 +87,26 @@ def fake_quant_plain(x: torch.Tensor, pbits: torch.Tensor,
     return y if kd == 1 else y.t().contiguous()
 
 
+def fake_quant_bwd_plain(x: torch.Tensor, pbits: torch.Tensor,
+                         scale: torch.Tensor, g: torch.Tensor, *,
+                         row_scale: bool, k_dim: int = 1,
+                         group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Plain backward: g * the in-range mask, computed on the reference's
+    layout (a [K, N] weight's mask transposed there and back)."""
+    kd = _check(x, k_dim)
+    xt = x if kd == 1 else x.t()
+    s = scale.float().reshape(-1, 1) if row_scale else scale.float()
+    mask = quant.fake_quant_in_range(xt, pbits, s, group_size)
+    return g * (mask if kd == 1 else mask.t())
+
+
 def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor, *,
                row_scale: bool, k_dim: int = 1,
                group_size: int = GROUP_SIZE) -> torch.Tensor:
     """x [R, C] (fp32 or bf16) -> quantize-dequantized x, same dtype and
     shape. K is dimension ``k_dim``; ``scale`` holds one value per index of
     the other dimension when ``row_scale``, else one per group of K."""
-    kd = _check(x, k_dim)
-    k = x.shape[0] if kd == 0 else x.shape[1]
-    m = x.shape[1] if kd == 0 else x.shape[0]
-    if k % group_size or pbits.numel() * group_size != k:
-        raise ValueError(f"pbits {tuple(pbits.shape)} do not cover K={k} "
-                         f"in groups of {group_size}")
-    if scale.numel() != (m if row_scale else k // group_size):
-        raise ValueError(f"scale {tuple(scale.shape)} is neither one per "
-                         f"row ({m}) nor one per group ({k // group_size})")
+    kd = _check_layout(x, pbits, scale, row_scale, k_dim, group_size)
     if x.device.type == "cpu":
         return fake_quant_plain(x, pbits, scale, row_scale=row_scale,
                                 k_dim=kd, group_size=group_size)
@@ -102,3 +130,40 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor, *,
     _build.check(code, "soniq_fake_quant")
     LAUNCHES["fake_quant"] += 1
     return out
+
+
+def fake_quant_bwd(x: torch.Tensor, pbits: torch.Tensor, scale: torch.Tensor,
+                   g: torch.Tensor, *, row_scale: bool, k_dim: int = 1,
+                   group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """The clipped straight-through backward of :func:`fake_quant` at x
+    for the cotangent g: dx = g * in_range(x), x's dtype and shape. On
+    CUDA, x and g must be contiguous and of one dtype (fp32 or bf16), and
+    pbits and scale contiguous fp32, all on x's device."""
+    kd = _check_layout(x, pbits, scale, row_scale, k_dim, group_size)
+    if x.device.type == "cpu":
+        return fake_quant_bwd_plain(x, pbits, scale, g, row_scale=row_scale,
+                                    k_dim=kd, group_size=group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be fp32 or bf16, got {x.dtype}")
+    f32 = torch.float32
+    for t, dt in ((x, x.dtype), (g, x.dtype), (pbits, f32), (scale, f32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} must be contiguous {dt} on "
+                             f"{x.device}")
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} is not x's {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    lib = _build.library(SOURCE, _bind)
+    code = _build.launch(
+        x.device, lib.soniq_fake_quant_bwd, x.data_ptr(), g.data_ptr(),
+        pbits.data_ptr(), scale.data_ptr(), dx.data_ptr(), x.shape[0],
+        x.shape[1], group_size, int(kd == 0), int(row_scale),
+        _DTYPES[x.dtype])
+    _build.check(code, "soniq_fake_quant_bwd")
+    LAUNCHES["fake_quant_bwd"] += 1
+    return dx

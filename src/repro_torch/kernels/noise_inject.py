@@ -14,13 +14,22 @@ sum round separately, as the reference's ``noise_inject_jnp`` does.
 
 The seed is a one-element int64 tensor on the weight's device (drawn there
 from a ``torch.Generator``), which the kernel reads itself: no host sync.
-On CUDA tensors the wrapper launches ``csrc/noise_inject.cu`` or raises;
-on CPU tensors it runs the plain version.
+
+``noise_inject_bwd`` is the backward, the reference's custom VJP
+(``repro.backend.base._noise_inject_bwd``): dw = g inside the clip and 0
+at it; ds sums g * (eps inside, -sign(z) at the clip) over each group and
+chains through sigma' = sigma (1 - sigma). The kernel rebuilds eps from the
+same hash in registers and folds each group's sum in a fixed order inside
+the launch (dw bitwise the plain version, ds up to the order of its fp32
+sum: ``DS_RTOL``).
+
+On CUDA tensors the wrappers launch ``csrc/noise_inject.cu`` or raise; on
+CPU tensors they run the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -33,17 +42,24 @@ SOURCE = "noise_inject.cu"
 
 # Launches of the CUDA kernel in this process (plain-version calls do not
 # count); reset by whoever reads it.
-LAUNCHES: Dict[str, int] = {"noise_inject": 0}
+LAUNCHES: Dict[str, int] = {"noise_inject": 0, "noise_inject_bwd": 0}
+
+# |ds_kernel - ds_plain| <= DS_RTOL * sig (1 - sig) * sum |g * dsig| over
+# the group: the two fp32 sums of the same terms in different orders (the
+# kernel's runs ~N / 1,024 * G + 13 additions deep).
+DS_RTOL = 2e-5
 
 SeedLike = Union[int, torch.Tensor]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.soniq_noise_inject
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.soniq_noise_inject.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       ptr]
+    lib.soniq_noise_inject_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                           i32, i32, ptr]
+    lib.soniq_noise_inject.restype = i32
+    lib.soniq_noise_inject_bwd.restype = i32
 
 
 def seed_tensor(seed: SeedLike, device) -> torch.Tensor:
@@ -73,16 +89,62 @@ def noise_inject_plain(w: torch.Tensor, sig: torch.Tensor, seed: SeedLike,
     return torch.minimum(torch.maximum(out, -lim), lim).to(w.dtype)
 
 
-def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
-                 group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """w [K, N] fp32, s [K // group_size] logits -> clip(w + sig*eps,
-    +-(2 - sig)), fp32 [K, N]."""
+def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
+                           seed: SeedLike, g: torch.Tensor,
+                           group_size: int = GROUP_SIZE
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward: (dw [K, N] in w's dtype, ds [K // group_size] in
+    s's dtype) for the cotangent g [K, N]."""
+    k, n = w.shape
+    sig_g = group_sigma(s)
+    sig = quant.expand_groups(sig_g, k, group_size)[:, None]
+    eps = hash_eps(k, n, seed, w.device)
+    z = w.float() + sig * eps
+    inside = z.abs() <= 2.0 - sig
+    g32 = g.float()
+    dw = torch.where(inside, g32, torch.zeros_like(g32)).to(w.dtype)
+    # d out / d sigma: eps inside the clip; at the clamp the limit
+    # +-(2 - sigma) itself moves with sigma (d/dsigma = -+1). Chain
+    # through sigma'(s) = sigma (1 - sigma) and sum each group's block
+    # (fixed-order reductions: no atomics).
+    dsig = torch.where(inside, eps, -torch.sign(z))
+    per_k = torch.sum(g32 * dsig, dim=1)
+    per_group = per_k.reshape(sig_g.shape[0], group_size).sum(dim=1)
+    ds = (per_group * sig_g * (1.0 - sig_g)).to(s.dtype)
+    return dw, ds
+
+
+def ds_bound(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
+             g: torch.Tensor, group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """The bound [K // group_size] a kernel's ds is held to against the
+    plain version's: ``DS_RTOL`` * sig (1 - sig) * the group's sum of
+    |g * d out / d sig|."""
+    k, n = w.shape
+    sig_g = group_sigma(s)
+    sig = quant.expand_groups(sig_g, k, group_size)[:, None]
+    eps = hash_eps(k, n, seed, w.device)
+    inside = (w.float() + sig * eps).abs() <= 2.0 - sig
+    mag = g.float().abs() * torch.where(inside, eps.abs(), 1.0)
+    per_group = mag.sum(dim=1).reshape(-1, group_size).sum(dim=1)
+    return DS_RTOL * per_group * sig_g * (1.0 - sig_g)
+
+
+def _shape(w: torch.Tensor, s: torch.Tensor, group_size: int
+           ) -> Tuple[int, int]:
     if w.dim() != 2:
         raise ValueError(f"w must be 2-D, got {tuple(w.shape)}")
     k, n = w.shape
     if k % group_size or s.numel() * group_size != k:
         raise ValueError(f"s {tuple(s.shape)} does not cover K={k} in "
                          f"groups of {group_size}")
+    return k, n
+
+
+def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
+                 group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """w [K, N] fp32, s [K // group_size] logits -> clip(w + sig*eps,
+    +-(2 - sig)), fp32 [K, N]."""
+    k, n = _shape(w, s, group_size)
     sig = group_sigma(s)
     if w.device.type == "cpu":
         return noise_inject_plain(w, sig, seed, group_size)
@@ -106,3 +168,44 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
     _build.check(code, "soniq_noise_inject")
     LAUNCHES["noise_inject"] += 1
     return out
+
+
+def noise_inject_bwd(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
+                     g: torch.Tensor, group_size: int = GROUP_SIZE
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`noise_inject` at (w, s, seed) for the
+    cotangent g [K, N]: (dw [K, N] fp32, ds [K // group_size] in s's
+    dtype). On CUDA, w and g must be contiguous fp32 on one device; the
+    seed is read on the device (an int, or the one-element int64 tensor
+    the forward took)."""
+    k, n = _shape(w, s, group_size)
+    if w.device.type == "cpu":
+        return noise_inject_bwd_plain(w, s, seed, g, group_size)
+    if w.device.type != "cuda":
+        raise ValueError(f"unsupported device {w.device}")
+    if k * n >= 1 << 32:
+        raise ValueError(f"[{k}, {n}] overflows the uint32 element index")
+    if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int64
+            and seed.numel() == 1):
+        seed = seed_tensor(seed, w.device)
+    sig = group_sigma(s)
+    f32 = torch.float32
+    for t, dt in ((w, f32), (g, f32), (sig, f32), (seed, torch.int64)):
+        if t.device != w.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} must be contiguous {dt} on "
+                             f"{w.device}")
+    if g.shape != w.shape:
+        raise ValueError(f"g {tuple(g.shape)} is not w's {tuple(w.shape)}")
+    dw = torch.empty_like(w)
+    if dw.numel() == 0:
+        return dw, torch.zeros_like(s)
+    ds = torch.empty((k // group_size,), dtype=torch.float32,
+                     device=w.device)
+    lib = _build.library(SOURCE, _bind)
+    code = _build.launch(w.device, lib.soniq_noise_inject_bwd, w.data_ptr(),
+                         sig.data_ptr(), seed.data_ptr(), g.data_ptr(),
+                         dw.data_ptr(), ds.data_ptr(), k, n, group_size)
+    _build.check(code, "soniq_noise_inject_bwd")
+    LAUNCHES["noise_inject_bwd"] += 1
+    return dw, ds.to(s.dtype)

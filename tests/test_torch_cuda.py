@@ -561,6 +561,72 @@ def test_fake_quant_bit_equal(dev, dtype, row_scale, k_dim):
     assert torch.equal(got, want)
 
 
+def _int_view(t):
+    """Bits of a float tensor, so -0 and +0 compare unequal."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+def test_noise_inject_bwd_equals_plain(dev, k, n):
+    """B9's backward kernel: dw bitwise the plain version, ds within
+    ``ni.ds_bound`` (the same fp32 terms summed in another order), one
+    launch a call, and bitwise the same result run to run."""
+    from repro_torch.kernels import noise_inject as ni
+    g = torch.Generator(device=dev).manual_seed(k * 3 + n)
+    w = torch.rand((k, n), generator=g, device=dev) * 2.2 - 1.1
+    w[0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+    s = torch.randn((k // 16,), generator=g, device=dev) * 2.0
+    s[:2] = torch.tensor([8.0, -8.0], device=dev)
+    seed = torch.randint(0, 1 << 32, (1,), generator=g, device=dev)
+    cot = torch.randn((k, n), generator=g, device=dev)
+    kernels.reset_launch_counts()
+    dw, ds = ni.noise_inject_bwd(w, s, seed, cot)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["noise_inject_bwd"] == 1
+    dw_p, ds_p = ni.noise_inject_bwd_plain(w, s, seed, cot)
+    assert torch.equal(_int_view(dw), _int_view(dw_p))
+    assert ((ds - ds_p).abs() <= ni.ds_bound(w, s, seed, cot)).all()
+    dw2, ds2 = ni.noise_inject_bwd(w, s, seed, cot)
+    assert torch.equal(_int_view(dw2), _int_view(dw))
+    assert torch.equal(_int_view(ds2), _int_view(ds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
+                                             (False, 0), (True, 0)])
+@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+def test_fake_quant_bwd_equals_plain(dev, k, n, row_scale, k_dim, dtype):
+    """B8's backward kernel, bitwise the plain version (-0 and NaN
+    included) on every layout, one launch a call, run to run."""
+    from repro_torch.kernels import fake_quant as fq
+    g = torch.Generator(device=dev).manual_seed(k + n + 7 * k_dim)
+    shape = (k, n) if k_dim == 0 else (n, k)
+    x = (torch.randn(shape, generator=g, device=dev) * 2).to(dtype)
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (k // 16,), generator=g, device=dev)]
+    if row_scale:
+        scale = quant.abs_max_scale(x, dim=k_dim).reshape(n) * 0.5
+    else:
+        xk = x if k_dim == 0 else x.t()
+        scale = quant.per_group_weight_scale(xk, 16) * 0.5
+    cot = torch.randn(shape, generator=g, device=dev).to(dtype)
+    cot[1, 1] = float("nan")
+    kernels.reset_launch_counts()
+    dx = fq.fake_quant_bwd(x, pb, scale.contiguous(), cot,
+                           row_scale=row_scale, k_dim=k_dim)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fake_quant_bwd"] == 1
+    want = fq.fake_quant_bwd_plain(x, pb, scale, cot, row_scale=row_scale,
+                                   k_dim=k_dim)
+    assert dx.dtype == dtype and torch.equal(dx.isnan(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(_int_view(dx)[fin], _int_view(want)[fin])
+    assert (dx == 0).any() and (dx != 0).any()   # both sides of the range
+    again = fq.fake_quant_bwd(x, pb, scale.contiguous(), cot,
+                              row_scale=row_scale, k_dim=k_dim)
+    assert torch.equal(_int_view(again), _int_view(dx))
+
+
 def test_full_width_train_step_repeats_bitwise(dev):
     """Two layers of h2o-danube-1.8b at full width, bf16 compute: a Phase-I
     and a Phase-II step run on the kernels and give bitwise the same
@@ -580,6 +646,7 @@ def test_full_width_train_step_repeats_bitwise(dev):
         out = loop.train(cfg, tcfg, stream.batches(), device=dev)
         counts = kernels.launch_counts()
         assert counts["noise_inject"] > 0 and counts["fake_quant"] > 0
+        assert counts["noise_inject_bwd"] > 0 and counts["fake_quant_bwd"] > 0
         return [(m["loss"], m["grad_norm"]) for m in out["history"]]
 
     first, second = run(), run()

@@ -235,3 +235,168 @@ def test_core_fake_quant_ste_equals_jax():
     np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jy))
     np.testing.assert_array_equal(xt.grad.numpy(),
                                   np.asarray(vjp(jnp.asarray(g))[0]))
+
+
+# ---------------------------------------------- backward plain versions ----
+# The plain backward passes (the kernels' plain versions) against the
+# reference's custom VJPs, reached through jax.grad of the xla_ref backend:
+# dw and dx bitwise, ds within BWD_DS_TOL (the two sum the same fp32 terms
+# in different orders).
+BWD_DS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+def _noise_bwd_operands(k, n, seed):
+    """w with elements whose z = w + sigma * eps lands exactly on +-(2 -
+    sigma) and others moved one float of w outward from there, logits
+    +-8, and a random cotangent."""
+    rng = np.random.default_rng(k * 17 + n)
+    w = (rng.standard_normal((k, n)) * 0.8).astype(np.float32)
+    s = rng.normal(-0.5, 2.0, k // 16).astype(np.float32)
+    s[0] = 8.0
+    if s.size > 1:
+        s[1] = -8.0
+    sig = torch.sigmoid(torch.tensor(s)).numpy()
+    # The edges are set with the port's sigmoid; they test the reference
+    # only where the two sigmoids agree, which these logits do.
+    assert np.array_equal(sig, np.asarray(jax.nn.sigmoid(jnp.asarray(s))))
+    sg = np.repeat(sig, 16)[:, None]
+    lim = np.float32(2.0) - sg
+    prod = sg * pni.hash_eps(k, n, seed, "cpu").numpy()
+    at, out = [], []
+    for r in range(0, k, 7):
+        for c in range(min(n, 6)):
+            sign = np.float32(1.0 if (r + c) % 2 else -1.0)
+            cand = sign * lim[r, 0] - prod[r, c]
+            if (cand + prod[r, c]) != sign * lim[r, 0]:
+                continue
+            if c % 3 == 2:
+                cand = np.nextafter(cand, sign * np.float32(4.0))
+                out.append((r, c))
+            else:
+                at.append((r, c))
+            w[r, c] = cand
+    z = np.abs(w + prod)
+    assert at and all(z[rc] == lim[rc[0], 0] for rc in at)
+    assert any(z[rc] > lim[rc[0], 0] for rc in out)       # just beyond
+    g = rng.standard_normal((k, n)).astype(np.float32)
+    return w, s, g
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 5])
+@pytest.mark.parametrize("k,n", [(16, 48), (32, 13)])
+def test_noise_inject_bwd_plain_equals_jax_vjp(k, n, seed):
+    w, s, g = _noise_bwd_operands(k, n, seed)
+    be = jregistry.resolve("xla_ref")
+
+    def f(w_, s_):
+        return jnp.sum(be.noise_inject(w_, s_, jnp.uint32(seed)) * g)
+
+    # Eager, as the reference's VJP is written: under jit XLA contracts
+    # w + sig * eps into one FMA, which moves z by a rounding and flips
+    # elements that sit exactly on the clip.
+    jdw, jds = jax.grad(f, argnums=(0, 1))(jnp.asarray(w), jnp.asarray(s))
+    dw, ds = pni.noise_inject_bwd_plain(torch.tensor(w), torch.tensor(s),
+                                        seed, torch.tensor(g))
+    assert dw.dtype == torch.float32 and ds.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(dw.numpy()), _bits(jdw))
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), **BWD_DS_TOL)
+
+
+def _fq_bwd_operands(m, k, k_dim, row_scale, dtype, rng):
+    """x ([m, k], or [k, m] for k_dim 0) on power-of-two scales (x / s
+    exact), with elements exactly on each group's grid top 2 - 2^(1-p),
+    one float of x's dtype beyond it, far beyond, a zero line; a cotangent
+    with negative entries where the mask is 0 (dx must keep -0) and a
+    NaN."""
+    pbits = rng.choice(np.array([1.0, 2.0, 4.0], np.float32), k // 16)
+    scale = (2.0 ** rng.integers(-3, 2, m if row_scale else k // 16)
+             ).astype(np.float32)
+    mm, kk = np.meshgrid(np.arange(m), np.arange(k), indexing="ij")
+    top = (2.0 - 2.0 ** (1.0 - pbits[kk // 16])) * (
+        scale[mm] if row_scale else scale[kk // 16])      # [m, k], exact
+    x = (rng.standard_normal((m, k)) * 1.5).astype(np.float32)
+    x[0] = 0.0
+    x[1] = top[1]                                         # exactly the top
+    x[3, ::2] = 2.5 * top[3, ::2]                         # far beyond
+    x = jnp.asarray(x).astype(dtype)
+    # One float of x's dtype beyond the top: the next magnitude up.
+    up = jnp.asarray(-top[2]).astype(dtype)
+    udt = jnp.uint16 if dtype == jnp.bfloat16 else jnp.uint32
+    x = x.at[2].set(jax.lax.bitcast_convert_type(
+        jax.lax.bitcast_convert_type(up, udt) + 1, dtype))
+    g = rng.standard_normal((m, k)).astype(np.float32)
+    g[2] = -np.abs(g[2])                 # -0 where the mask is 0
+    g[3, 1] = np.nan
+    g = jnp.asarray(g).astype(dtype)
+    if k_dim == 0:
+        x, g = x.T, g.T
+    return x, pbits, scale, g
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
+                                             (False, 0), (True, 0)])
+@pytest.mark.parametrize("m,k", [(13, 16), (32, 48)])
+def test_fake_quant_bwd_plain_equals_jax_vjp(m, k, row_scale, k_dim, dtype):
+    rng = np.random.default_rng(m * 3 + k + 5 * k_dim + row_scale)
+    x, pbits, scale, g = _fq_bwd_operands(m, k, k_dim, row_scale, dtype,
+                                          rng)
+    be = jregistry.resolve("xla_ref")
+    js = jnp.asarray(scale)[:, None] if row_scale else jnp.asarray(scale)
+    if k_dim == 1:
+        _y, vjp = jax.vjp(lambda x_: be.fake_quant(x_, pbits, js), x)
+    else:
+        _y, vjp = jax.vjp(lambda x_: jnp.swapaxes(be.fake_quant(
+            jnp.swapaxes(x_, 0, 1), pbits, js), 0, 1), x)
+    (jdx,) = vjp(g)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(tdt)
+    gt = torch.tensor(np.asarray(g.astype(jnp.float32))).to(tdt)
+    dx = pfq.fake_quant_bwd_plain(xt, torch.tensor(pbits),
+                                  torch.tensor(scale), gt,
+                                  row_scale=row_scale, k_dim=k_dim)
+    assert dx.dtype == tdt
+    want = np.asarray(jdx.astype(jnp.float32))
+    got = dx.float().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    np.testing.assert_array_equal(_bits(got)[fin], _bits(want)[fin])
+    line = got[2] if k_dim == 1 else got[:, 2]
+    assert (line == 0).all() and np.signbit(line).all()   # -0 kept
+    top = got[1] if k_dim == 1 else got[:, 1]
+    assert (top == (gt[1] if k_dim == 1 else gt[:, 1]).float().numpy()
+            ).all()                                       # top inside
+
+
+def test_training_backward_on_cpu_launches_no_kernel():
+    """The autograd path on CPU tensors runs the plain backward passes: the
+    backward kernels' counters stay at 0 and the gradients are the plain
+    versions' own."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    w, s, g = _noise_bwd_operands(32, 13, 5)
+    wt = torch.tensor(w, requires_grad=True)
+    st = torch.tensor(s, requires_grad=True)
+    (pbase.noise_inject(wt, st, 5) * torch.tensor(g)).sum().backward()
+    dw, ds = pni.noise_inject_bwd_plain(torch.tensor(w), torch.tensor(s), 5,
+                                        torch.tensor(g))
+    assert torch.equal(wt.grad, dw) and torch.equal(st.grad, ds)
+    rng = np.random.default_rng(2)
+    x, pbits, scale, gx = _fq_bwd_operands(13, 32, 0, False, jnp.float32,
+                                           rng)
+    xt = torch.tensor(np.asarray(x), requires_grad=True)
+    gt = torch.tensor(np.asarray(gx))
+    (pbase.fake_quant_weight(xt, torch.tensor(pbits), torch.tensor(scale))
+     * torch.nan_to_num(gt)).sum().backward()
+    want = pfq.fake_quant_bwd_plain(xt.detach(), torch.tensor(pbits),
+                                    torch.tensor(scale),
+                                    torch.nan_to_num(gt), row_scale=False,
+                                    k_dim=0)
+    assert torch.equal(xt.grad, want)
+    counts = kernels.launch_counts()
+    assert counts["noise_inject_bwd"] == 0 and counts["fake_quant_bwd"] == 0

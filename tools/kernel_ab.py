@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the segment GEMM kernels (B1, B2, B3, B6) and the decode
-attention kernels (B4, B5) of one checkout of the PyTorch port on the
+"""Time the segment GEMM kernels (B1, B2, B3, B6), the decode attention
+kernels (B4, B5), the backward passes of the training ops (B9, B8) and
+the full-width training step of one checkout of the PyTorch port on the
 card, so two checkouts, or two builds of one, can be compared in one call:
 
     python3 tools/kernel_ab.py --src /path/to/parent/src --label parent
@@ -8,8 +9,11 @@ card, so two checkouts, or two builds of one, can be compared in one call:
     python3 tools/kernel_ab.py --src src --label cluster1 \\
         --set MAX_CLUSTER=1
     python3 tools/kernel_ab.py --src src --label attn --only attn
+    python3 tools/kernel_ab.py --src src --label change --only train
 
-``--only gemm`` or ``--only attn`` times one family. ``--set NAME=VALUE``
+``--only gemm``, ``attn``, ``train`` or ``step`` times one family; with
+no ``--only`` the first two run (the training families are timed only
+when asked for). ``--set NAME=VALUE``
 times a scratch build of the source (``csrc/segment_gemm.cu`` or
 ``csrc/attn_decode.cu``) that declares ``constexpr int NAME`` (one of the
 launch-shape constants at the top of each source, none of which changes a
@@ -39,6 +43,20 @@ T = 4096 (window 1024), B5 on 16 and 256 pages of 16 a slot (the latter
 with window 1024); deepseek-moe-16b (Hk = 16, G = 1, D = 128) B4 at
 T = 256 and B5 on 16 pages of 16. Rings hold one wrapped and one half-empty
 row, each query at its row's newest position; tables are shuffled.
+Training rows (``--only train``): the backward of one h2o-danube-1.8b
+layer's training ops through autograd (``torch.autograd.grad`` of a
+forward kept alive), so a checkout whose backward is plain torch and one
+whose backward is a kernel are timed alike: ``B9_bwd`` over the 7 weights
+(dw and ds), ``B8_bwd`` over the 7 fp32 weights and the 7 bf16
+activations at 8 x 128 tokens (dx), on both rulers.
+
+Step rows (``--only step``): full-width, 24-layer h2o-danube-1.8b training
+as ``chip_smoke.py`` phase 8 runs it (TokenStream(batch 8, seq 128, seed
+0), Phase I steps 0-2, the freeze, Phase II steps 3-5): the host-clock ms
+of every step and a device profile of steps 1, 3 and 5
+(``tools/step_profile.py``: busy ms, kernels, the plain ops split by the
+op that launched them).
+
 Prints one JSON line.
 """
 from __future__ import annotations
@@ -179,6 +197,83 @@ def attention_rows(torch, ad, kv_quant, get_config, dev, gen, rows):
         rows[f"{key}_loop_ms"] = loop_ms(torch, call, 50)
 
 
+def train_rows(torch, backend, get_config, dev, gen, rows):
+    """The backward of one h2o-danube-1.8b layer's noise_inject (B9) and
+    fake_quant (B8) through autograd, on both rulers."""
+    cfg = get_config("h2o-danube-1.8b")
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    shapes = [(d, hq), (d, hk), (d, hk), (hq, d), (d, f), (d, f), (f, d)]
+    b9, b8 = [], []
+    for k, n in shapes:
+        w = (torch.rand((k, n), generator=gen, device=dev) * 2.2
+             - 1.1).requires_grad_()
+        s = (torch.randn((k // 16,), generator=gen, device=dev) * 2.0
+             - 0.5).requires_grad_()
+        seed = torch.randint(0, 1 << 32, (1,), generator=gen, device=dev)
+        b9.append((backend.noise_inject(w, s, seed), (w, s),
+                   torch.randn((k, n), generator=gen, device=dev)))
+        pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+            0, 3, (k // 16,), generator=gen, device=dev)]
+        wq = (torch.randn((k, n), generator=gen, device=dev)
+              * 0.02).requires_grad_()
+        sw = (wq.detach().abs().reshape(k // 16, -1).amax(1) / 1.875)
+        b8.append((backend.fake_quant_weight(wq, pb, sw), (wq,),
+                   torch.randn((k, n), generator=gen, device=dev)))
+        x = torch.randn((8 * 128, k), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        sx = x.detach().float().abs().amax(-1, keepdim=True) / 1.875
+        b8.append((backend.fake_quant(x, pb, sx), (x,),
+                   torch.randn((8 * 128, k), generator=gen, device=dev).to(
+                       torch.bfloat16)))
+    for key, calls in (("B9_bwd", b9), ("B8_bwd", b8)):
+        fn = (lambda c: lambda: [torch.autograd.grad(y, ins, g,
+                                                     retain_graph=True)
+                                 for y, ins, g in c])(calls)
+        rows[f"{key}_layer_device_ms"] = device_ms(torch, fn, 10)
+        rows[f"{key}_layer_loop_ms"] = loop_ms(torch, fn, 10)
+
+
+def step_rows(torch, dev, rows):
+    """Full-width training steps with a device profile of steps 1, 3, 5."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train import state as state_lib
+    import step_profile
+    cfg = get_config("h2o-danube-1.8b")
+    tcfg = state_lib.TrainConfig(t1=3, t2=6, warmup=1, seed=0)
+    stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, batch_size=8, seed=0))
+    steps, profiles = [], {}
+
+    def hook(step, _state, met):
+        steps.append(dict(step=step, phase=met["phase"], loss=met["loss"],
+                          ms=met["wall"] * 1e3))
+        prof.step()
+
+    def on_ready(p):
+        profiles[steps[-1]["step"]] = step_profile.device_summary(p)
+
+    model = lm.init_params(cfg.with_quant_mode("noise"), seed=0,
+                           device=dev)
+    undo = step_profile.install_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=1, warmup=0, active=1,
+                                       repeat=3),
+                     on_trace_ready=on_ready) as prof:
+            loop.train(cfg, tcfg, stream.batches(), model=model, device=dev,
+                       hooks=[hook])
+    finally:
+        undo()
+    rows["train_steps"] = steps
+    rows["train_profiles"] = profiles
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True)
@@ -186,8 +281,8 @@ def main() -> int:
     ap.add_argument("--set", action="append", default=[],
                     help="NAME=VALUE: a launch-shape constant of the "
                          "segment GEMM or attention build")
-    ap.add_argument("--only", choices=("gemm", "attn"), default=None,
-                    help="time one kernel family")
+    ap.add_argument("--only", choices=("gemm", "attn", "train", "step"),
+                    default=None, help="time one kernel family")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -203,6 +298,21 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if args.only in ("train", "step"):
+        if args.set:
+            raise SystemExit("--set takes no constant of the training "
+                             "kernels")
+        from repro_torch.backend import base as backend
+        from repro_torch.kernels import fake_quant, noise_inject
+        _build.build([noise_inject.SOURCE, fake_quant.SOURCE])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rows = {}
+        if args.only == "train":
+            train_rows(torch, backend, get_config, dev, gen, rows)
+        else:
+            step_rows(torch, dev, rows)
+        return report(args, rows, None)
     families = [m for m, name in ((pm, "gemm"), (ad, "attn"))
                 if args.only in (None, name)]
     _build.build([m.SOURCE for m in families])

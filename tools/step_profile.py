@@ -1,0 +1,160 @@
+"""Device time of a profiled training step: by kernel class, and the plain
+ops split by the op of the port that issued each kernel.
+
+    import step_profile
+    undo = step_profile.install_spans()   # once repro_torch is importable
+    ... run steps under torch.profiler.profile(activities=[CPU, CUDA]) ...
+    summary = step_profile.device_summary(prof)   # in on_trace_ready
+    undo()
+
+The port carries no profiler ranges of its own. ``install_spans`` wraps a
+few functions of whichever checkout of ``repro_torch`` is imported (names
+that every checkout since the training port has) in
+``torch.profiler.record_function`` ranges, opened only while a profiler
+records, so a parent and a change split the same way in one call. Each
+kernel counts to the innermost range around the op that launched it. A
+backward kernel counts to its autograd node: B9's and B8's custom
+backward passes by the node's name, any other node to the range around
+the forward op that made it (matched by the autograd sequence number and
+forward thread), so a range's share covers its forward, its recompute
+and its backward. What no range claims is ``rest`` (norms, attention,
+the loss, the optimizer, the embedding).
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import importlib
+from collections import defaultdict
+from typing import Callable, Dict
+
+PREFIX = "soniq::"
+NODE = "autograd::engine::evaluate_function: "
+
+# (module, attribute, label). _linear_noise and _linear_qat are the
+# outermost ranges: what their inner ranges leave is the Phase-I weight
+# scale chain (w / sfull, wn * sfull, the casts) and the Phase-II casts.
+SPANS = (
+    ("repro_torch.core.smol", "_linear_noise", "weight_scale_chain"),
+    ("repro_torch.core.smol", "_linear_qat", "qat_casts"),
+    ("repro_torch.core.smol", "_weight_scales", "weight_absmax"),
+    ("repro_torch.core.smol", "_act_scale", "act_scale"),
+    ("repro_torch.core.smol", "_matmul", "matmul"),
+    ("repro_torch.core.smol", "StepNoise.draw", "noise_draw"),
+    ("repro_torch.core.noise", "inject_act_noise", "act_noise"),
+    ("repro_torch.backend.base", "noise_inject", "noise_inject_fwd"),
+    ("repro_torch.backend.base", "fake_quant_weight", "fake_quant_fwd"),
+    ("repro_torch.backend.base", "fake_quant", "fake_quant_fwd"),
+)
+BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
+                  "_FakeQuantBackward": "fake_quant_bwd"}
+
+
+def install_spans() -> Callable[[], None]:
+    """Wrap every function of ``SPANS`` in a profiler range named
+    ``soniq::<label>``; returns the function that restores them."""
+    import torch
+    from torch.profiler import record_function
+
+    def spanned(fn, name):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            on = torch.autograd._profiler_enabled()
+            with record_function(name) if on else contextlib.nullcontext():
+                return fn(*args, **kwargs)
+        return run
+
+    saved = []
+    for module, path, label in SPANS:
+        owner = importlib.import_module(module)
+        *outer, attr = path.split(".")
+        for name in outer:                  # a method: Class.name
+            owner = getattr(owner, name)
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, spanned(fn, PREFIX + label))
+
+    def undo():
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+    return undo
+
+
+def _label(event, forward_labels):
+    """The label of the innermost range or autograd node above ``event``
+    (None: no range claims it)."""
+    e = event
+    while e is not None:
+        if e.name.startswith(PREFIX):
+            return e.name[len(PREFIX):]
+        if e.name.startswith(NODE):
+            node = e.name[len(NODE):]
+            if node in BACKWARD_NODES:
+                return BACKWARD_NODES[node]
+            return forward_labels.get((e.fwd_thread, e.sequence_nr))
+        e = e.cpu_parent
+    return None
+
+
+def op_split(events, skip: Callable[[str], bool]) -> Dict[str, float]:
+    """{label: device ms} over the kernels of a profiled window that the
+    profiler linked to the op that launched them, leaving out those whose
+    name ``skip`` accepts; ``rest`` holds the kernels no range claims."""
+    forward_labels = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith(NODE):
+            label = _label(e, {})
+            if label is not None:
+                forward_labels[(e.fwd_thread, e.sequence_nr)] = label
+    out: Dict[str, float] = defaultdict(float)
+    for e in events:
+        for k in getattr(e, "kernels", ()):
+            if not skip(k.name):
+                out[_label(e, forward_labels) or "rest"] += k.duration / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+FWD_KERNELS = ("noise_inject_kernel", "fake_quant_kernel")
+BWD_KERNELS = ("noise_inject_bwd_kernel", "fake_quant_bwd_kernel")
+
+
+def _is_gemm(name: str) -> bool:
+    return "gemm" in name.lower()
+
+
+def _named(name: str) -> bool:
+    """A kernel counted by its name: a GEMM or one of the port's."""
+    return _is_gemm(name) or any(k in name
+                                 for k in FWD_KERNELS + BWD_KERNELS)
+
+
+def device_summary(prof) -> Dict:
+    """Device time of one profiled step by kernel: the total, the share of
+    the fp32 GEMMs, of the port's B8/B9 forward kernels, of their backward
+    kernels and of the rest (plain torch ops), the rest split by the op of
+    the port that launched it (``op_split``; ``unlinked``: kernels the
+    profiler tied to no op), and the top kernels. The step's own span
+    annotation ("ProfilerStep*") and the ranges of ``install_spans``,
+    which the profiler also lays on the device's timeline, are not
+    kernels and are left out."""
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(("ProfilerStep", PREFIX))]
+
+    def ms(keep):
+        return sum(e.device_time_total for e in kern if keep(e.key)) / 1e3
+
+    busy = ms(lambda k: True)
+    gemm = ms(_is_gemm)
+    fwd = ms(lambda k: any(n in k for n in FWD_KERNELS))
+    bwd = ms(lambda k: any(n in k for n in BWD_KERNELS))
+    other = busy - gemm - fwd - bwd
+    by_op = op_split(prof.events(), _named)
+    by_op["unlinked"] = other - sum(by_op.values())
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
+    return {"kernels": sum(e.count for e in kern), "device_busy_ms": busy,
+            "gemm_ms": gemm, "b8_b9_ms": fwd, "b8_b9_bwd_ms": bwd,
+            "other_ms": other,
+            "other_by_op": {k: round(v, 3) for k, v in by_op.items()},
+            "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
+                     e.count) for e in top]}
