@@ -10,7 +10,10 @@ Phases (none catches an error; any failure exits non-zero):
   2. Segment kernels against their plain PyTorch versions on the card, at
      the main path's shapes (h2o-danube-1.8b: K = 2560 / 6912 split into
      [K4|K2|K1] segments, N in {640, 2560, 6912}, bf16 activations, M = 4
-     decode rows and M = 32 prefill rows): quantize_pack bit-equal; the
+     decode rows and M = 32 prefill rows): B7 through its one-launch
+     entry (one h2o-danube-1.8b layer, 7 launches, and one
+     deepseek-moe-16b MoE layer, 10 launches, rows read through a random
+     channel perm) bitwise its plain version, timed on both rulers; the
      segment GEMMs (one launch a linear over its segments) within the
      fp32 reordering bound |kernel - plain| <= 1e-5 * (|xq| @ |wd|) +
      1e-6. B1, B2 (uniform 4-bit) and B3 (x as it is) each timed on one
@@ -47,7 +50,9 @@ Phases (none catches an error; any failure exits non-zero):
   4. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
      weights from a seed, default mix), fp ring KV cache, greedy; packing
      and serving must go through quantize_pack and the driver-scale
-     segment GEMM, one launch a linear (168 a decode step); a second run
+     segment GEMM, one launch a linear (168 B7 launches at load, 168 B1 a
+     decode step); the load's pack_s, device busy, device events, idle
+     share and split by op (a profiled second load); a second run
      gives the same tokens; lockstep equals
      continuous; the card agrees with the plain versions on the CPU in
      fp32: the reduced config end to end, and two full-width layers
@@ -96,8 +101,9 @@ Phases (none catches an error; any failure exits non-zero):
      --steps 2 --batch 8 --seq 128`` in a subprocess, must exit 0.
  12. MoE serve: full-width, 28-layer deepseek-moe-16b from random QAT
      weights of the seed (60.8 GiB in fp32, so every earlier model is
-     freed first), packed (B7) and served through the DecodeEngine with
-     the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
+     freed first), packed (B7, one launch a linear and an expert bank:
+     277; the load's profile as in phase 4) and served through the
+     DecodeEngine with the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
      must go through B6 (one launch an expert bank: 81 a decode step), B8
      and B1; a second run gives the same tokens;
      lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
@@ -108,13 +114,15 @@ Phases (none catches an error; any failure exits non-zero):
      router and the logits within relative L2 1e-5.
  14. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9), the ``kv4_serve``,
-     ``training``, ``moe_serve`` and ``phase_seconds`` JSON lines, the
+     ``training``, ``moe_serve``, ``load`` and ``phase_seconds`` JSON
+     lines, the
      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -453,40 +461,135 @@ def check_rows_across_batch(cfg, gen, dev):
     return n
 
 
-def phase_quant_pack(cfg, qcfg, gen, dev, reps=10):
-    """B7 vs plain (bit-equal) on one layer's segments; times one layer's
-    packing (rotating 4 weight sets: 4 x 278 MB of fp32 weights)."""
-    sets = []
-    for _ in range(4):
-        calls = []
-        for _name, k, n in layer_linears(cfg):
-            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
-            sc = quant.per_group_weight_scale(w, 16)
-            for p, off, kp, goff in segment_shapes(qcfg, k):
-                calls.append((w[off:off + kp].contiguous(),
-                              sc[goff:goff + kp // 16].contiguous(), p))
-        sets.append(calls)
-    for w, sc, p in sets[0]:
-        got = qp.quantize_pack(w, sc, p=p)
-        want = qp.quantize_pack_plain(w, sc, p=p)
-        if not torch.equal(got, want):
-            diff = (got != want).sum().item()
-            raise AssertionError(f"quantize_pack {tuple(w.shape)} p={p}: "
-                                 f"{diff} bytes differ from the plain "
-                                 f"version")
-    kern = lambda: [qp.quantize_pack(w, sc, p=p)  # noqa: E731
-                    for calls in sets for w, sc, p in calls]
-    plain = lambda: [qp.quantize_pack_plain(w, sc, p=p)  # noqa: E731
-                     for calls in sets for w, sc, p in calls]
+def pack_operands(shape, qcfg, gen, dev):
+    """B7 operands of a [K, N] linear or an [S, K, N] bank as the packing
+    driver hands them: a random group order per slice expanded to an int32
+    channel perm, the group scales in sorted order, and ``qcfg``'s
+    [K4|K2|K1] split."""
+    *lead, k, n = shape
+    s = lead[0] if lead else 1
+    w = torch.randn((s, k, n), generator=gen, device=dev) * 0.02
+    gperm = torch.argsort(torch.rand((s, k // 16), generator=gen,
+                                     device=dev), dim=-1)
+    perm = (gperm[..., None] * 16 + torch.arange(16, device=dev)).reshape(
+        s, k).to(torch.int32)
+    mag = torch.linalg.vector_norm(w.reshape(s, k // 16, -1),
+                                   ord=float("inf"), dim=-1)
+    sc = quant.div_const(torch.clamp_min(torch.gather(mag, 1, gperm),
+                                         quant.ACT_SCALE_EPS),
+                         quant.static_grid_max(4))
+    if not lead:
+        w, perm, sc = w[0], perm[0], sc[0]
+    return w, perm, sc, qcfg.segments(k)
+
+
+def _pack_layer(calls):
+    return [qp.quantize_pack_segments(w, perm, sc, segments=segs)
+            for w, perm, sc, segs in calls]
+
+
+def _pack_layer_plain(calls):
+    return [qp.quantize_pack_segments_plain(w, perm, sc, segments=segs)
+            for w, perm, sc, segs in calls]
+
+
+def _check_pack(calls):
+    """Each launch bitwise its plain version; one launch a call."""
+    kernels.reset_launch_counts()
+    got = _pack_layer(calls)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()[B7] != len(calls):
+        raise AssertionError(f"{kernels.launch_counts()[B7]} B7 launches "
+                             f"for {len(calls)} linears and banks")
+    for (w, _perm, _sc, segs), outs, want in zip(calls, got,
+                                                 _pack_layer_plain(calls)):
+        for a, b in zip(outs, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(
+                    f"quantize_pack_segments {tuple(w.shape)} {segs}: "
+                    f"{(a != b).sum().item()} bytes differ from the plain "
+                    f"version")
+
+
+def _pack_bound(calls):
+    """Each weight, perm and scale read once, each carrier byte written
+    once; ~6 operations an element."""
+    nbytes = sum(w.numel() * 4 + perm.numel() * 4 + sc.numel() * 4
+                 + sum(kp * p // 8 for p, kp in zip((4, 2, 1), segs))
+                 * w.shape[-1] * (w.shape[0] if w.dim() == 3 else 1)
+                 for w, perm, sc, segs in calls)
+    return bound(nbytes, sum(6 * w.numel() for w, *_ in calls))
+
+
+def phase_quant_pack(cfg, moe_cfg, qcfg, gen, dev, reps=10):
+    """B7 vs plain (bitwise) through the one-launch entry: one
+    h2o-danube-1.8b layer (7 launches, one a linear; timed rotating 4
+    weight sets: 4 x 278 MB of fp32 weights) and one deepseek-moe-16b MoE
+    layer (q/k/v/o, the shared experts, the three [E, K, N] routed banks:
+    10 launches, 2.35 GB of fp32 weights), each read through a random
+    channel perm."""
+    sets = [[pack_operands((k, n), qcfg, gen, dev)
+             for _name, k, n in layer_linears(cfg)] for _ in range(4)]
+    _check_pack(sets[0])
+    kern = lambda: [_pack_layer(c) for c in sets]  # noqa: E731
+    plain = lambda: [_pack_layer_plain(c) for c in sets]  # noqa: E731
     ms = time_ms(kern, reps) / 4
     dev_ms = device_ms(kern, reps) / 4
     plain_ms = time_ms(plain, 2) / 4
-    nbytes = sum(w.numel() * 4 + sc.numel() * 4 + w.numel() * p // 8
-                 for w, sc, p in sets[0])
-    flops = sum(6 * w.numel() for w, _sc, _p in sets[0])
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = _pack_bound(sets[0])
+    del sets
+    torch.cuda.empty_cache()
+    d, f, e = moe_cfg.d_model, moe_cfg.d_ff, moe_cfg.num_experts
+    hq = moe_cfg.num_heads * moe_cfg.hd
+    hk = moe_cfg.num_kv_heads * moe_cfg.hd
+    fs = f * moe_cfg.num_shared_experts
+    moe = [pack_operands(shape, qcfg, gen, dev) for shape in (
+        (d, hq), (d, hk), (d, hk), (hq, d), (d, fs), (d, fs), (fs, d),
+        (e, d, f), (e, d, f), (e, f, d))]
+    _check_pack(moe)
+    moe_b_ms, _by = _pack_bound(moe)
+    out = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               launches_per_layer=7,
+               moe_layer_ms=time_ms(lambda: _pack_layer(moe), 5),
+               moe_layer_device_ms=device_ms(lambda: _pack_layer(moe), 5),
+               moe_layer_plain_ms=time_ms(lambda: _pack_layer_plain(moe),
+                                          1),
+               moe_layer_bound_ms=moe_b_ms, moe_layer_launches=len(moe))
+    del moe
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_load(build):
+    """(what ``build`` returns, the device view of the call under
+    torch.profiler: busy ms, device events and the split by op of
+    ``step_profile.load_summary``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = build()
+        torch.cuda.synchronize()
+    return out, step_profile.load_summary(prof)
+
+
+def packed_leaves(model) -> int:
+    """Packed linears and expert banks of a serve model."""
+    count = 0
+
+    def walk(node):
+        nonlocal count
+        if isinstance(node, dict):
+            count += "w4" in node
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(model.tree())
+    return count
 
 
 # ---------------------------------------------------- grouped GEMM ----
@@ -1587,6 +1690,9 @@ def phase_moe_serve(dev, rng, launches, per_step):
     cfg = get_config(MOE_ARCH).with_quant_mode("qat")
     ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
     stats = {}
+    # Earlier phases' models may sit in reference cycles: free them before
+    # the 60.8 GiB tree is drawn.
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1601,18 +1707,34 @@ def phase_moe_serve(dev, rng, launches, per_step):
     torch.cuda.synchronize()
     stats["pack_s"] = time.perf_counter() - t0
     stats["pack_launches"] = kernels.launch_counts()[B7]
+    stats["packed_leaves"] = packed_leaves(eng.model)
+    if stats["pack_launches"] != stats["packed_leaves"]:
+        raise AssertionError(f"{stats['pack_launches']} B7 launches at "
+                             f"load for {stats['packed_leaves']} linears "
+                             f"and expert banks")
+    launches["b7_moe_load"] = stats["pack_launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, prof = profile_load(lambda: engine.DecodeEngine(params, cfg, ecfg))
     del params
     torch.cuda.empty_cache()
     stats["peak_gib_init_and_pack"] = \
         torch.cuda.max_memory_allocated() / 2 ** 30
     stats["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    stats["load"] = dict(
+        device_busy_ms=prof["device_busy_ms"],
+        device_events=prof["device_events"],
+        idle_share=1 - prof["device_busy_ms"] / (stats["pack_s"] * 1e3),
+        by_op=prof["by_op"])
+    log(f"[12] load: pack_s {stats['pack_s']:.3f} s, "
+        f"{stats['pack_launches']} B7 launches (one a linear and an expert "
+        f"bank), {stats['load']}")
     log(f"[12] {MOE_ARCH}: {cfg.num_layers} layers, QAT tree "
         f"{stats['qat_gib']:.2f} GiB in {stats['init_s']:.2f} s, packed "
         f"to {stats['packed_bytes']:,} bytes in {stats['pack_s']:.2f} s "
         f"({stats['pack_launches']} B7 launches); peak "
         f"{stats['peak_gib_init_and_pack']:.2f} GiB")
-    if stats["pack_launches"] == 0:
-        raise AssertionError("MoE packing ran no B7 launch")
     reqs = requests(cfg.vocab_size, rng, n=8, lo=16, hi=32, new=12)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1757,8 +1879,11 @@ def main() -> int:
     u4 = U4
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    results = {B7: phase_quant_pack(cfg, mixed, gen, dev)}
-    log(f"[2] quantize_pack bit-equal; {results[B7]}")
+    results = {B7: phase_quant_pack(cfg, get_config(MOE_ARCH), mixed, gen,
+                                    dev)}
+    log(f"[2] quantize_pack_segments bitwise its plain version, one launch "
+        f"a linear and a bank; one {ARCH} layer (7 launches; moe_layer_*: "
+        f"one {MOE_ARCH} MoE layer, 10 launches): {results[B7]}")
     for name, qcfg in ((B1, mixed), (B2, u4), (B3, mixed)):
         decode_sets = [LayerOperands(cfg, qcfg, 4, gen, dev)
                        for _ in range(4)]
@@ -1800,22 +1925,40 @@ def main() -> int:
     qat_cfg = cfg.with_quant_mode("qat")
     ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
     params = lm.init_params(qat_cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     eng = engine.DecodeEngine(params, qat_cfg, ecfg)
-    del params
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    launches[B7] = kernels.launch_counts()[B7]
+    load = {"pack_s": pack_s, "b7_launches": launches[B7]}
+    if launches[B7] != packed_leaves(eng.model) \
+            or launches[B7] != 7 * cfg.num_layers:
+        raise AssertionError(f"{launches[B7]} B7 launches at load, not one "
+                             f"a linear ({7 * cfg.num_layers})")
+    del eng
+    gc.collect()
     torch.cuda.empty_cache()
+    eng, prof = profile_load(lambda: engine.DecodeEngine(params, qat_cfg,
+                                                         ecfg))
+    del params
+    torch.cuda.empty_cache()
+    load.update(device_busy_ms=prof["device_busy_ms"],
+                device_events=prof["device_events"],
+                idle_share=1 - prof["device_busy_ms"] / (pack_s * 1e3),
+                by_op=prof["by_op"])
+    log(f"[4] load: {load}")
     rng = np.random.default_rng(SEED)
     reqs = requests(cfg.vocab_size, rng)
+    kernels.reset_launch_counts()
     first, wall1 = serve_all(eng, reqs)
     counts = kernels.launch_counts()
-    launches[B1], launches[B7] = counts[B1], counts[B7]
+    launches[B1] = counts[B1]
     log(f"[4] packed {cfg.num_layers} layers in {pack_s:.2f} s "
-        f"({engine.packed_model_bytes(eng.model):,} bytes); launches "
-        f"{counts}")
-    if counts[B1] == 0 or counts[B7] == 0 or counts[B2] != 0:
+        f"({engine.packed_model_bytes(eng.model):,} bytes; {launches[B7]} "
+        f"B7 launches); serve launches {counts}")
+    if counts[B1] == 0 or counts[B2] != 0:
         raise AssertionError(f"main path launches {counts}")
     for c in first:
         if c.new_tokens.size != 16 or not (
@@ -1955,7 +2098,11 @@ def main() -> int:
     clock.lap(13)
 
     # ------------------------------------------------------- phase 14 ----
-    work = {B7: "one h2o-danube-1.8b layer of packing (21 segments)",
+    work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
+                "linear, rows read through the channel perm; moe_layer_*: "
+                "one deepseek-moe-16b MoE layer, 10 launches; launches: "
+                "the h2o-danube-1.8b load, moe_load_launches: the "
+                "deepseek-moe-16b load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
                 "launches, one a linear; prefill_*: M=32)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
@@ -1999,13 +2146,18 @@ def main() -> int:
                     "prefill_library_device_ms", "prefill_bound_ms",
                     "rows_ms", "rows_device_ms", "rows_bound_ms",
                     "rows_library_ms", "rows_library_device_ms",
-                    "live_experts", "shapes"):
+                    "live_experts", "shapes", "launches_per_layer",
+                    "moe_layer_ms", "moe_layer_device_ms",
+                    "moe_layer_plain_ms", "moe_layer_bound_ms",
+                    "moe_layer_launches"):
             if key in r:
                 rows[-1][key] = r[key]
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
             rows[-1]["launches_per_train_step"] = per_train_step[name]
+        if name == B7:
+            rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kv4_serve": {
         k: {n: x for n, x in v.items() if n != "profile"}
@@ -2019,6 +2171,10 @@ def main() -> int:
     print(json.dumps({"moe_serve": {
         k: ({n: x for n, x in v.items() if n != "profile"}
             if isinstance(v, dict) else v) for k, v in moe.items()}}))
+    print(json.dumps({"load": {ARCH: load, MOE_ARCH: dict(
+        pack_s=moe["pack_s"], b7_launches=moe["pack_launches"],
+        peak_gib_init_and_pack=moe["peak_gib_init_and_pack"],
+        **moe["load"])}}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(card)
     print(json.dumps({"ok": True, "device": {

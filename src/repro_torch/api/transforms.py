@@ -4,12 +4,15 @@ the deploy packing of QAT leaves into packed serve leaves
 (``rebudget_pbits``, ``pack_linear``, ``convert_linear``,
 ``convert_tree``).
 
-Large tensors stay on their device; only the [K / 16] group arrays
+Large tensors stay on their device; only the [.., K / 16] group arrays
 (precisions, group magnitudes) visit the host, where the channel order is
-decided. Packing runs through the ``quantize_pack`` kernel (B7) on CUDA.
+decided: one copy there and one back per leaf. A linear, or a stacked
+[L | E, K, N] leaf, packs in one launch of the ``quantize_pack`` kernel
+(B7) on CUDA, which reads the rows through the channel order in place.
 """
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Dict, Tuple
 
 import numpy as np
@@ -40,19 +43,186 @@ def rebudget_pbits(pbits, w: torch.Tensor, qcfg: QuantConfig) -> np.ndarray:
     (counts from ``qcfg.mix``) keeping the trained ranking; ties broken by
     group abs-max."""
     pbits = _host(pbits)
-    n = pbits.shape[0]
-    k = w.shape[0]
-    g = k // n
+    w = torch.as_tensor(w)
+    mag = _host(group_absmax(w.reshape(1, w.shape[0], -1),
+                             w.shape[0] // pbits.shape[0]))
+    return rebudget_pbits_host(pbits, mag[0], w.shape[0], qcfg)
+
+
+def group_absmax(w: torch.Tensor, g: int) -> torch.Tensor:
+    """max |w| over each group of ``g`` rows of each slice: w [S, K, N] ->
+    fp32 [S, K // g], in one pass on w's device and with no temporary of
+    w's size (``vector_norm`` at ord inf is the exact abs-max)."""
+    s, k = w.shape[:2]
+    return torch.linalg.vector_norm(w.float().reshape(s, k // g, -1),
+                                    ord=float("inf"), dim=-1)
+
+
+def rebudget_pbits_host(pbits: np.ndarray, mag: np.ndarray, k: int,
+                        qcfg: QuantConfig) -> np.ndarray:
+    """:func:`rebudget_pbits` given the group magnitudes on the host:
+    ``pbits`` and ``mag`` [..., K // G] (one row a slice) -> int8 [...,
+    K // G]. Within a slice, groups rank by pbits, then magnitude, both
+    descending, then index."""
+    pbits = np.asarray(pbits)
+    mag = np.asarray(mag)
     counts = qcfg.group_pbits(k)
     n4 = int((counts == 4).sum())
     n2 = int((counts == 2).sum())
-    w = torch.as_tensor(w)
-    mag = _host(w.float().abs().reshape(n, g, -1).amax(dim=(1, 2)))
-    order = np.lexsort((-mag, -pbits.astype(np.int64)))
-    out = np.empty(n, np.int8)
-    out[order[:n4]] = 4
-    out[order[n4:n4 + n2]] = 2
-    out[order[n4 + n2:]] = 1
+    pb2 = pbits.reshape(-1, pbits.shape[-1])
+    rows, n = pb2.shape
+    slice_of = np.repeat(np.arange(rows), n)
+    order = np.lexsort((-mag.reshape(-1), -pb2.astype(np.int64).reshape(-1),
+                        slice_of)).reshape(rows, n) % n
+    rank = np.empty((rows, n), np.int64)
+    np.put_along_axis(rank, order, np.arange(n)[None], axis=-1)
+    out = np.where(rank < n4, 4, np.where(rank < n4 + n2, 2, 1))
+    return out.astype(np.int8).reshape(pbits.shape)
+
+
+def _to_host(tensors):
+    """Host arrays of ``tensors``, in one device-to-host copy for each
+    (device, dtype) among them."""
+    groups = defaultdict(list)
+    for i, t in enumerate(tensors):
+        groups[(t.device, t.dtype)].append(i)
+    out = [None] * len(tensors)
+    for idx in groups.values():
+        flat = _host(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        off = 0
+        for i in idx:
+            out[i] = flat[off:off + tensors[i].numel()].reshape(
+                tuple(tensors[i].shape))
+            off += tensors[i].numel()
+    return out
+
+
+def _to_device(arrays, devices, fn=None):
+    """``arrays[i]`` on ``devices[i]``, in one host-to-device copy for each
+    (device, dtype) among them: views of one buffer each, which ``fn``
+    (elementwise) maps first when given."""
+    groups = defaultdict(list)
+    for i, (a, dev) in enumerate(zip(arrays, devices)):
+        groups[(dev, a.dtype)].append(i)
+    out = [None] * len(arrays)
+    for (dev, _dt), idx in groups.items():
+        flat = torch.as_tensor(np.concatenate(
+            [arrays[i].reshape(-1) for i in idx]), device=dev)
+        if fn is not None:
+            flat = fn(flat)
+        off = 0
+        for i in idx:
+            out[i] = flat[off:off + arrays[i].size].view(arrays[i].shape)
+            off += arrays[i].size
+    return out
+
+
+def _weight_scale(mag: torch.Tensor) -> torch.Tensor:
+    """Group abs-max -> group scale, as ``quant.per_group_weight_scale``."""
+    return quant.div_const(torch.clamp_min(mag, quant.ACT_SCALE_EPS),
+                           quant.static_grid_max(4))
+
+
+def _carriers(jobs):
+    """The (w4, w2, w1) carriers of each job, views of one allocation for
+    each device (each carrier 16-byte aligned in it)."""
+    shapes = [[j["w"].shape[:1] + (kp * p // 8, j["w"].shape[-1])
+               for p, kp in zip((4, 2, 1), j["segs"])] for j in jobs]
+    sizes = [[-(-int(np.prod(shape)) // 16) * 16 for shape in job]
+             for job in shapes]
+    by_device = defaultdict(list)
+    for i, j in enumerate(jobs):
+        by_device[j["w"].device].append(i)
+    out = [None] * len(jobs)
+    for dev, idx in by_device.items():
+        buf = torch.empty(sum(sum(sizes[i]) for i in idx), dtype=torch.uint8,
+                          device=dev)
+        parts = iter(torch.split(buf, [x for i in idx for x in sizes[i]]))
+        for i in idx:
+            out[i] = [next(parts)[:int(np.prod(shape))].view(shape)
+                      for shape in shapes[i]]
+    return out
+
+
+@torch.no_grad()
+def _pack_leaves(leaves, qcfg: QuantConfig):
+    """Rebudget (optional) + pack QAT leaves [(w, pbits, b, rebudget)],
+    each w [K, N] or stacked [..., K, N] (its slices share one [K4|K2|K1]
+    split), into serve leaves. Large tensors stay on their device, and the
+    host work is done for all leaves at once:
+      - each leaf's group abs-max is one pass on its device;
+      - the magnitudes and precisions come to the host in one copy, where
+        the channel order of every slice of the same K is decided at once
+        (rebudget, stable sort 4 -> 2 -> 1, channel perm);
+      - the perms, sorted precisions and sorted magnitudes go back in one
+        copy, the group scales are computed there for all leaves at once
+        (``per_group_weight_scale`` of a group-permuted weight is the
+        group-permuted scale);
+      - each leaf is one B7 launch that reads its rows through the perm and
+        writes its carriers, stacked for a stacked leaf."""
+    scaled = qcfg.scale_mode != "none"
+    jobs = []
+    for w, pbits, b, rebudget in leaves:
+        w = torch.as_tensor(w)
+        lead, (k, n) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+        g = qcfg.eff_group_size(k)
+        pb = torch.as_tensor(pbits)
+        if tuple(pb.shape) != lead + (k // g,):
+            raise ValueError(f"pbits {tuple(pb.shape)} do not cover w "
+                             f"{tuple(w.shape)} in groups of {g}")
+        w3 = w.reshape((-1, k, n))
+        jobs.append(dict(w=w3, lead=lead, k=k, g=g, b=b, rebudget=rebudget,
+                         pb=pb.reshape(w3.shape[0], -1),
+                         mag=group_absmax(w3, g) if rebudget or scaled
+                         else None))
+    host = iter(_to_host([j["pb"] for j in jobs] + [
+        j["mag"] for j in jobs if j["mag"] is not None]))
+    for j in jobs:
+        j["pb"] = next(host)
+    for j in jobs:
+        j["mag"] = None if j["mag"] is None else next(host)
+    groups = defaultdict(list)
+    for j in jobs:
+        groups[(j["k"], j["g"], j["rebudget"])].append(j)
+    for (k, g, rebudget), group in groups.items():
+        pb = np.concatenate([j["pb"] for j in group])
+        mag = None if group[0]["mag"] is None else \
+            np.concatenate([j["mag"] for j in group])
+        if rebudget:
+            pb = rebudget_pbits_host(pb, mag, k, qcfg)
+        gperm = patterns_lib.reorder_channels(pb)
+        pb_sorted = np.take_along_axis(pb, gperm, -1)
+        perm = patterns_lib.expand_group_perm(gperm, g).astype(np.int32)
+        smag = np.take_along_axis(mag, gperm, -1) if scaled else None
+        off = 0
+        for j in group:
+            rows = slice(off, off + len(j["pb"]))
+            off = rows.stop
+            j["pb_sorted"] = pb_sorted[rows].astype(pb.dtype if rebudget
+                                                    else j["pb"].dtype)
+            j["perm"] = perm[rows]
+            j["smag"] = None if smag is None else smag[rows]
+            j["segs"] = [int((pb_sorted[rows.start] == p).sum()) * g
+                         for p in (4, 2, 1)]
+    devices = [j["w"].device for j in jobs]
+    perms = _to_device([j["perm"] for j in jobs], devices)
+    pbits_sorted = _to_device([j["pb_sorted"] for j in jobs], devices)
+    scales = _to_device([j["smag"] for j in jobs], devices, _weight_scale) \
+        if scaled else [None] * len(jobs)
+    out = []
+    for j, perm, pb_sorted, sc, carriers in zip(
+            jobs, perms, pbits_sorted, scales, _carriers(jobs)):
+        packed = backend.quantize_pack_mixed(j["w"], j["pb_sorted"], sc,
+                                             j["g"], perm=perm, out=carriers)
+        lead = j["lead"]
+        leaf = {name: packed[name].reshape(lead + packed[name].shape[1:])
+                for name in ("w4", "w2", "w1")}
+        leaf["perm"] = perm.reshape(lead + (j["k"],))
+        leaf["pbits_sorted"] = pb_sorted.reshape(lead + (-1,))
+        leaf["wscale"] = None if sc is None else sc.reshape(lead + (-1,))
+        if j["b"] is not None:
+            leaf["b"] = torch.as_tensor(j["b"])
+        out.append(leaf)
     return out
 
 
@@ -60,77 +230,55 @@ def rebudget_pbits(pbits, w: torch.Tensor, qcfg: QuantConfig) -> np.ndarray:
 def pack_linear(leaf: Dict, qcfg: QuantConfig) -> Dict:
     """One trained [K, N] linear (w, pbits) -> channel-reordered packed
     carriers + metadata (a serve leaf)."""
-    w = torch.as_tensor(leaf["w"]).float()
-    pbits = _host(leaf["pbits"])
-    k = w.shape[0]
-    g = qcfg.eff_group_size(k)
-    gperm = patterns_lib.reorder_channels(pbits)
-    perm = patterns_lib.expand_group_perm(gperm, g)
-    perm_t = torch.as_tensor(perm, dtype=torch.int32, device=w.device)
-    w_sorted = w.index_select(0, perm_t).contiguous()
-    pbits_sorted = pbits[gperm]
-    scales = None if qcfg.scale_mode == "none" else \
-        quant.per_group_weight_scale(w_sorted, g)
-    packed = backend.quantize_pack_mixed(w_sorted, pbits_sorted, scales, g)
-    out = {"w4": packed["w4"], "w2": packed["w2"], "w1": packed["w1"],
-           "perm": perm_t,
-           "pbits_sorted": torch.as_tensor(pbits_sorted, device=w.device),
-           "wscale": scales}
-    if leaf.get("b") is not None:
-        out["b"] = torch.as_tensor(leaf["b"])
-    return out
+    return _pack_leaves([(leaf["w"], leaf["pbits"], leaf.get("b"), False)],
+                        qcfg)[0]
 
 
 def convert_linear(leaf: Dict, qcfg: QuantConfig, *,
                    rebudget: bool = True) -> Dict:
     """Rebudget (optional) + pack one [K, N] linear leaf."""
-    pbits = _host(leaf["pbits"])
-    if rebudget:
-        pbits = rebudget_pbits(pbits, torch.as_tensor(leaf["w"]), qcfg)
-    return pack_linear({"w": leaf["w"], "pbits": pbits, "b": leaf.get("b")},
-                       qcfg)
+    return _pack_leaves([(leaf["w"], leaf["pbits"], leaf.get("b"),
+                          rebudget)], qcfg)[0]
 
 
-def _stack(leaves):
-    first = leaves[0]
-    return {name: None if first[name] is None
-            else torch.stack([lf[name] for lf in leaves])
-            for name in first}
+def _is_qat_leaf(node) -> bool:
+    return isinstance(node, dict) and "w" in node and "pbits" in node
 
 
 @torch.no_grad()
 def convert_tree(tree, qcfg: QuantConfig, *, rebudget="auto"):
-    """QAT tree (nested dicts/lists of tensors) -> serve tree. A leaf with
-    leading stacked dims ([L, K, N]) is packed per slice and re-stacked;
-    stacked slices are rebudgeted unless ``rebudget=False``, since they
-    must share packed shapes."""
+    """QAT tree (nested dicts/lists of tensors) -> serve tree. Every leaf
+    packs in one launch, a leaf with leading stacked dims ([L, K, N],
+    [E, K, N]) too; stacked slices are rebudgeted unless
+    ``rebudget=False``, since they must share packed shapes. The host work
+    of all leaves is batched (``_pack_leaves``)."""
     if rebudget not in (True, False, "auto"):
         raise ValueError(f"rebudget={rebudget!r}")
+    leaves = []
 
-    def fix(node):
-        if isinstance(node, dict) and "w" in node and "pbits" in node:
+    def collect(node):
+        if _is_qat_leaf(node):
             w = torch.as_tensor(node["w"])
-            if w.dim() == 2:
-                return convert_linear(node, qcfg, rebudget=rebudget is True)
             if w.dim() < 2 or torch.as_tensor(node["pbits"]).dim() != \
                     w.dim() - 1:
                 raise NotImplementedError(
                     "conv leaves are packed by a later port slice")
-            lead = w.shape[:-2]
-            flat_w = w.reshape((-1,) + tuple(w.shape[-2:]))
-            flat_pb = torch.as_tensor(node["pbits"]).reshape(
-                flat_w.shape[0], -1)
-            b = node.get("b")
-            flat_b = None if b is None else \
-                torch.as_tensor(b).reshape(flat_w.shape[0], -1)
-            reb = rebudget in (True, "auto")
-            packed = [convert_linear(
-                {"w": flat_w[i], "pbits": flat_pb[i],
-                 "b": None if flat_b is None else flat_b[i]},
-                qcfg, rebudget=reb) for i in range(flat_w.shape[0])]
-            return {name: None if t is None
-                    else t.reshape(tuple(lead) + tuple(t.shape[1:]))
-                    for name, t in _stack(packed).items()}
+            reb = rebudget is True if w.dim() == 2 else \
+                rebudget in (True, "auto")
+            leaves.append((w, node["pbits"], node.get("b"), reb))
+        elif isinstance(node, dict):
+            for v in node.values():
+                collect(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                collect(v)
+
+    collect(tree)
+    packed = iter(_pack_leaves(leaves, qcfg))
+
+    def fix(node):
+        if _is_qat_leaf(node):
+            return next(packed)
         if isinstance(node, dict):
             return {k: fix(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -160,36 +160,39 @@ def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor, qcfg,
 
 def quantize_pack_mixed(w: torch.Tensor, pbits: np.ndarray,
                         scales: Optional[torch.Tensor] = None,
-                        group_size: int = GROUP_SIZE) -> Dict:
-    """Quantize + bit-pack each uniform-precision segment of a [K, N]
-    weight whose sorted per-group ``pbits`` define the [K4|K2|K1] split,
-    through the ``quantize_pack`` kernel."""
-    w = w.float().contiguous()
-    k, n = w.shape
+                        group_size: int = GROUP_SIZE,
+                        perm: Optional[torch.Tensor] = None,
+                        out=None) -> Dict:
+    """Quantize + bit-pack a [K, N] weight (or an [S, K, N] stack whose
+    slices share one split) into the [K4|K2|K1] segments that its sorted
+    per-group ``pbits`` ([K // G], or [S, K // G]) define, in one
+    ``quantize_pack`` launch. ``perm`` (int32 [K] or [S, K] on w's
+    device): the sorted row k is w's row perm[k], read in place; None:
+    w is sorted already. ``scales`` are in sorted order. ``out``: the
+    three carriers to write (else allocated)."""
+    w = w.float()
+    k, n = w.shape[-2:]
     pbits = np.asarray(pbits)
-    if pbits.ndim != 1 or pbits.shape[0] * group_size != k:
+    if pbits.ndim != w.dim() - 1 or pbits.shape[-1] * group_size != k:
         raise ValueError(f"pbits {pbits.shape} do not cover K={k} in "
                          f"groups of {group_size}")
-    ranks = np.array([{4: 0, 2: 1, 1: 2}[int(p)] for p in pbits])
-    if np.any(np.diff(ranks) < 0):
+    ranks = np.select([pbits == 4, pbits == 2, pbits == 1], [0, 1, 2], -1)
+    if np.any(ranks < 0) or np.any(np.diff(ranks, axis=-1) < 0):
         raise ValueError("pbits must be sorted 4 -> 2 -> 1")
-    segs = tuple(int((pbits == p).sum()) * group_size for p in (4, 2, 1))
+    counts = np.stack([(pbits == p).sum(-1) for p in (4, 2, 1)], -1)
+    counts = counts.reshape(-1, 3)
+    if np.any(counts != counts[0]):
+        raise ValueError("stacked slices must share one [K4|K2|K1] split")
+    segs = tuple(int(c) * group_size for c in counts[0])
     if scales is not None:
         scales = scales.float().contiguous()
+    packed = qp.quantize_pack_segments(
+        w if w.stride(-1) == 1 else w.contiguous(), perm, scales,
+        segments=segs, group_size=group_size, out=out)
     out = {"segments": segs, "scales": scales, "n": n,
            "group_size": group_size}
-    off = goff = 0
-    for (name, p, _vpb), kp in zip(pack_lib.SEGMENTS, segs):
-        if kp == 0:
-            out[name] = torch.zeros((0, n), dtype=torch.uint8,
-                                    device=w.device)
-            continue
-        ng = max(kp // group_size, 1)
-        seg_scales = None if scales is None else scales[goff:goff + ng]
-        out[name] = qp.quantize_pack(w[off:off + kp], seg_scales, p=p,
-                                     group_size=group_size)
-        off += kp
-        goff += ng
+    out.update((name, t) for (name, _p, _v), t in zip(pack_lib.SEGMENTS,
+                                                      packed))
     return out
 
 

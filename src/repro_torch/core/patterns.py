@@ -152,17 +152,22 @@ def precisions_from_matched_s(s_matched: np.ndarray) -> np.ndarray:
 def reorder_channels(pbits: np.ndarray) -> np.ndarray:
     """Permutation making same-precision groups contiguous, sorted 4->2->1
     (paper Obs. 4). Returns group-level permutation indices (stable, so the
-    within-precision order is preserved)."""
-    rank = {4: 0, 2: 1, 1: 2}
-    keys = np.array([rank[int(p)] for p in np.asarray(pbits)])
-    return np.argsort(keys, kind="stable")
+    within-precision order is preserved), one row per row of a stacked
+    [..., K // G] ``pbits``."""
+    pbits = np.asarray(pbits)
+    keys = np.select([pbits == 4, pbits == 2, pbits == 1], [0, 1, 2], -1)
+    if np.any(keys < 0):
+        raise ValueError("pbits must be in {1, 2, 4}")
+    return np.argsort(keys, axis=-1, kind="stable")
 
 
 def expand_group_perm(group_perm: np.ndarray, group_size: int = GROUP_SIZE
                       ) -> np.ndarray:
-    """Group-level permutation -> channel-level permutation."""
-    base = np.asarray(group_perm)[:, None] * group_size + np.arange(group_size)
-    return base.reshape(-1)
+    """Group-level permutation -> channel-level permutation (per row of a
+    stacked [..., K // G] permutation)."""
+    base = np.asarray(group_perm)[..., None] * group_size + np.arange(
+        group_size)
+    return base.reshape(base.shape[:-2] + (-1,))
 
 
 def select_hardware_subset(layer_histograms: Sequence[Tuple[int, int, int]],

@@ -46,6 +46,115 @@ def test_quantize_pack_bit_equal(dev, p, scaled):
     assert torch.equal(got, qp.quantize_pack_plain(w, sc, p=p))
 
 
+def _pack_operands(shape, gen, dev, mix=(0.5, 0.375, 0.125)):
+    """B7 operands of a [K, N] linear or an [S, K, N] bank: a random group
+    order per slice (expanded to channels), the sorted group scales, and
+    the segments of ``mix``; a few elements on rounding ties."""
+    *lead, k, n = shape
+    s = lead[0] if lead else 1
+    w = torch.randn((s, k, n), generator=gen, device=dev) * 0.02
+    w[:, 0, :3] = torch.tensor([0.0, 0.25, -0.25], device=dev)[:min(3, n)]
+    gperm = torch.argsort(torch.rand((s, k // 16), generator=gen,
+                                     device=dev), dim=-1)
+    perm = (gperm[..., None] * 16 + torch.arange(16, device=dev)).reshape(
+        s, k).to(torch.int32)
+    w_sorted = torch.gather(w, 1, perm.long()[..., None].expand(s, k, n))
+    sc = torch.stack([quant.per_group_weight_scale(ws) for ws in w_sorted])
+    segs = QuantConfig(mode="qat", mix=mix).segments(k)
+    if not lead:
+        return w[0], perm[0], sc[0], segs
+    return w, perm, sc, segs
+
+
+@pytest.mark.parametrize("shape", [(2560, 640), (2560, 6912), (6912, 2560),
+                                   (64, 2048, 1408), (64, 1408, 2048)])
+def test_quantize_pack_segments_bitwise_at_full_width(dev, shape):
+    """The one-launch entry at the h2o-danube-1.8b linears' shapes and one
+    deepseek-moe-16b bank's (default mix): bitwise its plain version, in
+    one launch per linear or bank."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    w, perm, sc, segs = _pack_operands(shape, g, dev)
+    kernels.reset_launch_counts()
+    got = qp.quantize_pack_segments(w, perm, sc, segments=segs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quantize_pack"] == 1
+    want = qp.quantize_pack_segments_plain(w, perm, sc, segments=segs)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("unaligned", ["none", "w", "out"])
+@pytest.mark.parametrize("mix", [(0.5, 0.25, 0.25), (0.0, 0.0, 1.0)])
+@pytest.mark.parametrize("scaled", [True, False])
+def test_quantize_pack_segments_scalar_path(dev, scaled, mix, unaligned):
+    """N % 4 != 0 (48 x 13 slices), weights off 16-byte alignment (a bank
+    viewed one element into its storage) and carriers off 4-byte alignment
+    (``out`` one byte into a buffer) take the scalar body: bitwise the
+    plain version, with and without scales, an empty segment included."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 13 if unaligned == "none" else 16
+    w, perm, sc, segs = _pack_operands((3, 48, n), g, dev, mix)
+    if unaligned == "w":
+        store = torch.empty(w.numel() + 1, device=dev)
+        store[1:] = w.reshape(-1)
+        w = store[1:].view(w.shape)
+        assert w.data_ptr() % 16
+    out = None
+    if unaligned == "out":
+        shapes = [(3, kp * p // 8, n) for p, kp in zip((4, 2, 1), segs)]
+        sizes = [a * b * c for a, b, c in shapes]
+        parts = torch.split(torch.empty(sum(sizes) + 1, dtype=torch.uint8,
+                                        device=dev)[1:], sizes)
+        out = [t.view(shape) for t, shape in zip(parts, shapes)]
+    sc = sc if scaled else None
+    got = qp.quantize_pack_segments(w, perm, sc, segments=segs, out=out)
+    want = qp.quantize_pack_segments_plain(w, perm, sc, segments=segs)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    one = qp.quantize_pack_segments(w[1], perm[1],
+                                    None if sc is None else sc[1],
+                                    segments=segs)
+    for a, b in zip(one, want):
+        assert torch.equal(a, b[1])
+
+
+def test_convert_tree_on_the_card_equals_the_cpu():
+    """Deploy packing of a reduced deepseek-moe-16b (attention, dense and
+    shared MLPs, [E, K, N] banks) on the card: every serve leaf bitwise
+    the CPU's, one B7 launch per linear and per bank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.api import transforms
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("deepseek-moe-16b").reduced().with_quant_mode("qat")
+    qcfg = cfg.quant.with_mode("serve")
+    want = transforms.convert_tree(
+        lm.init_params(cfg, seed=3, device="cpu").tree(), qcfg,
+        rebudget=True)
+    card = lm.init_params(cfg, seed=3, device="cpu").to("cuda")
+    kernels.reset_launch_counts()
+    got = transforms.convert_tree(card.tree(), qcfg, rebudget=True)
+    launches = kernels.launch_counts()["quantize_pack"]
+    leaves = 0
+
+    def walk(a, b):
+        nonlocal leaves
+        if isinstance(a, dict):
+            assert set(a) == set(b)
+            leaves += "w4" in a
+            for key in a:
+                walk(a[key], b[key])
+        elif isinstance(a, (list, tuple)):
+            for x, y in zip(a, b):
+                walk(x, y)
+        elif a is not None:
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+    walk(got, want)
+    assert launches == leaves > 0
+
+
 @pytest.mark.parametrize("self_scale", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [1, 2, 4])

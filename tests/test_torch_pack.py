@@ -102,6 +102,138 @@ def test_convert_tree_stacked_bit_equal():
     _assert_leaf_equal(jout["lin"], pout["lin"])
 
 
+MIXES = {"mixed": (0.5, 0.375, 0.125), "all4": (1.0, 0.0, 0.0),
+         "all1": (0.0, 0.0, 1.0)}
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("segments,n", [((64, 48, 16), 24),
+                                        ((0, 96, 32), 13),
+                                        ((128, 0, 0), 8)])
+@pytest.mark.parametrize("slices", [0, 2])
+def test_quantize_pack_segments_plain_matches_pallas(slices, segments, n,
+                                                     scaled):
+    """The one-launch entry's plain version: rows read through ``perm``,
+    then the reference's kernel (interpret mode) per segment and per
+    slice; 0 slices: a 2-D [K, N] linear. Empty segments and N % 4 != 0
+    included."""
+    rng = np.random.default_rng(sum(segments) + n + slices)
+    k = sum(segments)
+    s = max(slices, 1)
+    w = (rng.standard_normal((s, k, n)) * 1.1).astype(np.float32)
+    w[:, 0, :2] = np.array([0.125, -0.125], np.float32)         # ties
+    perm = np.stack([rng.permutation(k) for _ in range(s)]).astype(np.int32)
+    sc = (rng.random((s, k // 16)) + 0.25).astype(np.float32) if scaled \
+        else None
+    want = []
+    for i in range(s):
+        ws, off, segs = w[i][perm[i]], 0, []
+        for p, kp in zip((4, 2, 1), segments):
+            segs.append(np.asarray(jquant_pack.quantize_pack(
+                jnp.asarray(ws[off:off + kp]), None if sc is None
+                else jnp.asarray(sc[i, off // 16:(off + kp) // 16]), p=p,
+                interpret=True)) if kp else np.zeros((0, n), np.uint8))
+            off += kp
+        want.append(segs)
+    sel = (lambda a: a) if slices else (lambda a: a[0])
+    got = pquant_pack.quantize_pack_segments_plain(
+        torch.from_numpy(sel(w)), torch.from_numpy(sel(perm)),
+        None if sc is None else torch.from_numpy(sel(sc)),
+        segments=segments)
+    for j in range(3):
+        np.testing.assert_array_equal(
+            got[j].numpy(), sel(np.stack([seg[j] for seg in want])))
+
+
+# (lead dims, K, N, mix, scale_mode, bias, rebudget)
+TREE_CASES = {
+    "stack3_mixed": ((3,), 64, 40, "mixed", "per_group", False, "auto"),
+    "stack2x2_mixed_bias": ((2, 2), 128, 24, "mixed", "per_group", True,
+                            "auto"),
+    "stack3_all4_none": ((3,), 64, 16, "all4", "none", False, "auto"),
+    "stack2_all1_n13": ((2,), 128, 13, "all1", "per_group", True, "auto"),
+    "linear_mixed_n13_bias": ((), 96, 13, "mixed", "per_group", True,
+                              True),
+    "linear_all4_none": ((), 64, 12, "all4", "none", False, True),
+    "stack3_no_rebudget": ((3,), 128, 20, "mixed", "per_group", False,
+                           False),
+    "linear_no_rebudget_none": ((), 128, 20, "mixed", "none", True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TREE_CASES))
+def test_convert_tree_one_launch_path_bit_equal(case):
+    """The port's one-pass packing path (``convert_tree``) against the JAX
+    package's per-slice path (``xla_ref``), bitwise on every leaf field:
+    stacked leaves whose slices rank their groups differently (so their
+    perms differ), uniform mixes with empty segments, both scale modes,
+    N % 4 != 0, biases, and rebudget off (every slice one split)."""
+    lead, k, n, mix, scale_mode, bias, rebudget = TREE_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + k)
+    w = (rng.standard_normal(lead + (k, n)) * 0.6).astype(np.float32)
+    counts = JQuantConfig(mode="qat", mix=MIXES[mix]).group_pbits(k)
+    pb = np.stack([rng.permutation(counts) if rebudget is False
+                   else rng.choice(np.array([4, 2, 1], np.int8), k // 16)
+                   for _ in range(int(np.prod(lead, dtype=int)))])
+    pb = pb.reshape(lead + (k // 16,))
+    node = {"w": w, "pbits": pb}
+    if bias:
+        node["b"] = rng.standard_normal(lead + (n,)).astype(np.float32)
+    jout = jtransforms.convert_tree(
+        {"lin": node}, JQuantConfig(mode="qat", mix=MIXES[mix],
+                                    scale_mode=scale_mode,
+                                    backend="xla_ref"), rebudget=rebudget)
+    pout = ptransforms.convert_tree(
+        {"lin": {name: torch.from_numpy(v) for name, v in node.items()}},
+        PQuantConfig(mode="qat", mix=MIXES[mix], scale_mode=scale_mode),
+        rebudget=rebudget)
+    _assert_leaf_equal(jout["lin"], pout["lin"])
+    assert set(pout["lin"]) == set(jout["lin"])
+    for name in ("w4", "w2", "w1"):
+        assert pout["lin"][name].dtype == torch.uint8
+        assert pout["lin"][name].shape[:len(lead)] == lead
+    if bias:
+        np.testing.assert_array_equal(pout["lin"]["b"].numpy(), node["b"])
+
+
+def test_stacked_slices_with_different_splits_raise():
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((2, 64, 8)).astype(np.float32))
+    pb = torch.tensor([[4, 4, 2, 1], [4, 2, 2, 1]], dtype=torch.int8)
+    with pytest.raises(ValueError, match="split"):
+        ptransforms.convert_tree({"w": w, "pbits": pb},
+                                 PQuantConfig(mode="qat"), rebudget=False)
+
+
+@pytest.mark.parametrize("kind", ["all4", "mixed"])
+def test_rebudget_keeps_its_result_given_host_magnitudes(kind):
+    """``rebudget_pbits_host`` on group magnitudes already on the host (one
+    row a slice) gives ``rebudget_pbits`` of each slice's weight."""
+    rng = np.random.default_rng(13)
+    w = rng.standard_normal((3, 256, 8)).astype(np.float32)
+    w[1, :32] = 0.5                       # tied magnitudes across groups
+    pbits = np.stack([_pbits(kind, 16, rng) for _ in range(3)])
+    qcfg = PQuantConfig(mode="qat")
+    mag = ptransforms.group_absmax(torch.from_numpy(w), 16).numpy()
+    np.testing.assert_array_equal(
+        mag, np.abs(w).reshape(3, 16, -1).max(-1))
+    got = ptransforms.rebudget_pbits_host(pbits, mag, 256, qcfg)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            got[i], ptransforms.rebudget_pbits(
+                pbits[i], torch.from_numpy(w[i]), qcfg))
+
+
+def test_packing_on_cpu_launches_no_kernel():
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((2, 64, 8)).astype(np.float32))
+    pb = torch.from_numpy(rng.choice(np.array([4, 2, 1], np.int8), (2, 4)))
+    pquant_pack.LAUNCHES["quantize_pack"] = 0
+    ptransforms.convert_tree({"w": w, "pbits": pb}, PQuantConfig(mode="qat"))
+    pquant_pack.quantize_pack(w[0], p=4)
+    assert pquant_pack.LAUNCHES["quantize_pack"] == 0
+
+
 @pytest.mark.parametrize("kind", ["all4", "mixed"])
 def test_rebudget_matches_jax(kind):
     rng = np.random.default_rng(11)

@@ -11,9 +11,10 @@ card, so two checkouts, or two builds of one, can be compared in one call:
     python3 tools/kernel_ab.py --src src --label attn --only attn
     python3 tools/kernel_ab.py --src src --label change --only train
 
-``--only gemm``, ``attn``, ``train`` or ``step`` times one family; with
-no ``--only`` the first two run (the training families are timed only
-when asked for). ``--set NAME=VALUE``
+``--only gemm``, ``attn``, ``train``, ``step``, ``pack`` or ``load``
+times one family; with
+no ``--only`` the first two run (the others are timed only when asked
+for). ``--set NAME=VALUE``
 times a scratch build of the source (``csrc/segment_gemm.cu`` or
 ``csrc/attn_decode.cu``) that declares ``constexpr int NAME`` (one of the
 launch-shape constants at the top of each source, none of which changes a
@@ -57,12 +58,37 @@ of every step and a device profile of steps 1, 3 and 5
 (``tools/step_profile.py``: busy ms, kernels, the plain ops split by the
 op that launched them).
 
+Pack rows (``--only pack``): deploy packing through the public
+``repro_torch.api.transforms.convert_tree`` (as ``DecodeEngine`` calls it,
+rebudget on), so checkouts whose packing drivers differ are timed alike,
+on the QAT leaves of one full-width h2o-danube-1.8b layer (7 linears) and
+of one full-width deepseek-moe-16b MoE layer (q/k/v/o, the shared
+experts, the three [64, K, N] routed banks), each from ``lm.init_params``
+at seed 0: ``host_ms`` (host clock of a call, synchronized), ``loop_ms``
+(CUDA events around a loop of calls), ``device_ms`` (the device busy time
+of one call under torch.profiler), ``kernels`` (device events a call),
+``b7_launches`` and ``by_op`` (``step_profile.load_summary``). ``B7_h2o``
+times the B7 kernels alone on one h2o layer (4 rotating weight sets), as
+the checkout's driver launches them: one launch a linear reading rows
+through the channel perm where the checkout has ``quantize_pack_segments``,
+else one a segment on sorted copies; both rulers.
+
+Load rows (``--only load``): the whole load of ``DecodeEngine`` at full
+width and depth, h2o-danube-1.8b (24 layers) and deepseek-moe-16b (28
+layers, 60.8 GiB of fp32 QAT weights): ``pack_s`` (host clock of the
+engine's construction), its B7 launches, peak memory and a digest of the
+packed model (``tree_digest``), then a second,
+profiled construction: busy ms, device events and the split by op. A
+load of a two-layer reduced model comes first (``first_load_s``: the
+process's one-time costs), so ``pack_s`` is steady state.
+
 Prints one JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import json
 import os
@@ -274,6 +300,213 @@ def step_rows(torch, dev, rows):
     rows["train_profiles"] = profiles
 
 
+def _pack_operands(torch, qp, quant, k, n, qcfg, gen, dev, perm_on=True,
+                   scaled=True):
+    """One linear's B7 calls as the checkout's driver makes them: one
+    ``quantize_pack_segments`` over (w, perm, sorted scales), or one
+    ``quantize_pack`` a segment of a sorted copy. ``perm_on`` / ``scaled``
+    False (one-launch entry only): the identity order / no scales."""
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    gperm = torch.randperm(k // 16, generator=gen, device=dev)
+    perm = (gperm[:, None] * 16 + torch.arange(16, device=dev)).reshape(-1)
+    perm = perm.to(torch.int32)
+    w_sorted = w.index_select(0, perm)
+    sc = quant.per_group_weight_scale(w_sorted, 16)
+    segs = qcfg.segments(k)
+    if hasattr(qp, "quantize_pack_segments"):
+        perm = perm if perm_on else None
+        sc = sc if scaled else None
+        return [lambda: qp.quantize_pack_segments(w, perm, sc,
+                                                  segments=segs)]
+    calls, off = [], 0
+    for p, kp in zip((4, 2, 1), segs):
+        if kp:
+            ws = w_sorted[off:off + kp].contiguous()
+            ss = sc[off // 16:(off + kp) // 16].contiguous()
+            calls.append((lambda a, b, c: lambda: qp.quantize_pack(
+                a, b, p=c))(ws, ss, p))
+            off += kp
+    return calls
+
+
+def _profiled(torch, fn):
+    """(result, ``step_profile.load_summary`` of one profiled call)."""
+    from torch.profiler import ProfilerActivity, profile
+    import step_profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, step_profile.load_summary(prof)
+
+
+def pack_rows(torch, dev, gen, rows):
+    """Deploy packing of one full-width layer through ``convert_tree``
+    (h2o-danube-1.8b; deepseek-moe-16b's first MoE layer), and B7 alone on
+    one h2o layer."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.api import transforms
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    for key, arch, nl, idx in (("h2o_layer", "h2o-danube-1.8b", 1, 0),
+                               ("moe_layer", "deepseek-moe-16b", 2, 1)):
+        cfg = get_config(arch).with_quant_mode("qat")
+        model = lm.init_params(dataclasses.replace(cfg, num_layers=nl),
+                               seed=0, device=dev)
+        tree = model.tree()["blocks"][idx]
+        del model
+        qcfg = cfg.quant.with_mode("serve")
+        fn = (lambda t, q: lambda: transforms.convert_tree(
+            t, q, rebudget=True))(tree, qcfg)
+        fn()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        rows[f"{key}_host_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        rows[f"{key}_b7_launches"] = kernels.launch_counts()[
+            "quantize_pack"] // 5
+        rows[f"{key}_loop_ms"] = loop_ms(torch, fn, 5)
+        _out, summary = _profiled(torch, fn)
+        rows[f"{key}_device_ms"] = summary["device_busy_ms"]
+        rows[f"{key}_kernels"] = summary["device_events"]
+        rows[f"{key}_by_op"] = summary["by_op"]
+        del tree, fn, _out
+        torch.cuda.empty_cache()
+    b7_rows(torch, dev, gen, rows)
+
+
+def b7_rows(torch, dev, gen, rows, detail=False):
+    """The B7 kernels alone on one h2o-danube-1.8b layer (4 rotating weight
+    sets), both rulers; ``detail``: also each linear's device ms and the
+    layer without the perm and without the scales (one-launch entry)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import quant
+    from repro_torch.core.qtypes import QuantConfig
+    from repro_torch.kernels import quant_pack as qp
+    h2o = get_config("h2o-danube-1.8b")
+    d, f = h2o.d_model, h2o.d_ff
+    hq, hk = h2o.num_heads * h2o.hd, h2o.num_kv_heads * h2o.hd
+    mixed = QuantConfig(mode="qat")
+    shapes = ((d, hq), (d, hk), (d, hk), (hq, d), (d, f), (d, f), (f, d))
+    variants = [("", True, True)]
+    if detail and hasattr(qp, "quantize_pack_segments"):
+        variants += [("_noperm", False, True), ("_noscale", True, False)]
+    for tag, perm_on, scaled in variants:
+        sets = [[c for k, n in shapes
+                 for c in _pack_operands(torch, qp, quant, k, n, mixed, gen,
+                                         dev, perm_on, scaled)]
+                for _ in range(4)]
+        run = lambda: [c() for calls in sets for c in calls]  # noqa: E731
+        rows[f"B7_h2o{tag}_launches"] = len(sets[0])
+        rows[f"B7_h2o{tag}_device_ms"] = device_ms(torch, run, 10) / 4
+        if not tag:
+            rows["B7_h2o_loop_ms"] = loop_ms(torch, run, 10) / 4
+        if detail and not tag and len(sets[0]) == len(shapes):
+            for i in range(len(shapes)):
+                rows[f"B7_h2o_linear{i}_device_ms"] = device_ms(
+                    torch, lambda: [calls[i]() for calls in sets], 20) / 4
+        del sets
+        torch.cuda.empty_cache()
+    if detail:
+        # A yardstick of the read stream alone: torch's abs-max reduction
+        # over the same weights.
+        ws = [[torch.randn((k, n), generator=gen, device=dev)
+               for k, n in shapes] for _ in range(4)]
+        rows["read_h2o_device_ms"] = device_ms(torch, lambda: [
+            torch.linalg.vector_norm(w, ord=float("inf"))
+            for layer in ws for w in layer], 10) / 4
+        del ws
+        torch.cuda.empty_cache()
+
+
+def tree_digest(torch, tree) -> str:
+    """A digest of every tensor of a (serve) tree, computed on its device:
+    per leaf, the bytes as int64 weighted by their position mod 65,521,
+    summed; two checkouts that pack the same weights bitwise give the same
+    digest."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif isinstance(node, torch.Tensor):
+            b = node.detach().contiguous().reshape(-1).view(torch.uint8)
+            total = 0
+            for off in range(0, b.numel(), 1 << 24):    # 16 MiB a chunk
+                part = b[off:off + (1 << 24)].long()
+                weight = (torch.arange(off, off + part.numel(),
+                                       device=b.device) % 65521 + 1)
+                total += int((part * weight).sum())
+            h.update(f"{path}:{node.dtype}:{tuple(node.shape)}:"
+                     f"{total}".encode())
+
+    walk(tree, "")
+    return h.hexdigest()[:16]
+
+
+def load_rows(torch, dev, rows):
+    """The whole load of ``DecodeEngine`` at full width and depth: host
+    clock, B7 launches and peak memory of one construction, then the
+    device profile of a second."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    import dataclasses
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    # The process's first load pays one-time costs (library loads, lazy
+    # CUDA initialisation of the ops it runs): time it apart, on a
+    # two-layer reduced model, so the full loads below are steady state.
+    small = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                                num_layers=2).with_quant_mode("qat")
+    params = lm.init_params(small, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.DecodeEngine(params, small, ecfg, device=dev)
+    torch.cuda.synchronize()
+    rows["first_load_s"] = time.perf_counter() - t0
+    del params
+    for key, arch in (("h2o", "h2o-danube-1.8b"),
+                      ("moe", "deepseek-moe-16b")):
+        cfg = get_config(arch).with_quant_mode("qat")
+        params = lm.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = engine.DecodeEngine(params, cfg, ecfg, device=dev)
+        torch.cuda.synchronize()
+        rows[f"{key}_pack_s"] = time.perf_counter() - t0
+        rows[f"{key}_b7_launches"] = kernels.launch_counts()["quantize_pack"]
+        rows[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows[f"{key}_packed_bytes"] = engine.packed_model_bytes(eng.model)
+        rows[f"{key}_digest"] = tree_digest(torch, eng.model.tree())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng, summary = _profiled(torch, lambda: engine.DecodeEngine(
+            params, cfg, ecfg, device=dev))
+        rows[f"{key}_device_ms"] = summary["device_busy_ms"]
+        rows[f"{key}_kernels"] = summary["device_events"]
+        rows[f"{key}_idle_share"] = 1 - summary["device_busy_ms"] / (
+            rows[f"{key}_pack_s"] * 1e3)
+        rows[f"{key}_by_op"] = summary["by_op"]
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True)
@@ -281,7 +514,8 @@ def main() -> int:
     ap.add_argument("--set", action="append", default=[],
                     help="NAME=VALUE: a launch-shape constant of the "
                          "segment GEMM or attention build")
-    ap.add_argument("--only", choices=("gemm", "attn", "train", "step"),
+    ap.add_argument("--only", choices=("gemm", "attn", "train", "step",
+                                       "pack", "load", "b7"),
                     default=None, help="time one kernel family")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -298,6 +532,25 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if args.only in ("pack", "load", "b7"):
+        from repro_torch.kernels import quant_pack
+        _build.build([quant_pack.SOURCE])
+        for item in args.set:
+            if not declares(_build, quant_pack, item.split("=")[0]):
+                raise SystemExit(f"no constant {item} in "
+                                 f"{quant_pack.SOURCE}")
+        if args.set:
+            build_variant(_build, quant_pack, args.set)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rows = {}
+        if args.only == "pack":
+            pack_rows(torch, dev, gen, rows)
+        elif args.only == "b7":
+            b7_rows(torch, dev, gen, rows, detail=True)
+        else:
+            load_rows(torch, dev, rows)
+        return report(args, rows, None)
     if args.only in ("train", "step"):
         if args.set:
             raise SystemExit("--set takes no constant of the training "

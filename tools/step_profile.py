@@ -1,5 +1,7 @@
 """Device time of a profiled training step: by kernel class, and the plain
-ops split by the op of the port that issued each kernel.
+ops split by the op of the port that issued each kernel; and of a profiled
+load (deploy packing), split by the torch op or kernel that did the work
+(``load_summary``).
 
     import step_profile
     undo = step_profile.install_spans()   # once repro_torch is importable
@@ -158,3 +160,53 @@ def device_summary(prof) -> Dict:
             "other_by_op": {k: round(v, 3) for k, v in by_op.items()},
             "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
                      e.count) for e in top]}
+
+
+# The load's torch ops by what they do in the packing path; a kernel
+# counts to the outermost of these ops above it.
+LOAD_OPS = {"aten::abs": "absmax", "aten::amax": "absmax",
+            "aten::linalg_vector_norm": "absmax",
+            "aten::index_select": "index_select",
+            "aten::gather": "scale_chain", "aten::clamp_min": "scale_chain",
+            "aten::div": "scale_chain",
+            "aten::stack": "stack", "aten::cat": "stack",
+            "aten::copy_": "copies", "aten::to": "copies",
+            "aten::_to_copy": "copies", "aten::clone": "copies",
+            "aten::contiguous": "copies"}
+PACK_KERNEL = "quant_pack"
+
+
+def _load_label(event) -> str:
+    label = "rest"
+    e = event
+    while e is not None:
+        label = LOAD_OPS.get(e.name, label)
+        e = e.cpu_parent
+    return label
+
+
+def load_summary(prof) -> Dict:
+    """Device time of a profiled load: busy ms, device events (kernels,
+    copies, fills), and the split by op: ``absmax`` (the group magnitude
+    reduction), ``index_select`` (a sorted copy of a weight),
+    ``scale_chain`` (the group scales), ``quantize_pack`` (B7, by kernel
+    name: a ctypes launch has no torch op above it), ``stack``
+    (re-stacking carriers), ``copies`` (host-device copies and casts),
+    ``rest`` (other torch ops) and ``unlinked`` (device time the profiler
+    tied to no op)."""
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(("ProfilerStep", PREFIX))]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    out: Dict[str, float] = defaultdict(float)
+    out["quantize_pack"] = sum(e.device_time_total for e in kern
+                               if PACK_KERNEL in e.key) / 1e3
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if PACK_KERNEL not in k.name:
+                out[_load_label(e)] += k.duration / 1e3
+    out["unlinked"] = busy - sum(out.values())
+    return {"device_busy_ms": busy,
+            "device_events": sum(e.count for e in kern),
+            "by_op": {k: round(v, 3) for k, v in
+                      sorted(out.items(), key=lambda kv: -kv[1])}}
