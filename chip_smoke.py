@@ -31,7 +31,17 @@ Phases (none catches an error; any failure exits non-zero):
      ``rows`` (each expert's live rows) bitwise the launch without it on
      every live row, rows past the count untouched; timed on both rulers
      with and without ``rows`` beside its plain version and a torch.bmm
-     of the dequantized operands over the same experts.
+     of the dequantized operands over the same experts. The speculative
+     widths: B1 at M = 16 (the verify step of k = 3 at batch 4), held and
+     timed as at M = 4; the draft launches (the [K2|K1] slice, first
+     segment at k_off = K4) of B1 over one h2o-danube-1.8b layer and of
+     B6 over one deepseek-moe-16b layer, held to the same bound and
+     checks, each bitwise the same launch on x's columns from K4 (k_off
+     0), timed beside the full launches. The other dense configs'
+     shapes, one full-width layer each of starcoder2-7b (6 linears:
+     K = 18432 down, N = 512 k/v), deepseek-67b and mistral-large-123b:
+     B1 held to the same bound at M = 4 and 16, its draft launches held
+     and bitwise the launch at k_off 0, B7 bitwise its plain version.
   3. Decode attention over the packed 4-bit KV cache against the plain
      versions, at full width, batch 4 (``ATTENTION_CASES``):
      h2o-danube-1.8b (Hk = 8, G = 4, D = 80) B4 on rings of T = 256 and
@@ -40,13 +50,16 @@ Phases (none catches an error; any failure exits non-zero):
      (272 entries, not a multiple of the split's chunk), 256 pages with
      window 1024; shuffled tables, unmapped pages, a page two slots
      share); deepseek-moe-16b (Hk = 16, G = 1, D = 128) B4 at T = 256 and
-     B5 at 16 and 17 pages; at S = 1 and (most) S = 8 with masked lanes,
+     B5 at 16 and 17 pages; starcoder2-7b (Hk = 4, G = 9, D = 128) B4 at
+     T = 256 and B5 at 16 pages, at S = 1 and 4; at S = 1 and (most) S = 8
+     with masked lanes,
      held to |kernel - plain| <= 1e-6 * (P @ |V|) + 1e-12; B5's rows
      equal B4's bitwise on the same content laid out as a ring. The S = 1
      decode shapes timed with CUDA events on both rulers (a loop of calls;
      queued ahead) beside the plain versions and one
      scaled_dot_product_attention on the dequantized fp32 K/V (also on
-     both rulers).
+     both rulers). The verify step: at S = 4, each lane of B4 and B5
+     bitwise the S = 1 call at its position, at G = 4, 1 and 9.
   4. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
      weights from a seed, default mix), fp ring KV cache, greedy; packing
      and serving must go through quantize_pack and the driver-scale
@@ -60,18 +73,32 @@ Phases (none catches an error; any failure exits non-zero):
      flipped activation codes counted). The two-pass activation form
      (fuse_act_quant=False: B8, then B3) equals the fused form bitwise at
      every linear of layer 0, and serving the packed model in it gives
-     the fused run's tokens through B8 and B3 alone.
+     the fused run's tokens through B8 and B3 alone. The fp page pool
+     (page_size 16, no kernel of its own) gives the fp ring's tokens;
+     its decode step profiled. Speculative decoding (k = 3, draft bits 2)
+     over the fp ring and the fp pool on the first 4 requests: tokens
+     identical to spec-off, ``spec_stats``, round ms, tokens/s beside
+     a spec-off run of the same requests (every spec run), the
+     launches of a round (672 B1: one a linear in each of 3 draft steps
+     and the verify) and, on the fp ring, a profile of a round.
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
-  6. 4-bit KV serve at full width and depth: the ring DecodeEngine (built
+  6. 4-bit KV serve at full width, cut to KV4_LAYERS = 12 of its 24
+     layers (so the script stays near half its time limit; the lockstep
+     engine's host-bound steps set the phase's time): the ring
+     DecodeEngine (built
      from the QAT weights, so it packs), the LockstepEngine and the paged
      DecodeEngine on requests that share a 224-token prompt prefix and
      wrap the 256-entry ring, so the prefix map hits and shared pages are
      copied on write. Greedy tokens must be identical across the three;
      the ring runs must go through B4 and the paged run through B5, one
-     launch a layer (24 a decode step); the pool's invariants must hold.
+     launch a layer (12 a decode step); the pool's invariants must hold.
      Decode step times and tokens/s of each; a device profile of the ring
-     and the paged decode step (busy time, B4/B5's share).
+     and the paged decode step (busy time, B4/B5's share). Then
+     speculative decoding over the 4-bit ring (B4) and pool (B5) on a
+     64-entry ring that 4 requests of 16-64 prompt tokens and 16 new
+     wrap (the ring-wrap guard, paged rollback): tokens identical to the
+     spec-off 4-bit ring's.
   7. Training kernels against their plain versions, bitwise, at the full
      width: B9 noise_inject on the four weight shapes of a layer (with
      weights beyond the clip and logits at both ends), B8 fake_quant on
@@ -108,15 +135,25 @@ Phases (none catches an error; any failure exits non-zero):
      and B1; a second run gives the same tokens;
      lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
      give equal tokens. Peak memory, decode step ms and its device
-     profile.
+     profile. Speculative decoding on the fp ring (4 requests): tokens
+     identical to spec-off, 324 B6 launches a round (243 of them draft
+     launches over the [K2|K1] slice).
  13. Card vs CPU, teacher-forced, on full-width deepseek-moe-16b cut to
-     its dense layer and one MoE layer: every linear, expert bank, the
-     router and the logits within relative L2 1e-5.
- 14. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
-     B8 and B9), the ``kv4_serve``,
-     ``training``, ``moe_serve``, ``load`` and ``phase_seconds`` JSON
-     lines, the
-     nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+     its dense layer and one MoE layer, and on full-width starcoder2-7b
+     cut to two layers: every linear, expert bank, the router and the
+     logits within relative L2 1e-5.
+ 14. The other dense configs at full width: starcoder2-7b at its 32
+     layers (29 GB fp32 tree), deepseek-67b and mistral-large-123b at
+     depth 2 (their trees do not fit): packed (one B7 launch a linear),
+     served with the fp ring (4 requests of 16-48 prompt tokens, 12 new),
+     lockstep equal to continuous; starcoder2-7b also speculatively
+     (tokens identical to spec-off) and over the 4-bit ring and pool
+     (equal tokens).
+ 15. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+     B8 and B9), the ``kv4_serve``, ``training``, ``moe_serve``,
+     ``load``, ``spec_serve``, ``fp_paged_serve``, ``dense_configs`` and
+     ``phase_seconds`` JSON lines, the nvidia-smi line, and last the
+     ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -169,6 +206,12 @@ B8, B9 = "fake_quant", "noise_inject"
 B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
+DENSE_ARCH = "starcoder2-7b"
+KV4_LAYERS = 12              # phase 6's depth (h2o-danube-1.8b has 24)
+# The other dense configs (arch, depth: None = the config's own), each at
+# full width.
+DENSE_CONFIGS = ((DENSE_ARCH, None), ("deepseek-67b", 2),
+                 ("mistral-large-123b", 2))
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B2: "src/repro_torch/csrc/segment_gemm.cu",
            B3: "src/repro_torch/csrc/segment_gemm.cu",
@@ -255,11 +298,13 @@ def bound(nbytes: float, flops: float):
 
 # ---------------------------------------------------------------- shapes ----
 def layer_linears(cfg):
-    """(name, K, N) of one decoder layer's seven linears."""
+    """(name, K, N) of one decoder layer's linears: seven, or six where
+    the MLP has no gate (non-gated gelu)."""
     d, f = cfg.d_model, cfg.d_ff
     hq, hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    gate = [("gate", d, f)] if cfg.mlp_act == "swiglu" else []
     return [("wq", d, hq), ("wk", d, hk), ("wv", d, hk), ("wo", hq, d),
-            ("gate", d, f), ("up", d, f), ("down", f, d)]
+            *gate, ("up", d, f), ("down", f, d)]
 
 
 def segment_shapes(qcfg, k):
@@ -369,7 +414,8 @@ def time_segment_gemm(name, sets, reps=20):
     library_dev_ms = device_ms(library, reps) / n
     nbytes = flops = 0
     for lin in sets[0].linears:
-        m, k = lin["x"].shape
+        m = lin["x"].shape[0]
+        k = sum(wp.shape[-2] * 8 // p for wp, _s, p, _o in lin["ops"])
         nbytes += (m * k * 2 + 2 * m * lin["n"] * 4
                    + (m * 4 if name == B1 else 0)
                    + sum(wp.numel() + sc.numel() * 4
@@ -459,6 +505,84 @@ def check_rows_across_batch(cfg, gen, dev):
                                      f"the same rows at M=33")
             n += 1
     return n
+
+
+# ------------------------------------------------- speculative widths ----
+SPEC_TOKENS, DRAFT_BITS = 3, 2
+
+
+def draft_ops(ops):
+    """A leaf's draft segments (the [K2|K1] slice, the first at
+    k_off = K4), cut by the drivers' own rule."""
+    return backend.draft_segments(ops, DRAFT_BITS, bits_of=lambda op: op[2])
+
+
+class DraftView:
+    """Operands (``LayerOperands`` or ``GroupedOperands``) with every
+    linear's segments cut to the draft slice."""
+
+    def __init__(self, ops):
+        for key in ("linears", "projs"):
+            if hasattr(ops, key):
+                setattr(self, key, [dict(lin, ops=draft_ops(lin["ops"]))
+                                    for lin in getattr(ops, key)])
+        if hasattr(ops, "rows"):
+            self.rows = ops.rows
+
+
+def check_draft_at_offset(name, lins):
+    """Each draft launch (its first segment at k_off = K4 > 0) bitwise a
+    launch of the same segments on x's columns from K4 on, which starts
+    at k_off = 0 as every full launch does. Returns the launches
+    compared."""
+    for lin in lins:
+        ops = lin["ops"]
+        k0 = ops[0][3]
+        if k0 == 0:
+            raise AssertionError(f"{name}: a draft slice at k_off 0")
+        kw = dict(sx=lin["sx"]) if name == B1 else {}
+        got = pm.segments_matmul(lin["x"], ops, **kw)
+        at0 = pm.segments_matmul(lin["x"][..., k0:],
+                                 [(wp, sc, p, off - k0)
+                                  for wp, sc, p, off in ops], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, at0):
+            raise AssertionError(f"{name}: a draft launch at k_off {k0} "
+                                 f"differs from the same launch at 0")
+    return len(lins)
+
+
+def check_dense_shapes(qcfg, gen, dev):
+    """The shapes of the other dense configs (DENSE_CONFIGS: starcoder2-7b
+    K = 18432 down, N = 512 k/v; deepseek-67b K = 22016; mistral-large-
+    123b D = 12288, K = 28672), one full-width layer each: B1 within the
+    fp32 bound at M = 4 (decode) and M = 16 (the verify), its draft
+    launches within it and bitwise the launch at k_off 0, and B7 bitwise
+    its plain version, one launch a linear. Returns per arch the max
+    |error| and the launches compared."""
+    out = {}
+    for arch, _depth in DENSE_CONFIGS:
+        cfg = get_config(arch)
+        res = {}
+        for m in (4, 4 * (SPEC_TOKENS + 1)):
+            ops = LayerOperands(cfg, qcfg, m, gen, dev)
+            res[f"M{m}_max_abs_err"] = check_segment_gemm(B1, [ops])
+            if m == 4:
+                draft = DraftView(ops)
+                res["draft_max_abs_err"] = check_segment_gemm(B1, [draft])
+                res["draft_bitwise_k_off_0"] = check_draft_at_offset(
+                    B1, draft.linears)
+                del draft
+            del ops
+            torch.cuda.empty_cache()
+        calls = [pack_operands((k, n), qcfg, gen, dev)
+                 for _name, k, n in layer_linears(cfg)]
+        _check_pack(calls)
+        res["b7_bitwise_launches"] = len(calls)
+        del calls
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
 
 
 def pack_operands(shape, qcfg, gen, dev):
@@ -635,7 +759,7 @@ def _grouped_bound(ops, experts, live_rows):
     rows = ops.rows.tolist() if live_rows else [t] * len(ops.rows)
     nbytes = flops = 0
     for pr in ops.projs:
-        k = pr["x"].shape[-1]
+        k = sum(wp.shape[-2] * 8 // p for wp, _s, p, _o in pr["ops"])
         for e in experts:
             nbytes += (rows[e] * k * 2 + 2 * rows[e] * pr["n"] * 4
                        + sum(wp[e].numel() + sc[e].numel() * 4
@@ -687,10 +811,12 @@ def phase_grouped_segment(ops):
     live = [e for e in every if counts[e] > 0]
 
     def bmm_ops(experts):
-        idx = torch.tensor(experts, device=ops.rows.device)
-        return [(pr["x"][idx].float().contiguous(), torch.stack(
-            [_xq_wd(B3, pr, lambda t, e=e: t[e])[1] for e in experts]))
-            for pr in ops.projs]
+        out = []
+        for pr in ops.projs:
+            xw = [_xq_wd(B3, pr, lambda t, e=e: t[e]) for e in experts]
+            out.append((torch.stack([a for a, _b in xw]).contiguous(),
+                        torch.stack([b for _a, b in xw])))
+        return out
 
     lib_all, lib_live = bmm_ops(every), bmm_ops(live)
     b_all, by_all = _grouped_bound(ops, every, live_rows=False)
@@ -921,7 +1047,40 @@ ATTENTION_CASES = (
     ("deepseek_T256", B4, MOE_ARCH, 256, None, (1, 8), True),
     ("deepseek_16x16", B5, MOE_ARCH, 16, None, (1, 8), True),
     ("deepseek_17x16_w100", B5, MOE_ARCH, 17, 100, (1,), False),
+    ("starcoder2_T256", B4, DENSE_ARCH, 256, None, (1, 4), True),
+    ("starcoder2_16x16", B5, DENSE_ARCH, 16, None, (1, 4), True),
 )
+
+
+def check_verify_lanes(gen, dev):
+    """B4 and B5 at S = k + 1 = 4, the verify step at batch 4 (four lanes
+    at the newest positions of each row, one lane masked, the later lanes'
+    entries already in the cache): lane j bitwise the S = 1 call at lane
+    j's position on the same cache, at G = 4 (h2o-danube-1.8b), G = 1
+    (deepseek-moe-16b: the decode runs the 1-row body, the verify the
+    4-row one) and G = 9 (starcoder2-7b, Hk = 4, D = 128: the decode's
+    S * G = 9 ends in a ragged tile). Returns the lanes compared."""
+    n = 0
+    for arch in (ARCH, MOE_ARCH, DENSE_ARCH):
+        cfg = get_config(arch)
+        for name, fn in ((B4, ad.qkv_attn_decode),
+                         (B5, ad.qkv_attn_decode_paged)):
+            ops = RingOperands(cfg, SPEC_TOKENS + 1, 256, None, gen, dev) \
+                if name == B4 else PagedOperands(cfg, SPEC_TOKENS + 1, 16,
+                                                 None, gen, dev)
+            args = list(ops.args())
+            full = fn(*args)
+            for j in range(SPEC_TOKENS + 1):
+                args[0] = ops.q[:, j:j + 1].contiguous()
+                args[-1] = ops.q_pos[:, j:j + 1].contiguous()
+                lane = fn(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(lane[:, 0], full[:, j]):
+                    raise AssertionError(f"{name} {arch}: verify lane {j} "
+                                         f"differs from the S=1 call")
+                n += 1
+            del ops
+    return n
 
 
 def phase_attention(gen, dev):
@@ -948,6 +1107,9 @@ def phase_attention(gen, dev):
             del ops
     results[B4].update(results[B4]["shapes"]["h2o_T256"])
     results[B5].update(results[B5]["shapes"]["h2o_16x16"])
+    n = check_verify_lanes(gen, dev)
+    log(f"[3] verify lanes (S={SPEC_TOKENS + 1}) bitwise the S=1 calls at "
+        f"G in {{4, 1, 9}}, B4 and B5: {n} lanes")
     return results
 
 
@@ -1212,10 +1374,12 @@ def shared_prefix_requests(vocab, rng, prefix=224, tail=16, waves=(8, 32),
     return reqs
 
 
-def timed_serve(eng, reqs):
+def timed_serve(eng, reqs, step_counts=None):
     """Serve ``reqs`` step by step: (completions in request order, wall
     seconds, median host-clock ms of the steps where every active slot
-    decodes, with the pool checked after every step)."""
+    decodes (a speculative engine's rounds), with the pool checked after
+    every step). ``step_counts``, a dict, receives the kernel launches of
+    the first such step."""
     eng.reset()
     for r in reqs:
         eng.submit(dataclasses.replace(r))
@@ -1225,11 +1389,16 @@ def timed_serve(eng, reqs):
     while eng.sched.has_work():
         decoding = bool(eng.sched.slots) and not eng.sched.pending and all(
             st.phase == DECODE for st in eng.sched.slots.values())
+        before = kernels.launch_counts()
         t1 = time.perf_counter()
         done = eng.step()
         torch.cuda.synchronize()
         if decoding:
             decode_ms.append((time.perf_counter() - t1) * 1e3)
+            if step_counts is not None and not step_counts:
+                step_counts.update(
+                    (k, v - before[k]) for k, v in kernels.launch_counts()
+                    .items() if v > before[k])
         for c in done:
             out[c.request_id] = c
         if eng.pool is not None:
@@ -1240,9 +1409,110 @@ def timed_serve(eng, reqs):
             float(np.median(decode_ms)))
 
 
-def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches, per_step):
+def spec_serve(model, cfg, ecfg, reqs, want, dev, per_round=None,
+               profile=False):
+    """``reqs`` through a speculative DecodeEngine (k = SPEC_TOKENS, draft
+    bits DRAFT_BITS) over ``ecfg``'s cache, on the packed ``model``: its
+    greedy tokens must equal ``want`` (the spec-off completions), rounds
+    must draft, and the draft must run the low-slice matmuls. Returns its
+    numbers: ``spec_stats``, tokens/s, wall seconds, median host ms of a
+    round where every slot decodes, the kernel launches of one such round
+    (checked against ``per_round``, {kernel: launches}, where given),
+    ``spec_off_tok_s`` (a spec-off engine over the same cache and
+    requests, whose tokens must also equal ``want``) and, with
+    ``profile``, a device profile of a round."""
+    t0 = time.perf_counter()
+    off = engine.DecodeEngine(model, cfg, ecfg, already_serve=True,
+                              device=dev)
+    off_out, off_wall, _step = timed_serve(off, reqs)
+    del off
+    for a, b in zip(want, off_out):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"spec-off rerun != spec-off tokens "
+                                 f"(request {a.request_id})")
+    eng = engine.DecodeEngine(model, cfg, dataclasses.replace(
+        ecfg, spec_tokens=SPEC_TOKENS, spec_draft_bits=DRAFT_BITS),
+        already_serve=True, device=dev)
+    drafts = backend.draft_matmul_call_count()
+    kernels.reset_launch_counts()
+    round_counts = {}
+    out, wall, round_ms = timed_serve(eng, reqs, round_counts)
+    for a, b in zip(want, out):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"spec tokens != spec-off tokens (request "
+                                 f"{a.request_id}): {a.new_tokens} vs "
+                                 f"{b.new_tokens}")
+    st = eng.spec_stats()
+    if st["rounds"] == 0 or backend.draft_matmul_call_count() == drafts:
+        raise AssertionError(f"no draft ran: {st}")
+    for name, n in (per_round or {}).items():
+        if round_counts.get(name) != n:
+            raise AssertionError(f"{round_counts.get(name)} {name} launches "
+                                 f"a round, not {n}")
+    new = sum(c.new_tokens.size for c in out)
+    res = dict(spec=st, tok_s=new / wall, spec_off_tok_s=new / off_wall,
+               wall_s=wall, round_ms=round_ms,
+               steps=eng.sched.step_count, launches=kernels.launch_counts(),
+               round_launches=round_counts)
+    if profile:
+        res["profile"] = profile_round(eng)
+    res["call_s"] = time.perf_counter() - t0
+    return res
+
+
+def profile_round(eng, rounds=1):
+    """Device view of speculative rounds at batch max_batch on a fresh
+    cache (torch profiler), as the engine runs them: k greedy draft steps
+    with the low-slice forward, each with its argmax read to the host,
+    then one verify step of k + 1 lanes and its argmaxes. Kernels, device
+    busy ms and the top kernels a round, and the host-clock ms of an
+    unprofiled round."""
+    from torch.profiler import ProfilerActivity, profile
+    b, c = eng.ecfg.max_batch, eng.spec_width
+    state = {"cache": fresh_cache(eng), "base": 64,
+             "cur": np.arange(1, b + 1, dtype=np.int32)}
+
+    def one_round():
+        cache, base, cur = state["cache"], state["base"], state["cur"]
+        lanes = [cur]
+        for j in range(c - 1):
+            lg, cache = lm.decode_step(eng.model, eng.draft_cfg, cache,
+                                       lanes[-1], np.full(b, base + j))
+            lanes.append(lg.argmax(-1).cpu().numpy().astype(np.int32))
+        pos = base + np.tile(np.arange(c), (b, 1))
+        lg, cache = lm.verify_step(eng.model, eng.cfg, cache,
+                                   np.stack(lanes, 1), pos)
+        state["cur"] = lg[:, -1].argmax(-1).cpu().numpy().astype(np.int32)
+        state["cache"], state["base"] = cache, base + c
+
+    one_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            one_round()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:4]
+    return {"host_ms_per_round": host_ms,
+            "kernels_per_round": sum(e.count for e in kern) / rounds,
+            "device_busy_ms_per_round": sum(e.device_time_total
+                                            for e in kern) / rounds / 1e3,
+            "top": [(e.key[:72], round(e.device_time_total / rounds / 1e3,
+                                       3)) for e in top]}
+
+
+def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches, per_step,
+                    spec_runs):
     """Full-width 4-bit KV serving, ring (continuous and lockstep) and
-    paged, with identical greedy tokens. Returns the per-engine numbers."""
+    paged, with identical greedy tokens; then speculative decoding over
+    both on a ring of 64 entries that the requests wrap (into
+    ``spec_runs``). Returns the per-engine numbers."""
     kw = dict(max_batch=4, cache_len=256, prefill_chunk=8, kv_bits=4)
     reqs = shared_prefix_requests(vocab, rng)
     stats = {}
@@ -1324,6 +1594,25 @@ def phase_kv4_serve(qat_cfg, vocab, dev, rng, launches, per_step):
         f"{stats['paged']}")
     for c in ring_out[:2] + ring_out[4:6]:
         log(f"[6] request {c.request_id}: {c.new_tokens[:8].tolist()}")
+    # Speculative decoding over the 4-bit ring and pool: a 64-entry ring
+    # that 16-64-token prompts and 16 new tokens wrap, so rounds near the
+    # end may not draft (the ring-wrap guard) and the pool rolls back
+    # rejected pages.
+    kw64 = dict(kw, cache_len=64)
+    sreqs = requests(vocab, rng, n=4, lo=16, hi=64, new=16)
+    base = engine.DecodeEngine(ring.model, ring.cfg,
+                               engine.EngineConfig(**kw64),
+                               already_serve=True, device=dev)
+    base_out, _wall, _step = timed_serve(base, sreqs)
+    del base
+    for tag, layout, kern in (("h2o_kv4_ring", "ring", B4),
+                              ("h2o_kv4_paged", "paged", B5)):
+        spec_runs[tag] = spec_serve(ring.model, ring.cfg, engine.EngineConfig(
+            kv_layout=layout, page_size=16, **kw64), sreqs, base_out, dev)
+        if spec_runs[tag]["launches"][kern] == 0:
+            raise AssertionError(f"spec {tag} ran no {kern}")
+        log(f"[6] spec {tag} (cache_len 64) tokens == spec-off: "
+            f"{spec_runs[tag]}")
     return stats
 
 
@@ -1680,7 +1969,7 @@ def phase_launcher():
 
 
 # ------------------------------------------------------------ MoE serve ----
-def phase_moe_serve(dev, rng, launches, per_step):
+def phase_moe_serve(dev, rng, launches, per_step, spec_runs):
     """Full-width, 28-layer deepseek-moe-16b from random QAT weights of the
     seed, packed (B7) and served through the DecodeEngine with the fp
     ring (B6 for every routed-expert projection after B8 over [E, T, K];
@@ -1797,25 +2086,32 @@ def phase_moe_serve(dev, rng, launches, per_step):
             raise AssertionError(f"MoE kv4 paged != ring (request "
                                  f"{a.request_id})")
     log("[12] kv4 ring == paged")
+    # Speculative decoding on the fp ring: the draft runs B6 over the
+    # [K2|K1] slice of every expert bank (k draft steps and the verify a
+    # round, one launch a bank each).
+    spec_runs["deepseek_moe_fp_ring"] = spec_serve(
+        eng.model, eng.cfg, ecfg, reqs[:4], out[:4], dev,
+        {B6: (SPEC_TOKENS + 1) * banks}, profile=True)
+    log(f"[12] spec fp ring tokens == spec-off, {SPEC_TOKENS * banks} B6 "
+        f"draft launches a round: {spec_runs['deepseek_moe_fp_ring']}")
     del eng
     torch.cuda.empty_cache()
     return stats
 
 
-def check_moe_against_cpu(ecfg, dev):
+def check_layers_against_cpu(arch, seed, ecfg, dev):
     """The kernels on the card against the plain versions on the CPU, fp32,
-    teacher-forced (as ``check_against_cpu``) on full-width
-    deepseek-moe-16b cut to its first two layers (the dense layer and one
-    MoE layer): every serve linear and expert bank, the router and the
-    readout, on a prefill chunk and a decode step; each output on the
-    CPU's input and each input as the card's own ops made it (norms,
-    attention, routing, dispatch, SwiGLU, combine) within relative L2
-    1e-5."""
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=2,
+    teacher-forced (as ``check_against_cpu``) on full-width ``arch`` cut
+    to its first two layers (deepseek-moe-16b: the dense layer and one
+    MoE layer; starcoder2-7b: biases, gelu, Hk = 4, G = 9): every serve
+    linear and expert bank, the router and the readout, on a prefill
+    chunk and a decode step; each output on the CPU's input and each
+    input as the card's own ops made it (norms, attention, routing,
+    dispatch, the MLP's activation, combine) within relative L2 1e-5."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32").with_quant_mode("qat")
-    eng = engine.DecodeEngine(lm.init_params(cfg, seed=SEED + 6,
-                                             device=dev), cfg, ecfg,
-                              device=dev)
+    eng = engine.DecodeEngine(lm.init_params(cfg, seed=seed, device=dev),
+                              cfg, ecfg, device=dev)
     host = copy.deepcopy(eng.model).to("cpu")
     tape_cpu = LinearTape(host)
     logits_cpu = _prefill_then_decode(host, eng.cfg, "cpu")
@@ -1847,6 +2143,101 @@ def check_moe_against_cpu(ecfg, dev):
     del eng, host
     torch.cuda.empty_cache()
     return worst
+
+
+# ------------------------------------------------------- dense configs ----
+
+
+def phase_dense_configs(dev, rng, spec_runs):
+    """The other dense configs at full width from random QAT weights of
+    the seed: starcoder2-7b at its depth (32 layers; biases, non-gated
+    gelu, Hk = 4, G = 9), deepseek-67b and mistral-large-123b at depth 2
+    (their fp32 trees, ~268 and ~492 GB, do not fit the card). Each is
+    packed (one B7 launch a linear: 6 a starcoder2-7b layer, whose MLP
+    has no gate, 7 for the others) and served with the fp ring through
+    B1, and lockstep equals continuous; starcoder2-7b also speculatively
+    (tokens equal to spec-off, into ``spec_runs``) and over the 4-bit
+    ring (B4) and page pool (B5), whose tokens must agree. Returns the
+    numbers."""
+    stats = {}
+    for arch, depth in DENSE_CONFIGS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        cfg = cfg.with_quant_mode("qat")
+        ecfg = engine.EngineConfig(max_batch=4, cache_len=256,
+                                   prefill_chunk=8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=SEED + 7, device=dev)
+        torch.cuda.synchronize()
+        st = dict(layers=cfg.num_layers, init_s=time.perf_counter() - t0,
+                  qat_gib=sum(t.numel() * t.element_size() for t in
+                              params.state_dict().values()) / 2 ** 30)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = engine.DecodeEngine(params, cfg, ecfg)
+        torch.cuda.synchronize()
+        st["pack_s"] = time.perf_counter() - t0
+        st["b7_launches"] = kernels.launch_counts()[B7]
+        linears = packed_leaves(eng.model)
+        if st["b7_launches"] != linears:
+            raise AssertionError(f"{arch}: {st['b7_launches']} B7 launches "
+                                 f"at load for {linears} linears")
+        del params
+        torch.cuda.empty_cache()
+        st["peak_gib_init_and_pack"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        st["packed_bytes"] = engine.packed_model_bytes(eng.model)
+        reqs = requests(cfg.vocab_size, rng, n=4, lo=16, hi=48, new=12)
+        kernels.reset_launch_counts()
+        out, wall, step = timed_serve(eng, reqs)
+        counts = kernels.launch_counts()
+        if counts[B1] == 0 or counts[B4] or counts[B5]:
+            raise AssertionError(f"{arch} fp ring launches {counts}")
+        for c in out:
+            if c.new_tokens.size != 12 or not (
+                    (c.new_tokens >= 0)
+                    & (c.new_tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"{arch}: bad completion {c.new_tokens}")
+        new = sum(c.new_tokens.size for c in out)
+        st.update(tok_s=new / wall, wall_s=wall, decode_step_ms=step,
+                  fresh_cache_step_ms=decode_step_ms(eng))
+        check_lockstep_equals_continuous(eng, eng.cfg, ecfg, cfg.vocab_size,
+                                         rng, 16, 6)
+        log(f"[14] {arch} ({cfg.num_layers} layers): lockstep == "
+            f"continuous; {st}; tokens {[c.new_tokens[:6].tolist() for c in out[:2]]}")
+        if arch == DENSE_ARCH:
+            spec_runs["starcoder2_fp_ring"] = spec_serve(
+                eng.model, eng.cfg, ecfg, reqs, out, dev,
+                {B1: (SPEC_TOKENS + 1) * linears}, profile=True)
+            log(f"[14] {arch} spec tokens == spec-off: "
+                f"{spec_runs['starcoder2_fp_ring']}")
+            runs = {}
+            for layout, kern in (("ring", B4), ("paged", B5)):
+                e = engine.DecodeEngine(eng.model, eng.cfg, dataclasses.replace(
+                    ecfg, kv_bits=4, kv_layout=layout, page_size=16),
+                    already_serve=True, device=dev)
+                kernels.reset_launch_counts()
+                runs[layout], wall, step = timed_serve(e, reqs)
+                if kernels.launch_counts()[kern] == 0:
+                    raise AssertionError(f"{arch} kv4 {layout} ran no {kern}")
+                st[f"kv4_{layout}"] = dict(tok_s=new / wall,
+                                           decode_step_ms=step)
+                del e
+            for a, b in zip(runs["ring"], runs["paged"]):
+                if not np.array_equal(a.tokens, b.tokens):
+                    raise AssertionError(f"{arch} kv4 paged != ring "
+                                         f"(request {a.request_id})")
+            log(f"[14] {arch} kv4 ring == paged: {st['kv4_ring']}, "
+                f"{st['kv4_paged']}")
+        stats[arch] = st
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
 
 
 def main() -> int:
@@ -1906,12 +2297,50 @@ def main() -> int:
         f"comparisons")
     log(f"[2] rows bitwise equal across M in {{1, 4, 5, 16, 17, 32, 33}}: "
         f"{check_rows_across_batch(cfg, gen, dev)} comparisons")
-    results[B6] = phase_grouped_segment(GroupedOperands(
-        get_config(MOE_ARCH), mixed, 4, gen, dev))
+    # The speculative widths: B1 at M = 16 (the verify step, batch 4 x
+    # k + 1 lanes) and the draft launches over the [K2|K1] slice.
+    verify_sets = [LayerOperands(cfg, mixed, 4 * (SPEC_TOKENS + 1), gen,
+                                 dev) for _ in range(4)]
+    err = check_segment_gemm(B1, verify_sets[:1])
+    res = time_segment_gemm(B1, verify_sets)
+    results[B1].update({f"verify_{k}": v for k, v in res.items()},
+                       verify_max_abs_err=err)
+    log(f"[2] {B1} at M={4 * (SPEC_TOKENS + 1)} (verify) within the fp32 "
+        f"bound (max |err| {err:.3e}); one layer, 7 launches: {res}")
+    del verify_sets
+    draft_sets = [DraftView(LayerOperands(cfg, mixed, 4, gen, dev))
+                  for _ in range(4)]
+    err = check_segment_gemm(B1, draft_sets[:1])
+    n = check_draft_at_offset(B1, draft_sets[0].linears)
+    res = time_segment_gemm(B1, draft_sets)
+    results[B1].update({f"draft_{k}": v for k, v in res.items()},
+                       draft_max_abs_err=err)
+    log(f"[2] {B1} draft launches ([K2|K1], bits <= {DRAFT_BITS}) within "
+        f"the fp32 bound (max |err| {err:.3e}), {n} bitwise the launch at "
+        f"k_off 0; one layer at M=4, 7 launches (full: ms "
+        f"{results[B1]['ms']:.4f}, device {results[B1]['device_ms']:.4f})"
+        f": {res}")
+    del draft_sets
+    torch.cuda.empty_cache()
+    moe_ops = GroupedOperands(get_config(MOE_ARCH), mixed, 4, gen, dev)
+    results[B6] = phase_grouped_segment(moe_ops)
     log(f"[2] {B6} within the fp32 bound, every expert bitwise the dense "
         f"launch, rows= bitwise on live rows and past rows untouched; one "
         f"{MOE_ARCH} layer (E=64, T=4, 3 launches): {results[B6]}")
+    draft6 = DraftView(moe_ops)
+    res = phase_grouped_segment(draft6)
+    n = check_draft_at_offset(B6, draft6.projs)
+    results[B6].update({f"draft_{k}": v for k, v in res.items()
+                        if k not in ("live_experts", "live_rows")})
+    log(f"[2] {B6} draft launches: the same checks, {n} bitwise the launch "
+        f"at k_off 0: {res}")
+    del moe_ops, draft6
     torch.cuda.empty_cache()
+    results[B1]["dense_configs"] = check_dense_shapes(mixed, gen, dev)
+    log(f"[2] {B1} at the other dense configs' full-width layers: within "
+        f"the fp32 bound at M=4 and M={4 * (SPEC_TOKENS + 1)}, draft "
+        f"launches within it and bitwise the launch at k_off 0, {B7} "
+        f"bitwise its plain version: {results[B1]['dense_configs']}")
     clock.lap(2)
 
     # -------------------------------------------------------- phase 3 ----
@@ -2008,7 +2437,39 @@ def main() -> int:
     if per_step[B3] != 7 * cfg.num_layers:
         raise AssertionError(f"{per_step[B3]} {B3} launches a two-pass "
                              f"decode step, not one a linear")
-    del eng, two
+    del two
+    # The fp page pool: no kernel of its own (the gathered pages feed the
+    # fp ring's attention), tokens equal to the fp ring's.
+    paged_ecfg = dataclasses.replace(ecfg, kv_layout="paged", page_size=16)
+    paged = engine.DecodeEngine(eng.model, qat_cfg, paged_ecfg,
+                                already_serve=True, device=dev)
+    kernels.reset_launch_counts()
+    paged_out, wall, step = timed_serve(paged, reqs)
+    counts = kernels.launch_counts()
+    if counts[B1] == 0 or counts[B4] or counts[B5]:
+        raise AssertionError(f"fp paged path launches {counts}")
+    for a, b in zip(second, paged_out):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"fp paged != fp ring (request "
+                                 f"{a.request_id})")
+    fp_paged = dict(tok_s=new / wall, decode_step_ms=step,
+                    steps=paged.sched.step_count,
+                    pool=paged.paged_kv_stats(),
+                    fresh_cache_step_ms=decode_step_ms(paged),
+                    profile=profile_decode(paged))
+    log(f"[4] fp paged DecodeEngine == fp ring: {fp_paged}")
+    del paged
+    # Speculative decoding (k = 3, draft bits 2) over both fp caches on
+    # the first wave of requests: tokens equal to spec-off; one round
+    # launches B1 once a linear a step, k draft steps and the verify.
+    spec_runs = {}
+    for tag, e_cfg in (("h2o_fp_ring", ecfg), ("h2o_fp_paged", paged_ecfg)):
+        spec_runs[tag] = spec_serve(
+            eng.model, qat_cfg, e_cfg, reqs[:4], second[:4], dev,
+            {B1: (SPEC_TOKENS + 1) * 7 * cfg.num_layers},
+            profile=tag == "h2o_fp_ring")
+        log(f"[4] spec {tag} tokens == spec-off: {spec_runs[tag]}")
+    del eng
     torch.cuda.empty_cache()
     log(f"[4] card kernels vs CPU plain versions (fp32, relative L2): "
         f"{check_against_cpu(qat_cfg, ecfg, dev)}")
@@ -2042,8 +2503,9 @@ def main() -> int:
     clock.lap(5)
 
     # -------------------------------------------------------- phase 6 ----
-    kv4 = phase_kv4_serve(qat_cfg, cfg.vocab_size, dev, rng, launches,
-                          per_step)
+    kv4 = phase_kv4_serve(dataclasses.replace(qat_cfg, num_layers=KV4_LAYERS),
+                          cfg.vocab_size, dev, rng, launches, per_step,
+                          spec_runs)
     torch.cuda.empty_cache()
 
     clock.lap(6)
@@ -2089,22 +2551,31 @@ def main() -> int:
     clock.lap(11)
 
     # ------------------------------------------------------- phase 12 ----
-    moe = phase_moe_serve(dev, rng, launches, per_step)
+    moe = phase_moe_serve(dev, rng, launches, per_step, spec_runs)
     clock.lap(12)
 
     # ------------------------------------------------------- phase 13 ----
-    log(f"[13] {MOE_ARCH} layers 0-1, card vs CPU (fp32, relative L2): "
-        f"{check_moe_against_cpu(ecfg, dev)}")
+    for arch, seed in ((MOE_ARCH, SEED + 6), (DENSE_ARCH, SEED + 8)):
+        log(f"[13] {arch} layers 0-1, card vs CPU (fp32, relative L2): "
+            f"{check_layers_against_cpu(arch, seed, ecfg, dev)}")
+        gc.collect()
+        torch.cuda.empty_cache()
     clock.lap(13)
 
     # ------------------------------------------------------- phase 14 ----
+    dense = phase_dense_configs(dev, rng, spec_runs)
+    clock.lap(14)
+
+    # ------------------------------------------------------- phase 15 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; launches: "
                 "the h2o-danube-1.8b load, moe_load_launches: the "
                 "deepseek-moe-16b load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
-                "launches, one a linear; prefill_*: M=32)",
+                "launches, one a linear; prefill_*: M=32; verify_*: M=16, "
+                "the verify step of k=3 at batch 4; draft_*: the draft "
+                "launches over the [K2|K1] slice at M=4)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
                 "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
@@ -2113,13 +2584,15 @@ def main() -> int:
             B6: "one deepseek-moe-16b layer of grouped expert GEMMs at "
                 "E=64, T=4, every row live (3 launches, one a projection; "
                 "rows_*: the same with the live rows of a top-6 route of "
-                "4 tokens; launches: the fp ring MoE serve run)",
+                "4 tokens; launches: the fp ring MoE serve run; draft_*: "
+                "the same over the [K2|K1] slice)",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring); shapes: T=4096 with window "
-                "1024, and deepseek-moe-16b (Hk=16, G=1, D=128) at T=256",
+                "1024, deepseek-moe-16b (Hk=16, G=1, D=128) and "
+                "starcoder2-7b (Hk=4, G=9, D=128) at T=256",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "16 pages of 16 a slot; shapes: 256 pages with window "
-                "1024, and deepseek-moe-16b at 16 pages",
+                "1024, deepseek-moe-16b and starcoder2-7b at 16 pages",
             B8: "one h2o-danube-1.8b layer of Phase-II fake_quant: 7 "
                 "weights (fp32, group scale) + 7 activations (bf16, "
                 "8 x 128 tokens)",
@@ -2152,6 +2625,8 @@ def main() -> int:
                     "moe_layer_launches"):
             if key in r:
                 rows[-1][key] = r[key]
+        rows[-1].update((k, v) for k, v in r.items()
+                        if k.startswith(("verify_", "draft_")))
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
@@ -2175,6 +2650,11 @@ def main() -> int:
         pack_s=moe["pack_s"], b7_launches=moe["pack_launches"],
         peak_gib_init_and_pack=moe["peak_gib_init_and_pack"],
         **moe["load"])}}))
+    print(json.dumps({"spec_serve": {
+        tag: {n: x for n, x in v.items() if n != "launches"}
+        for tag, v in spec_runs.items()}}))
+    print(json.dumps({"fp_paged_serve": fp_paged}))
+    print(json.dumps({"dense_configs": dense}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(card)
     print(json.dumps({"ok": True, "device": {

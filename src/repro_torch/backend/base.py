@@ -28,6 +28,18 @@ from repro_torch.kernels import quant_pack as qp
 
 ACT_SCALE_EPS = quant.ACT_SCALE_EPS
 
+# Serve-mode packed matmuls run in draft mode (``qcfg.draft_slice_bits``
+# set) in this process: the check that the speculative draft took the
+# low-slice path. Counted per driver call.
+_DRAFT_MATMUL_CALLS = 0
+
+
+def draft_matmul_call_count() -> int:
+    """How many packed matmuls ran in draft mode, the high-bit carriers
+    skipped per ``QuantConfig.draft_slice_bits``."""
+    return _DRAFT_MATMUL_CALLS
+
+
 def act_scale(x: torch.Tensor, act_scale_mode: str,
               eps: float = ACT_SCALE_EPS) -> torch.Tensor:
     """Dynamic activation scale: ``per_token`` reduces over the last dim
@@ -47,6 +59,26 @@ def _segments(bufs: Dict, g: int, expert: bool):
     if expert:
         bufs = {name: t[0] for name, t in bufs.items()}
     return list(pack_lib.iter_packed_segments(bufs, g))
+
+
+def draft_segments(segs, bits, bits_of=lambda seg: seg[1]):
+    """The segments a draft reads: those whose precision (``bits_of``; a
+    ``pack_lib.iter_packed_segments`` tuple by default) is at most
+    ``bits``. A layer with no such segment keeps its full mix (it has no
+    cheap slice)."""
+    return [s for s in segs if bits_of(s) <= bits] or segs
+
+
+def _draft_slice(segs, qcfg):
+    """The segments a matmul reads: :func:`draft_segments` of
+    ``qcfg.draft_slice_bits`` in draft mode (counted), else all of
+    them."""
+    bits = qcfg.draft_slice_bits
+    if bits is None:
+        return segs
+    global _DRAFT_MATMUL_CALLS
+    _DRAFT_MATMUL_CALLS += 1
+    return draft_segments(segs, bits)
 
 
 def _sorted_pbits(serve_params: Dict, segs, device) -> torch.Tensor:
@@ -72,11 +104,17 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
     the segment kernels' prologue (B1, B2). The two-pass form runs one
     whole-K ``fake_quant`` (B8), then the plain segment GEMM (B3), which
     also serves ``quantize_activations=False`` directly; both forms give
-    bitwise the same output."""
+    bitwise the same output.
+
+    Draft mode (``qcfg.draft_slice_bits``, self-speculative decoding)
+    drops the segments above the bound before the self-scale gate, so a
+    filtered segment that no longer spans K takes the driver scale; the
+    scale and the two-pass ``fake_quant`` still cover the full row."""
     bufs = {name: serve_params[name] for name, _p, _v in pack_lib.SEGMENTS}
     k = sum(bufs[name].shape[0] * v for name, _p, v in pack_lib.SEGMENTS)
     g = qcfg.eff_group_size(k)
-    segs = _segments(bufs, g, expert=False)
+    every = _segments(bufs, g, expert=False)
+    segs = _draft_slice(every, qcfg)
     x = x.index_select(-1, serve_params["perm"])
     fused = self_scale = False
     sx = None
@@ -87,7 +125,7 @@ def packed_matmul(serve_params: Dict, x: torch.Tensor, qcfg) -> torch.Tensor:
         if not self_scale:
             sx = act_scale(x, qcfg.act_scale_mode)
         if not fused:
-            x = fake_quant(x, _sorted_pbits(serve_params, segs, x.device),
+            x = fake_quant(x, _sorted_pbits(serve_params, every, x.device),
                            sx, g)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
@@ -126,12 +164,13 @@ def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor, qcfg,
     x's device): the live rows of each expert (0..rows[e]-1, the layout
     of the MoE dispatch buffer); B6 leaves the others out, and they come
     back as the bias alone. None: every row is live, the reference's
-    semantics."""
+    semantics. Draft mode drops segments as :func:`packed_matmul` does."""
     bufs = {name: serve_params[name] for name, _p, _v in pack_lib.SEGMENTS}
     e = x.shape[0]
     k = sum(bufs[name].shape[1] * v for name, _p, v in pack_lib.SEGMENTS)
     g = qcfg.eff_group_size(k)
-    segs = _segments(bufs, g, expert=True)
+    every = _segments(bufs, g, expert=True)
+    segs = _draft_slice(every, qcfg)
     perm = serve_params["perm"].long()                      # [E, K]
     x = torch.gather(x, -1, perm[:, None, :].expand(x.shape))
     if qcfg.quantize_activations:
@@ -143,8 +182,8 @@ def packed_matmul_grouped(serve_params: Dict, x: torch.Tensor, qcfg,
             # per_tensor: each expert's slice, as the reference's vmap
             # oracle reduces it.
             sx = quant.abs_max_scale(x, dim=(1, 2))
-        x = fake_quant(x, _sorted_pbits(serve_params, segs, x.device), sx,
-                       g)
+        x = fake_quant(x, _sorted_pbits(serve_params, every, x.device),
+                       sx, g)
     wscale = serve_params.get("wscale")                     # [E, NG]
     n = max(bufs[name].shape[2] for name, _p, _v in pack_lib.SEGMENTS)
     y = torch.zeros((e, x.shape[1], n), dtype=torch.float32,

@@ -15,7 +15,7 @@ imports jax.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -45,6 +45,11 @@ class QuantConfig:
     # selects the two-pass form (whole-K fake-quant, then plain segment
     # GEMMs), which the port carries only as a CPU reference so far.
     fuse_act_quant: bool = True
+    # Self-speculative draft forward: None runs the full packed mix; an
+    # allowed precision makes every serve-mode packed matmul read only the
+    # segments at or below it (the [K2|K1] slice of the same carriers at
+    # 2). Verification always runs the full mix.
+    draft_slice_bits: Optional[int] = None
 
     # Phase-I hyperparameters: the precision every group starts from and
     # the weight lambda of the bit-count regularizer.
@@ -67,6 +72,10 @@ class QuantConfig:
             raise ValueError(f"mix {self.mix} must sum to 1")
         if self.group_size % 2:
             raise ValueError(f"group_size {self.group_size} must be even")
+        if self.draft_slice_bits is not None \
+                and self.draft_slice_bits not in ALLOWED_BITS:
+            raise ValueError(f"draft_slice_bits {self.draft_slice_bits} "
+                             f"not in {ALLOWED_BITS}")
 
     def with_mode(self, mode: str) -> "QuantConfig":
         return dataclasses.replace(self, mode=mode)

@@ -36,6 +36,7 @@ from torch import nn
 from repro_torch.backend import base as backend
 from . import noise as noise_lib
 from . import quant
+from .numerics import row_block_matmul
 from .qtypes import QuantConfig
 
 
@@ -196,6 +197,12 @@ def linear_apply(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig,
         if qcfg.mode == "noise":
             return _linear_noise(leaf, x, qcfg, noise)
         return _linear_qat(leaf, x, qcfg)
+    if qcfg.mode == "serve":
+        # A skip layer in serving (readout, router): a row's result must
+        # not depend on the number of rows in the step.
+        y = row_block_matmul(x, leaf["w"]).to(x.dtype)
+        b = leaf.get("b")
+        return y if b is None else y + b.to(y.dtype)
     return _matmul(x, leaf["w"], leaf.get("b"))
 
 

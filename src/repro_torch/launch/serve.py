@@ -71,7 +71,7 @@ def main(argv=None):
                     choices=["ring", "paged"],
                     help="KV cache layout: per-slot ring buffers, or the "
                          "page pool with copy-on-write prefix sharing "
-                         "(kernel B5; continuous engine, --kv-bits 4)")
+                         "(continuous engine; kernel B5 with --kv-bits 4)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page (paged layout; must divide "
                          "the effective cache length)")

@@ -8,7 +8,11 @@ dispatch:
 * packed 4-bit ring (``k_codes``...): ``serve/kv_quant.py`` writes, kernel
   B4 attends (``_qkv_attn_decode``);
 * packed 4-bit page pool (``page_table``): ``serve/kv_pool.py`` writes,
-  kernel B5 attends (``_paged_attn_decode``).
+  kernel B5 attends (``_paged_attn_decode``);
+* fp page pool (``page_table`` and ``k``): ``serve/kv_pool.py`` writes,
+  the pages gathered into ring order feed the fp ring's plain attention
+  (the reference runs a gather oracle here too, no kernel), so its rows
+  equal the fp ring's bitwise.
 
 Caches are updated in place: each live lane (pos >= 0) writes its K/V at
 ``pos % ring_len`` (or the page the table maps there); masked lanes
@@ -195,6 +199,12 @@ def attn_decode(attn: Attention, x: torch.Tensor, cache: Dict,
     cos, sin = rope
     q = apply_rope_tables(q, cos, sin)
     k_new = apply_rope_tables(k_new, cos, sin)
+    if "page_table" in cache and "k" in cache:      # fp page pool
+        kv_pool.update_paged_cache(cache, k_new, v_new, pos, write=write)
+        kk, vv, kp = kv_pool.gather_paged(cache, q.dtype)
+        return _fp_attn(attn, q, kk, vv, kp, pos, num_heads=num_heads,
+                        num_kv_heads=num_kv_heads, head_dim=head_dim,
+                        qcfg=qcfg, window=window)
     if "page_table" in cache:              # packed 4-bit page pool
         return _paged_attn_decode(attn, x, cache, pos, k_new, v_new, q,
                                   num_heads=num_heads,
@@ -211,10 +221,22 @@ def attn_decode(attn: Attention, x: torch.Tensor, cache: Dict,
     cache["k"][bi, slot] = k_new[bi, si].to(cache["k"].dtype)
     cache["v"][bi, slot] = v_new[bi, si].to(cache["v"].dtype)
     cache["pos"][bi, slot] = pos[bi, si]
-    g = num_heads // num_kv_heads
-    qr = q.reshape(b, s, num_kv_heads, g, head_dim)
-    mask = causal_mask(pos, cache["pos"], window)
-    o = sdpa(qr, cache["k"].to(qr.dtype), cache["v"].to(qr.dtype), mask)
+    return _fp_attn(attn, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                    cache["pos"], pos, num_heads=num_heads,
+                    num_kv_heads=num_kv_heads, head_dim=head_dim, qcfg=qcfg,
+                    window=window)
+
+
+def _fp_attn(attn: Attention, q, k, v, k_pos, pos, *, num_heads: int,
+             num_kv_heads: int, head_dim: int, qcfg: QuantConfig,
+             window: Optional[int]) -> torch.Tensor:
+    """fp tail of :func:`attn_decode`: q [B, S, H, D] against a ring view
+    of the cache (k/v [B, T, Hk, D] in q's dtype, ``k_pos`` [B, T]) under
+    the causal-by-position mask, then the output projection."""
+    b, s = q.shape[:2]
+    qr = q.reshape(b, s, num_kv_heads, num_heads // num_kv_heads, head_dim)
+    mask = causal_mask(pos, k_pos, window)
+    o = sdpa(qr, k, v, mask)
     return attn.wo(o.reshape(b, s, num_heads * head_dim), qcfg)
 
 

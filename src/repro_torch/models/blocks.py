@@ -59,8 +59,8 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
                      page_table: Optional[torch.Tensor] = None) -> Dict:
     """KV cache of one layer. The ring length is ``cache_len`` clipped to
     the window. ``kv_bits=None`` keeps the fp ring in ``dtype``; 4 the
-    packed 4-bit ring (``serve/kv_quant.py``). ``kv_layout="paged"`` (4-bit
-    only) draws ``page_size``-token pages from a pool of ``num_pages``
+    packed 4-bit ring (``serve/kv_quant.py``). ``kv_layout="paged"`` (fp or
+    4-bit) draws ``page_size``-token pages from a pool of ``num_pages``
     (null page 0 included; None: ``batch * pages_per_seq + 1``) through a
     page table whose length is the ring length in pages, so ``page_size``
     must divide it; ``page_table`` shares one table across layers."""
@@ -72,10 +72,6 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
         raise ValueError(f"unknown kv_layout {kv_layout!r} (expected "
                          f"'ring' or 'paged')")
     if kv_layout == "paged":
-        if kv_bits is None:
-            raise NotImplementedError(
-                "the paged layout with an fp KV cache (kv_bits=None) is a "
-                "later port slice; use kv_bits=4")
         if clen % page_size:
             raise ValueError(
                 f"page_size {page_size} must divide the effective ring "
@@ -85,7 +81,7 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
         npages = num_pages if num_pages is not None else batch * pps + 1
         return {"kv": kv_pool.init_paged_cache(
             npages, page_size, pps, batch, cfg.num_kv_heads, cfg.hd,
-            device=device, table=page_table)}
+            device=device, kv_bits=kv_bits, dtype=dtype, table=page_table)}
     if kv_bits == 4:
         return {"kv": kv_quant.init_qkv_cache(batch, clen, cfg.num_kv_heads,
                                               cfg.hd, device=device)}

@@ -1,11 +1,12 @@
 """Top-level language model: init, the full-sequence forward and the
-training loss, the decode cache, decode and chunked-prefill steps.
-Counterpart of ``repro.models.lm``.
+training loss, the decode cache, decode, chunked-prefill and speculative
+verify steps, and the serving capabilities of a family. Counterpart of
+``repro.models.lm``.
 
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
 ``blocks`` list, where the JAX package stacks layers ``[L, ...]``). Steps
-update the KV cache (fp ring, 4-bit ring or 4-bit page pool) in place and
+update the KV cache (fp or 4-bit, ring or page pool) in place and
 return it with the logits. The training forward recomputes each block in
 its backward (``torch.utils.checkpoint``) unless ``cfg.remat == "none"``,
 as the reference remats every layer; the Phase-I draws are keyed by the
@@ -13,6 +14,7 @@ linear's path, so the recomputation sees the same noise.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -22,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import smol
+from repro_torch.core.numerics import row_block_matmul
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve import kv_quant
 from . import attention, blocks
@@ -101,7 +104,8 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     layer. ``kv_bits=None`` keeps fp rings in ``dtype``; 4 selects the
     packed 4-bit family (``serve/kv_quant.py``, attention through kernel
     B4). ``kv_layout="paged"`` swaps the per-slot rings for a page pool
-    per layer (``serve/kv_pool.py``, kernel B5): ``num_pages`` pages of
+    per layer (``serve/kv_pool.py``; kernel B5 at 4 bits, the fp ring's
+    plain attention over the gathered pages at fp): ``num_pages`` pages of
     ``page_size`` tokens shared by the slots through one page table that
     every layer reads. The paged layout needs the engine's ``PagePool``
     to drive allocation."""
@@ -119,8 +123,12 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
 
 
 def _readout(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
-    """h [..., D] -> fp32 logits [..., V]."""
+    """h [..., D] -> fp32 logits [..., V]. Serving takes the product in
+    fixed row blocks (``core.numerics.row_block_matmul``), so a row's
+    logits do not depend on how many rows the step reads out."""
     if cfg.tie_embeddings:
+        if cfg.quant.mode == "serve":
+            return row_block_matmul(h, model.embed.table.float().t())
         return embed_logits(model.embed.table, h)
     return smol.linear_apply(model.lm_head.leaf(), h.float(), cfg.quant)
 
@@ -254,6 +262,52 @@ def prefill_step(model: LM, cfg, cache: Dict, tokens, pos, last_idx):
     h = x[torch.arange(x.shape[0], device=dev), last]
     h = model.final_norm(h, cfg.norm_eps)
     return _readout(model, cfg, h), cache
+
+
+def verify_step(model: LM, cfg, cache: Dict, tokens, pos):
+    """Speculative verify: the cache writes of :func:`prefill_step`
+    (tokens [B, C], pos [B, C], -1 = padding lane), but fp32 logits of
+    every lane, [B, C, V]: lane j scores the token after lane j's input.
+    Prefill-phase slots riding the same call read their last real lane."""
+    dev = model.device
+    dt = getattr(torch, cfg.dtype)
+    tok = torch.as_tensor(_host_array(tokens), dtype=torch.int64,
+                          device=dev)
+    x = embed_lookup(model.embed.table, tok, dt)
+    x = _decode_core(model, cfg, cache, x, _host_array(pos))
+    x = model.final_norm(x, cfg.norm_eps)
+    return _readout(model, cfg, x), cache
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeCaps:
+    """Serving capabilities of a family (``DecodeEngine`` reads them).
+    ``chunkable``: steps may feed C > 1 tokens a slot. ``spec_capable``:
+    speculative rounds are supported. ``state``: "kv" (attention only),
+    "ssm" or "hybrid"; recurrent state needs the snapshot/recommit
+    flavour of speculation, which arrives with the SSM port. ``note``: why
+    a capability is off, for the engine's error."""
+    family: str
+    chunkable: bool = True
+    spec_capable: bool = True
+    state: str = "kv"
+    note: str = ""
+
+
+def serve_capabilities(cfg) -> ServeCaps:
+    """The capability descriptor of an arch config, as the reference
+    derives it from the layer plan."""
+    kinds = [kind for kind, _ in cfg.layer_plan()]
+    has_ssm = any("mamba" in k or k.startswith("hybrid") for k in kinds)
+    has_attn = bool(cfg.encoder_layers) or any(
+        "attn" in k or k in ("dec", "enc") or k.startswith("hybrid")
+        for k in kinds)
+    state = "kv" if not has_ssm else ("hybrid" if has_attn else "ssm")
+    if state == "kv":
+        return ServeCaps(family=cfg.family)
+    return ServeCaps(family=cfg.family, spec_capable=False, state=state,
+                     note="speculative decoding of recurrent state "
+                          "(snapshot/recommit) is not ported yet")
 
 
 def reset_cache_slots(cache: Dict, slots) -> Dict:

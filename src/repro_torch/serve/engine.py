@@ -12,11 +12,14 @@
 Both pack the trained model at construction (``convert_tree`` — the
 ``quantize_pack`` kernel on the card) unless handed a packed one. The KV
 cache is an fp ring, a packed 4-bit ring (``kv_bits=4``, kernel B4) or,
-for the ``DecodeEngine``, a packed 4-bit page pool (``kv_layout="paged"``,
-kernel B5) whose host ``PagePool`` shares prompt-prefix pages between
-requests with copy-on-write. Both serve the dense and the MoE decoders
-(expert banks through the grouped segment GEMM, kernel B6). Speculative
-decoding is a later port slice and raises.
+for the ``DecodeEngine``, a page pool (``kv_layout="paged"``; 4-bit
+through kernel B5, or fp) whose host ``PagePool`` shares prompt-prefix
+pages between requests with copy-on-write. Both serve the dense and the
+MoE decoders (expert banks through the grouped segment GEMM, kernel B6).
+The ``DecodeEngine`` also decodes self-speculatively (``spec_tokens``,
+DESIGN.md §14): k drafts from the low-bit [K2|K1] slice of the same
+packed carriers, verified in one full-mix step of k + 1 lanes; greedy
+tokens equal the spec-off tokens.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 
 from . import kv_pool
-from .scheduler import Completion, Request, Scheduler
+from .scheduler import DECODE, Completion, Request, Scheduler
 
 
 @dataclasses.dataclass
@@ -50,7 +53,7 @@ class EngineConfig:
     # 4-bit codes + fp16 scales (~4x fewer payload bytes than fp16).
     kv_bits: Optional[int] = None
     # "ring" reserves max_batch x cache_len entries up front; "paged"
-    # (DecodeEngine, kv_bits=4) draws ``page_size``-token pages from a
+    # (DecodeEngine, fp or 4-bit) draws ``page_size``-token pages from a
     # pool on demand, sharing prompt prefixes. ``page_size`` must divide
     # the effective ring length (cache_len clipped to the window).
     kv_layout: str = "ring"
@@ -59,23 +62,24 @@ class EngineConfig:
     # residency (max_batch * pages_per_seq + 1). Smaller pools gate
     # admission on free pages (head-of-line, FIFO kept).
     num_pages: Optional[int] = None
-    # Speculative decoding: a later port slice (raises unless 0).
+    # Self-speculative decoding (DecodeEngine only). 0 disables; k > 0
+    # drafts k tokens a round with the low-slice forward (the segments at
+    # or below ``spec_draft_bits`` of the same packed carriers), then
+    # verifies them in one full-mix step of k + 1 lanes and commits the
+    # longest matching prefix plus the verify step's own token. Greedy
+    # tokens equal spec_tokens=0; temperature > 0 runs rejection sampling
+    # on a host rng (distribution-correct, not bitwise the spec-off draw).
     spec_tokens: int = 0
+    # Precision bound of the draft slice: segments above it are skipped.
+    spec_draft_bits: int = 2
 
 
-def _check_ported(ecfg: EngineConfig) -> None:
+def _check_layout(ecfg: EngineConfig) -> None:
     if ecfg.kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {ecfg.kv_layout!r} "
                          f"(expected 'ring' or 'paged')")
     if ecfg.kv_bits not in (None, 4):
         raise ValueError(f"kv_bits must be None or 4, got {ecfg.kv_bits}")
-    if ecfg.kv_layout == "paged" and ecfg.kv_bits is None:
-        raise NotImplementedError(
-            "kv_layout='paged' with an fp KV cache (kv_bits=None) is a "
-            "later port slice; use kv_bits=4")
-    if ecfg.spec_tokens:
-        raise NotImplementedError(
-            "speculative decoding (spec_tokens > 0) is a later port slice")
 
 
 def _paged_geometry(arch_cfg, ecfg: EngineConfig):
@@ -102,6 +106,15 @@ def _sample_seed(seed: int, n: int) -> int:
     return (int(seed) * 1_000_003 + int(n)) % (2 ** 63)
 
 
+def _softmax(x: np.ndarray) -> np.ndarray:
+    """Host softmax over the last axis in float64 (the speculative
+    acceptance rule runs on the host)."""
+    x = np.asarray(x, np.float64)
+    x = x - x.max(axis=-1, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
 def _sample(logits: torch.Tensor, temperature: float, seed: int,
             n: int) -> int:
     g = torch.Generator(device=logits.device)
@@ -115,7 +128,7 @@ class _PackedEngine:
 
     def __init__(self, params: lm.LM, arch_cfg, ecfg: EngineConfig, *,
                  already_serve: bool = False, device: DeviceLike = None):
-        _check_ported(ecfg)
+        _check_layout(ecfg)
         self.device = resolve_device(device)
         quant = arch_cfg.quant.with_mode("serve")
         if not ecfg.fuse_act_quant:
@@ -187,8 +200,8 @@ class LockstepEngine(_PackedEngine):
 
 
 class DecodeEngine(_PackedEngine):
-    """Request-level continuous-batching engine (fp ring, 4-bit ring or
-    4-bit page pool).
+    """Request-level continuous-batching engine (fp or 4-bit KV, ring or
+    page pool), optionally self-speculative (``spec_tokens``).
 
     Usage — streaming::
 
@@ -201,7 +214,26 @@ class DecodeEngine(_PackedEngine):
                  already_serve: bool = False, device: DeviceLike = None):
         super().__init__(params, arch_cfg, ecfg,
                          already_serve=already_serve, device=device)
+        self.caps = lm.serve_capabilities(self.cfg)
         self.chunk = max(ecfg.prefill_chunk, 1)
+        # A speculative round drafts with the low-slice forward (same
+        # packed weights, high-bit carriers skipped) and verifies k + 1
+        # lanes with the full mix.
+        self.spec_width = ecfg.spec_tokens + 1
+        if ecfg.spec_tokens > 0:
+            if not self.caps.spec_capable:
+                raise ValueError(
+                    f"spec_tokens > 0 is not supported for arch family "
+                    f"{self.caps.family!r}"
+                    + (f": {self.caps.note}" if self.caps.note else "")
+                    + " (lm.serve_capabilities)")
+            if self.spec_width > ecfg.cache_len:
+                raise ValueError(
+                    f"spec_tokens={ecfg.spec_tokens} cannot exceed "
+                    f"cache_len-1={ecfg.cache_len - 1}")
+            self.draft_cfg = dataclasses.replace(
+                self.cfg, quant=dataclasses.replace(
+                    self.cfg.quant, draft_slice_bits=ecfg.spec_draft_bits))
         b = ecfg.max_batch
         self._seeds = np.zeros((b,), np.int64)
         self._temps = np.zeros((b,), np.float32)
@@ -221,6 +253,10 @@ class DecodeEngine(_PackedEngine):
             self.pool = None
             self.sched = Scheduler(b)
         self.cow_copies = 0
+        # Speculation telemetry: rounds drafted, drafts proposed/accepted.
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # --------------------------------------------------------- requests ----
     def submit(self, request: Request) -> int:
@@ -276,7 +312,11 @@ class DecodeEngine(_PackedEngine):
         page the step writes private (fresh pages wiped, shared or
         registered pages copied); after it, completed prompt pages
         register in the prefix map and finished slots release their
-        pages."""
+        pages.
+
+        ``spec_tokens > 0`` runs a speculative round instead
+        (:meth:`_spec_step`): the same admission and completions, 1 to
+        k + 1 tokens committed a decoding slot."""
         b = self.ecfg.max_batch
         if self.cache is None:
             self.cache = self.init_cache(b)
@@ -295,6 +335,8 @@ class DecodeEngine(_PackedEngine):
                         # pages; prefill starts after them.
                         self.sched.slots[slot].n_fed = shared
                         self._table_dirty = True
+        if self.ecfg.spec_tokens > 0:
+            return self._spec_step()
         plan = self.sched.plan(self.chunk)
         if not plan:                       # idle: let queued arrivals age in
             return self.sched.advance({}, {})
@@ -378,6 +420,192 @@ class DecodeEngine(_PackedEngine):
                 out[slot] = int(greedy[slot])
         return out
 
+    # ------------------------------------------------------ speculative ----
+    def _spec_rng(self, st, tag: int) -> np.random.Generator:
+        """Host rng of temperature > 0 speculation, keyed by (request
+        seed, purpose tag, generated count) as the reference keys it: a
+        request's stream depends on its own state only, never on the
+        batch."""
+        return np.random.default_rng(
+            (int(st.request.seed) & 0x7FFFFFFF, tag, len(st.generated)))
+
+    def _accept(self, st, drafts, dprobs, targets, lg_rows, rng):
+        """One slot's committed tokens from its k drafts, the verify
+        argmaxes ``targets`` [k + 1] and (temperature > 0) the verify
+        logits ``lg_rows`` [k + 1, V], lane j scoring the token after
+        draft j: the accepted prefix and one bonus or correction token.
+
+        Temperature 0: the drafts that match the verify argmaxes, then the
+        argmax at the first mismatch (or after the last draft), exactly
+        the token-by-token greedy stream. Temperature > 0: rejection
+        sampling; accept draft d with probability min(1, q(d) / p(d)), on
+        a reject sample the residual max(q - p, 0), after k accepts sample
+        the bonus from q."""
+        t = st.request.temperature
+        committed = []
+        if t <= 0:
+            a = 0
+            while a < len(drafts) and drafts[a] == int(targets[a]):
+                committed.append(drafts[a])
+                a += 1
+            committed.append(int(targets[a]))
+            return committed
+        for j, d in enumerate(drafts):
+            q = _softmax(lg_rows[j] / t)
+            p = dprobs[j]
+            if rng.random() < q[d] / max(p[d], 1e-30):
+                committed.append(d)
+                continue
+            resid = np.maximum(q - p, 0.0)
+            tot = resid.sum()
+            probs = resid / tot if tot > 0 else q
+            committed.append(int(rng.choice(len(q), p=probs)))
+            return committed
+        q = _softmax(lg_rows[len(drafts)] / t)
+        committed.append(int(rng.choice(len(q), p=q)))
+        return committed
+
+    def _spec_step(self) -> List[Completion]:
+        """One speculative round: k drafts a decoding slot with the
+        low-slice forward, one full-mix :func:`lm.verify_step` of width
+        k + 1 (also the prefill feed of prompt-phase slots), the accepted
+        prefix and the verify step's own token committed, the rejected
+        suffix rolled back (ring: nothing to do, its entries carry future
+        positions that the causal mask hides until they are rewritten;
+        pages: the pages holding only rejected entries are released).
+
+        A slot whose round would wrap the ring does not draft (the wrap
+        would overwrite history that a reject could not restore); it
+        rides the verify step with its one token, a plain full-mix decode
+        step."""
+        b = self.ecfg.max_batch
+        k = self.ecfg.spec_tokens
+        c = self.spec_width
+        plan = self.sched.plan(c)
+        if not plan:                       # idle: let queued arrivals age in
+            return self.sched.advance({}, {})
+        clen = min(self.ecfg.cache_len, self.cfg.window) \
+            if self.cfg.window else self.ecfg.cache_len
+        slots = self.sched.slots
+        base_fed = {s: slots[s].n_fed for s in plan}
+        decode_slots = [s for s in plan if slots[s].phase == DECODE]
+        draft_slots = [s for s in decode_slots if base_fed[s] + c <= clen]
+        if self.pool is not None:
+            ops = kv_pool.StepOps()
+            for s in plan:
+                w = c if s in draft_slots else \
+                    (1 if s in decode_slots else len(plan[s]))
+                self.pool.prepare(s, base_fed[s], w, ops)
+            if ops.any():
+                self._table_dirty = True
+            self._flush_pool_ops(ops)
+
+        # Drafts: decode-phase slots only (a draft written at a prompt
+        # position would never be rewritten by the verify step).
+        cur = np.zeros((b,), np.int32)
+        for s in decode_slots:
+            cur[s] = int(plan[s][0])
+        hot = [s for s in decode_slots if slots[s].request.temperature > 0]
+        round_rng = {s: self._spec_rng(slots[s], 0x5EC) for s in hot}
+        drafts = {s: [] for s in draft_slots}
+        dprobs = {s: [] for s in draft_slots}
+        active = np.zeros((b,), bool)
+        active[draft_slots] = True
+        for j in range(k if draft_slots else 0):
+            pos = np.zeros((b,), np.int64)
+            for s in draft_slots:
+                pos[s] = base_fed[s] + j
+            lg, self.cache = lm.decode_step(self.model, self.draft_cfg,
+                                            self.cache, cur, pos,
+                                            active=active)
+            greedy = lg.argmax(-1).cpu().numpy()
+            lgh = lg.float().cpu().numpy() if hot else None
+            for s in draft_slots:
+                temp = slots[s].request.temperature
+                if temp > 0:
+                    p = _softmax(lgh[s] / temp)
+                    tok = int(round_rng[s].choice(len(p), p=p))
+                    dprobs[s].append(p)
+                else:
+                    tok = int(greedy[s])
+                drafts[s].append(tok)
+                cur[s] = tok
+
+        # One batched full-mix verify (and prefill feed) step.
+        tokens = np.zeros((b, c), np.int32)
+        pos = np.full((b, c), -1, np.int64)
+        for s, toks in plan.items():
+            feed = [int(toks[0])] + drafts[s] if s in draft_slots \
+                else [int(x) for x in toks[:c]]
+            tokens[s, :len(feed)] = feed
+            pos[s, :len(feed)] = base_fed[s] + np.arange(len(feed))
+        lg, self.cache = lm.verify_step(self.model, self.cfg, self.cache,
+                                        tokens, pos)
+        greedy = lg.argmax(-1).cpu().numpy()                  # [B, C]
+        need_lg = bool(hot) or any(slots[s].request.temperature > 0
+                                   for s in plan if s not in decode_slots)
+        lgh = lg.float().cpu().numpy() if need_lg else None   # [B, C, V]
+
+        # Acceptance and commit, on the host.
+        fed, sampled = {}, {}
+        for s, toks in plan.items():
+            st = slots[s]
+            if s not in decode_slots:
+                n = len(toks)
+                fed[s] = n
+                if st.n_fed + n >= len(st.request.prompt):
+                    # The prompt completes: its last lane seeds sampling.
+                    sampled[s] = int(greedy[s, n - 1]) \
+                        if st.request.temperature <= 0 \
+                        else self._sample_row(st, lgh[s, n - 1])
+                continue
+            committed = self._accept(st, drafts.get(s, []),
+                                     dprobs.get(s, []), greedy[s],
+                                     None if lgh is None else lgh[s],
+                                     round_rng.get(s))
+            a = len(committed) - 1          # accepted drafts
+            fed[s] = 1 + a
+            sampled[s] = committed
+            if s in draft_slots:
+                self.spec_rounds += 1
+                self.spec_drafted += k
+                self.spec_accepted += a
+
+        # Paged rollback of the pages holding only rejected entries, then
+        # advance.
+        slot_of = {st.request.request_id: s for s, st in slots.items()}
+        fed_of = {st.request.request_id: st.n_fed + fed.get(s, 0)
+                  for s, st in slots.items()}
+        ops = kv_pool.StepOps()
+        if self.pool is not None:
+            for s in draft_slots:
+                if fed[s] < c:
+                    self.pool.rollback(s, base_fed[s] + fed[s],
+                                       base_fed[s] + c, ops)
+                    self._table_dirty = True
+        done = self.sched.advance(fed, sampled)
+        if self.pool is not None:
+            self._paged_after_advance(done, slot_of, fed_of, plan, ops)
+        return done
+
+    def _sample_row(self, st, lg_row) -> int:
+        """One token from a host fp32 logits row with the slot's
+        temperature, on the speculative host rng."""
+        p = _softmax(lg_row / st.request.temperature)
+        return int(self._spec_rng(st, 0x9EF).choice(len(p), p=p))
+
+    def spec_stats(self) -> dict:
+        """Speculation telemetry: rounds drafted, draft tokens proposed
+        and accepted, and the mean accepted draft length a round."""
+        return {
+            "spec_tokens": self.ecfg.spec_tokens,
+            "rounds": self.spec_rounds,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "mean_accepted": (self.spec_accepted / self.spec_rounds
+                              if self.spec_rounds else 0.0),
+        }
+
     # ----------------------------------------------------- cancellation ----
     @torch.inference_mode()
     def cancel(self, request_id: int) -> Optional[Completion]:
@@ -411,7 +639,7 @@ class DecodeEngine(_PackedEngine):
     # ---------------------------------------------------------- metrics ----
     def paged_kv_stats(self) -> dict:
         """Occupancy and sharing of the paged KV pool. Byte figures count
-        K/V payload only (codes + scales), as
+        K/V payload only (codes and scales, or fp k and v), as
         ``kv_quant.cache_payload_bytes`` does for the ring; a page spans
         every layer. ``cow_copies`` counts copy-on-write page copies."""
         if self.pool is None:

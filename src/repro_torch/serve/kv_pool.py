@@ -2,9 +2,10 @@
 Counterpart of ``repro.serve.kv_pool`` (DESIGN.md §13).
 
 * **Device side** — per-layer cache dicts whose payload leaves are pools
-  ``[P, page_size, Hk, ...]`` (``k_codes``/``v_codes``/``k_scale``/
-  ``v_scale`` of the packed 4-bit family) plus pool-wide position stamps
-  ``pos [P, page_size]`` (-1 = empty) and the per-slot page table
+  ``[P, page_size, Hk, ...]``: ``k_codes``/``v_codes``/``k_scale``/
+  ``v_scale`` of the packed 4-bit family, or fp ``k``/``v``
+  ``[P, page_size, Hk, D]`` in the cache dtype; plus pool-wide position
+  stamps ``pos [P, page_size]`` (-1 = empty) and the per-slot page table
   ``page_table [B, NP]`` (physical page per logical page, -1 =
   unmapped). Physical page 0 is the reserved null page: never allocated,
   payload zero, ``pos`` -1 forever, so readers clamp unmapped ids to it.
@@ -23,8 +24,8 @@ token-identical to the ring engine. Lanes with ``pos < 0`` or an unmapped
 page are dropped from the write.
 
 ``SONIQ_KV_POISON=1`` (or ``PagePool(poison=True)``) returns freed pages
-poisoned (NaN scales, 0xFF codes, ``pos`` stamps kept), so a stale
-page-table reference turns the attention output NaN.
+poisoned (NaN fp payload and scales, 0xFF codes, ``pos`` stamps kept), so
+a stale page-table reference turns the attention output NaN.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from . import kv_quant
 POISON_ENV = "SONIQ_KV_POISON"
 
 _Q4_PAYLOAD = ("k_codes", "v_codes", "k_scale", "v_scale")
+_FP_PAYLOAD = ("k", "v")
 
 # Live-lane write index of a paged cache: (batch rows, lanes, physical
 # pages, in-page offsets).
@@ -56,29 +58,42 @@ def pages_for(tokens: int, page_size: int) -> int:
 # ===================================================== device layout ====
 def init_paged_cache(num_pages: int, page_size: int, pages_per_seq: int,
                      batch: int, num_kv_heads: int, head_dim: int, *,
-                     device, table: Optional[torch.Tensor] = None) -> Dict:
-    """One layer's packed 4-bit paged cache: payload pools, pos stamps and
-    the page table (``table``, when given, is shared with other layers).
-    ``num_pages`` includes the reserved null page 0."""
+                     device, kv_bits: Optional[int] = None,
+                     dtype=torch.bfloat16,
+                     table: Optional[torch.Tensor] = None) -> Dict:
+    """One layer's paged cache: payload pools (fp ``k``/``v`` in ``dtype``
+    for ``kv_bits=None``, packed 4-bit codes and fp16 scales for 4), pos
+    stamps and the page table (``table``, when given, is shared with
+    other layers). ``num_pages`` includes the reserved null page 0."""
     if num_pages < 2:
         raise ValueError("the pool needs the null page and at least one "
                          "usable page")
-    if head_dim % 2:
-        raise ValueError(f"head_dim {head_dim} must be even")
     p, ps = num_pages, page_size
-    codes = (p, ps, num_kv_heads, head_dim // 2)
-    scales = (p, ps, num_kv_heads, 1)
+    if kv_bits is None:
+        fp = (p, ps, num_kv_heads, head_dim)
+        out = {"k": torch.zeros(fp, dtype=dtype, device=device),
+               "v": torch.zeros(fp, dtype=dtype, device=device)}
+    elif kv_bits == 4:
+        if head_dim % 2:
+            raise ValueError(f"head_dim {head_dim} must be even")
+        codes = (p, ps, num_kv_heads, head_dim // 2)
+        scales = (p, ps, num_kv_heads, 1)
+        out = {
+            "k_codes": torch.zeros(codes, dtype=torch.uint8, device=device),
+            "v_codes": torch.zeros(codes, dtype=torch.uint8, device=device),
+            "k_scale": torch.zeros(scales, dtype=torch.float16,
+                                   device=device),
+            "v_scale": torch.zeros(scales, dtype=torch.float16,
+                                   device=device),
+        }
+    else:
+        raise ValueError(f"kv_bits must be None or 4, got {kv_bits}")
     if table is None:
         table = torch.full((batch, pages_per_seq), -1, dtype=torch.int32,
                            device=device)
-    return {
-        "k_codes": torch.zeros(codes, dtype=torch.uint8, device=device),
-        "v_codes": torch.zeros(codes, dtype=torch.uint8, device=device),
-        "k_scale": torch.zeros(scales, dtype=torch.float16, device=device),
-        "v_scale": torch.zeros(scales, dtype=torch.float16, device=device),
-        "pos": torch.full((p, ps), -1, dtype=torch.int32, device=device),
-        "page_table": table,
-    }
+    out["pos"] = torch.full((p, ps), -1, dtype=torch.int32, device=device)
+    out["page_table"] = table
+    return out
 
 
 def paged_write_index(pos, table, page_size: int, device) -> PagedWrite:
@@ -103,23 +118,33 @@ def paged_write_index(pos, table, page_size: int, device) -> PagedWrite:
 def update_paged_cache(cache: Dict, k_new: torch.Tensor,
                        v_new: torch.Tensor, pos, *,
                        write: Optional[PagedWrite] = None) -> Dict:
-    """Quantize and write a chunk of new K/V (``k_new``/``v_new``
-    [B, S, H, D]) into the pages the table maps for positions ``pos``
-    ([B] or [B, S]), in place. The host allocator has already made every
+    """Write a chunk of new K/V (``k_new``/``v_new`` [B, S, H, D]) into
+    the pages the table maps for positions ``pos`` ([B] or [B, S]), in
+    place: quantized for the 4-bit pool, as they are (cast to the pool's
+    dtype) for the fp pool. The host allocator has already made every
     written page private and mapped; masked lanes and unmapped pages are
     dropped. ``write`` is the precomputed :func:`paged_write_index`."""
     if write is None:
         write = paged_write_index(pos, cache["page_table"],
                                   cache["pos"].shape[1], cache["pos"].device)
     bi, si, pid, off = write
-    return kv_quant.write_codes(cache, k_new, v_new, pos, (bi, si),
-                                (pid, off))
+    if "k_codes" in cache:
+        return kv_quant.write_codes(cache, k_new, v_new, pos, (bi, si),
+                                    (pid, off))
+    posb = torch.as_tensor(pos, device=cache["pos"].device)
+    if posb.dim() == 1:
+        posb = posb[:, None]
+    cache["k"][pid, off] = k_new[bi, si].to(cache["k"].dtype)
+    cache["v"][pid, off] = v_new[bi, si].to(cache["v"].dtype)
+    cache["pos"][pid, off] = posb[bi, si].to(cache["pos"].dtype)
+    return cache
 
 
 def gather_paged(cache: Dict, dtype=torch.float32):
     """Dense view of a paged layer cache: -> (k [B, T, Hk, D], v,
-    pos [B, T]) with T = NP * page_size. Unmapped entries clamp to the
-    null page (payload zero) and read ``pos`` -1."""
+    pos [B, T]) in ``dtype`` with T = NP * page_size, entry ``pos %
+    T`` of a row where the ring would hold it. Unmapped entries clamp to
+    the null page (payload zero) and read ``pos`` -1."""
     table = cache["page_table"].long()                       # [B, NP]
     b, n_logical = table.shape
     safe = table.clamp(min=0)
@@ -133,8 +158,11 @@ def gather_paged(cache: Dict, dtype=torch.float32):
         leaf = cache[name][safe]                             # [B, NP, ps, ..]
         return leaf.reshape((b, t) + leaf.shape[3:])
 
-    k = kv_quant.dequantize_kv(take("k_codes"), take("k_scale"), dtype)
-    v = kv_quant.dequantize_kv(take("v_codes"), take("v_scale"), dtype)
+    if "k_codes" in cache:
+        k = kv_quant.dequantize_kv(take("k_codes"), take("k_scale"), dtype)
+        v = kv_quant.dequantize_kv(take("v_codes"), take("v_scale"), dtype)
+    else:
+        k, v = take("k").to(dtype), take("v").to(dtype)
     return k, v, pos.reshape(b, t)
 
 
@@ -199,26 +227,30 @@ def apply_step_ops(cache, table, wipe, copy_src, copy_dst):
 
 
 def apply_poison(cache, pids):
-    """Poison freed pages (debug mode): NaN fp16 scales and 0xFF codes,
-    ``pos`` stamps kept, so a stale page-table reference turns the
-    attention output NaN. Allocation wipes the poison before reuse."""
+    """Poison freed pages (debug mode): NaN fp payload and fp16 scales,
+    0xFF codes, ``pos`` stamps kept, so a stale page-table reference turns
+    the attention output NaN. Allocation wipes the poison before reuse."""
     for d in paged_layers(cache):
         idx = _ids(pids, d["pos"].device)
-        for name in _Q4_PAYLOAD:
-            d[name][idx] = 0xFF if name.endswith("_codes") else float("nan")
+        for name in _Q4_PAYLOAD + _FP_PAYLOAD:
+            if name in d:
+                d[name][idx] = 0xFF if name.endswith("_codes") \
+                    else float("nan")
     return cache
 
 
 def paged_payload_bytes_per_page(cache) -> int:
     """Payload bytes of ONE pool page summed over every paged layer of the
     cache tree (a page id maps in all layers at once): resident bytes are
-    ``pages_in_use x this``."""
+    ``pages_in_use x this``. Payload is the codes and scales of a 4-bit
+    pool, ``k``/``v`` of an fp pool."""
     per_page = 0
     for d in paged_layers(cache):
         npages = d["pos"].shape[0]
-        for name in _Q4_PAYLOAD:
-            leaf = d[name]
-            per_page += leaf.numel() * leaf.element_size() // npages
+        for name in _Q4_PAYLOAD + _FP_PAYLOAD:
+            if name in d:
+                leaf = d[name]
+                per_page += leaf.numel() * leaf.element_size() // npages
     return per_page
 
 

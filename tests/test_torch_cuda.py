@@ -365,6 +365,44 @@ def test_multi_segment_launch_equals_single_launches_bitwise(dev, mode,
                                      sel(xq), wd)
 
 
+@pytest.mark.parametrize("mode", ["fused", "plain", "grouped"])
+@pytest.mark.parametrize("segs", [MIXED, WIDE], ids=["mixed", "wide"])
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_draft_launch_bitwise_the_launch_at_offset_zero(dev, mode, m, segs):
+    """A draft launch reads the [K2|K1] segments only, the first at
+    k_off = K4: bitwise the same launch on x's columns from K4 on (k_off
+    0, the layout of every full launch), and within the fp32 bound of
+    the plain version; one launch, at the decode (4) and verify (16)
+    widths."""
+    g = torch.Generator(device=dev).manual_seed(m + 7)
+    grouped = mode == "grouped"
+    x, ops = _segment_operands(g, dev, m, segs, 100, torch.bfloat16,
+                               e=3 if grouped else None)
+    draft = [op for op in ops if op[2] <= 2]
+    k0 = draft[0][3]
+    assert k0 == segs[0][1]
+    sx = quant.abs_max_scale(x, dim=-1).float().contiguous() \
+        if mode == "fused" else None
+    kernels.reset_launch_counts()
+    got = pm.segments_matmul(x, draft, sx=sx)
+    assert sum(kernels.launch_counts().values()) == 1
+    at0 = pm.segments_matmul(x[..., k0:], [(wp, sc, p, off - k0)
+                                           for wp, sc, p, off in draft],
+                             sx=sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, at0)
+    want = pm.segments_matmul_plain(x, draft, sx=sx)
+    xq = torch.cat([pm.act_quant(x[..., off:off + wp.shape[-2] * 8 // p], sx,
+                                 p) if sx is not None else
+                    x[..., off:off + wp.shape[-2] * 8 // p].float()
+                    for wp, _sc, p, off in draft], dim=-1)
+    for i in range(3 if grouped else 1):
+        sel = (lambda t: t[i]) if grouped else (lambda t: t)
+        wd = torch.cat([pm.unpack_dequant(sel(wp), p, sel(sc).contiguous())
+                        for wp, sc, p, off in draft])
+        assert _within_reorder_bound(sel(got), sel(want), sel(xq), wd)
+
+
 @pytest.mark.parametrize("mode", ["fused", "self", "plain", "grouped"])
 def test_rows_are_bitwise_equal_across_batch_sizes(dev, mode):
     """A row's output does not depend on how many rows share the launch
@@ -626,6 +664,45 @@ def test_attention_rows_alone_batched_and_repeated_bitwise(dev, t, window,
             *(x[bi:bi + 1].contiguous() for x in ops),
             q_pos[bi:bi + 1, -1:].contiguous(), window=window)
         assert torch.equal(one[0], last[bi])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("hk,gq,d", [(8, 4, 80), (16, 1, 128), (4, 9, 128)],
+                         ids=["h2o", "deepseek", "starcoder2"])
+def test_verify_lanes_bitwise_the_decode_rows(dev, hk, gq, d, paged):
+    """The verify step of k = 3 (S = 4 lanes at consecutive positions, the
+    later lanes' entries already in the cache, a masked lane): lane j is
+    bitwise the S = 1 call at lane j's position on the same cache, for
+    B4 and B5, at G = 4, 1 (the decode runs the 1-row body, the verify
+    the 4-row one) and 9 (a ragged last tile)."""
+    from repro_torch.kernels import attn_decode as ad
+    g = torch.Generator(device=dev).manual_seed(hk * 100 + gq + d)
+    b, s = 4, 4
+    if paged:
+        args, _ring = _attn_pool(g, dev, b, s, hk, gq, d, 16, 16)
+        fn = ad.qkv_attn_decode_paged
+    else:
+        t = 256
+        kc, ks = _kv_codes(g, (b, t, hk, d), dev)
+        vc, vs = _kv_codes(g, (b, t, hk, d), dev)
+        kv_pos = torch.arange(t, device=dev, dtype=torch.int32).repeat(b, 1)
+        q_pos = (torch.arange(s, device=dev, dtype=torch.int32)
+                 + t - s).repeat(b, 1)
+        q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+        args = (q, kc, vc, ks, vs, kv_pos, q_pos)
+        fn = ad.qkv_attn_decode
+    args = list(args)
+    args[-1] = args[-1].clone()
+    args[-1][3, 0] = -1                                # a masked lane
+    full = fn(*args)
+    q, q_pos = args[0], args[-1]
+    for j in range(s):
+        one = list(args)
+        one[0] = q[:, j:j + 1].contiguous()
+        one[-1] = q_pos[:, j:j + 1].contiguous()
+        lane = fn(*one)
+        torch.cuda.synchronize()
+        assert torch.equal(lane[:, 0], full[:, j]), j
 
 
 # ------------------------------------------------------------ training ----

@@ -115,9 +115,11 @@ def test_pool_programs_match_jax(seed):
     assert pools[1].hits > 0 and copies > 0
 
 
-def _toy(num_pages=7, ps=4, npg=3, b=2, hk=2, d=8):
-    j = jkp.init_paged_cache(num_pages, ps, npg, b, hk, d, kv_bits=4)
-    p = pkp.init_paged_cache(num_pages, ps, npg, b, hk, d, device="cpu")
+def _toy(num_pages=7, ps=4, npg=3, b=2, hk=2, d=8, kv_bits=4):
+    j = jkp.init_paged_cache(num_pages, ps, npg, b, hk, d, kv_bits=kv_bits,
+                             dtype=jnp.float32)
+    p = pkp.init_paged_cache(num_pages, ps, npg, b, hk, d, device="cpu",
+                             kv_bits=kv_bits, dtype=torch.float32)
     return j, p
 
 
@@ -129,8 +131,20 @@ def _same(p, j):
 
 
 def test_device_ops_match_jax():
+    _device_ops_match_jax(kv_bits=4)
+
+
+def test_fp_device_ops_match_jax():
+    """The same on the fp pool (kv_bits=None): k/v stored as they are,
+    NaN poison."""
+    _device_ops_match_jax(kv_bits=None)
+
+
+def _device_ops_match_jax(kv_bits):
+    """Paged writes (masked lanes, unmapped pages), the gather, copy-on-
+    write and wipes, the poison and the payload bytes a page."""
     rng = np.random.default_rng(0)
-    jc, pc = _toy()
+    jc, pc = _toy(kv_bits=kv_bits)
     apply_ops = jax.jit(jkp.apply_step_ops)
     update = jax.jit(jkp.update_paged_cache)
     _same(pc, jc)

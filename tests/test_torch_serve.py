@@ -368,9 +368,8 @@ def test_packed_model_bytes_counts_carriers(bridged):
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch):
     """Entry points run on the card unless the CPU is asked for: the 4-bit
-    ring and paged caches included, and the trainer and its launcher.
-    What is not ported yet (the fp paged pool, speculative decoding)
-    raises."""
+    ring and the fp and 4-bit page pools included, the speculative engine,
+    and the trainer and its launcher."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(pget_config("h2o-danube-1.8b").reduced(),
                               num_layers=1)
@@ -379,7 +378,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     model = plm.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pengine.DecodeEngine(model, cfg, pengine.EngineConfig())
-    for ok in (dict(kv_bits=4), dict(kv_bits=4, kv_layout="paged")):
+    for ok in (dict(kv_bits=4), dict(kv_bits=4, kv_layout="paged"),
+               dict(kv_layout="paged")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pengine.DecodeEngine(model, cfg, pengine.EngineConfig(**ok))
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -388,10 +388,12 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
                                    device="cpu")
         assert eng.init_cache(2)["layers"][0]["kv"]["pos"].device.type \
             == "cpu"
-    for bad in (dict(kv_layout="paged"), dict(spec_tokens=2)):
-        with pytest.raises(NotImplementedError):
-            pengine.DecodeEngine(model, cfg, pengine.EngineConfig(**bad),
-                                 device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pengine.DecodeEngine(model, cfg, pengine.EngineConfig(spec_tokens=2))
+    spec = pengine.DecodeEngine(model, cfg, pengine.EngineConfig(
+        spec_tokens=2, cache_len=32), device="cpu")
+    out = spec.generate(np.ones((2, 3), np.int32), 4)
+    assert out.shape == (2, 7) and spec.spec_stats()["rounds"] > 0
     with pytest.raises(ValueError, match="kv_bits"):
         pengine.DecodeEngine(model, cfg, pengine.EngineConfig(kv_bits=8),
                              device="cpu")
@@ -472,6 +474,68 @@ def test_paged_decode_engine_tokens_equal_jax(bridged):
         eng = cls(paged.model, paged.cfg, pengine.EngineConfig(**kw),
                   already_serve=True, device="cpu")
         np.testing.assert_array_equal(eng.generate(prompts, 6), want)
+
+
+def test_fp_paged_decode_engine_tokens_equal_jax(bridged):
+    """The fp page pool (kv_bits=None) on the configuration
+    tests/test_kv_pool.py pins (``test_paged_engine_token_parity``): the
+    port's paged tokens equal the JAX paged engine's and the port's fp
+    ring and lockstep tokens; the pool's invariants hold and its payload
+    is fp k/v pages."""
+    *_, qat, jcfg, pcfg = bridged["tiny"]
+    kw = dict(max_batch=2, cache_len=32, prefill_chunk=4)
+    paged_kw = dict(kv_layout="paged", page_size=4, **kw)
+    prompts = np.random.default_rng(3).integers(1, 100, (3, 7)).astype(
+        np.int32)
+    jeng = jengine.DecodeEngine(qat, jcfg, jengine.EngineConfig(
+        backend="xla_ref", **paged_kw))
+    want = jeng.generate(prompts, 6)
+    paged = pengine.DecodeEngine(interop.params_from_numpy(qat, pcfg, "cpu"),
+                                 pcfg, pengine.EngineConfig(**paged_kw),
+                                 device="cpu")
+    np.testing.assert_array_equal(paged.generate(prompts, 6), want)
+    paged.pool.check()
+    kv = paged.cache["layers"][0]["kv"]
+    assert {"k", "v", "pos", "page_table"} == set(kv)
+    assert paged.paged_kv_stats()["page_payload_bytes"] == \
+        jeng.paged_kv_stats()["page_payload_bytes"] > 0
+    for cls in (pengine.DecodeEngine, pengine.LockstepEngine):
+        eng = cls(paged.model, paged.cfg, pengine.EngineConfig(**kw),
+                  already_serve=True, device="cpu")
+        np.testing.assert_array_equal(eng.generate(prompts, 6), want)
+
+
+def test_fp_paged_prefix_sharing_equals_fp_ring(bridged):
+    """Shared-system-prompt traffic on a wrapping ring through the fp page
+    pool: the prefix map hits and pages are copied on write, tokens equal
+    the fp ring engine's, and the pool's invariants hold after every
+    step."""
+    _jscfg, pscfg, _served, model, *_ = bridged["tiny"]
+    rng = np.random.default_rng(6)
+    system = rng.integers(1, 100, (9,)).astype(np.int32)
+    reqs = [PRequest(prompt=np.concatenate(
+        [system, rng.integers(1, 100, (2 + i % 3,)).astype(np.int32)]),
+        max_new_tokens=10 + i, seed=i) for i in range(4)]
+    kw = dict(max_batch=2, cache_len=16, prefill_chunk=4)
+    ring = pengine.DecodeEngine(model, pscfg, pengine.EngineConfig(**kw),
+                                already_serve=True, device="cpu")
+    paged = pengine.DecodeEngine(model, pscfg, pengine.EngineConfig(
+        kv_layout="paged", page_size=4, **kw), already_serve=True,
+        device="cpu")
+    want = {c.request_id: c.tokens for c in ring.serve(
+        [dataclasses.replace(r) for r in reqs])}
+    for r in reqs:
+        paged.submit(dataclasses.replace(r))
+    got = {}
+    while paged.sched.has_work():
+        for c in paged.step():
+            got[c.request_id] = c.tokens
+        paged.pool.check()
+    assert len(got) == len(want)
+    for a, b in zip(sorted(got), sorted(want)):
+        np.testing.assert_array_equal(got[a], want[b])
+    st = paged.paged_kv_stats()
+    assert st["prefix_hits"] > 0 and st["cow_copies"] > 0
 
 
 def test_paged_prefix_sharing_and_copy_on_write(bridged):

@@ -11,8 +11,8 @@ card, so two checkouts, or two builds of one, can be compared in one call:
     python3 tools/kernel_ab.py --src src --label attn --only attn
     python3 tools/kernel_ab.py --src src --label change --only train
 
-``--only gemm``, ``attn``, ``train``, ``step``, ``pack`` or ``load``
-times one family; with
+``--only gemm``, ``attn``, ``train``, ``step``, ``pack``, ``load`` or
+``serve`` times one family; with
 no ``--only`` the first two run (the others are timed only when asked
 for). ``--set NAME=VALUE``
 times a scratch build of the source (``csrc/segment_gemm.cu`` or
@@ -81,6 +81,17 @@ packed model (``tree_digest``), then a second,
 profiled construction: busy ms, device events and the split by op. A
 load of a two-layer reduced model comes first (``first_load_s``: the
 process's one-time costs), so ``pack_s`` is steady state.
+
+Serve rows (``--only serve``): the fp-ring serve steps of
+``DecodeEngine`` at full width and depth, h2o-danube-1.8b (24 layers) and
+deepseek-moe-16b (28 layers), random QAT weights of seed 0, batch 4:
+``*_prefill_ms`` (host clock of one 4 x 8 prefill chunk, the logits'
+argmax on the host included; median of chunks 2-7 of a 64-token prompt)
+and ``*_decode_ms`` (the same of a greedy decode step after it; median of
+steps 2-11), then a device profile of 3 chunks and of 3 decode steps
+(``*_prefill_profile``, ``*_decode_profile``: kernels, busy ms and fp32
+GEMM ms a step, ``step_profile.device_summary``'s top kernels). The
+readout and the MoE router are the serve path's fp32 GEMMs.
 
 Prints one JSON line.
 """
@@ -507,6 +518,75 @@ def load_rows(torch, dev, rows):
         torch.cuda.empty_cache()
 
 
+def serve_rows(torch, dev, rows):
+    """Host-clock and profiled device times of the fp-ring prefill chunk
+    and decode step of whole full-width models (see the module doc)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    import step_profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    b, c, prompt_len = 4, 8, 64
+    ecfg = engine.EngineConfig(max_batch=b, cache_len=256, prefill_chunk=c)
+    for key, arch in (("h2o", "h2o-danube-1.8b"),
+                      ("moe", "deepseek-moe-16b")):
+        cfg = get_config(arch).with_quant_mode("qat")
+        params = lm.init_params(cfg, seed=0, device=dev)
+        eng = engine.DecodeEngine(params, cfg, ecfg, device=dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompt = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, prompt_len)).astype(np.int32)
+        state = {}
+
+        def chunk(i):
+            pos = np.tile(np.arange(i * c, (i + 1) * c), (b, 1))
+            logits, state["cache"] = lm.prefill_step(
+                eng.model, eng.cfg, state["cache"],
+                prompt[:, i * c:(i + 1) * c], pos, np.full(b, c - 1))
+            state["tok"] = logits.argmax(-1).cpu().numpy().astype(np.int32)
+
+        def step(t):
+            logits, state["cache"] = lm.decode_step(
+                eng.model, eng.cfg, state["cache"], state["tok"],
+                np.full(b, prompt_len + t))
+            state["tok"] = logits.argmax(-1).cpu().numpy().astype(np.int32)
+
+        def timed(fn, n):
+            times = []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(i)
+                times.append(time.perf_counter() - t0)
+            return float(np.median(times[2:]) * 1e3)
+
+        def profiled(fn, first, n):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(first, first + n):
+                    fn(i)
+                torch.cuda.synchronize()
+            summ = step_profile.device_summary(prof)
+            return {"kernels": summ["kernels"] / n,
+                    "device_busy_ms": summ["device_busy_ms"] / n,
+                    "gemm_ms": summ["gemm_ms"] / n, "top": summ["top"]}
+
+        state["cache"] = eng.init_cache(b)
+        rows[f"{key}_prefill_ms"] = timed(chunk, prompt_len // c)
+        rows[f"{key}_decode_ms"] = timed(step, 12)
+        state["cache"] = eng.init_cache(b)
+        chunk(0)
+        rows[f"{key}_prefill_profile"] = profiled(chunk, 1, 3)
+        rows[f"{key}_decode_profile"] = profiled(step, 0, 3)
+        del eng, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True)
@@ -515,7 +595,7 @@ def main() -> int:
                     help="NAME=VALUE: a launch-shape constant of the "
                          "segment GEMM or attention build")
     ap.add_argument("--only", choices=("gemm", "attn", "train", "step",
-                                       "pack", "load", "b7"),
+                                       "pack", "load", "b7", "serve"),
                     default=None, help="time one kernel family")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -550,6 +630,13 @@ def main() -> int:
             b7_rows(torch, dev, gen, rows, detail=True)
         else:
             load_rows(torch, dev, rows)
+        return report(args, rows, None)
+    if args.only == "serve":
+        if args.set:
+            raise SystemExit("--set takes no constant of the serve path")
+        _build.build()
+        rows = {}
+        serve_rows(torch, dev, rows)
         return report(args, rows, None)
     if args.only in ("train", "step"):
         if args.set:
