@@ -108,7 +108,17 @@ Phases (none catches an error; any failure exits non-zero):
      values on rounding ties and beyond the grid. Their backward kernels
      on the same operands and a random cotangent: dw and dx bitwise (-0
      included), ds within ``noise_inject.ds_bound``. One layer's calls of
-     each timed on both rulers beside the plain versions.
+     each timed on both rulers beside the plain versions. The bank forms:
+     B9, B8 (weight and activation layouts) and both backward kernels on
+     one full-width deepseek-moe-16b MoE layer's three expert banks (E =
+     64, every expert its own seed, logits, mixed precisions and scales;
+     the activations of the training dispatch buffer, 120 rows an expert),
+     one launch a bank, bitwise the plain versions (ds within
+     ``ds_bound``) and bitwise E single launches; the same on one
+     mixtral-8x22b bank ([8, 16384, 6144], 3.2 GB: byte offsets past
+     2^31) against per-expert plain versions; the layer's bank launches
+     timed on both rulers beside the plain versions and the single
+     launches.
   8. Training: full-width, 24-layer h2o-danube-1.8b through Phase I
      (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
      with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
@@ -149,11 +159,25 @@ Phases (none catches an error; any failure exits non-zero):
      lockstep equal to continuous; starcoder2-7b also speculatively
      (tokens identical to spec-off) and over the 4-bit ring and pool
      (equal tokens).
- 15. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
-     B8 and B9), the ``kv4_serve``, ``training``, ``moe_serve``,
-     ``load``, ``spec_serve``, ``fp_paged_serve``, ``dense_configs`` and
-     ``phase_seconds`` JSON lines, the nvidia-smi line, and last the
-     ``{"ok": true, ...}`` line.
+ 15. MoE training: full-width deepseek-moe-16b cut to MOE_TRAIN_LAYERS =
+     4 layers (the dense layer and three MoE layers of 64 experts; ~35 GB
+     of parameters, gradients and moments) through Phase I (steps 0-2),
+     the freeze and Phase II (steps 3-5) on TokenStream(batch 8, seq 128,
+     seed 0): per step the loss, load-balancing loss, gradient norm, step
+     ms, launches and peak memory, a device profile of one step of each
+     phase; one B9 launch a linear or bank a forward (74 a Phase-I step
+     with the recompute, 37 B9 backward), 148 B8 and 74 B8 backward a
+     Phase-II step, checked; a second run bitwise the first; the trained
+     model packed (B7) and served (B6, B1), lockstep equal to continuous.
+     Then one MoE layer's three banks (16 experts each), card vs CPU,
+     teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
+     1e-5.
+ 16. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+     B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
+     backward rows), the ``kv4_serve``, ``training``, ``moe_training``,
+     ``moe_serve``, ``load``, ``spec_serve``, ``fp_paged_serve``,
+     ``dense_configs`` and ``phase_seconds`` JSON lines, the nvidia-smi
+     line, and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -1948,6 +1972,419 @@ def check_training_against_cpu(cfg, dev):
     return worst
 
 
+# ------------------------------------------------- training kernels, banks ----
+def moe_banks(cfg):
+    """(name, K, N) of one MoE layer's expert banks."""
+    d, f = cfg.d_model, cfg.d_ff
+    return [("up", d, f), ("gate", d, f), ("down", f, d)]
+
+
+def moe_capacity(cfg, tokens=TRAIN_BATCH * TRAIN_SEQ):
+    """The training dispatch buffer's rows an expert (``moe_apply``)."""
+    return max(1, math.ceil(tokens * cfg.top_k / cfg.num_experts * 1.25))
+
+
+def b9_bank_operands(e, k, n, gen, dev):
+    """A bank w [E, K, N] with weights beyond the clip, logits [E, K / 16]
+    at both ends, a seed an expert."""
+    w = torch.rand((e, k, n), generator=gen, device=dev) * 2.2 - 1.1
+    w[:, 0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+    s = torch.randn((e, k // 16), generator=gen, device=dev) * 2.0 - 0.5
+    s[:, :2] = torch.tensor([8.0, -8.0], device=dev)
+    seeds = torch.randint(0, 1 << 32, (e,), generator=gen, device=dev)
+    return w, s, seeds
+
+
+def b8_bank_operands(e, k, n, c, gen, dev):
+    """B8's weight and activation operands of one bank: every expert its
+    own mixed precisions, weight scales (ties as ``b8_weight_operands``)
+    and per-tensor activation scale (``b8_act_operands``)."""
+    ws = [b8_weight_operands(k, n, gen, dev) for _ in range(e)]
+    xs = [b8_act_operands(c, k, gen, dev) for _ in range(e)]
+    weight = tuple(torch.stack(t) for t in zip(*ws))
+    act = (torch.stack([x for x, _p, _s in xs]),
+           torch.stack([p for _x, p, _s in xs]),
+           torch.stack([s for _x, _p, s in xs]))
+    return weight, act
+
+
+def _per_expert(fn, bank_args, e):
+    """``fn`` launched on each expert's slices (E single launches)."""
+    return [fn(*[a[i].contiguous() if torch.is_tensor(a) and a.dim()
+                 else a for a in bank_args]) for i in range(e)]
+
+
+def _check_equal(what, got, want):
+    if not torch.equal(_bits(got), _bits(want)):
+        raise AssertionError(f"{what}: {(_bits(got) != _bits(want)).sum()}"
+                             f" elements differ")
+
+
+def check_bank_b9(w, s, seeds, g, tag, plain=True):
+    """B9 and its backward over a bank, one launch each: bitwise its plain
+    version (ds within ``ds_bound``) and E single-weight launches. Returns
+    the largest |ds - plain ds|."""
+    e = w.shape[0]
+    out = ni.noise_inject(w, s, seeds)
+    dw, ds = ni.noise_inject_bwd(w, s, seeds, g)
+    one = _per_expert(lambda *a: (ni.noise_inject(*a[:3]),
+                                  ni.noise_inject_bwd(*a)),
+                      (w, s, seeds[:, None], g), e)
+    for i, (oi, (dwi, dsi)) in enumerate(one):
+        _check_equal(f"{tag} B9 expert {i} vs its launch", out[i], oi)
+        _check_equal(f"{tag} B9 backward dw expert {i}", dw[i], dwi)
+        _check_equal(f"{tag} B9 backward ds expert {i}", ds[i], dsi)
+    del one
+    err = 0.0
+    if plain:
+        sig = ni.group_sigma(s)
+        _check_equal(f"{tag} B9 vs plain", out,
+                     ni.noise_inject_plain(w, sig, seeds))
+        dw_p, ds_p = ni.noise_inject_bwd_plain(w, s, seeds, g)
+        _check_equal(f"{tag} B9 backward dw vs plain", dw, dw_p)
+        e_ds = (ds - ds_p).abs()
+        if not (e_ds <= ni.ds_bound(w, s, seeds, g)).all():
+            raise AssertionError(f"{tag} B9 backward ds off the plain "
+                                 f"version by {e_ds.max()}")
+        err = e_ds.max().item()
+    else:
+        for i in range(e):
+            dw_p, ds_p = ni.noise_inject_bwd_plain(w[i], s[i], seeds[i], g[i])
+            _check_equal(f"{tag} B9 expert {i} vs plain", out[i],
+                         ni.noise_inject_plain(w[i], ni.group_sigma(s[i]),
+                                               seeds[i]))
+            _check_equal(f"{tag} B9 backward dw expert {i} vs plain", dw[i],
+                         dw_p)
+            e_ds = (ds[i] - ds_p).abs()
+            if not (e_ds <= ni.ds_bound(w[i], s[i], seeds[i], g[i])).all():
+                raise AssertionError(f"{tag} B9 backward ds expert {i}: "
+                                     f"{e_ds.max()}")
+            err = max(err, e_ds.max().item())
+    torch.cuda.synchronize()
+    return err
+
+
+def check_bank_b8(x, pb, sc, g, kw, tag):
+    """B8 and its backward over a bank, one launch each: bitwise their
+    plain versions and E launches on the slices."""
+    e = x.shape[0]
+    y = fq.fake_quant(x, pb, sc, **kw)
+    dx = fq.fake_quant_bwd(x, pb, sc, g, **kw)
+    _check_equal(f"{tag} B8 vs plain", y, fq.fake_quant_plain(x, pb, sc,
+                                                              **kw))
+    _check_equal(f"{tag} B8 backward vs plain", dx,
+                 fq.fake_quant_bwd_plain(x, pb, sc, g, **kw))
+    rows = sc.reshape(e, -1)
+    for i in range(e):
+        a = (x[i].contiguous(), pb[i].contiguous(), rows[i].contiguous())
+        _check_equal(f"{tag} B8 expert {i}", y[i], fq.fake_quant(*a, **kw))
+        _check_equal(f"{tag} B8 backward expert {i}", dx[i],
+                     fq.fake_quant_bwd(*a, g[i].contiguous(), **kw))
+    torch.cuda.synchronize()
+
+
+def phase_bank_kernels(moe_cfg, big_cfg, gen, dev, reps=5):
+    """The bank forms on one full-width deepseek-moe-16b MoE layer's three
+    banks (E = 64; the activations of the training dispatch buffer, C =
+    120 rows an expert at 8 x 128 tokens): B9 and B8 (weight and
+    activation layouts) with their backward kernels, every expert its own
+    seed, logits, mixed precisions and scales, each one launch a bank,
+    bitwise the plain versions (ds within ``ds_bound``) and E single
+    launches; and one mixtral-8x22b bank (down, [8, 16384, 6144]: 3.2 GB,
+    byte offsets past 2^31) the same way, against per-expert plain
+    versions. Times the layer's bank launches on both rulers beside the
+    plain versions and the 192 single launches."""
+    e, c = moe_cfg.num_experts, moe_capacity(moe_cfg)
+    b9, b8w, b8x = [], [], []
+    ds_err = 0.0
+    for name, k, n in moe_banks(moe_cfg):
+        w, s, seeds = b9_bank_operands(e, k, n, gen, dev)
+        g = torch.randn(w.shape, generator=gen, device=dev)
+        ds_err = max(ds_err, check_bank_b9(w, s, seeds, g, name))
+        b9.append((w, s, seeds, g))
+        weight, act = b8_bank_operands(e, k, n, c, gen, dev)
+        gw = torch.randn(weight[0].shape, generator=gen, device=dev)
+        gx = torch.randn(act[0].shape, generator=gen, device=dev).to(
+            act[0].dtype)
+        check_bank_b8(*weight, gw, dict(row_scale=False, k_dim=0), name)
+        check_bank_b8(*act, gx, dict(row_scale=True), name)
+        b8w.append(weight + (gw,))
+        b8x.append(act + (gx,))
+    # mixtral-8x22b's down bank: the last expert starts 2.8 GB in.
+    name, k, n = moe_banks(big_cfg)[2]
+    e_big = big_cfg.num_experts
+    w, s, seeds = b9_bank_operands(e_big, k, n, gen, dev)
+    g = torch.randn(w.shape, generator=gen, device=dev)
+    big_err = check_bank_b9(w, s, seeds, g, f"mixtral {name}", plain=False)
+    del w, s, g
+    torch.cuda.empty_cache()
+    weight, _act = b8_bank_operands(e_big, k, n, 4, gen, dev)
+    gw = torch.randn(weight[0].shape, generator=gen, device=dev)
+    check_bank_b8(*weight, gw, dict(row_scale=False, k_dim=0),
+                  f"mixtral {name}")
+    del weight, gw, _act
+    torch.cuda.empty_cache()
+    log(f"[7] bank forms bitwise the plain versions and {e} single "
+        f"launches a bank on one {MOE_ARCH} MoE layer (max |ds - plain| "
+        f"{ds_err:.3e}) and on a {e_big}-expert mixtral-8x22b bank [{e_big},"
+        f" {k}, {n}] (max {big_err:.3e})")
+    w_el = sum(w.numel() for w, _s, _sd, _g in b9)
+    x_el = sum(x.numel() for x, *_ in b8x)
+    groups = sum(s.numel() for _w, s, _sd, _g in b9)
+    out = {}
+
+    def rec(key, kern, plain, single, nbytes, flops, err=0.0):
+        b_ms, b_by = bound(nbytes, flops)
+        out[key] = dict(bank_ms=time_ms(kern, reps),
+                        bank_device_ms=device_ms(kern, reps),
+                        bank_plain_ms=time_ms(plain, 1),
+                        bank_single_launches_ms=time_ms(single, 2),
+                        bank_bound_ms=b_ms, bank_bound_by=b_by,
+                        bank_max_abs_err=err)
+        torch.cuda.empty_cache()
+
+    # Bytes and operations as phase 7 counts them for the 2-D forms.
+    rec(B9, lambda: [ni.noise_inject(w, s, sd) for w, s, sd, _g in b9],
+        lambda: [ni.noise_inject_plain(w, ni.group_sigma(s), sd)
+                 for w, s, sd, _g in b9],
+        lambda: [_per_expert(ni.noise_inject, (w, s, sd[:, None]), e)
+                 for w, s, sd, _g in b9],
+        8 * w_el + 4 * groups + 8 * e * 3, 16 * w_el)
+    rec(B9_BWD, lambda: [ni.noise_inject_bwd(*o) for o in b9],
+        lambda: [ni.noise_inject_bwd_plain(*o) for o in b9],
+        lambda: [_per_expert(ni.noise_inject_bwd, (w, s, sd[:, None], g), e)
+                 for w, s, sd, g in b9],
+        12 * w_el + 8 * groups + 8 * e * 3, 20 * w_el, ds_err)
+    wk = dict(row_scale=False, k_dim=0)
+    xk = dict(row_scale=True)
+    b8_calls = [(a[:3], wk) for a in b8w] + [(a[:3], xk) for a in b8x]
+    b8_bwd_calls = [(a, wk) for a in b8w] + [(a, xk) for a in b8x]
+    nbytes = 8 * w_el + 2 * 2 * x_el + 4 * 4 * groups
+    rec(B8, lambda: [fq.fake_quant(*a, **kw) for a, kw in b8_calls],
+        lambda: [fq.fake_quant_plain(*a, **kw) for a, kw in b8_calls],
+        lambda: [_per_expert(lambda *t, kw=kw: fq.fake_quant(*t, **kw),
+                             (a[0], a[1], a[2].reshape(e, -1)), e)
+                 for a, kw in b8_calls],
+        nbytes, 12 * (w_el + x_el))
+    rec(B8_BWD, lambda: [fq.fake_quant_bwd(*a, **kw)
+                         for a, kw in b8_bwd_calls],
+        lambda: [fq.fake_quant_bwd_plain(*a, **kw)
+                 for a, kw in b8_bwd_calls],
+        lambda: [_per_expert(lambda *t, kw=kw: fq.fake_quant_bwd(*t, **kw),
+                             (a[0], a[1], a[2].reshape(e, -1), a[3]), e)
+                 for a, kw in b8_bwd_calls],
+        12 * w_el + 3 * 2 * x_el + 4 * 4 * groups, 6 * (w_el + x_el))
+    log(f"[7] one {MOE_ARCH} MoE layer's bank launches (B9, B9 backward: 3;"
+        f" B8, B8 backward: 3 weights + 3 activations [64, {c}, K] bf16): "
+        f"{out}")
+    return out
+
+
+# --------------------------------------------------------- MoE training ----
+MOE_TRAIN_LAYERS = 4         # the dense layer and three MoE layers
+
+
+def _quantized_linears(model) -> int:
+    """Linears and expert banks with quantized leaves (one B9 or B8 call
+    each a forward)."""
+    return sum(1 for _n, lin in smol.smol_linears(model)
+               if "s" in lin._names or "pbits" in lin._names)
+
+
+def _moe_train(cfg, dev, hook=None, prof=None):
+    from repro_torch.train import state as state_lib
+    tcfg = state_lib.TrainConfig(t1=T1, t2=T2, warmup=1, seed=SEED)
+    stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
+                           device=dev)
+    n_lin = _quantized_linears(model)
+    return loop.train(cfg, tcfg, stream.batches(), model=model, device=dev,
+                      hooks=[hook] if hook else None), n_lin
+
+
+def phase_moe_training(dev, rng):
+    """Full-width deepseek-moe-16b cut to MOE_TRAIN_LAYERS layers through
+    3 Phase-I and 3 Phase-II steps (``train.loop.train``), profiled; the
+    launches of every step (one B9 / B8 call a linear or bank, each block
+    recomputed once); a second run bitwise the first; the trained model
+    packed (B7) and served (B6, B1), lockstep equal to continuous."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import schedule as prof_schedule
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    records, profiles = [], {}
+    counted = {"b8": B8, "b9": B9, "b8_bwd": B8_BWD, "b9_bwd": B9_BWD}
+    prev = dict.fromkeys(counted.values(), 0)
+
+    def on_ready(p):
+        profiles[records[-1]["step"]] = step_profile.device_summary(p)
+
+    def hook(step, _state, met):
+        counts = kernels.launch_counts()
+        rec = dict(step=step, phase=met["phase"], loss=met["loss"],
+                   moe_aux=met["moe_aux"], grad_norm=met["grad_norm"],
+                   ms=met["wall"] * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        rec.update({key: counts[name] - prev[name]
+                    for key, name in counted.items()})
+        prev.update({name: counts[name] for name in counted.values()})
+        records.append(rec)
+        log(f"[15] step {step} phase {rec['phase']}: loss "
+            f"{rec['loss']:.4f} moe_aux {rec['moe_aux']:.4f} gnorm "
+            f"{rec['grad_norm']:.4f} {rec['ms']:.1f} ms, launches B8 "
+            f"{rec['b8']} B9 {rec['b9']} B8 backward {rec['b8_bwd']} B9 "
+            f"backward {rec['b9_bwd']}, peak {rec['peak_gib']:.2f} GiB")
+        prof.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    undo_spans = step_profile.install_spans()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=prof_schedule(wait=1, warmup=0, active=1,
+                                            repeat=T2 // 2),
+                     on_trace_ready=on_ready) as prof:
+            out, n_lin = _moe_train(cfg, dev, hook)
+    finally:
+        undo_spans()
+    wall = time.perf_counter() - t0
+    # One call a linear or bank a forward, each block run twice (the
+    # recompute); one backward call a weight and one an activation.
+    want = {1: dict(b9=2 * n_lin, b9_bwd=n_lin, b8=0, b8_bwd=0),
+            2: dict(b8=4 * n_lin, b8_bwd=2 * n_lin, b9=0, b9_bwd=0)}
+    if n_lin != 7 + 10 * (MOE_TRAIN_LAYERS - 1):
+        raise AssertionError(f"{n_lin} quantized linears and banks")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["moe_aux"])):
+            raise AssertionError(f"non-finite loss at step {r['step']}")
+        if any(r[k] != n for k, n in want[r["phase"]].items()):
+            raise AssertionError(f"MoE step {r['step']} (phase "
+                                 f"{r['phase']}) launches "
+                                 f"{ {k: r[k] for k in counted} }, wanted "
+                                 f"{want[r['phase']]}")
+    rep = out["pattern_report"]
+    log(f"[15] boundary: average bpp {schedule.average_bpp(rep):.4f} over "
+        f"{len(rep['layers'])} rows (a row a linear and an expert); "
+        f"{T2} steps in {wall:.2f} s; profiles {profiles}")
+    state = out["state"]
+    state["opt"] = None
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    again, _n = _moe_train(cfg, dev)
+    first = [(r["loss"], r["moe_aux"], r["grad_norm"]) for r in records]
+    second = [(m["loss"], m["moe_aux"], m["grad_norm"])
+              for m in again["history"]]
+    if first != second:
+        raise AssertionError(f"second MoE training run differs:\n{first}\n"
+                             f"{second}")
+    log("[15] a second run gives bitwise the same losses, load-balancing "
+        "losses and gradient norms")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    qat_cfg = cfg.with_quant_mode("qat")
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    kernels.reset_launch_counts()
+    eng = engine.DecodeEngine(state["model"], qat_cfg, ecfg, device=dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    a = eng.generate(prompts, 8)
+    counts = kernels.launch_counts()
+    if counts[B7] == 0 or counts[B6] == 0 or counts[B1] == 0:
+        raise AssertionError(f"trained MoE serve launches {counts}")
+    lock = engine.LockstepEngine(eng.model, eng.cfg, ecfg,
+                                 already_serve=True, device=dev)
+    b = lock.generate(prompts, 8)
+    if not np.array_equal(a, b):
+        raise AssertionError(f"trained MoE model: lockstep != continuous\n"
+                             f"{a}\n{b}")
+    log(f"[15] trained MoE model packed ({engine.packed_model_bytes(eng.model):,}"
+        f" bytes) and served; lockstep == continuous; tokens "
+        f"{a[:, 16:].tolist()}; launches {counts}")
+    del eng, lock
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {B9: records[0]["b9"], B9_BWD: records[0]["b9_bwd"],
+                B8: records[-1]["b8"], B8_BWD: records[-1]["b8_bwd"]}
+    return dict(layers=MOE_TRAIN_LAYERS, steps=records, profiles=profiles,
+                wall_s=wall, average_bpp=schedule.average_bpp(rep),
+                allowed_patterns=rep["allowed"],
+                launches_per_step=per_step,
+                launches={name: sum(r[key] for r in records)
+                          for key, name in counted.items()})
+
+
+def _train_bank(leaf, x, g, qcfg, draw, dev):
+    """One bank's forward and backward on ``dev``: (y, dx, dw, ds)."""
+    bank = moe_lib.ExpertBank({k: v.to(dev) for k, v in leaf.items()})
+    bank.requires_grad_(True)
+    xt = x.to(dev).requires_grad_(True)
+    d = None if draw is None else smol.NoiseDraw(
+        seed=draw.seed.to(dev), act_eps=draw.act_eps.to(dev))
+    y = smol.linear_apply(bank.leaf(), xt, qcfg, d)
+    (y * g.to(dev)).sum().backward()
+    ds = bank.s.grad if "s" in leaf else None
+    return y.detach(), xt.grad, bank.w.grad, ds
+
+
+BANK_CPU_EXPERTS = 16        # experts of each bank held card vs CPU
+
+
+def check_banks_against_cpu(dev):
+    """Teacher-forced card vs CPU for one full-width deepseek-moe-16b MoE
+    layer's three banks, cut to their first BANK_CPU_EXPERTS experts (the
+    CPU's plain noise takes ~3 s an expert-bank's forward and backward),
+    in NOISE and QAT (fp32, C = 24 rows an expert, empty rows included;
+    per-expert seeds, logits, precisions; the same input, cotangent and
+    draws on both): y, dx, dw, ds within relative L2 1e-5."""
+    cfg = get_config(MOE_ARCH)
+    e, c = BANK_CPU_EXPERTS, 24
+    gen = torch.Generator().manual_seed(SEED + 11)
+    worst = {}
+    for mode in ("noise", "qat"):
+        qcfg = QuantConfig(mode=mode)
+        for name, k, n in moe_banks(cfg):
+            leaf = {"w": torch.randn((e, k, n), generator=gen)
+                    / math.sqrt(k)}
+            if mode == "noise":
+                leaf["s"] = torch.randn((e, k // 16), generator=gen) \
+                    * 1.5 - 0.5
+            else:
+                leaf["pbits"] = torch.tensor([1, 2, 4], dtype=torch.int8)[
+                    torch.randint(0, 3, (e, k // 16), generator=gen)]
+            x = torch.randn((e, c, k), generator=gen)
+            x[:, -4:] = 0.0
+            g = torch.randn((e, c, n), generator=gen)
+            draw = None
+            if mode == "noise":
+                draw = smol.NoiseDraw(
+                    seed=torch.randint(0, 1 << 32, (e,), generator=gen),
+                    act_eps=torch.rand(x.shape, generator=gen) * 2 - 1)
+            card = _train_bank(leaf, x, g, qcfg, draw, dev)
+            host = _train_bank(leaf, x, g, qcfg, draw, "cpu")
+            for what, a, b in zip(("y", "dx", "dw", "ds"), card, host):
+                if b is None:
+                    continue
+                err = rel_l2(a, b)
+                key = f"{mode}.{what}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if not err <= 1e-5:
+                    raise AssertionError(f"{mode} bank {name} {what}: "
+                                         f"relative L2 {err:.3e} card vs "
+                                         f"CPU")
+            del card, host
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_launcher():
     """The training launcher at full width in a subprocess."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
@@ -2517,6 +2954,11 @@ def main() -> int:
         f"versions, their backward passes dw and dx bitwise and ds within "
         f"its bound; {train_kern}")
     torch.cuda.empty_cache()
+    for name, rec in phase_bank_kernels(get_config(MOE_ARCH),
+                                        get_config("mixtral-8x22b"), gen,
+                                        dev).items():
+        results[name].update(rec)
+    torch.cuda.empty_cache()
 
     clock.lap(7)
 
@@ -2567,6 +3009,14 @@ def main() -> int:
     clock.lap(14)
 
     # ------------------------------------------------------- phase 15 ----
+    moe_train = phase_moe_training(dev, rng)
+    moe_train["banks_card_vs_cpu"] = check_banks_against_cpu(dev)
+    log(f"[15] one {MOE_ARCH} MoE layer's banks ({BANK_CPU_EXPERTS} experts "
+        f"each), card vs CPU (fp32, relative L2): "
+        f"{moe_train['banks_card_vs_cpu']}")
+    clock.lap(15)
+
+    # ------------------------------------------------------- phase 16 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; launches: "
@@ -2605,6 +3055,20 @@ def main() -> int:
             B9_BWD: "one h2o-danube-1.8b layer of Phase-I noise_inject "
                     "backward: 7 weights (fp32); launches_per_train_step: "
                     "a Phase-I step"}
+    bank_work = {
+        B8: "; bank_*: one deepseek-moe-16b MoE layer's 3 expert banks "
+            "(E=64, one launch a bank: fp32 weights, group scales an "
+            "expert) + their 3 dispatch-buffer activations ([64, 120, K] "
+            "bf16, a per-tensor scale an expert); "
+            "bank_single_launches_ms: the same as 384 single launches",
+        B9: "; bank_*: one deepseek-moe-16b MoE layer's 3 expert banks "
+            "(E=64, one launch a bank, a seed an expert); "
+            "bank_single_launches_ms: 192 single launches"}
+    bank_work[B8_BWD], bank_work[B9_BWD] = bank_work[B8], bank_work[B9]
+    for name, text in bank_work.items():
+        work[name] += text + ("; moe_train_launches: the MoE training run"
+                              ", launches_per_moe_train_step: a Phase-I "
+                              "(B9) or Phase-II (B8) step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -2633,6 +3097,12 @@ def main() -> int:
             rows[-1]["launches_per_train_step"] = per_train_step[name]
         if name == B7:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
+        if name in moe_train["launches_per_step"]:
+            rows[-1].update((k, v) for k, v in r.items()
+                            if k.startswith("bank_"))
+            rows[-1]["moe_train_launches"] = moe_train["launches"][name]
+            rows[-1]["launches_per_moe_train_step"] = \
+                moe_train["launches_per_step"][name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kv4_serve": {
         k: {n: x for n, x in v.items() if n != "profile"}
@@ -2643,6 +3113,7 @@ def main() -> int:
         "allowed_patterns": report["allowed"],
         "b8_weights_ms_per_layer": results[B8]["weights_ms"],
         "launcher_s": launcher_s}}))
+    print(json.dumps({"moe_training": moe_train}))
     print(json.dumps({"moe_serve": {
         k: ({n: x for n, x in v.items() if n != "profile"}
             if isinstance(v, dict) else v) for k, v in moe.items()}}))

@@ -294,7 +294,9 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed,
                  group_size: int = GROUP_SIZE) -> torch.Tensor:
     """Phase-I fused perturbation of w [K, N] fp32 with logits s
     [K // group_size], differentiable in (w, s). ``seed`` is a uint32 (an
-    int or a one-element int64 tensor on w's device)."""
+    int or a one-element int64 tensor on w's device). A stacked expert
+    bank w [E, K, N] takes s [E, K // group_size] and E seeds: one launch
+    each way."""
     return _NoiseInject.apply(w.contiguous(), s,
                               ni.seed_tensor(seed, w.device), group_size)
 
@@ -327,10 +329,20 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,
     per-group ``pbits`` [K // group_size]. ``scale`` is one value per row
     (a scalar, or any [..., 1] shape that broadcasts over x's rows:
     [1, ..., 1], one per row, one per expert [E, 1, 1] of x [E, M, K]) or
-    per group [K // group_size]. Differentiable in x."""
+    per group [K // group_size]. Differentiable in x.
+
+    An expert bank's activations x [E, ..., K] take each expert's own
+    precisions ``pbits`` [E, K // group_size] (and a per-row scale that
+    broadcasts per expert, or per-group scales [E, K // group_size]): one
+    launch each way."""
     k = x.shape[-1]
     lead = x.shape[:-1]
     m = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    bank = pbits.dim() == 2
+    e = pbits.shape[0] if bank else 1
+    if bank and (x.dim() < 2 or x.shape[0] != e):
+        raise ValueError(f"pbits {tuple(pbits.shape)} of {e} experts for "
+                         f"x {tuple(x.shape)}")
     s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     ng = max(k // group_size, 1)
     if s.dim() == 0 or (s.shape[-1] == 1 and s.numel() == 1):
@@ -338,12 +350,13 @@ def fake_quant(x: torch.Tensor, pbits: torch.Tensor, scale,
     elif s.shape[-1] == 1 and s.dim() == x.dim() and all(
             a in (1, b) for a, b in zip(s.shape[:-1], lead)):
         s_op, row = s.expand(lead + (1,)).reshape(m).contiguous(), True
-    elif s.dim() == 1 and s.shape[0] == ng:
-        s_op, row = s, False
+    elif tuple(s.shape) == tuple(pbits.shape[:-1]) + (ng,):
+        s_op, row = s.contiguous(), False
     else:
         raise ValueError(f"scale {tuple(s.shape)} is neither per row nor "
                          f"per group of x {tuple(x.shape)}")
-    y = _FakeQuant.apply(x.reshape(m, k).contiguous(),
+    shape = (e, m // e, k) if bank else (m, k)
+    y = _FakeQuant.apply(x.reshape(shape).contiguous(),
                          pbits.float().contiguous(), s_op, row, 1,
                          group_size)
     return y.reshape(x.shape)
@@ -354,7 +367,9 @@ def fake_quant_weight(w: torch.Tensor, pbits: torch.Tensor,
                       group_size: int = GROUP_SIZE) -> torch.Tensor:
     """Clipped-STE quantize-dequantize of a weight w [K, N] along K with
     per-group ``pbits`` and ``scale`` [K // group_size]: the reference's
-    ``fake_quant(swapaxes(w), ...)`` swapped back, read in place."""
+    ``fake_quant(swapaxes(w), ...)`` swapped back, read in place. A stacked
+    bank w [E, K, N] takes pbits and scales [E, K // group_size]: one
+    launch each way."""
     return _FakeQuant.apply(w.contiguous(), pbits.float().contiguous(),
                             scale.float().contiguous(), False, 0,
                             group_size)

@@ -78,7 +78,8 @@ S_4B, S_2B, S_1B = s_init(4), s_init(2), s_init(1)
 
 
 def _per_channel(s: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
-    return torch.repeat_interleave(sigma(s), group_size)[:k]
+    """sigma(s) per channel: [..., K // G] -> [..., K]."""
+    return torch.repeat_interleave(sigma(s), group_size, dim=-1)[..., :k]
 
 
 def inject_act_noise(x: torch.Tensor, s: torch.Tensor, eps: torch.Tensor,
@@ -87,8 +88,11 @@ def inject_act_noise(x: torch.Tensor, s: torch.Tensor, eps: torch.Tensor,
     """x + scale * sigma(s) * eps along the last dim of x (paper Alg. 2
     line 6), in x's dtype; ``eps`` ~ U(-1, 1) has x's shape and ``scale``
     is the activation quantization scale, so the noise is in activation
-    units."""
+    units. An expert bank's x [E, C, K] takes each expert's logits s
+    [E, K // G] (and a scale that broadcasts per expert, e.g. [E, 1, 1])."""
     sig = _per_channel(s, x.shape[-1], group_size).to(x.dtype)
+    if s.dim() == 2:
+        sig = sig[:, None, :]
     scale = torch.as_tensor(scale, device=x.device).to(x.dtype)
     return x + scale * sig * eps.to(x.dtype)
 
@@ -96,8 +100,13 @@ def inject_act_noise(x: torch.Tensor, s: torch.Tensor, eps: torch.Tensor,
 def clip_weights(w: torch.Tensor, s: torch.Tensor,
                  group_size: int = GROUP_SIZE) -> torch.Tensor:
     """The projection after the optimizer update (paper Alg. 1 line 7):
-    clip w [K, ...] to +-(2 - sigma(s)) per K group."""
-    k = w.shape[0]
-    lim = (2.0 - _per_channel(s, k, group_size)).reshape(
-        (k,) + (1,) * (w.dim() - 1)).to(w.dtype)
+    clip w [K, ...] to +-(2 - sigma(s)) per K group; a bank w [E, K, N]
+    with s [E, K // G] per expert."""
+    if s.dim() == 2:
+        lim = (2.0 - _per_channel(s, w.shape[-2], group_size))[..., None]
+    else:
+        k = w.shape[0]
+        lim = (2.0 - _per_channel(s, k, group_size)).reshape(
+            (k,) + (1,) * (w.dim() - 1))
+    lim = lim.to(w.dtype)
     return torch.minimum(torch.maximum(w, -lim), lim)

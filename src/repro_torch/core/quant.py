@@ -69,26 +69,37 @@ def abs_max_scale(x: torch.Tensor, dim=None, grid_p: int = 4,
 def per_group_weight_scale(w: torch.Tensor, group_size: int = 16,
                            grid_p: int = 4,
                            eps: float = ACT_SCALE_EPS) -> torch.Tensor:
-    """Per-(K group) scale for a [K, ...] weight -> [K // group_size]."""
-    k = w.shape[0]
-    m = w.float().abs().reshape(k // group_size, group_size, -1).amax(
-        dim=(1, 2))
+    """Per-(K group) scale for a [K, N] weight -> [K // group_size]; for a
+    stacked bank [E, K, N] each expert's own -> [E, K // group_size] (the
+    reference's function under ``vmap``)."""
+    k = w.shape[-2] if w.dim() == 3 else w.shape[0]
+    lead = tuple(w.shape[:-2]) if w.dim() == 3 else ()
+    m = w.float().abs().reshape(lead + (k // group_size, group_size, -1)
+                                ).amax(dim=(-2, -1))
     return div_const(torch.clamp_min(m, eps), static_grid_max(grid_p))
 
 
 def expand_groups(v: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
-    """[K // G] per-group values -> [K] per-channel values."""
+    """[..., K // G] per-group values -> [..., K] per-channel values."""
     return torch.repeat_interleave(v, group_size, dim=-1)[..., :k]
+
+
+def _channels(v: torch.Tensor, x: torch.Tensor, group_size: int
+              ) -> torch.Tensor:
+    """Per-group values over x [..., K]'s channels: [K // G] -> [K]; a
+    bank's [E, K // G] against x [E, R, K] -> [E, 1, K]."""
+    v = expand_groups(v, x.shape[-1], group_size)
+    return v.unsqueeze(-2) if 2 <= v.dim() < x.dim() else v
 
 
 def _fake_quant_operands(x: torch.Tensor, pbits, scale, group_size: int):
     k = x.shape[-1]
-    p = expand_groups(torch.as_tensor(pbits, device=x.device).float(),
-                      k, group_size)
+    p = _channels(torch.as_tensor(pbits, device=x.device).float(), x,
+                  group_size)
     s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     if s.dim() and s.shape[-1] == max(1, k // group_size) \
             and k > s.shape[-1]:
-        s = expand_groups(s, k, group_size)
+        s = _channels(s, x, group_size)
     return x.float() / s, p, s
 
 

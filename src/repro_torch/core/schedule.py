@@ -32,34 +32,48 @@ class PhaseSchedule:
 
 
 def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
-    """Every (w, s) linear in the reference's tree order: by path within a
-    block (``attn.wk``, ``attn.wo``, ... sorted, as a pytree sorts dict
-    keys), each over the layers in order, as the reference walks its
-    stacked ``[L, ...]`` leaves."""
-    by_suffix: Dict[str, List[Tuple[int, smol.SmolLinear]]] = {}
+    """Every (w, s) linear in the reference's tree order. The reference
+    stacks each plan group's layers ([L, ...] leaves under ``groups[i]``)
+    and walks its tree with dict keys sorted, so the order is: plan group,
+    then the path within a block (``attn.wk``, ..., ``moe.down``,
+    ``moe.shared.up``, ``moe.up``: sorted part by part), then the layer.
+    A linear outside the blocks sorts by its own path among the tree's
+    top-level keys."""
+    plan_group: List[int] = []
+    for gi, (_kind, count) in enumerate(model.cfg.layer_plan()):
+        plan_group += [gi] * count
+    keyed = []
     for name, lin in smol.smol_linears(model):
         if "s" not in lin._names:
             continue
         parts = name.split(".")
         if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
-            key, layer = ".".join(parts[2:]), int(parts[1])
+            layer = int(parts[1])
+            key = ("groups", plan_group[layer], tuple(parts[2:]), layer)
         else:
-            key, layer = name, 0
-        by_suffix.setdefault(key, []).append((layer, lin))
-    return [lin for key in sorted(by_suffix)
-            for _layer, lin in sorted(by_suffix[key], key=lambda r: r[0])]
+            key = (parts[0], 0, tuple(parts[1:]), 0)
+        keyed.append((key, lin))
+    return [lin for _key, lin in sorted(keyed, key=lambda r: r[0])]
 
 
 def _group_size(lin: smol.SmolLinear, qcfg: QuantConfig) -> int:
-    return qcfg.eff_group_size(lin.w.shape[0])
+    return qcfg.eff_group_size(lin.w.shape[-2])
+
+
+def _s_rows(lin: smol.SmolLinear) -> np.ndarray:
+    """A linear's logits as rows [R, K // G]: one for a single weight, E
+    for an expert bank (expert-minor within the layer, as the reference's
+    ``s.reshape(-1, K // G)`` of its stacked [L, E, K // G] leaf reads
+    them)."""
+    s = lin.s.detach().cpu().numpy()
+    return s.reshape(-1, s.shape[-1])
 
 
 def collect_histograms(model: nn.Module, qcfg: QuantConfig
                        ) -> List[Tuple[int, int, int]]:
-    """Per-layer (N4, N2, N1) histograms from the trained s."""
-    return [patterns_lib.histogram_from_s(
-        lin.s.detach().cpu().numpy(), _group_size(lin, qcfg))
-        for lin in _noise_linears(model)]
+    """Per-(layer, expert) (N4, N2, N1) histograms from the trained s."""
+    return [patterns_lib.histogram_from_s(s_row, _group_size(lin, qcfg))
+            for lin in _noise_linears(model) for s_row in _s_rows(lin)]
 
 
 @torch.no_grad()
@@ -68,11 +82,14 @@ def pattern_match_params(model: nn.Module, qcfg: QuantConfig
     """The Phase I -> Phase II boundary, on the host, in place:
 
       1. select the hardware pattern subset (paper §V-A / Table III),
-      2. per layer: Problem-1 solve under that subset, PatternMatch the s
-         vector, freeze the per-group precisions,
-      3. turn each (w, s) linear into a (w, pbits) QAT linear.
+      2. per layer (per expert of a bank): Problem-1 solve under that
+         subset, PatternMatch the s vector, freeze the per-group
+         precisions,
+      3. turn each (w, s) linear into a (w, pbits) QAT linear (a bank's
+         pbits [E, K // G] int8).
 
-    Returns (model, report) where the report carries the solver stats."""
+    Returns (model, report) where the report carries the solver stats,
+    one entry a row of s in the reference's order."""
     linears = _noise_linears(model)
     allowed = patterns_lib.patterns_for(qcfg.num_patterns) \
         if qcfg.num_patterns in patterns_lib.DESIGN_POINT_PATTERNS \
@@ -80,17 +97,20 @@ def pattern_match_params(model: nn.Module, qcfg: QuantConfig
             collect_histograms(model, qcfg), qcfg.num_patterns)
     report: Dict = {"layers": [], "allowed": allowed}
     for lin in linears:
-        s_row = lin.s.detach().cpu().numpy()
         g = _group_size(lin, qcfg)
-        n4, n2, n1 = patterns_lib.histogram_from_s(s_row, g)
-        sol = patterns_lib.solve_problem1(n4, n2, n1, allowed)
-        pb = patterns_lib.precisions_from_matched_s(
-            patterns_lib.pattern_match(s_row, sol, g))
-        report["layers"].append({
-            "hist": (n4, n2, n1), "vectors": sol.num_vectors,
-            "bpp": float((4 * (pb == 4).sum() + 2 * (pb == 2).sum()
-                          + (pb == 1).sum()) / pb.size)})
-        lin.freeze(torch.as_tensor(pb.astype(np.int8), device=lin.w.device))
+        pb_rows = []
+        for s_row in _s_rows(lin):
+            n4, n2, n1 = patterns_lib.histogram_from_s(s_row, g)
+            sol = patterns_lib.solve_problem1(n4, n2, n1, allowed)
+            pb = patterns_lib.precisions_from_matched_s(
+                patterns_lib.pattern_match(s_row, sol, g))
+            pb_rows.append(pb)
+            report["layers"].append({
+                "hist": (n4, n2, n1), "vectors": sol.num_vectors,
+                "bpp": float((4 * (pb == 4).sum() + 2 * (pb == 2).sum()
+                              + (pb == 1).sum()) / pb.size)})
+        pbits = np.stack(pb_rows).reshape(lin.s.shape).astype(np.int8)
+        lin.freeze(torch.as_tensor(pbits, device=lin.w.device))
     return model, report
 
 

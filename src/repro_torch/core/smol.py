@@ -17,6 +17,12 @@ backward in plain torch; the large products stay ``torch.matmul`` in fp32
 for gradients: ``train.state.init_state``), the integer leaves and the
 packed carriers as buffers.
 
+A stacked expert bank (leaves [E, ...]: w [E, K, N], s or pbits
+[E, K // G]) runs the same rules on x [E, C, K], each expert with its own
+seed, logits or precisions, weight scales and activation scale, as the
+reference's ``vmap`` of ``linear_apply`` over the bank; the kernels take
+the whole bank in one launch.
+
 The reference draws Phase I's noise from ``jax.random``. The port takes an
 explicit :class:`NoiseDraw` per linear call instead, from a source keyed
 by the linear's module path (:class:`StepNoise`: a seeded
@@ -43,15 +49,17 @@ from .qtypes import QuantConfig
 @dataclasses.dataclass
 class NoiseDraw:
     """One Phase-I linear call's randomness: the uint32 seed of the weight
-    noise (a one-element int64 tensor on the device, read by kernel B9)
-    and the activation noise ``act_eps`` ~ U(-1, 1) of x's shape."""
+    noise (a one-element int64 tensor on the device, read by kernel B9;
+    a bank's E seeds, one an expert) and the activation noise ``act_eps``
+    ~ U(-1, 1) of x's shape (a bank's [E, C, K], capacity rows included)."""
 
     seed: torch.Tensor
     act_eps: Optional[torch.Tensor] = None
 
 
 class NoiseSource(Protocol):
-    def draw(self, path: str, x: torch.Tensor) -> NoiseDraw: ...
+    def draw(self, path: str, x: torch.Tensor,
+             experts: Optional[int] = None) -> NoiseDraw: ...
 
 
 class StepNoise:
@@ -70,10 +78,13 @@ class StepNoise:
                                  digest_size=8).digest()
         return int.from_bytes(digest, "little") >> 1
 
-    def draw(self, path: str, x: torch.Tensor) -> NoiseDraw:
+    def draw(self, path: str, x: torch.Tensor,
+             experts: Optional[int] = None) -> NoiseDraw:
+        """The draws of the linear at ``path`` on input x; a bank of
+        ``experts`` gets one weight seed an expert."""
         gen = torch.Generator(device=x.device)
         gen.manual_seed(self.generator_seed(path))
-        seed = torch.randint(0, 1 << 32, (1,), generator=gen,
+        seed = torch.randint(0, 1 << 32, (experts or 1,), generator=gen,
                              device=x.device, dtype=torch.int64)
         eps = None
         if self.quantize_activations:
@@ -119,16 +130,24 @@ def _matmul(x: torch.Tensor, w: torch.Tensor,
 
 def _weight_scales(w: torch.Tensor, qcfg: QuantConfig,
                    group_size: int) -> torch.Tensor:
-    """Per-group weight scale [K // G] (a data statistic: no gradient)."""
+    """Per-group weight scale [K // G], a bank's [E, K // G] (a data
+    statistic: no gradient)."""
     with torch.no_grad():
         if qcfg.scale_mode == "none":
-            return torch.ones((qcfg.num_groups(w.shape[0]),),
-                              dtype=torch.float32, device=w.device)
+            return torch.ones(tuple(w.shape[:-2]) + (
+                qcfg.num_groups(w.shape[-2]),), dtype=torch.float32,
+                device=w.device)
         return quant.per_group_weight_scale(w, group_size)
 
 
-def _act_scale(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+def _act_scale(x: torch.Tensor, qcfg: QuantConfig,
+               bank: bool = False) -> torch.Tensor:
+    """The activation scale; a bank's ``per_tensor`` scale is each
+    expert's own over its whole [C, K] slice ([E, 1, 1]), empty capacity
+    rows included, as the reference's ``vmap`` reduces it."""
     with torch.no_grad():
+        if bank and qcfg.act_scale_mode == "per_tensor":
+            return quant.abs_max_scale(x, dim=tuple(range(1, x.dim())))
         return backend.act_scale(x, qcfg.act_scale_mode)
 
 
@@ -144,7 +163,9 @@ def _quantize_act(x: torch.Tensor, pbits: torch.Tensor, qcfg: QuantConfig,
                   group_size: int) -> torch.Tensor:
     if not qcfg.quantize_activations:
         return x
-    return backend.fake_quant(x, pbits, _act_scale(x, qcfg), group_size)
+    bank = pbits.dim() == 2
+    return backend.fake_quant(x, pbits, _act_scale(x, qcfg, bank),
+                              group_size)
 
 
 def _linear_noise(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig,
@@ -152,24 +173,24 @@ def _linear_noise(leaf: Dict, x: torch.Tensor, qcfg: QuantConfig,
     if noise is None:
         raise ValueError("a Phase-I (noise) linear needs a NoiseDraw")
     w, s = leaf["w"], leaf["s"]
-    k = w.shape[0]
+    k = w.shape[-2]
     g = qcfg.eff_group_size(k)
     # Group abs-max normalized to 1.0, not the grid top 1.875: the clip
     # +-(2 - sigma) must not bite below sigma ~= 1.
     sw = _weight_scales(w, qcfg, g) * float(quant.static_grid_max(4))
-    sfull = quant.expand_groups(sw, k, g)[:, None]
+    sfull = quant.expand_groups(sw, k, g)[..., None]
     wn = backend.noise_inject(w.float() / sfull, s, noise.seed, g)
     wn = (wn * sfull).to(x.dtype)
     if qcfg.quantize_activations:
         x = noise_lib.inject_act_noise(x, s, noise.act_eps,
-                                       _act_scale(x, qcfg), g)
+                                       _act_scale(x, qcfg, s.dim() == 2), g)
     return _matmul(x, wn, leaf.get("b"))
 
 
 def _linear_qat(leaf: Dict, x: torch.Tensor,
                 qcfg: QuantConfig) -> torch.Tensor:
     w = leaf["w"]
-    g = qcfg.eff_group_size(w.shape[0])
+    g = qcfg.eff_group_size(w.shape[-2])
     pbits = leaf["pbits"].float()
     wq = _quantize_weight(w, pbits, qcfg, g).to(x.dtype)
     xq = _quantize_act(x, pbits, qcfg, g)
@@ -237,7 +258,8 @@ class SmolLinear(nn.Module):
 
     def freeze(self, pbits: torch.Tensor) -> None:
         """Phase I -> II: drop the logits ``s``, hold frozen per-group
-        precisions ``pbits`` instead."""
+        precisions ``pbits`` (of s's shape: a bank's [E, K // G])
+        instead."""
         del self._parameters["s"]
         self.register_buffer("pbits", pbits)
         self._names = tuple("pbits" if n == "s" else n for n in self._names)
@@ -264,15 +286,15 @@ def bit_penalty_of_params(model: nn.Module) -> torch.Tensor:
 @torch.no_grad()
 def project_noise_weights(model: nn.Module, qcfg: QuantConfig) -> None:
     """The post-optimizer projection (paper Alg. 1 line 7), in place: every
-    (w, s) linear's w, normalized by its group scale, is clipped to
-    +-(2 - sigma(s))."""
+    (w, s) linear's w (a bank's every expert), normalized by its group
+    scale, is clipped to +-(2 - sigma(s))."""
     for _name, lin in smol_linears(model):
         if "s" not in lin._names:
             continue
         w = lin.w
-        k = w.shape[0]
+        k = w.shape[-2]
         g = qcfg.eff_group_size(k)
         sw = _weight_scales(w, qcfg, g)
-        sfull = quant.expand_groups(sw, k, g)[:, None]
+        sfull = quant.expand_groups(sw, k, g)[..., None]
         lim = noise_lib.clip_weights(w.float() / sfull, lin.s, g)
         w.copy_((lim * sfull).to(w.dtype))

@@ -20,6 +20,12 @@
 // these kernels read w in place, so no transposed copy is made; every
 // element's arithmetic is the same).
 //
+// Expert banks: x is [E, R, C], E slices of [R, C] back to back, each
+// with its own precisions (pbits [E, K/G]) and scales (per group [E, K/G],
+// per row [E * R] for activations, [E * C] for a weight). Rows of the
+// [E * R, C] view are walked as one grid, row r belonging to expert r / R,
+// so a bank is one launch; a single tensor is the bank of one.
+//
 // What bounds both on the H100: bytes. The forward reads and writes each
 // element once (4 + 4 B in fp32, 2 + 2 B in bf16) with ~12 float
 // operations between; the backward reads x and g and writes dx (12 B in
@@ -83,17 +89,43 @@ __device__ __forceinline__ float in_range_elem(float x, float p, float s) {
   return fabsf(__fdiv_rn(x, s)) <= top ? 1.0f : 0.0f;
 }
 
-// x [R, C] row-major. K_ROWS: K is the row index (w [K, N]); else the
-// column index (x [M, K]). ROW_SCALE: scale[non-K index]; else
-// scale[k / group].
+// The operands of one row of the [E * R, C] view: its expert's pbits and
+// scales, the row within the expert and the row's scale offset.
+struct RowOps {
+  const float* pbits;
+  const float* scale;
+  int k_row;   // the row within its expert (K's index when K_ROWS)
+};
+
+template <bool K_ROWS, bool ROW_SCALE>
+__device__ __forceinline__ RowOps row_ops(const float* pbits,
+                                          const float* scale, int r, int R,
+                                          int C, int groups) {
+  const int e = r / R;
+  RowOps o;
+  o.k_row = r - e * R;
+  o.pbits = pbits + (size_t)e * groups;
+  if (ROW_SCALE)
+    o.scale = K_ROWS ? scale + (size_t)e * C : scale + r;
+  else
+    o.scale = scale + (size_t)e * groups;
+  return o;
+}
+
+// x [E * R, C] row-major: E slices of R rows. K_ROWS: K is the row index
+// within a slice (w [K, N]); else the column index (x [M, K]). ROW_SCALE:
+// one scale per non-K index (of the slice); else one per group of K.
 template <typename T, bool K_ROWS, bool ROW_SCALE, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 fake_quant_kernel(const T* __restrict__ x, const float* __restrict__ pbits,
                   const float* __restrict__ scale, T* __restrict__ out,
-                  int R, int C, int group) {
+                  int rows, int R, int C, int group) {
   const int c0 = (blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (c0 >= C) return;
-  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+  const int groups = (K_ROWS ? R : C) / group;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const RowOps o = row_ops<K_ROWS, ROW_SCALE>(pbits, scale, r, R, C,
+                                                groups);
     const size_t base = (size_t)r * C + c0;
     float xv[VEC];
     if (ALIGNED) {
@@ -109,10 +141,10 @@ fake_quant_kernel(const T* __restrict__ x, const float* __restrict__ pbits,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const int c = c0 + j;
-      const int kidx = K_ROWS ? r : c;
+      const int kidx = K_ROWS ? o.k_row : c;
       const int g = kidx / group;
-      const float p = pbits[g];
-      const float s = ROW_SCALE ? scale[K_ROWS ? c : r] : scale[g];
+      const float p = o.pbits[g];
+      const float s = ROW_SCALE ? o.scale[K_ROWS ? c : 0] : o.scale[g];
       res.v[j] = (c < C) ? from_f32<T>(fake_quant_elem(xv[j], p, s))
                          : from_f32<T>(0.0f);
     }
@@ -128,48 +160,52 @@ fake_quant_kernel(const T* __restrict__ x, const float* __restrict__ pbits,
 
 template <typename T, bool K_ROWS, bool ROW_SCALE>
 void launch(const void* x, const float* pb, const float* sc, void* out,
-            int R, int C, int group, bool aligned, cudaStream_t s) {
+            int E, int R, int C, int group, bool aligned, cudaStream_t s) {
+  const int rows = E * R;
   const dim3 grid((C + THREADS * VEC - 1) / (THREADS * VEC),
-                  R < 65535 ? R : 65535);
+                  rows < 65535 ? rows : 65535);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (aligned)
     fake_quant_kernel<T, K_ROWS, ROW_SCALE, true>
-        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, R, C, group);
+        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, rows, R, C, group);
   else
     fake_quant_kernel<T, K_ROWS, ROW_SCALE, false>
-        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, R, C, group);
+        <<<grid, THREADS, 0, s>>>(xt, pb, sc, ot, rows, R, C, group);
 }
 
 template <typename T>
 void dispatch(const void* x, const float* pb, const float* sc, void* out,
-              int R, int C, int group, int k_rows, int row_scale,
+              int E, int R, int C, int group, int k_rows, int row_scale,
               bool aligned, cudaStream_t s) {
   if (k_rows) {
     if (row_scale)
-      launch<T, true, true>(x, pb, sc, out, R, C, group, aligned, s);
+      launch<T, true, true>(x, pb, sc, out, E, R, C, group, aligned, s);
     else
-      launch<T, true, false>(x, pb, sc, out, R, C, group, aligned, s);
+      launch<T, true, false>(x, pb, sc, out, E, R, C, group, aligned, s);
   } else {
     if (row_scale)
-      launch<T, false, true>(x, pb, sc, out, R, C, group, aligned, s);
+      launch<T, false, true>(x, pb, sc, out, E, R, C, group, aligned, s);
     else
-      launch<T, false, false>(x, pb, sc, out, R, C, group, aligned, s);
+      launch<T, false, false>(x, pb, sc, out, E, R, C, group, aligned, s);
   }
 }
 
-// dx = g * in_range(x), all [R, C] row-major of one dtype; layouts as
+// dx = g * in_range(x), all [E * R, C] row-major of one dtype; layouts as
 // fake_quant_kernel. Each thread takes 16 bytes of each operand.
 template <typename T, bool K_ROWS, bool ROW_SCALE, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 fake_quant_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       const float* __restrict__ pbits,
                       const float* __restrict__ scale, T* __restrict__ dx,
-                      int R, int C, int group) {
+                      int rows, int R, int C, int group) {
   constexpr int V = 16 / sizeof(T);
   const int c0 = (blockIdx.x * THREADS + threadIdx.x) * V;
   if (c0 >= C) return;
-  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+  const int groups = (K_ROWS ? R : C) / group;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const RowOps o = row_ops<K_ROWS, ROW_SCALE>(pbits, scale, r, R, C,
+                                                groups);
     const size_t base = (size_t)r * C + c0;
     float xv[V], gv[V];
     if (ALIGNED) {
@@ -192,11 +228,11 @@ fake_quant_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int c = c0 + j;
-      const int kidx = K_ROWS ? r : c;
+      const int kidx = K_ROWS ? o.k_row : c;
       const int grp = kidx / group;
-      const float p = (c < C) ? pbits[grp] : 0.0f;
-      const float s = (c < C) ? (ROW_SCALE ? scale[K_ROWS ? c : r]
-                                           : scale[grp])
+      const float p = (c < C) ? o.pbits[grp] : 0.0f;
+      const float s = (c < C) ? (ROW_SCALE ? o.scale[K_ROWS ? c : 0]
+                                           : o.scale[grp])
                               : 1.0f;
       res.v[j] = from_f32<T>(__fmul_rn(gv[j], in_range_elem(xv[j], p, s)));
     }
@@ -212,57 +248,62 @@ fake_quant_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 template <typename T, bool K_ROWS, bool ROW_SCALE>
 void launch_bwd(const void* x, const void* g, const float* pb,
-                const float* sc, void* dx, int R, int C, int group,
+                const float* sc, void* dx, int E, int R, int C, int group,
                 bool aligned, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
+  const int rows = E * R;
   const dim3 grid((C + THREADS * V - 1) / (THREADS * V),
-                  R < 65535 ? R : 65535);
+                  rows < 65535 ? rows : 65535);
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   T* dt = static_cast<T*>(dx);
   if (aligned)
     fake_quant_bwd_kernel<T, K_ROWS, ROW_SCALE, true>
-        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, R, C, group);
+        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, rows, R, C, group);
   else
     fake_quant_bwd_kernel<T, K_ROWS, ROW_SCALE, false>
-        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, R, C, group);
+        <<<grid, THREADS, 0, s>>>(xt, gt, pb, sc, dt, rows, R, C, group);
 }
 
 template <typename T>
 void dispatch_bwd(const void* x, const void* g, const float* pb,
-                  const float* sc, void* dx, int R, int C, int group,
+                  const float* sc, void* dx, int E, int R, int C, int group,
                   int k_rows, int row_scale, bool aligned, cudaStream_t s) {
   if (k_rows) {
     if (row_scale)
-      launch_bwd<T, true, true>(x, g, pb, sc, dx, R, C, group, aligned, s);
+      launch_bwd<T, true, true>(x, g, pb, sc, dx, E, R, C, group, aligned,
+                                s);
     else
-      launch_bwd<T, true, false>(x, g, pb, sc, dx, R, C, group, aligned, s);
+      launch_bwd<T, true, false>(x, g, pb, sc, dx, E, R, C, group, aligned,
+                                 s);
   } else {
     if (row_scale)
-      launch_bwd<T, false, true>(x, g, pb, sc, dx, R, C, group, aligned, s);
+      launch_bwd<T, false, true>(x, g, pb, sc, dx, E, R, C, group, aligned,
+                                 s);
     else
-      launch_bwd<T, false, false>(x, g, pb, sc, dx, R, C, group, aligned,
-                                  s);
+      launch_bwd<T, false, false>(x, g, pb, sc, dx, E, R, C, group,
+                                  aligned, s);
   }
 }
 
-bool bad_shape(int R, int C, int group, int k_rows, int dtype) {
+bool bad_shape(int E, int R, int C, int group, int k_rows, int dtype) {
   const int K = k_rows ? R : C;
-  return R <= 0 || C <= 0 || group <= 0 || K % group ||
-         (dtype != 0 && dtype != 1);
+  return E <= 0 || R <= 0 || C <= 0 || group <= 0 || K % group ||
+         (long long)E * R > 0x7fffffffLL || (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
-// out[R, C] = fake_quant(x[R, C] contiguous, pbits[K/group] fp32 integral
-// precisions, scale fp32: [non-K extent] if row_scale else [K/group]).
+// out[E, R, C] = fake_quant of each of x's E slices [R, C] (x contiguous,
+// pbits[E, K/group] fp32 integral precisions, scale fp32: [E, non-K
+// extent] if row_scale else [E, K/group]); E = 1 is a single tensor.
 // dtype: 0 fp32, 1 bf16 (x and out). k_rows: K = R (else K = C). Returns
 // the CUDA error code of the launch (0 on success).
 extern "C" int soniq_fake_quant(const void* x, const void* pbits,
-                                const void* scale, void* out, int R, int C,
-                                int group, int k_rows, int row_scale,
+                                const void* scale, void* out, int E, int R,
+                                int C, int group, int k_rows, int row_scale,
                                 int dtype, void* stream) {
-  if (bad_shape(R, C, group, k_rows, dtype))
+  if (bad_shape(E, R, C, group, k_rows, dtype))
     return (int)cudaErrorInvalidValue;
   const size_t esize = dtype == 0 ? 4 : 2;
   const bool aligned = (C % VEC == 0) &&
@@ -272,24 +313,24 @@ extern "C" int soniq_fake_quant(const void* x, const void* pbits,
   const float* pb = static_cast<const float*>(pbits);
   const float* sc = static_cast<const float*>(scale);
   if (dtype == 0)
-    dispatch<float>(x, pb, sc, out, R, C, group, k_rows, row_scale, aligned,
-                    s);
+    dispatch<float>(x, pb, sc, out, E, R, C, group, k_rows, row_scale,
+                    aligned, s);
   else
-    dispatch<__nv_bfloat16>(x, pb, sc, out, R, C, group, k_rows, row_scale,
-                            aligned, s);
+    dispatch<__nv_bfloat16>(x, pb, sc, out, E, R, C, group, k_rows,
+                            row_scale, aligned, s);
   return (int)cudaGetLastError();
 }
 
-// dx[R, C] = g * in_range(x) for x, g [R, C] contiguous of one dtype (0
-// fp32, 1 bf16), with pbits, scale, group, k_rows and row_scale as
-// soniq_fake_quant takes them. Returns the CUDA error code of the launch
-// (0 on success).
+// dx[E, R, C] = g * in_range(x) for x, g [E, R, C] contiguous of one
+// dtype (0 fp32, 1 bf16), with pbits, scale, group, k_rows and row_scale
+// as soniq_fake_quant takes them. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int soniq_fake_quant_bwd(const void* x, const void* g,
                                     const void* pbits, const void* scale,
-                                    void* dx, int R, int C, int group,
-                                    int k_rows, int row_scale, int dtype,
-                                    void* stream) {
-  if (bad_shape(R, C, group, k_rows, dtype))
+                                    void* dx, int E, int R, int C,
+                                    int group, int k_rows, int row_scale,
+                                    int dtype, void* stream) {
+  if (bad_shape(E, R, C, group, k_rows, dtype))
     return (int)cudaErrorInvalidValue;
   const int v = dtype == 0 ? 4 : 8;   // elements in 16 bytes
   const bool aligned = (C % v == 0) &&
@@ -300,10 +341,10 @@ extern "C" int soniq_fake_quant_bwd(const void* x, const void* g,
   const float* pb = static_cast<const float*>(pbits);
   const float* sc = static_cast<const float*>(scale);
   if (dtype == 0)
-    dispatch_bwd<float>(x, g, pb, sc, dx, R, C, group, k_rows, row_scale,
+    dispatch_bwd<float>(x, g, pb, sc, dx, E, R, C, group, k_rows, row_scale,
                         aligned, s);
   else
-    dispatch_bwd<__nv_bfloat16>(x, g, pb, sc, dx, R, C, group, k_rows,
+    dispatch_bwd<__nv_bfloat16>(x, g, pb, sc, dx, E, R, C, group, k_rows,
                                 row_scale, aligned, s);
   return (int)cudaGetLastError();
 }

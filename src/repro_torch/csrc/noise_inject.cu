@@ -20,6 +20,15 @@
 // eps is rebuilt in registers by the forward's own hash, so nothing but w,
 // g and dw crosses device memory.
 //
+// Expert banks: both take a stacked bank w [E, K, N] in one launch (the
+// expert on the grid's last axis), each expert with its own seed (seeds
+// [E]) and its own sigmas (sig [E, K/G]); expert e's eps is the hash of the
+// index within its own [K, N] and its seed, as the reference's vmap over
+// the bank draws it, so the launch equals E single-weight launches bit for
+// bit. Offsets into the bank are 64-bit (a mixtral-8x22b bank is 3.2 GB);
+// the element index within one expert stays a uint32. A single weight is
+// the bank of one.
+//
 // What bounds both on the H100: bytes. The forward reads and writes each
 // element once (8 B), the backward reads w and g and writes dw (12 B),
 // with ~20 integer and a few float operations between, far below the
@@ -84,16 +93,24 @@ __device__ __forceinline__ float perturb_bwd(float w, float g, float sg,
   return __fmul_rn(g, inside ? eps : -sgn);
 }
 
-// grid.x: strips of THREADS*VEC columns; grid.y (strided): rows.
+// grid.x: strips of THREADS*VEC columns; grid.y (strided): rows; grid.z:
+// experts of a bank (one for a single weight). Expert e reads its own
+// seed, its own K/group sigmas and its own [K, N] slice at a 64-bit
+// offset; the hash index stays the element's index within its expert.
 template <bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 noise_inject_kernel(const float* __restrict__ w,
                     const float* __restrict__ sig,
-                    const long long* __restrict__ seed_ptr,
+                    const long long* __restrict__ seeds,
                     float* __restrict__ out, int K, int N, int group) {
-  const uint32_t seed = (uint32_t)(*seed_ptr);
+  const int e = blockIdx.z;
+  const uint32_t seed = (uint32_t)(seeds[e]);
   const int n0 = (blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (n0 >= N) return;
+  const size_t slice = (size_t)e * K * N;
+  w += slice;
+  out += slice;
+  sig += (size_t)e * (K / group);
   for (int k = blockIdx.y; k < K; k += gridDim.y) {
     const float sg = sig[k / group];
     const float lim = __fsub_rn(2.0f, sg);
@@ -121,17 +138,27 @@ noise_inject_kernel(const float* __restrict__ w,
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_ROWS = 8;   // rows of a group whose loads are in flight
 
-// grid.x: groups. Thread t takes columns [4t, 4t + 4) of every
-// BWD_THREADS * 4-column strip, strip after strip, the group's rows in
-// order within each; its sum, then the block's, fold in that fixed order.
+// grid.x: groups; grid.y: experts of a bank (one for a single weight),
+// each at its own 64-bit offset with its own seed and sigmas. Thread t
+// takes columns [4t, 4t + 4) of every BWD_THREADS * 4-column strip, strip
+// after strip, the group's rows in order within each; its sum, then the
+// block's, fold in that fixed order.
 template <bool ALIGNED>
 __global__ void __launch_bounds__(BWD_THREADS)
 noise_inject_bwd_kernel(const float* __restrict__ w,
                         const float* __restrict__ sig,
-                        const long long* __restrict__ seed_ptr,
+                        const long long* __restrict__ seeds,
                         const float* __restrict__ g, float* __restrict__ dw,
                         float* __restrict__ ds, int N, int group) {
-  const uint32_t seed = (uint32_t)(*seed_ptr);
+  const int e = blockIdx.y;
+  const uint32_t seed = (uint32_t)(seeds[e]);
+  const size_t groups = gridDim.x;
+  const size_t slice = (size_t)e * groups * group * N;
+  w += slice;
+  g += slice;
+  dw += slice;
+  sig += (size_t)e * groups;
+  ds += (size_t)e * groups;
   const int grp = blockIdx.x;
   const float sg = sig[grp];
   const float lim = __fsub_rn(2.0f, sg);
@@ -199,24 +226,26 @@ noise_inject_bwd_kernel(const float* __restrict__ w,
   }
 }
 
-bool bad_shape(int K, int N, int group) {
-  return K <= 0 || N <= 0 || group <= 0 || K % group ||
+bool bad_shape(int E, int K, int N, int group) {
+  return E <= 0 || E > 65535 || K <= 0 || N <= 0 || group <= 0 ||
+         K % group ||
          (unsigned long long)K * (unsigned long long)N >= (1ull << 32);
 }
 
 }  // namespace
 
-// out[K, N] fp32 = noise_inject(w[K, N] fp32 contiguous, sig[K/group] fp32,
-// seed: one int64 on the device (its low 32 bits are the uint32 seed)).
-// K*N must stay below 2^32 (the reference's uint32 element index). Returns
-// the CUDA error code of the launch (0 on success).
+// out[E, K, N] fp32 = noise_inject of each expert's slice (w[E, K, N] fp32
+// contiguous, sig[E, K/group] fp32, seeds: E int64 on the device, whose low
+// 32 bits are the uint32 seeds); E = 1 is a single weight. K*N must stay
+// below 2^32 (the reference's uint32 element index within an expert).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int soniq_noise_inject(const void* w, const void* sig,
-                                  const void* seed, void* out, int K, int N,
-                                  int group, void* stream) {
-  if (bad_shape(K, N, group)) return (int)cudaErrorInvalidValue;
+                                  const void* seed, void* out, int E, int K,
+                                  int N, int group, void* stream) {
+  if (bad_shape(E, K, N, group)) return (int)cudaErrorInvalidValue;
   const int strips = (N + THREADS * VEC - 1) / (THREADS * VEC);
   const int rows = K < 65535 ? K : 65535;
-  dim3 grid(strips, rows);
+  dim3 grid(strips, rows, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   const float* sf = static_cast<const float*>(sig);
@@ -234,15 +263,15 @@ extern "C" int soniq_noise_inject(const void* w, const void* sig,
   return (int)cudaGetLastError();
 }
 
-// (dw [K, N] fp32, ds [K/group] fp32) = the backward of noise_inject at
-// (w, sig, seed) for the cotangent g [K, N] fp32 (all contiguous; the
-// operands as the forward takes them). One block a group. Returns the CUDA
-// error code of the launch (0 on success).
+// (dw [E, K, N] fp32, ds [E, K/group] fp32) = the backward of noise_inject
+// at (w, sig, seeds) for the cotangent g [E, K, N] fp32 (all contiguous;
+// the operands as the forward takes them). One block a group of an expert.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int soniq_noise_inject_bwd(const void* w, const void* sig,
                                       const void* seed, const void* g,
-                                      void* dw, void* ds, int K, int N,
-                                      int group, void* stream) {
-  if (bad_shape(K, N, group)) return (int)cudaErrorInvalidValue;
+                                      void* dw, void* ds, int E, int K,
+                                      int N, int group, void* stream) {
+  if (bad_shape(E, K, N, group)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   const float* sf = static_cast<const float*>(sig);
@@ -254,12 +283,12 @@ extern "C" int soniq_noise_inject_bwd(const void* w, const void* sig,
                        ((reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(dw)) % 16 == 0);
-  const int groups = K / group;
+  const dim3 grid(K / group, E);
   if (aligned)
-    noise_inject_bwd_kernel<true><<<groups, BWD_THREADS, 0, s>>>(
+    noise_inject_bwd_kernel<true><<<grid, BWD_THREADS, 0, s>>>(
         wf, sf, seedp, gf, dwf, dsf, N, group);
   else
-    noise_inject_bwd_kernel<false><<<groups, BWD_THREADS, 0, s>>>(
+    noise_inject_bwd_kernel<false><<<grid, BWD_THREADS, 0, s>>>(
         wf, sf, seedp, gf, dwf, dsf, N, group);
   return (int)cudaGetLastError();
 }

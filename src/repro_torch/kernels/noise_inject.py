@@ -23,6 +23,12 @@ same hash in registers and folds each group's sum in a fixed order inside
 the launch (dw bitwise the plain version, ds up to the order of its fp32
 sum: ``DS_RTOL``).
 
+Expert banks: w [E, K, N] with s [E, K // 16] and seeds [E] (an int64
+tensor of uint32 values) go through the same wrappers in one launch each
+way. Expert e's eps is the hash of the index within its own [K, N] and
+its own seed, as the reference's ``vmap`` over a bank draws it, so a bank
+is bitwise E single-weight calls, in the kernel and in the plain version.
+
 On CUDA tensors the wrappers launch ``csrc/noise_inject.cu`` or raise; on
 CPU tensors they run the plain versions.
 """
@@ -55,16 +61,17 @@ SeedLike = Union[int, torch.Tensor]
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.soniq_noise_inject.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                       ptr]
+                                       i32, ptr]
     lib.soniq_noise_inject_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                           i32, i32, ptr]
+                                           i32, i32, i32, ptr]
     lib.soniq_noise_inject.restype = i32
     lib.soniq_noise_inject_bwd.restype = i32
 
 
 def seed_tensor(seed: SeedLike, device) -> torch.Tensor:
-    """A uint32 seed as the one-element int64 tensor the kernel reads."""
-    t = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(1)
+    """uint32 seeds as the int64 tensor the kernel reads: one element for a
+    single weight, E for a bank."""
+    t = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(-1)
     return t & prng.MASK
 
 
@@ -74,16 +81,27 @@ def group_sigma(s: torch.Tensor) -> torch.Tensor:
 
 
 def hash_eps(k: int, n: int, seed: SeedLike, device) -> torch.Tensor:
-    """eps [K, N] fp32 of the global element index and the seed."""
-    return prng.uniform_pm1(prng.element_index(k, n, device),
-                            seed_tensor(seed, device))
+    """eps fp32 of the element index within a [K, N] weight and the seed:
+    [K, N] for one seed, [E, K, N] for E seeds (a bank: each expert's
+    index restarts at 0)."""
+    idx = prng.element_index(k, n, device)
+    seeds = seed_tensor(seed, device)
+    if seeds.numel() == 1:
+        return prng.uniform_pm1(idx, seeds)
+    return prng.uniform_pm1(idx[None], seeds[:, None, None])
+
+
+def _sigma_rows(sig: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
+    """Per-group values [..., K // G] -> [..., K, 1] over a weight's rows."""
+    return quant.expand_groups(sig.float(), k, group_size)[..., None]
 
 
 def noise_inject_plain(w: torch.Tensor, sig: torch.Tensor, seed: SeedLike,
                        group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """Plain version: ``sig`` [K // group_size] is sigmoid(s) per group."""
-    k, n = w.shape
-    sg = quant.expand_groups(sig.float(), k, group_size)[:, None]
+    """Plain version: ``sig`` [K // group_size] is sigmoid(s) per group (a
+    bank w [E, K, N]: sig [E, K // group_size], seeds [E])."""
+    k, n = w.shape[-2:]
+    sg = _sigma_rows(sig, k, group_size)
     out = w.float() + sg * hash_eps(k, n, seed, w.device)
     lim = 2.0 - sg
     return torch.minimum(torch.maximum(out, -lim), lim).to(w.dtype)
@@ -93,11 +111,11 @@ def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
                            seed: SeedLike, g: torch.Tensor,
                            group_size: int = GROUP_SIZE
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain backward: (dw [K, N] in w's dtype, ds [K // group_size] in
-    s's dtype) for the cotangent g [K, N]."""
-    k, n = w.shape
+    """Plain backward: (dw [..., K, N] in w's dtype, ds [..., K //
+    group_size] in s's dtype) for the cotangent g of w's shape."""
+    k, n = w.shape[-2:]
     sig_g = group_sigma(s)
-    sig = quant.expand_groups(sig_g, k, group_size)[:, None]
+    sig = _sigma_rows(sig_g, k, group_size)
     eps = hash_eps(k, n, seed, w.device)
     z = w.float() + sig * eps
     inside = z.abs() <= 2.0 - sig
@@ -108,43 +126,57 @@ def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
     # through sigma'(s) = sigma (1 - sigma) and sum each group's block
     # (fixed-order reductions: no atomics).
     dsig = torch.where(inside, eps, -torch.sign(z))
-    per_k = torch.sum(g32 * dsig, dim=1)
-    per_group = per_k.reshape(sig_g.shape[0], group_size).sum(dim=1)
+    per_k = torch.sum(g32 * dsig, dim=-1)
+    per_group = per_k.reshape(sig_g.shape + (group_size,)).sum(dim=-1)
     ds = (per_group * sig_g * (1.0 - sig_g)).to(s.dtype)
     return dw, ds
 
 
 def ds_bound(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
              g: torch.Tensor, group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """The bound [K // group_size] a kernel's ds is held to against the
-    plain version's: ``DS_RTOL`` * sig (1 - sig) * the group's sum of
+    """The bound [..., K // group_size] a kernel's ds is held to against
+    the plain version's: ``DS_RTOL`` * sig (1 - sig) * the group's sum of
     |g * d out / d sig|."""
-    k, n = w.shape
+    k, n = w.shape[-2:]
     sig_g = group_sigma(s)
-    sig = quant.expand_groups(sig_g, k, group_size)[:, None]
+    sig = _sigma_rows(sig_g, k, group_size)
     eps = hash_eps(k, n, seed, w.device)
     inside = (w.float() + sig * eps).abs() <= 2.0 - sig
     mag = g.float().abs() * torch.where(inside, eps.abs(), 1.0)
-    per_group = mag.sum(dim=1).reshape(-1, group_size).sum(dim=1)
+    per_group = mag.sum(dim=-1).reshape(sig_g.shape + (group_size,)).sum(
+        dim=-1)
     return DS_RTOL * per_group * sig_g * (1.0 - sig_g)
 
 
-def _shape(w: torch.Tensor, s: torch.Tensor, group_size: int
-           ) -> Tuple[int, int]:
-    if w.dim() != 2:
-        raise ValueError(f"w must be 2-D, got {tuple(w.shape)}")
-    k, n = w.shape
-    if k % group_size or s.numel() * group_size != k:
-        raise ValueError(f"s {tuple(s.shape)} does not cover K={k} in "
-                         f"groups of {group_size}")
-    return k, n
+def _shape(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
+           group_size: int) -> Tuple[int, int, int]:
+    """(E, K, N) of a weight [K, N] (E = 1) or a bank [E, K, N], once s
+    and the seeds cover it."""
+    if w.dim() not in (2, 3):
+        raise ValueError(f"w must be [K, N] or a bank [E, K, N], got "
+                         f"{tuple(w.shape)}")
+    e = w.shape[0] if w.dim() == 3 else 1
+    k, n = w.shape[-2:]
+    lead = tuple(w.shape[:-2])
+    covers = s.numel() * group_size == k if not lead else \
+        tuple(s.shape) == lead + (k // group_size,)
+    if k % group_size or not covers:
+        raise ValueError(f"s {tuple(s.shape)} does not cover w "
+                         f"{tuple(w.shape)} in groups of {group_size}")
+    seeds = torch.as_tensor(seed).numel()
+    if seeds != e:
+        raise ValueError(f"{seeds} seeds for {e} weight(s)")
+    if k * n >= 1 << 32:
+        raise ValueError(f"[{k}, {n}] overflows the uint32 element index")
+    return e, k, n
 
 
 def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
                  group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """w [K, N] fp32, s [K // group_size] logits -> clip(w + sig*eps,
-    +-(2 - sig)), fp32 [K, N]."""
-    k, n = _shape(w, s, group_size)
+    """w [K, N] fp32, s [K // group_size] logits, one seed -> clip(w +
+    sig*eps, +-(2 - sig)), fp32 [K, N]; a bank w [E, K, N] with s [E, K //
+    group_size] and E seeds in one launch."""
+    e, k, n = _shape(w, s, seed, group_size)
     sig = group_sigma(s)
     if w.device.type == "cpu":
         return noise_inject_plain(w, sig, seed, group_size)
@@ -152,8 +184,6 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
         raise ValueError(f"unsupported device {w.device}")
     if w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError("w must be contiguous fp32")
-    if k * n >= 1 << 32:
-        raise ValueError(f"[{k}, {n}] overflows the uint32 element index")
     seed_t = seed_tensor(seed, w.device)
     sig = sig.contiguous()
     if sig.device != w.device:
@@ -164,7 +194,7 @@ def noise_inject(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
     lib = _build.library(SOURCE, _bind)
     code = _build.launch(w.device, lib.soniq_noise_inject, w.data_ptr(),
                          sig.data_ptr(), seed_t.data_ptr(), out.data_ptr(),
-                         k, n, group_size)
+                         e, k, n, group_size)
     _build.check(code, "soniq_noise_inject")
     LAUNCHES["noise_inject"] += 1
     return out
@@ -174,19 +204,17 @@ def noise_inject_bwd(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
                      g: torch.Tensor, group_size: int = GROUP_SIZE
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of :func:`noise_inject` at (w, s, seed) for the
-    cotangent g [K, N]: (dw [K, N] fp32, ds [K // group_size] in s's
-    dtype). On CUDA, w and g must be contiguous fp32 on one device; the
-    seed is read on the device (an int, or the one-element int64 tensor
-    the forward took)."""
-    k, n = _shape(w, s, group_size)
+    cotangent g of w's shape: (dw fp32 of w's shape, ds of s's shape and
+    dtype); a bank in one launch. On CUDA, w and g must be contiguous fp32
+    on one device; the seeds are read on the device (ints, or the int64
+    tensor the forward took)."""
+    e, k, n = _shape(w, s, seed, group_size)
     if w.device.type == "cpu":
         return noise_inject_bwd_plain(w, s, seed, g, group_size)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
-    if k * n >= 1 << 32:
-        raise ValueError(f"[{k}, {n}] overflows the uint32 element index")
     if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int64
-            and seed.numel() == 1):
+            and seed.dim() == 1):
         seed = seed_tensor(seed, w.device)
     sig = group_sigma(s)
     f32 = torch.float32
@@ -200,12 +228,11 @@ def noise_inject_bwd(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
     dw = torch.empty_like(w)
     if dw.numel() == 0:
         return dw, torch.zeros_like(s)
-    ds = torch.empty((k // group_size,), dtype=torch.float32,
-                     device=w.device)
+    ds = torch.empty(s.shape, dtype=torch.float32, device=w.device)
     lib = _build.library(SOURCE, _bind)
     code = _build.launch(w.device, lib.soniq_noise_inject_bwd, w.data_ptr(),
                          sig.data_ptr(), seed.data_ptr(), g.data_ptr(),
-                         dw.data_ptr(), ds.data_ptr(), k, n, group_size)
+                         dw.data_ptr(), ds.data_ptr(), e, k, n, group_size)
     _build.check(code, "soniq_noise_inject_bwd")
     LAUNCHES["noise_inject_bwd"] += 1
     return dw, ds.to(s.dtype)

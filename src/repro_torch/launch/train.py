@@ -5,10 +5,14 @@ tokens, on the card by default.
         --steps 6 --t1 3 --batch 8 --seq 128              # the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --reduced --device cpu --steps 4 --t1 2 --batch 2 --seq 16
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-moe-16b --reduced --device cpu --steps 4 --t1 2 \
+        --batch 2 --seq 16                                 # MoE, CPU
 
 Runs ``--t1`` Phase-I (noise) steps, the boundary, then Phase II (QAT) up
 to ``--steps``, on random weights from ``--seed`` and ``TokenStream``
-batches from the same seed, printing one line per step. ``--device cpu``
+batches from the same seed, printing one line per step (with the MoE
+load-balancing loss on the MoE archs). ``--device cpu``
 runs the kernels' plain versions (use with ``--reduced``). Exits non-zero
 if a loss is not finite.
 """
@@ -49,7 +53,8 @@ def main(argv=None) -> int:
         seed=args.seed))
 
     def report(step, _state, m):
-        print(f"step {step} phase {m['phase']}: loss={m['loss']:.4f} "
+        aux = f" moe_aux={m['moe_aux']:.4f}" if cfg.num_experts else ""
+        print(f"step {step} phase {m['phase']}: loss={m['loss']:.4f}{aux} "
               f"gnorm={m['grad_norm']:.3f} ms={m['wall'] * 1e3:.1f}",
               flush=True)
 

@@ -6,7 +6,7 @@ every ``attn_mlp`` layer is ``cfg.d_ff`` wide (the reference's plan never
 selects ``dense_d_ff``)."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -113,17 +113,21 @@ class Block(nn.Module):
 
 
 def _ffn(block: Block, h: torch.Tensor, cfg, qcfg: QuantConfig,
-         noise=None) -> torch.Tensor:
+         noise=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward and its MoE load-balancing loss (None for
+    a dense block and in serving)."""
     if block.kind == "attn_moe":
         return moe_lib.moe_apply(block.moe, h, qcfg,
                                  num_experts=cfg.num_experts,
-                                 top_k=cfg.top_k)
-    return block.mlp(h, qcfg, noise)
+                                 top_k=cfg.top_k, noise=noise)
+    return block.mlp(h, qcfg, noise), None
 
 
 def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
-                qcfg: QuantConfig, noise=None, *, rope=None) -> torch.Tensor:
-    """Full-sequence pre-norm residual block (training forward)."""
+                qcfg: QuantConfig, noise=None, *, rope=None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence pre-norm residual block (training forward). Returns
+    (x, the MoE load-balancing loss or None)."""
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_apply(
         block.attn, h, positions, num_heads=cfg.num_heads,
@@ -131,7 +135,8 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
         noise=noise, rope_theta=cfg.rope_theta, window=cfg.window,
         q_block=cfg.q_block, rope=rope)
     h = block.ln_ffn(x, cfg.norm_eps)
-    return x + _ffn(block, h, cfg, qcfg, noise)
+    y, aux = _ffn(block, h, cfg, qcfg, noise)
+    return x + y, aux
 
 
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,
@@ -145,4 +150,4 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, qcfg=qcfg,
         rope=rope, write=write, window=cfg.window)
     h = block.ln_ffn(x, cfg.norm_eps)
-    return x + _ffn(block, h, cfg, qcfg)
+    return x + _ffn(block, h, cfg, qcfg)[0]

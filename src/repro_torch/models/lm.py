@@ -33,6 +33,7 @@ from .common import (Embed, RMSNorm, embed_logits, embed_lookup,
 
 LOSS_CHUNK = 1024
 Z_LOSS = 1e-4
+MOE_AUX = 0.01           # weight of the MoE load-balancing loss
 
 
 class LM(nn.Module):
@@ -139,10 +140,13 @@ def _recompute(cfg) -> bool:
 
 
 def forward(model: LM, cfg, tokens, *, positions=None,
-            noise: Optional[smol.NoiseSource] = None) -> torch.Tensor:
-    """Full-sequence forward: tokens [B, S] -> the hidden state after the
-    final norm [B, S, D] (the loss applies the readout in chunks).
-    ``noise`` supplies the Phase-I draws (``cfg.quant.mode == "noise"``)."""
+            noise: Optional[smol.NoiseSource] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence forward: tokens [B, S] -> (the hidden state after the
+    final norm [B, S, D], the MoE load-balancing loss summed over the
+    blocks, None for a model without MoE blocks). The loss applies the
+    readout in chunks. ``noise`` supplies the Phase-I draws
+    (``cfg.quant.mode == "noise"``)."""
     dev = model.device
     tok = torch.as_tensor(tokens, device=dev).long()
     b, s = tok.shape
@@ -151,14 +155,18 @@ def forward(model: LM, cfg, tokens, *, positions=None,
         positions = torch.arange(s, device=dev)[None].expand(b, s)
     positions = torch.as_tensor(positions, device=dev).long()
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    aux = None
     for block in model.blocks:
         if _recompute(cfg):
-            x = checkpoint(blocks.block_apply, block, x, positions, cfg,
-                           cfg.quant, noise, rope=rope, use_reentrant=False)
+            x, a = checkpoint(blocks.block_apply, block, x, positions, cfg,
+                              cfg.quant, noise, rope=rope,
+                              use_reentrant=False)
         else:
-            x = blocks.block_apply(block, x, positions, cfg, cfg.quant,
-                                   noise, rope=rope)
-    return model.final_norm(x, cfg.norm_eps)
+            x, a = blocks.block_apply(block, x, positions, cfg, cfg.quant,
+                                      noise, rope=rope)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return model.final_norm(x, cfg.norm_eps), aux
 
 
 def _chunk_loss(model: LM, cfg, h: torch.Tensor, y: torch.Tensor
@@ -197,15 +205,21 @@ def lm_loss(model: LM, cfg, hidden: torch.Tensor, labels,
 
 def loss_fn(model: LM, batch: Dict, cfg,
             noise: Optional[smol.NoiseSource] = None):
-    """Scalar training loss: CE + z-loss + (Phase I) the SONIQ bit
-    regularizer lambda * ||log2(1 + e^-s)||_1. Returns (loss, metrics)."""
-    hidden = forward(model, cfg, batch["tokens"],
-                     positions=batch.get("positions"), noise=noise)
+    """Scalar training loss: CE + z-loss + ``MOE_AUX`` * the MoE
+    load-balancing loss + (Phase I) the SONIQ bit regularizer lambda *
+    ||log2(1 + e^-s)||_1. Returns (loss, metrics); ``moe_aux`` is 0 for a
+    model without MoE blocks."""
+    hidden, aux = forward(model, cfg, batch["tokens"],
+                          positions=batch.get("positions"), noise=noise)
     loss = lm_loss(model, cfg, hidden, batch["labels"])
+    if aux is not None:
+        loss = loss + MOE_AUX * aux
+    else:
+        aux = torch.zeros((), device=loss.device)
     if cfg.quant.mode == "noise":
         loss = loss + cfg.quant.lam * smol.bit_penalty_of_params(
             model).to(loss.device)
-    return loss, {"ce": loss}
+    return loss, {"ce": loss, "moe_aux": aux.detach()}
 
 
 def _decode_core(model: LM, cfg, cache: Dict, x: torch.Tensor,

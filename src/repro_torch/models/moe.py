@@ -1,6 +1,7 @@
-"""Mixture-of-Experts feed-forward: top-k routing, drop-free dispatch into
-stacked expert banks, shared experts (DeepSeekMoE) and Mixtral-style
-top-2. Counterpart of ``repro.models.moe`` for serving.
+"""Mixture-of-Experts feed-forward: top-k routing, dispatch into stacked
+expert banks (drop-free in serving, static capacity with drops in
+training), shared experts (DeepSeekMoE) and Mixtral-style top-2, and the
+load-balancing loss. Counterpart of ``repro.models.moe``.
 
 The serve forward follows the reference's order step by step: the fp32
 router (a plain fp32 matmul: the router is never quantized), its softmax,
@@ -17,12 +18,23 @@ token as a left fold in top-k order in the activation dtype, which is how
 the reference's ``segment_sum`` adds them (one rounding per add, the same
 order on every device, no atomics); the shared experts add a dense MLP.
 
-Expert banks in Phase I and II (MoE training) belong to a later port
-slice: there ``moe_apply`` raises.
+Training (Phase I and II, and FP) follows the reference's
+``moe_apply`` step by step: the static capacity C = max(1, ceil(T k / E *
+1.25)) from the call's own T, the same stable ranks, ``keep = rank <
+C``, each kept assignment added into its row of the [E, C, D] buffer and
+each dropped one adding zeros into the clamped row C - 1; the banks run
+their NOISE or QAT rule over [E, C, D] (kernels B9 and B8 over the whole
+bank, one launch each way), the outputs gathered back with the dropped
+gates zeroed and summed per token, then the shared MLP, and the
+load-balancing loss E * sum(mean(probs) * mean(any hit)). The router is an
+fp32 skip linear and takes a gradient. The scatter and the gathers (and
+their backward passes) are sort-based index puts and gathers, with no
+atomics, so a step repeats bitwise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,10 +45,8 @@ from repro_torch.core.qtypes import QuantConfig
 from . import mlp as mlp_lib
 from .common import activation, silu
 
-TRAINING_SLICE = ("MoE expert banks in Phase I/II (training) belong to a "
-                  "later port slice; the port serves MoE models from "
-                  "packed banks")
-
+# Training capacity of an expert, in units of its fair share T k / E.
+CAPACITY_FACTOR = 1.25
 
 def moe_init(d_model: int, d_ff: int, num_experts: int, qcfg: QuantConfig,
              *, generator, device, num_shared: int = 0,
@@ -69,16 +79,27 @@ def moe_init(d_model: int, d_ff: int, num_experts: int, qcfg: QuantConfig,
 
 class ExpertBank(smol.SmolLinear):
     """One stacked expert bank ([E, ...] leaves). Serving runs the grouped
-    driver over a packed bank; the module path (e.g. ``blocks.3.moe.up``)
-    is what keys a bank's noise draws in training."""
+    driver over a packed bank; training runs the bank's NOISE or QAT rule
+    (``smol.linear_apply`` on [E, ...] leaves). The module path (e.g.
+    ``blocks.3.moe.up``) keys a bank's noise draws: E weight seeds and
+    the activation noise of the whole [E, C, K] input."""
 
     def forward(self, x: torch.Tensor, qcfg: QuantConfig, noise=None,
                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [E, C, K] -> [E, C, N] in x's dtype; ``rows`` [E] int32, the
-        live rows of each expert (``backend.packed_matmul_grouped``)."""
-        if "w4" not in self._names or qcfg.mode != "serve":
-            raise NotImplementedError(TRAINING_SLICE)
-        return backend.packed_matmul_grouped(self.leaf(), x, qcfg, rows=rows)
+        live rows of each expert (serving: ``backend.packed_matmul_grouped``;
+        training reads every row)."""
+        if "w4" in self._names:
+            if qcfg.mode != "serve":
+                raise ValueError(f"packed bank under mode {qcfg.mode!r}")
+            return backend.packed_matmul_grouped(self.leaf(), x, qcfg,
+                                                 rows=rows)
+        draw = None
+        if qcfg.mode == "noise" and "s" in self._names:
+            if noise is None:
+                raise ValueError("a Phase-I bank needs its noise draws")
+            draw = noise.draw(self.path, x, experts=x.shape[0])
+        return smol.linear_apply(self.leaf(), x, qcfg, draw)
 
 
 class MoE(nn.Module):
@@ -107,7 +128,11 @@ def route(logits: torch.Tensor, top_k: int):
     the softmax, the k largest probabilities with ties to the lower
     expert index (a stable descending sort, as ``jax.lax.top_k``), and the
     gates normalized by their sum, taken left to right."""
-    probs = torch.softmax(logits.float(), dim=-1)
+    return top_k_gates(torch.softmax(logits.float(), dim=-1), top_k)
+
+
+def top_k_gates(probs: torch.Tensor, top_k: int):
+    """:func:`route` from the router's probabilities [T, E]."""
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = vals[:, :top_k], ids[:, :top_k]
     total = gates[:, 0]
@@ -145,10 +170,58 @@ def combine(y_tok: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, qcfg: QuantConfig, *,
-              num_experts: int, top_k: int) -> torch.Tensor:
+              num_experts: int, top_k: int, noise=None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """MoE feed-forward, x [B, S, D] -> (y [B, S, D], aux): the drop-free
+    serve path (aux None: serving has no loss) or, in any other mode, the
+    training path with static capacity and the load-balancing loss aux
+    (an fp32 scalar). ``noise`` supplies the Phase-I draws."""
+    if qcfg.mode == "serve":
+        return _moe_serve(moe, x, qcfg, num_experts=num_experts,
+                          top_k=top_k), None
+    b, s, d = x.shape
+    t = b * s
+    e = num_experts
+    xt = x.reshape(t, d)
+    cap = max(1, math.ceil(t * top_k / e * CAPACITY_FACTOR))
+    logits = moe.router(xt.float(), qcfg)                     # [T, E]
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = top_k_gates(probs, top_k)
+    flat_expert = ids.reshape(-1)
+    rank = dispatch_rows(ids, e)
+    keep = rank < cap                                         # capacity drop
+    rank_c = torch.clamp(rank, max=cap - 1)
+    token_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    gathered = xt[token_idx]
+    upd = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    # Kept assignments own their rows; the dropped ones add zeros into
+    # the clamped row cap - 1, as the reference's scatter-add does.
+    x_e = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    x_e = x_e.index_put((flat_expert, rank_c), upd, accumulate=True)
+    h = moe.up(x_e, qcfg, noise)                              # [E, C, F]
+    if moe.gate is not None:
+        h = silu(moe.gate(x_e, qcfg, noise)) * h
+    else:
+        h = activation(moe.act)(h)
+    y_e = moe.down(h, qcfg, noise)                            # [E, C, D]
+    y_tok = y_e[flat_expert, rank_c]                          # [T*k, D]
+    kept = torch.where(keep, gates.reshape(-1),
+                       torch.zeros_like(gates.reshape(-1)))
+    y = combine(y_tok.reshape(t, top_k, d), kept.reshape(t, top_k))
+    if moe.shared is not None:
+        y = y + moe.shared(xt[None], qcfg, noise)[0]
+    # Load balancing (GShard / Switch): E * sum_e mean(p_e) * mean(hit_e).
+    me = probs.mean(dim=0)
+    hit = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+    hit = hit.scatter(1, ids, 1.0)
+    ce = (hit > 0).float().mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_serve(moe: MoE, x: torch.Tensor, qcfg: QuantConfig, *,
+               num_experts: int, top_k: int) -> torch.Tensor:
     """Serve-phase MoE feed-forward, x [B, S, D] -> [B, S, D]."""
-    if qcfg.mode != "serve":
-        raise NotImplementedError(TRAINING_SLICE)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)

@@ -68,7 +68,9 @@ def train_step(state: Dict, batch: Dict, arch_cfg, tcfg: TrainConfig,
     each gradient divided by their number and summed in order. Phase I
     (``arch_cfg.quant.mode == "noise"``) needs ``noise``; after the update
     its weights are projected into +-(2 - sigma(s)). Returns (state,
-    metrics) with the metrics as device tensors."""
+    metrics) with the metrics as device tensors; ``moe_aux`` is the MoE
+    load-balancing loss averaged over the microbatches (0 without MoE
+    blocks)."""
     model = state["model"]
     phase1 = arch_cfg.quant.mode == "noise"
     if phase1 and noise is None:
@@ -76,23 +78,23 @@ def train_step(state: Dict, batch: Dict, arch_cfg, tcfg: TrainConfig,
     params = adamw.trainable(model)
     n_mb = tcfg.num_microbatches
     grads: Optional[List[Optional[torch.Tensor]]] = None
-    loss = None
+    loss = aux = None
     for i, mb in enumerate(split_microbatches(batch, n_mb)):
         src = noise(i) if phase1 else None
-        l, _ = lm.loss_fn(model, mb, arch_cfg, src)
+        l, met = lm.loss_fn(model, mb, arch_cfg, src)
         g = torch.autograd.grad(l, [p for _, p in params],
                                 allow_unused=True)
         if n_mb == 1:
-            grads, loss = list(g), l.detach()
+            grads, loss, aux = list(g), l.detach(), met["moe_aux"]
             break
         g = [None if t is None else t.float() / n_mb for t in g]
-        part = l.detach() / n_mb
+        part, apart = l.detach() / n_mb, met["moe_aux"] / n_mb
         if grads is None:
-            grads, loss = g, part
+            grads, loss, aux = g, part, apart
         else:
             grads = [a if b is None else (b if a is None else a + b)
                      for a, b in zip(grads, g)]
-            loss = loss + part
+            loss, aux = loss + part, aux + apart
     lr_scale = schedules.two_phase(
         state["step"], t1=tcfg.t1, warmup=tcfg.warmup, total=tcfg.t2,
         phase2_mult=tcfg.phase2_lr_mult)
@@ -104,7 +106,7 @@ def train_step(state: Dict, batch: Dict, arch_cfg, tcfg: TrainConfig,
         # Paper Alg. 1 line 7: project the weights into +-(2 - sigma(s)).
         smol.project_noise_weights(model, arch_cfg.quant)
     state["step"] += 1
-    return state, {"loss": loss, "lr_scale": lr_scale, **om}
+    return state, {"loss": loss, "moe_aux": aux, "lr_scale": lr_scale, **om}
 
 
 def step_noise(seed: int, step: int, quantize_activations: bool = True

@@ -838,3 +838,120 @@ def test_full_width_train_step_repeats_bitwise(dev):
     first, second = run(), run()
     assert all(np.isfinite(v) for pair in first for v in pair)
     assert first == second
+
+
+# ------------------------------------------------------- expert banks ----
+def _bank_operands(e, k, n, gen, dev):
+    w = torch.rand((e, k, n), generator=gen, device=dev) * 4.4 - 2.2
+    w[:, 0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+    s = torch.randn((e, k // 16), generator=gen, device=dev) * 2.0 - 0.5
+    s[:, 0] = 8.0
+    seeds = torch.randint(0, 1 << 32, (e,), generator=gen, device=dev)
+    return w, s, seeds
+
+
+@pytest.mark.parametrize("e,k,n", [(3, 64, 96), (4, 128, 70), (2, 32, 8)])
+def test_noise_inject_bank_bitwise_plain_and_per_expert(dev, e, k, n):
+    """One B9 launch over a bank and one backward launch: bitwise the bank
+    plain version and E single-weight launches (dw bitwise, ds within
+    ``ds_bound`` of the plain version and bitwise the per-expert
+    launches)."""
+    from repro_torch.kernels import noise_inject as ni
+    gen = torch.Generator(device=dev).manual_seed(e * k + n)
+    w, s, seeds = _bank_operands(e, k, n, gen, dev)
+    g = torch.randn(w.shape, generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    out = ni.noise_inject(w, s, seeds)
+    dw, ds = ni.noise_inject_bwd(w, s, seeds, g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["noise_inject"] == 1 and counts["noise_inject_bwd"] == 1
+    assert torch.equal(out, ni.noise_inject_plain(w, ni.group_sigma(s),
+                                                  seeds))
+    dw_p, ds_p = ni.noise_inject_bwd_plain(w, s, seeds, g)
+    assert torch.equal(_int_view(dw), _int_view(dw_p))
+    assert ((ds - ds_p).abs() <= ni.ds_bound(w, s, seeds, g)).all()
+    for i in range(e):
+        one = ni.noise_inject(w[i].contiguous(), s[i], seeds[i:i + 1])
+        dwi, dsi = ni.noise_inject_bwd(w[i].contiguous(), s[i],
+                                       seeds[i:i + 1], g[i].contiguous())
+        assert torch.equal(out[i], one)
+        assert torch.equal(_int_view(dw[i]), _int_view(dwi))
+        assert torch.equal(ds[i], dsi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["weight", "per_tensor", "per_token"])
+def test_fake_quant_bank_bitwise_plain_and_per_expert(dev, layout, dtype):
+    """B8 and its backward over a bank in one launch each: bitwise the
+    bank plain versions and E launches on the slices, each expert with its
+    own mixed precisions and scales."""
+    from repro_torch.kernels import fake_quant as fq
+    gen = torch.Generator(device=dev).manual_seed(len(layout))
+    e, r, k = 3, 40, 96
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (e, k // 16), generator=gen, device=dev)]
+    if layout == "weight":
+        x = (torch.randn((e, k, r), generator=gen, device=dev) * 0.1
+             ).to(dtype)
+        sc = quant.per_group_weight_scale(x.float(), 16)
+        kw = dict(row_scale=False, k_dim=0)
+    else:
+        x = (torch.randn((e, r, k), generator=gen, device=dev)
+             * torch.tensor([1.0, 10.0, 0.1], device=dev)[:, None, None]
+             ).to(dtype)
+        x[0, -3:] = 0
+        dims = (1, 2) if layout == "per_tensor" else (2,)
+        m = x.float().abs().amax(dim=dims, keepdim=True).expand(e, r, 1)
+        sc = (torch.clamp(m, min=quant.ACT_SCALE_EPS) / 1.875).reshape(
+            e, r).contiguous()
+        kw = dict(row_scale=True)
+    g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    kernels.reset_launch_counts()
+    y = fq.fake_quant(x, pb, sc, **kw)
+    dx = fq.fake_quant_bwd(x, pb, sc, g, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["fake_quant"] == 1 and counts["fake_quant_bwd"] == 1
+    assert torch.equal(_int_view(y), _int_view(fq.fake_quant_plain(
+        x, pb, sc, **kw)))
+    assert torch.equal(_int_view(dx), _int_view(fq.fake_quant_bwd_plain(
+        x, pb, sc, g, **kw)))
+    for i in range(e):
+        yi = fq.fake_quant(x[i].contiguous(), pb[i].contiguous(),
+                           sc[i].contiguous(), **kw)
+        dxi = fq.fake_quant_bwd(x[i].contiguous(), pb[i].contiguous(),
+                                sc[i].contiguous(), g[i].contiguous(), **kw)
+        assert torch.equal(_int_view(y[i]), _int_view(yi))
+        assert torch.equal(_int_view(dx[i]), _int_view(dxi))
+
+
+def test_moe_train_steps_repeat_bitwise(dev):
+    """Two layers of deepseek-moe-16b (the dense layer and one MoE layer
+    of 64 experts) at full width: a Phase-I and a Phase-II step through
+    the bank kernels, one launch a bank, give bitwise the same losses,
+    load-balancing losses and gradient norms twice from the same seed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.train import loop
+    from repro_torch.train import state as state_lib
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=2)
+    tcfg = state_lib.TrainConfig(t1=1, t2=2, warmup=1)
+
+    def run():
+        stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, batch_size=4, seed=0))
+        kernels.reset_launch_counts()
+        out = loop.train(cfg, tcfg, stream.batches(), device=dev)
+        counts = kernels.launch_counts()
+        assert counts["noise_inject"] > 0 and counts["fake_quant"] > 0
+        hist = [(m["loss"], m["moe_aux"], m["grad_norm"])
+                for m in out["history"]]
+        del out
+        torch.cuda.empty_cache()
+        return hist
+
+    first, second = run(), run()
+    assert all(np.isfinite(v) for row in first for v in row)
+    assert first == second

@@ -269,8 +269,9 @@ def test_moe_apply_matches_jax(bridged, arch):
         p, v, jscfg.quant, None, num_experts=jcfg.num_experts,
         top_k=jcfg.top_k, act=jcfg.mlp_act)[0], layer, jnp.asarray(x))
     want = np.asarray(fn(layer, jnp.asarray(x)))
-    got = pmoe.moe_apply(moe, torch.from_numpy(x), pq,
-                         num_experts=pcfg.num_experts, top_k=pcfg.top_k)
+    got, aux = pmoe.moe_apply(moe, torch.from_numpy(x), pq,
+                              num_experts=pcfg.num_experts, top_k=pcfg.top_k)
+    assert aux is None
     xt = x.reshape(-1, pcfg.d_model)
     _v, jids = jax.lax.top_k(jax.nn.softmax(
         jnp.asarray(xt) @ layer["router"]["w"], -1), jcfg.top_k)
@@ -280,13 +281,26 @@ def test_moe_apply_matches_jax(bridged, arch):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_moe_training_forward_is_a_later_slice(bridged):
-    _q, _j, pcfg, model, *_ = bridged["deepseek-moe-16b"]
-    moe = model.blocks[1].moe
-    x = torch.zeros((1, 2, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        pmoe.moe_apply(moe, x, PQuantConfig(mode="qat"),
-                       num_experts=pcfg.num_experts, top_k=pcfg.top_k)
+def test_moe_qat_forward_runs_and_matches_jax(bridged):
+    """The training ``moe_apply`` in QAT (Phase II) on the QAT tree: the
+    reference's static-capacity forward, y and the load-balancing loss
+    within 1e-5 (its drops and gradients: tests/test_torch_moe_train.py)."""
+    qat, jcfg, pcfg, *_ = bridged["deepseek-moe-16b"]
+    layer = jax.tree.map(lambda a: a[0], qat["groups"][-1]["moe"])
+    moe = interop.params_from_numpy(qat, pcfg, "cpu").blocks[1].moe
+    x = np.random.default_rng(13).standard_normal(
+        (2, 7, pcfg.d_model)).astype(np.float32)
+    jq = dataclasses.replace(jcfg.quant, mode="qat", backend="xla_ref")
+    fn = _compile_as_written(lambda p, v: jmoe.moe_apply(
+        p, v, jq, None, num_experts=jcfg.num_experts, top_k=jcfg.top_k,
+        act=jcfg.mlp_act), layer, jnp.asarray(x))
+    jy, jaux = fn(layer, jnp.asarray(x))
+    y, aux = pmoe.moe_apply(moe, torch.from_numpy(x),
+                            PQuantConfig(mode="qat"),
+                            num_experts=pcfg.num_experts, top_k=pcfg.top_k)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

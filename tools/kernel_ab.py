@@ -49,7 +49,10 @@ layer's training ops through autograd (``torch.autograd.grad`` of a
 forward kept alive), so a checkout whose backward is plain torch and one
 whose backward is a kernel are timed alike: ``B9_bwd`` over the 7 weights
 (dw and ds), ``B8_bwd`` over the 7 fp32 weights and the 7 bf16
-activations at 8 x 128 tokens (dx), on both rulers.
+activations at 8 x 128 tokens (dx), on both rulers; then the same ops
+forward (``*_bank_layer_*``) and backward (``*_bank_bwd_layer_*``) over
+the three expert banks of one deepseek-moe-16b MoE layer (E = 64, one
+launch a bank each way; activations [64, 120, K] bf16).
 
 Step rows (``--only step``): full-width, 24-layer h2o-danube-1.8b training
 as ``chip_smoke.py`` phase 8 runs it (TokenStream(batch 8, seq 128, seed
@@ -269,6 +272,76 @@ def train_rows(torch, backend, get_config, dev, gen, rows):
                                  for y, ins, g in c])(calls)
         rows[f"{key}_layer_device_ms"] = device_ms(torch, fn, 10)
         rows[f"{key}_layer_loop_ms"] = loop_ms(torch, fn, 10)
+    del b9, b8
+    torch.cuda.empty_cache()
+    bank_rows(torch, backend, get_config, dev, gen, rows)
+
+
+def bank_rows(torch, backend, get_config, dev, gen, rows):
+    """The three expert banks of one deepseek-moe-16b MoE layer (E = 64:
+    up and gate [E, 2048, 1408], down [E, 1408, 2048]) through the
+    training ops, forward and backward, on both rulers: B9 with a seed and
+    logits an expert, B8 on the weights (per-group scales an expert) and
+    on the dispatch buffer's activations [E, C, K] (C = 120, the capacity
+    of 8 x 128 tokens at top-6; bf16; a per-tensor scale an expert). A
+    checkout whose ops take no bank runs them expert by expert
+    (``bank_per_expert`` true)."""
+    cfg = get_config("deepseek-moe-16b")
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    cap = -(-8 * 128 * cfg.top_k * 5 // (e * 4))
+    b9, b8 = [], []
+    for k, n in ((d, f), (d, f), (f, d)):
+        w = (torch.rand((e, k, n), generator=gen, device=dev) * 2.2
+             - 1.1).requires_grad_()
+        s = (torch.randn((e, k // 16), generator=gen, device=dev) * 2.0
+             - 0.5).requires_grad_()
+        seeds = torch.randint(0, 1 << 32, (e,), generator=gen, device=dev)
+        b9.append(((w, s, seeds), (w, s)))
+        pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+            0, 3, (e, k // 16), generator=gen, device=dev)]
+        wq = (torch.randn((e, k, n), generator=gen, device=dev)
+              * 0.02).requires_grad_()
+        sw = wq.detach().abs().reshape(e, k // 16, -1).amax(-1) / 1.875
+        b8.append(("w", (wq, pb, sw), (wq,)))
+        x = torch.randn((e, cap, k), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        sx = x.detach().float().abs().amax(dim=(1, 2), keepdim=True) / 1.875
+        b8.append(("x", (x, pb, sx), (x,)))
+    try:
+        backend.noise_inject(*b9[0][0])
+        per_expert = False
+    except (ValueError, RuntimeError):     # a 2-D wrapper refuses a bank
+        per_expert = True
+    rows["bank_per_expert"] = per_expert
+
+    def b9_fwd(w, s, seeds):
+        if not per_expert:
+            return backend.noise_inject(w, s, seeds)
+        return torch.stack([backend.noise_inject(w[i], s[i], seeds[i:i + 1])
+                            for i in range(e)])
+
+    def b8_fwd(kind, a):
+        op = backend.fake_quant_weight if kind == "w" else backend.fake_quant
+        if not per_expert:
+            return op(*a)
+        return torch.stack([op(a[0][i], a[1][i], a[2][i]) for i in range(e)])
+
+    fwd = {"B9_bank": lambda: [b9_fwd(*a) for a, _ins in b9],
+           "B8_bank": lambda: [b8_fwd(kind, a) for kind, a, _ins in b8]}
+    for key, fn in fwd.items():
+        with torch.no_grad():
+            rows[f"{key}_layer_device_ms"] = device_ms(torch, fn, 5)
+            rows[f"{key}_layer_loop_ms"] = loop_ms(torch, fn, 5)
+    outs9 = [(b9_fwd(*a), ins) for a, ins in b9]
+    outs8 = [(b8_fwd(kind, a), ins) for kind, a, ins in b8]
+    for key, calls in (("B9_bank_bwd", outs9), ("B8_bank_bwd", outs8)):
+        cots = [torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+                for y, _ins in calls]
+        fn = (lambda c, g_: lambda: [
+            torch.autograd.grad(y, ins, g, retain_graph=True)
+            for (y, ins), g in zip(c, g_)])(calls, cots)
+        rows[f"{key}_layer_device_ms"] = device_ms(torch, fn, 5)
+        rows[f"{key}_layer_loop_ms"] = loop_ms(torch, fn, 5)
 
 
 def step_rows(torch, dev, rows):

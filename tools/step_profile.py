@@ -47,6 +47,9 @@ SPANS = (
     ("repro_torch.backend.base", "noise_inject", "noise_inject_fwd"),
     ("repro_torch.backend.base", "fake_quant_weight", "fake_quant_fwd"),
     ("repro_torch.backend.base", "fake_quant", "fake_quant_fwd"),
+    # What the MoE's banks and linears leave: the router, top-k, the
+    # dispatch scatter, the combine and the load-balancing loss.
+    ("repro_torch.models.moe", "moe_apply", "moe_routing"),
 )
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
                   "_FakeQuantBackward": "fake_quant_bwd"}
