@@ -119,16 +119,18 @@ Phases (none catches an error; any failure exits non-zero):
      2^31) against per-expert plain versions; the layer's bank launches
      timed on both rulers beside the plain versions and the single
      launches.
-  8. Training: full-width, 24-layer h2o-danube-1.8b through Phase I
+  8. Training: full-width h2o-danube-1.8b cut to TRAIN_LAYERS = 12 of its
+     24 layers (phase 16 trains all 24) through Phase I
      (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
      with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
      per step the phase, loss, gradient norm, step ms, B8/B9 launches
      (forward and backward) and peak memory; a device profile of one step
-     of each phase, its plain ops split by the op that launched them
+     of each phase (steps 2 and 5), its plain ops split by the op that
+     launched them
      (``tools/step_profile.py``); the boundary's pattern report. Phase I
-     must launch B9 and not B8, with one B9 backward a linear (168 a
-     step); Phase II B8 and not B9, with one B8 backward a weight and one
-     an activation (336 a step); every loss finite.
+     must launch B9 and not B8, with one B9 backward a linear (84 a step
+     at 12 layers); Phase II B8 and not B9, with one B8 backward a weight
+     and one an activation (168 a step); every loss finite.
   9. The trained model packed (B7) and served: 4 requests through the
      DecodeEngine and the LockstepEngine, greedy tokens equal.
  10. Card vs CPU, teacher-forced: each of one full-width layer's seven
@@ -172,12 +174,36 @@ Phases (none catches an error; any failure exits non-zero):
      Then one MoE layer's three banks (16 experts each), card vs CPU,
      teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
      1e-5.
- 16. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 16. Training, the rest: (a) full-width, 24-layer h2o-danube-1.8b, every
+     linear's logits drawn over the 4/2/1-bit bands of the default mix,
+     through 3 Phase-I and 3 Phase-II steps at 2 microbatches on phase
+     8's stream, hoisted (B8 once a weight a step), so the frozen model
+     holds 1-, 2- and 4-bit groups (histogram, average bpp) and B8 and
+     its backward run at all three inside a step; the B8 and B9 launches
+     of every step checked (hoisted: 168 + 672 B8 and 168 + 336 B8
+     backward a Phase-II step; unhoisted: 1,344 and 672); the unhoisted
+     run bitwise the hoisted one (losses, gradient norms, parameters);
+     with int8 gradient compression twice, bitwise (the state holds
+     ``err``); host ms and peak GiB a step of each, the device busy of
+     one Phase-II step (step 4, profiled on the device alone) of each,
+     and the compression of a step's gradients alone (loop ruler).
+     Phase 10's QAT linears again on layer 0's frozen precisions. (b)
+     Checkpoint and restart at full width cut to 2 layers: run A fed the
+     batches of steps 0-1 checkpoints at step 2 (t1 = 2), run B resumes
+     from it fed steps 2-3, run C trains 0-3 uninterrupted; B's pattern
+     report, losses and parameters bitwise C's; a save and a restore
+     timed, with their bytes. (c) ``repro_torch.launch.train --reduced
+     --steps 4 --t1 2 --ckpt DIR`` twice (the second resumes), then
+     ``repro_torch.launch.serve --reduced --ckpt DIR``, in subprocesses;
+     each must exit 0.
+ 17. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
-     backward rows), the ``kv4_serve``, ``training``, ``moe_training``,
-     ``moe_serve``, ``load``, ``spec_serve``, ``fp_paged_serve``,
-     ``dense_configs`` and ``phase_seconds`` JSON lines, the nvidia-smi
-     line, and last the ``{"ok": true, ...}`` line.
+     backward rows; the hoisted and unhoisted launches of a 2-microbatch
+     Phase-II step on B8 and its backward), the ``kv4_serve``,
+     ``training``, ``moe_training``, ``training_rest``, ``moe_serve``,
+     ``load``, ``spec_serve``, ``fp_paged_serve``, ``dense_configs`` and
+     ``phase_seconds`` JSON lines, the nvidia-smi line, and last the
+     ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -232,6 +258,8 @@ B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
 KV4_LAYERS = 12              # phase 6's depth (h2o-danube-1.8b has 24)
+# Phase 8's depth (phase 16 trains all 24 layers).
+TRAIN_LAYERS = 12
 # The other dense configs (arch, depth: None = the config's own), each at
 # full width.
 DENSE_CONFIGS = ((DENSE_ARCH, None), ("deepseek-67b", 2),
@@ -1870,8 +1898,8 @@ def phase_training(cfg, dev):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     schedule=prof_schedule(wait=1, warmup=0, active=1,
-                                            repeat=T2 // 2),
+                     schedule=prof_schedule(wait=T1 - 1, warmup=0,
+                                            active=1, repeat=2),
                      on_trace_ready=on_ready) as prof:
             out = loop.train(cfg, tcfg, stream.batches(), model=model,
                              device=dev, hooks=[hook])
@@ -1935,19 +1963,23 @@ def _train_linear(leaf, x, g, qcfg, draw, dev):
     return y.detach(), xt.grad, lin.w.grad, ds
 
 
-def check_training_against_cpu(cfg, dev):
+def check_training_against_cpu(cfg, dev, qat_pbits=None,
+                               modes=("noise", "qat")):
     """Teacher-forced card vs CPU for every NOISE and QAT linear of one
     full-width layer (fp32, 2 x 64 tokens, the same weights, input,
     cotangent and noise draws on both): y, dx, dw, ds within relative L2
-    1e-5."""
+    1e-5. QAT precisions are drawn from {1, 2, 4} per group, or are
+    ``qat_pbits`` (linear name -> a trained layer's frozen pbits)."""
     gen = torch.Generator().manual_seed(SEED + 7)
     worst = {}
-    for mode in ("noise", "qat"):
+    for mode in modes:
         qcfg = QuantConfig(mode=mode)
         for name, k, n in layer_linears(cfg):
             leaf = {"w": torch.randn((k, n), generator=gen) / math.sqrt(k)}
             if mode == "noise":
                 leaf["s"] = torch.randn((k // 16,), generator=gen) * 1.5 - 0.5
+            elif qat_pbits is not None:
+                leaf["pbits"] = qat_pbits[name]
             else:
                 leaf["pbits"] = torch.tensor([1, 2, 4], dtype=torch.int8)[
                     torch.randint(0, 3, (k // 16,), generator=gen)]
@@ -2403,6 +2435,342 @@ def phase_launcher():
         raise AssertionError(f"launcher failed:\n{proc.stdout}\n"
                              f"{proc.stderr[-4000:]}")
     return wall
+
+
+# ----------------------------------------------------- training, the rest ----
+REST_MB = 2                  # phase 16's microbatches a step
+CKPT_LAYERS = 2              # phase 16(b)'s depth (full width)
+# The middle of each precision's band of the logit s, where p = 1 +
+# round(log2(1 + e^-s)): (-2.33, -1.54] gives 4 bits, (-0.60, 0.88] 2 and
+# above 0.88 1; a draw lands within 0.2 of the middle.
+BAND_S = {4: -1.9, 2: 0.1, 1: 2.5}
+SMOKE_DIR = Path(__file__).resolve().parent / ".smoke_ckpt"
+
+
+def set_mixed_logits(model, seed):
+    """Every linear's logits s drawn per group over the 4/2/1-bit bands
+    in the default mix (0.5, 0.375, 0.125), so the freeze yields all three
+    precisions."""
+    rng = np.random.default_rng(seed)
+    mix = QuantConfig().mix
+    with torch.no_grad():
+        for _n, lin in smol.smol_linears(model):
+            if "s" not in lin._names:
+                continue
+            bits = rng.choice([4, 2, 1], size=tuple(lin.s.shape), p=mix)
+            s = np.vectorize(BAND_S.get)(bits) + rng.uniform(
+                -0.2, 0.2, bits.shape)
+            lin.s.copy_(torch.tensor(s, dtype=torch.float32))
+
+
+def precision_histogram(model):
+    """Frozen groups at 4, 2 and 1 bits over every linear."""
+    hist = {4: 0, 2: 0, 1: 0}
+    for _n, lin in smol.smol_linears(model):
+        if "pbits" in lin._names:
+            vals, counts = np.unique(lin.pbits.cpu().numpy(),
+                                     return_counts=True)
+            for v, c in zip(vals, counts):
+                hist[int(v)] += int(c)
+    return hist
+
+
+REST_PROFILED_STEP = 4       # a steady Phase-II step
+
+
+def _rest_run(cfg, dev, tag, *, hoist, compress, profiled=True):
+    """3 Phase-I + 3 Phase-II steps of phase 16(a) (mixed logits,
+    REST_MB microbatches): (loop output, per-step records, the profile of
+    step REST_PROFILED_STEP)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import schedule as prof_schedule
+    from repro_torch.train import state as state_lib
+    tcfg = state_lib.TrainConfig(t1=T1, t2=T2, warmup=1, seed=SEED,
+                                 num_microbatches=REST_MB,
+                                 hoist_weight_quant=hoist,
+                                 grad_compress=compress)
+    stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    records, profiles = [], {}
+    counted = {"b8": B8, "b9": B9, "b8_bwd": B8_BWD, "b9_bwd": B9_BWD}
+    prev = dict.fromkeys(counted.values(), 0)
+
+    def on_ready(p):
+        profiles[records[-1]["step"]] = step_profile.device_busy(p)
+
+    def hook(step, _state, met):
+        counts = kernels.launch_counts()
+        rec = dict(step=step, phase=met["phase"], loss=met["loss"],
+                   grad_norm=met["grad_norm"], ms=met["wall"] * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        rec.update({key: counts[name] - prev[name]
+                    for key, name in counted.items()})
+        prev.update({name: counts[name] for name in counted.values()})
+        records.append(rec)
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[16] {tag} step {step} phase {rec['phase']}: loss "
+            f"{rec['loss']:.4f} gnorm {rec['grad_norm']:.4f} "
+            f"{rec['ms']:.1f} ms, launches B8 {rec['b8']} B9 {rec['b9']} "
+            f"B8 backward {rec['b8_bwd']} B9 backward {rec['b9_bwd']}, "
+            f"peak {rec['peak_gib']:.2f} GiB")
+        if profiled:
+            prof.step()
+
+    model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
+                           device=dev)
+    set_mixed_logits(model, SEED + 16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    if not profiled:
+        return loop.train(cfg, tcfg, stream.batches(), model=model,
+                          device=dev, hooks=[hook]), records, profiles
+    # Device activity only: a host-and-device profile of a 2-microbatch
+    # step takes tens of seconds to read (phase 8 splits its steps by op).
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=prof_schedule(wait=REST_PROFILED_STEP, warmup=0,
+                                        active=1, repeat=1),
+                 on_trace_ready=on_ready) as prof:
+        out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                         device=dev, hooks=[hook])
+    return out, records, profiles
+
+
+def _release():
+    """Return what the caller has just deleted to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mixed_training(cfg, dev):
+    from repro_torch.optim import grad_compress as gcomp
+    """Phase 16(a): full-width, 24-layer h2o-danube-1.8b from mixed logits
+    through 3 Phase-I and 3 Phase-II steps at REST_MB microbatches,
+    hoisted, unhoisted and compressed (twice); the launches of every step
+    checked, hoisted bitwise unhoisted, compressed bitwise run to run.
+    Returns its record and (layer 0's frozen pbits by linear name)."""
+    runs = {}
+    out, records, profiles = _rest_run(cfg, dev, "hoisted", hoist=True,
+                                       compress=False)
+    model = out["state"]["model"]
+    n_lin = _quantized_linears(model)
+    hist = precision_histogram(model)
+    rep = out["pattern_report"]
+    bpp = schedule.average_bpp(rep)
+    log(f"[16] boundary: frozen groups by precision {hist}, average bpp "
+        f"{bpp:.4f} over {len(rep['layers'])} linears, allowed patterns "
+        f"{rep['allowed']}")
+    if min(hist.values()) == 0:
+        raise AssertionError(f"the freeze left precisions {hist}")
+    blk = model.blocks[0]
+    layer0 = {name: getattr(blk.attn if name.startswith("w") else blk.mlp,
+                            name).pbits.cpu()
+              for name, _k, _n in layer_linears(cfg)}
+    kept = [p.detach().clone() for p in model.parameters()]
+    runs["hoisted"] = dict(steps=records, profiles=profiles)
+    del out, model, blk
+    _release()
+    out, records, profiles = _rest_run(cfg, dev, "unhoisted", hoist=False,
+                                       compress=False)
+    runs["unhoisted"] = dict(steps=records, profiles=profiles)
+    same = [(r["loss"], r["grad_norm"]) for r in runs["hoisted"]["steps"]] \
+        == [(r["loss"], r["grad_norm"]) for r in records]
+    params_same = all(torch.equal(a, b.detach()) for a, b in zip(
+        kept, out["state"]["model"].parameters()))
+    if not (same and params_same):
+        raise AssertionError(f"hoisted != unhoisted: losses equal {same}, "
+                             f"parameters equal {params_same}")
+    log("[16] hoisted == unhoisted bitwise: losses, gradient norms and "
+        "the final parameters")
+    del out, kept
+    _release()
+    # One call a weight a microbatch and recompute unhoisted; hoisted, one
+    # call a weight a step and the activations as before.
+    m = REST_MB
+    want = {"hoisted": {1: dict(b9=2 * m * n_lin,
+                                b9_bwd=m * n_lin, b8=0, b8_bwd=0),
+                        2: dict(b8=n_lin + 2 * m * n_lin,
+                                b8_bwd=n_lin + m * n_lin, b9=0, b9_bwd=0)},
+            "unhoisted": {1: dict(b9=2 * m * n_lin, b9_bwd=m * n_lin, b8=0,
+                                  b8_bwd=0),
+                          2: dict(b8=4 * m * n_lin, b8_bwd=2 * m * n_lin,
+                                  b9=0, b9_bwd=0)}}
+    want["compressed"] = want["hoisted"]
+    for tag in ("compressed", "compressed_again"):
+        out, records, profiles = _rest_run(
+            cfg, dev, tag, hoist=True, compress=True,
+            profiled=tag == "compressed")
+        err = out["state"].get("err")
+        params = dict(out["state"]["model"].named_parameters())
+        if err is None or set(err) != set(params):
+            raise AssertionError(f"{tag}: the state's err does not cover "
+                                 f"the parameters")
+        runs[tag] = dict(steps=records, profiles=profiles)
+        if tag == "compressed":
+            # A step's compression alone: every gradient and its error.
+            grads = {n: torch.randn_like(p) for n, p in params.items()}
+            runs[tag]["grad_compress_ms"] = time_ms(
+                lambda: gcomp.decompress_tree(gcomp.compress_tree(
+                    grads, err)[0]), reps=3)
+            log(f"[16] gradient compression of a step (every gradient, "
+                f"loop ruler): {runs[tag]['grad_compress_ms']:.2f} ms")
+            del grads
+        del out, err, params
+        _release()
+    a = [(r["loss"], r["grad_norm"]) for r in runs["compressed"]["steps"]]
+    b = [(r["loss"], r["grad_norm"])
+         for r in runs["compressed_again"]["steps"]]
+    if a != b or not all(math.isfinite(v) for pair in a for v in pair):
+        raise AssertionError(f"compressed runs differ or diverge:\n{a}\n{b}")
+    log("[16] compressed: finite, a second run bitwise the first, err in "
+        "the state")
+    for tag in ("hoisted", "unhoisted", "compressed"):
+        for r in runs[tag]["steps"]:
+            got = {k: r[k] for k in ("b8", "b9", "b8_bwd", "b9_bwd")}
+            if got != want[tag][r["phase"]]:
+                raise AssertionError(f"{tag} step {r['step']} launches "
+                                     f"{got}, wanted {want[tag][r['phase']]}")
+    log(f"[16] launches a step as counted: {want}")
+    runs["compressed_again"] = {
+        "steps": [{k: r[k] for k in ("step", "loss", "grad_norm", "ms")}
+                  for r in runs["compressed_again"]["steps"]]}
+    return dict(layers=cfg.num_layers, microbatches=m, histogram=hist,
+                average_bpp=bpp, allowed_patterns=rep["allowed"],
+                launches_per_step=want, runs=runs), layer0
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_checkpoint_restart(dev):
+    """Phase 16(b): full width cut to CKPT_LAYERS layers, t1 = 2, t2 = 4
+    (the boundary at the resumed step). Run A is fed the batches of steps
+    0-1 and checkpoints at step 2; run B resumes from A's directory fed
+    the batches of steps 2-3; run C trains 0-3 uninterrupted. B's pattern
+    report, losses and final parameters must be bitwise C's. Then one
+    save and one restore of C's final state, timed, with their bytes."""
+    import itertools
+    import shutil
+    from repro_torch import interop
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import state as state_lib
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=CKPT_LAYERS)
+
+    def stream():
+        return synthetic.TokenStream(synthetic.TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            batch_size=TRAIN_BATCH, seed=0)).batches()
+
+    def tcfg(d, every=2):
+        return state_lib.TrainConfig(t1=2, t2=4, warmup=1, seed=SEED,
+                                     ckpt_dir=d, checkpoint_every=every)
+
+    def fresh():
+        model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
+                               device=dev)
+        set_mixed_logits(model, SEED + 17)
+        return model
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    a_dir, t_dir = SMOKE_DIR / "a", SMOKE_DIR / "timed"
+    try:
+        t0 = time.perf_counter()
+        try:
+            loop.train(cfg, tcfg(str(a_dir)), itertools.islice(stream(), 2),
+                       model=fresh(), device=dev)
+        except StopIteration:
+            pass
+        a_s = time.perf_counter() - t0
+        if ckpt_lib.latest_step(str(a_dir)) != 2:
+            raise AssertionError("run A left no step-2 checkpoint")
+        ckpt_bytes = _dir_bytes(a_dir / "step_00000002")
+        t0 = time.perf_counter()
+        b = loop.train(cfg, tcfg(str(a_dir), every=T2),   # no save of its own
+                       itertools.islice(stream(), 2, None), device=dev)
+        b_s = time.perf_counter() - t0
+        c = loop.train(cfg, tcfg(None), stream(), model=fresh(), device=dev)
+        same = dict(
+            steps=[m["step"] for m in b["history"]] == [2, 3],
+            report=b["pattern_report"] == c["pattern_report"],
+            losses=[(m["loss"], m["grad_norm"]) for m in b["history"]]
+            == [(m["loss"], m["grad_norm"]) for m in c["history"][2:]],
+            params=all(torch.equal(x, y) for x, y in zip(
+                b["state"]["model"].parameters(),
+                c["state"]["model"].parameters())))
+        if not all(same.values()):
+            raise AssertionError(f"resumed run != uninterrupted run: {same}")
+        log(f"[16] resumed run (from step 2, boundary after it) bitwise the "
+            f"uninterrupted one: {same}; losses "
+            f"{[round(m['loss'], 4) for m in b['history']]}")
+        state = c["state"]
+        del b
+        _release()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = interop.state_to_tree(state)
+        copy_s = time.perf_counter() - t0
+        ckpt_lib.save(tree, str(t_dir), 4)
+        save_s = time.perf_counter() - t0
+        del tree
+        t0 = time.perf_counter()
+        tree, _ = ckpt_lib.restore(str(t_dir))
+        back = interop.state_from_tree(tree, cfg, dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(x, y) for x, y in zip(
+                state["model"].parameters(), back["model"].parameters())):
+            raise AssertionError("restored parameters differ")
+        rec = dict(layers=CKPT_LAYERS, checkpoint_bytes=ckpt_bytes,
+                   timed_bytes=_dir_bytes(t_dir / "step_00000004"),
+                   host_copy_s=copy_s, save_s=save_s, restore_s=restore_s,
+                   run_a_s=a_s, run_b_s=b_s, bitwise=same)
+        log(f"[16] checkpoint at {CKPT_LAYERS} layers: {rec}")
+        del c, state, back, tree
+        _release()
+        return rec
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+
+
+def phase_rest_launchers():
+    """Phase 16(c): the train launcher twice on one checkpoint directory
+    (the second resumes), then the serve launcher on it; each must exit 0
+    in a subprocess."""
+    import shutil
+    d = SMOKE_DIR / "launch"
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    train = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             ARCH, "--reduced", "--steps", "4", "--t1", "2", "--ckpt",
+             str(d)]
+    serve = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             ARCH, "--reduced", "--ckpt", str(d), "--requests", "2",
+             "--prompt-len", "6", "--new-tokens", "4", "--cache-len", "32"]
+    out = {}
+    try:
+        for tag, cmd in (("train", train), ("train_again", train),
+                         ("serve", serve)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  env=env, timeout=600)
+            out[tag] = round(time.perf_counter() - t0, 2)
+            tail = (proc.stdout.strip().splitlines() or [""])[-2:]
+            log(f"[16] {tag} launcher exit {proc.returncode} in "
+                f"{out[tag]} s: {tail}")
+            if proc.returncode:
+                raise AssertionError(f"{tag} launcher failed:\n"
+                                     f"{proc.stdout}\n{proc.stderr[-4000:]}")
+            if tag == "train_again" and "resumed from step" not in \
+                    proc.stdout:
+                raise AssertionError(f"no resume:\n{proc.stdout}")
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return out
 
 
 # ------------------------------------------------------------ MoE serve ----
@@ -2963,7 +3331,8 @@ def main() -> int:
     clock.lap(7)
 
     # -------------------------------------------------------- phase 8 ----
-    state, records, profiles, report = phase_training(cfg, dev)
+    train_cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    state, records, profiles, report = phase_training(train_cfg, dev)
     for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
                       (B9_BWD, "b9_bwd")):
         launches[name] = sum(r[key] for r in records)
@@ -2975,7 +3344,7 @@ def main() -> int:
     # -------------------------------------------------------- phase 9 ----
     state["opt"] = None
     torch.cuda.empty_cache()
-    phase_serve_trained(state, cfg, dev, rng)
+    phase_serve_trained(state, train_cfg, dev, rng)
     del state
     torch.cuda.empty_cache()
 
@@ -3017,6 +3386,19 @@ def main() -> int:
     clock.lap(15)
 
     # ------------------------------------------------------- phase 16 ----
+    rest, layer0 = phase_mixed_training(cfg, dev)
+    rest["layer0_card_vs_cpu"] = check_training_against_cpu(
+        cfg, dev, qat_pbits=layer0, modes=("qat",))
+    log(f"[16] phase 10's QAT linears on layer 0's frozen precisions "
+        f"(groups at 4/2/1 bits "
+        f"{ {p: sum(int((t == p).sum()) for t in layer0.values()) for p in (4, 2, 1)} }"
+        f"), card vs CPU (fp32, relative L2): {rest['layer0_card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    rest["checkpoint"] = phase_checkpoint_restart(dev)
+    rest["launchers_s"] = phase_rest_launchers()
+    clock.lap(16)
+
+    # ------------------------------------------------------- phase 17 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; launches: "
@@ -3095,6 +3477,11 @@ def main() -> int:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
             rows[-1]["launches_per_train_step"] = per_train_step[name]
+        if name in (B8, B8_BWD):
+            key = "b8" if name == B8 else "b8_bwd"
+            for tag in ("hoisted", "unhoisted"):
+                rows[-1][f"launches_per_{tag}_2mb_step"] = \
+                    rest["launches_per_step"][tag][2][key]
         if name == B7:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
         if name in moe_train["launches_per_step"]:
@@ -3108,12 +3495,13 @@ def main() -> int:
         k: {n: x for n, x in v.items() if n != "profile"}
         for k, v in kv4.items()}}))
     print(json.dumps({"training": {
-        "steps": records, "profiles": profiles,
+        "layers": TRAIN_LAYERS, "steps": records, "profiles": profiles,
         "average_bpp": schedule.average_bpp(report),
         "allowed_patterns": report["allowed"],
         "b8_weights_ms_per_layer": results[B8]["weights_ms"],
         "launcher_s": launcher_s}}))
     print(json.dumps({"moe_training": moe_train}))
+    print(json.dumps({"training_rest": rest}))
     print(json.dumps({"moe_serve": {
         k: ({n: x for n, x in v.items() if n != "profile"}
             if isinstance(v, dict) else v) for k, v in moe.items()}}))

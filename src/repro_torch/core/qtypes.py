@@ -50,6 +50,10 @@ class QuantConfig:
     # segments at or below it (the [K2|K1] slice of the same carriers at
     # 2). Verification always runs the full mix.
     draft_slice_bits: Optional[int] = None
+    # The QAT rule takes ``w`` as already on the grid: the hoisted training
+    # step fake-quantizes every weight once a step
+    # (``smol.prequantize_tree``), not once a microbatch and recompute.
+    prequantized: bool = False
 
     # Phase-I hyperparameters: the precision every group starts from and
     # the weight lambda of the bit-count regularizer.

@@ -9,6 +9,12 @@
   SERVE  {"w4", "w2", "w1" uint8, "perm", "pbits_sorted", "wscale", "b"?}
                                           y = q(x) @ unpack(W)
 
+Under ``QuantConfig.prequantized`` (the hoisted training step) the QAT
+rule reads each linear's weight from the step's prequantized copy
+(:func:`prequantize_tree`, installed by :func:`hoisted_weights`) instead
+of quantizing ``w`` again, so a microbatch's forward and its recompute
+launch B8 on activations only.
+
 The weight perturbation is kernel B9 (``backend.noise_inject``), the two
 fake quantizations kernel B8 (``backend.fake_quant``), each with its
 backward in plain torch; the large products stay ``torch.matmul`` in fp32
@@ -31,9 +37,10 @@ checkpointing) sees the same draws and a test can replay the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
-from typing import Dict, Optional, Protocol
+from typing import Dict, Iterator, Optional, Protocol
 
 import numpy as np
 import torch
@@ -192,7 +199,10 @@ def _linear_qat(leaf: Dict, x: torch.Tensor,
     w = leaf["w"]
     g = qcfg.eff_group_size(w.shape[-2])
     pbits = leaf["pbits"].float()
-    wq = _quantize_weight(w, pbits, qcfg, g).to(x.dtype)
+    if qcfg.prequantized:
+        wq = w.to(x.dtype)            # already on the grid (hoisted)
+    else:
+        wq = _quantize_weight(w, pbits, qcfg, g).to(x.dtype)
     xq = _quantize_act(x, pbits, qcfg, g)
     return _matmul(xq, wq, leaf.get("b"))
 
@@ -233,12 +243,21 @@ class SmolLinear(nn.Module):
     gives it, which keys its Phase-I noise draws."""
 
     TRAINABLE = ("w", "s", "b")
+    # Leaf order of ``linear_init``: a model restored from a JAX-layout
+    # tree (sorted keys) lists its parameters as a fresh one does, so the
+    # gradient norm sums in the same order after a restart.
+    ORDER = ("w", "b", "s", "pbits")
 
     def __init__(self, leaf: Dict):
         super().__init__()
-        self._names = tuple(leaf)
+        self._names = tuple(sorted(leaf, key=lambda n: (
+            self.ORDER.index(n) if n in self.ORDER else len(self.ORDER))))
         self.path = ""
-        for name, t in leaf.items():
+        # The step's prequantized weight under ``qcfg.prequantized``
+        # (:func:`hoisted_weights`), None otherwise.
+        self.hoisted: Optional[torch.Tensor] = None
+        for name in self._names:
+            t = leaf[name]
             if name in self.TRAINABLE and t is not None \
                     and t.is_floating_point():
                 self.register_parameter(
@@ -249,12 +268,23 @@ class SmolLinear(nn.Module):
     def leaf(self) -> Dict:
         return {name: getattr(self, name) for name in self._names}
 
+    def rule_leaf(self, qcfg: QuantConfig) -> Dict:
+        """The leaf the forward rule reads: under ``qcfg.prequantized`` a
+        QAT leaf's ``w`` is the step's hoisted weight."""
+        leaf = self.leaf()
+        if qcfg.prequantized and "pbits" in leaf:
+            if self.hoisted is None:
+                raise ValueError(f"{self.path}: a prequantized forward "
+                                 f"needs the step's hoisted weight")
+            leaf["w"] = self.hoisted
+        return leaf
+
     def forward(self, x: torch.Tensor, qcfg: QuantConfig,
                 noise: Optional[NoiseSource] = None) -> torch.Tensor:
         draw = None
         if noise is not None and qcfg.mode == "noise" and "s" in self._names:
             draw = noise.draw(self.path, x)
-        return linear_apply(self.leaf(), x, qcfg, draw)
+        return linear_apply(self.rule_leaf(qcfg), x, qcfg, draw)
 
     def freeze(self, pbits: torch.Tensor) -> None:
         """Phase I -> II: drop the logits ``s``, hold frozen per-group
@@ -269,6 +299,42 @@ def smol_linears(model: nn.Module):
     """(module path, SmolLinear) of every linear of a model."""
     return [(name, mod) for name, mod in model.named_modules()
             if isinstance(mod, SmolLinear)]
+
+
+def prequantize_tree(model: nn.Module, qcfg: QuantConfig,
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """Fake-quantize every (w, pbits) weight of a model once, cast to
+    ``compute_dtype``: {linear path: the weight on its grid}. One B8
+    launch a 2-D linear and one an [E, K, N] expert bank, through the
+    autograd Function, so the result is differentiable in w (the clipped
+    STE) and the quantize backward runs once a step."""
+    out = {}
+    for path, lin in smol_linears(model):
+        if "pbits" not in lin._names or "w" not in lin._names:
+            continue
+        w = lin.w
+        g = qcfg.eff_group_size(w.shape[-2])
+        out[path] = _quantize_weight(w, lin.pbits.float(), qcfg,
+                                     g).to(compute_dtype)
+    return out
+
+
+@contextlib.contextmanager
+def hoisted_weights(model: nn.Module,
+                    weights: Dict[str, torch.Tensor]) -> Iterator[None]:
+    """Install {linear path: prequantized weight} for forwards under
+    ``qcfg.prequantized``; removed on exit. The weights are plain
+    attributes, not block inputs, so a block recomputed in the backward
+    reads the same tensors and quantizes no weight again."""
+    mods = dict(smol_linears(model))
+    try:
+        for path, w in weights.items():
+            mods[path].hoisted = w
+        yield
+    finally:
+        for path in weights:
+            mods[path].hoisted = None
 
 
 def bit_penalty_of_params(model: nn.Module) -> torch.Tensor:

@@ -15,6 +15,14 @@ batches from the same seed, printing one line per step (with the MoE
 load-balancing loss on the MoE archs). ``--device cpu``
 runs the kernels' plain versions (use with ``--reduced``). Exits non-zero
 if a loss is not finite.
+
+``--ckpt DIR`` checkpoints every ``--steps // 2`` steps into DIR in the
+JAX package's format and resumes from the newest checkpoint there
+(printing ``resumed from step N``; the stream restarts at its first
+batch, as the reference's launcher's does); ``repro_torch.launch.serve
+--ckpt DIR`` serves what it wrote. ``--hoist`` fake-quantizes the weights
+once a Phase-II step instead of once a microbatch; ``--grad-compress``
+passes the gradients through int8 compression with error feedback.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import sys
 from repro_torch.configs import get_config
 from repro_torch.core import schedule
 from repro_torch.data import synthetic
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import loop
 from repro_torch.train import state as state_lib
 
@@ -40,6 +49,9 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--hoist", action="store_true")
+    ap.add_argument("--grad-compress", action="store_true")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -47,7 +59,9 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     tcfg = state_lib.TrainConfig(
         num_microbatches=args.microbatches, t1=args.t1, t2=args.steps,
-        warmup=max(args.steps // 10, 1), seed=args.seed)
+        warmup=max(args.steps // 10, 1), seed=args.seed,
+        ckpt_dir=args.ckpt, checkpoint_every=max(args.steps // 2, 1),
+        hoist_weight_quant=args.hoist, grad_compress=args.grad_compress)
     stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
         seed=args.seed))
@@ -58,6 +72,10 @@ def main(argv=None) -> int:
               f"gnorm={m['grad_norm']:.3f} ms={m['wall'] * 1e3:.1f}",
               flush=True)
 
+    if args.ckpt:
+        latest = ckpt_lib.latest_step(args.ckpt)
+        if latest is not None:
+            print(f"resumed from step {latest}", flush=True)
     out = loop.train(cfg, tcfg, stream.batches(), device=args.device,
                      hooks=[report])
     if out["pattern_report"] is not None:

@@ -99,7 +99,7 @@ class ExpertBank(smol.SmolLinear):
             if noise is None:
                 raise ValueError("a Phase-I bank needs its noise draws")
             draw = noise.draw(self.path, x, experts=x.shape[0])
-        return smol.linear_apply(self.leaf(), x, qcfg, draw)
+        return smol.linear_apply(self.rule_leaf(qcfg), x, qcfg, draw)
 
 
 class MoE(nn.Module):

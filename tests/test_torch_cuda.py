@@ -840,6 +840,83 @@ def test_full_width_train_step_repeats_bitwise(dev):
     assert first == second
 
 
+def test_hoisted_step_is_the_unhoisted_step_on_the_card(dev):
+    """Two layers of h2o-danube-1.8b at full width, bf16 compute, mixed
+    1/2/4-bit precisions, a 2-microbatch QAT step hoisted and unhoisted:
+    bitwise the same loss, gradient norm and parameters; the hoisted step
+    launches B8 once a weight (14) and once an activation a microbatch and
+    recompute (56), its backward once a weight and once an activation a
+    microbatch (14 + 28); the unhoisted one 112 and 56."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.train import state as state_lib
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              num_layers=2).with_quant_mode("qat")
+    batch = next(synthetic.TokenStream(synthetic.TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=4,
+        seed=0)).batches())
+    gen = torch.Generator().manual_seed(3)
+
+    def run(hoist):
+        tcfg = state_lib.TrainConfig(t1=0, t2=4, warmup=1,
+                                     num_microbatches=2,
+                                     hoist_weight_quant=hoist)
+        model = lm.init_params(cfg, seed=1, device=dev)
+        gen.manual_seed(3)
+        for name, buf in model.named_buffers():
+            if name.endswith("pbits"):
+                buf.copy_(torch.tensor([1, 2, 4], dtype=buf.dtype)[
+                    torch.randint(0, 3, buf.shape, generator=gen)])
+        st = state_lib.init_state(cfg, tcfg, model=model)
+        kernels.reset_launch_counts()
+        st, met = state_lib.train_step(st, batch, cfg, tcfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        return (float(met["loss"]), float(met["grad_norm"]),
+                [p.detach().clone() for p in model.parameters()],
+                (counts["fake_quant"], counts["fake_quant_bwd"]))
+
+    h, u = run(True), run(False)
+    assert np.isfinite(h[0]) and h[:2] == u[:2]
+    assert all(torch.equal(a, b) for a, b in zip(h[2], u[2]))
+    assert h[3] == (14 + 56, 14 + 28) and u[3] == (112, 56)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A full-width two-layer Phase-I state on the card (moments and
+    compression error set) saved and restored: parameters, moments and
+    errors bitwise, back on the card."""
+    import dataclasses
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.train import checkpoint
+    from repro_torch.train import state as state_lib
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              num_layers=2).with_quant_mode("noise")
+    tcfg = state_lib.TrainConfig(grad_compress=True)
+    st = state_lib.init_state(cfg, tcfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for tree in (st["opt"]["mu"], st["opt"]["nu"], st["err"]):
+        for t in tree.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    st["opt"]["count"], st["step"] = 7, 7
+    d = str(tmp_path / "ck")
+    checkpoint.async_save(interop.state_to_tree(st), d, 7).join()
+    tree, step = checkpoint.restore(d)
+    back = interop.state_from_tree(tree, cfg, dev)
+    assert step == 7 and back["step"] == 7 and back["opt"]["count"] == 7
+    for (n, a), (m, b) in zip(st["model"].named_parameters(),
+                              back["model"].named_parameters()):
+        assert n == m and b.is_cuda and torch.equal(a, b), n
+    for key in ("mu", "nu"):
+        for n, t in st["opt"][key].items():
+            assert torch.equal(t, back["opt"][key][n]), (key, n)
+    for n, t in st["err"].items():
+        assert torch.equal(t, back["err"][n]), n
+
+
 # ------------------------------------------------------- expert banks ----
 def _bank_operands(e, k, n, gen, dev):
     w = torch.rand((e, k, n), generator=gen, device=dev) * 4.4 - 2.2

@@ -10,8 +10,9 @@ load (deploy packing), split by the torch op or kernel that did the work
     undo()
 
 The port carries no profiler ranges of its own. ``install_spans`` wraps a
-few functions of whichever checkout of ``repro_torch`` is imported (names
-that every checkout since the training port has) in
+few functions of whichever checkout of ``repro_torch`` is imported (a
+function that an older checkout lacks, such as the gradient compression,
+is skipped) in
 ``torch.profiler.record_function`` ranges, opened only while a profiler
 records, so a parent and a change split the same way in one call. Each
 kernel counts to the innermost range around the op that launched it. A
@@ -50,6 +51,9 @@ SPANS = (
     # What the MoE's banks and linears leave: the router, top-k, the
     # dispatch scatter, the combine and the load-balancing loss.
     ("repro_torch.models.moe", "moe_apply", "moe_routing"),
+    # The int8 error-feedback compression of the gradients (plain ops).
+    ("repro_torch.optim.grad_compress", "compress_tree", "grad_compress"),
+    ("repro_torch.optim.grad_compress", "decompress_tree", "grad_compress"),
 )
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
                   "_FakeQuantBackward": "fake_quant_bwd"}
@@ -71,7 +75,10 @@ def install_spans() -> Callable[[], None]:
 
     saved = []
     for module, path, label in SPANS:
-        owner = importlib.import_module(module)
+        try:
+            owner = importlib.import_module(module)
+        except ModuleNotFoundError:         # an older checkout
+            continue
         *outer, attr = path.split(".")
         for name in outer:                  # a method: Class.name
             owner = getattr(owner, name)
@@ -163,6 +170,17 @@ def device_summary(prof) -> Dict:
             "other_by_op": {k: round(v, 3) for k, v in by_op.items()},
             "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
                      e.count) for e in top]}
+
+
+def device_busy(prof) -> Dict:
+    """Busy ms and kernel count of a window profiled on the device alone
+    (``activities=[CUDA]``: no host ops, so reading it is cheap; no split
+    by op)."""
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(("ProfilerStep", PREFIX))]
+    return {"kernels": sum(e.count for e in kern),
+            "device_busy_ms": sum(e.device_time_total for e in kern) / 1e3}
 
 
 # The load's torch ops by what they do in the packing path; a kernel
