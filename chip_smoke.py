@@ -196,12 +196,33 @@ Phases (none catches an error; any failure exits non-zero):
      --steps 4 --t1 2 --ckpt DIR`` twice (the second resumes), then
      ``repro_torch.launch.serve --reduced --ckpt DIR``, in subprocesses;
      each must exit 0.
- 17. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 17. The ``soniq`` façade and the CNN: (a) one full-width
+     h2o-danube-1.8b q projection (LinearSpec 2560 x 2560) through
+     init_linear, 3 Phase-I steps (1 B9 and 1 B9 backward each), to_qat,
+     3 Phase-II steps (2 B8 and 1 B8 backward each), to_serve (1 B7) and
+     the packed forward (1 B1); kernel vs QAT max err < 1e-4. (b) The
+     paper benchmarks' CNN (channels (128,), 2 blocks, 6x6x3 images,
+     batch 32) by ``train_cnn``'s recipe, the logits spread over the
+     4/2/1-bit bands first: 20 FP warm-start steps, 4 Phase-I steps (AdamW, s_lr_mult 25), to_qat, 4 Phase-II steps, test
+     accuracy and bits per parameter, to_serve; every step's launches
+     checked (per pw conv: 1 B9 and 1 B9 backward a Phase-I step, 2 B8 and
+     2 B8 backward a Phase-II step; 1 B7 at to_serve, 1 B8 a served
+     forward); serve vs QAT logits within atol 1e-4, rtol 1e-3; a second
+     run bitwise the first. (c) A CIFAR-size CNN (32x32x3, batch 128,
+     channels (128, 256), 2 blocks a stage: stride 2 with XLA's
+     asymmetric padding) 3 + 3 steps, the same checks, one step of each
+     phase's loss card vs CPU within 1e-5 relative, and the device busy
+     of a Phase-I and a Phase-II step. (d) The port's three examples in
+     subprocesses (quickstart --steps 200, serve_quantized --steps 10,
+     train_lm_soniq --preset 100m --steps 4), each timed; each must exit
+     0. The ``soniq`` JSON line.
+ 18. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
-     Phase-II step on B8 and its backward), the ``kv4_serve``,
-     ``training``, ``moe_training``, ``training_rest``, ``moe_serve``,
-     ``load``, ``spec_serve``, ``fp_paged_serve``, ``dense_configs`` and
+     Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
+     B8, B9 and the backward rows), the ``kv4_serve``, ``training``,
+     ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
+     ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq`` and
      ``phase_seconds`` JSON lines, the nvidia-smi line, and last the
      ``{"ok": true, ...}`` line.
 """
@@ -2773,6 +2794,317 @@ def phase_rest_launchers():
     return out
 
 
+# ------------------------------------------------------ soniq and CNN ----
+SONIQ_STEPS = 3              # phase 17(a): Phase-I and Phase-II steps
+SONIQ_LAM = 1e-3
+# Phase 17(b): the paper benchmarks' CNN (benchmarks/_common.py:
+# CNN_CHANNELS, CNN_BLOCKS, IMG, BATCH; train_cnn's recipe with T1 = 4 and
+# T2 = 8); (c) a CIFAR-size CNN that takes stride 2.
+CNN_CELLS = {
+    "bench": dict(channels=(128,), blocks=2, img=(6, 6, 3), batch=32,
+                  n_train=1024, t1=4, t2=8),
+    "cifar": dict(channels=(128, 256), blocks=2, img=(32, 32, 3),
+                  batch=128, n_train=1024, t1=3, t2=6)}
+CNN_OPT = dict(lr=3e-3, weight_decay=1e-4, s_lr_mult=25.0)   # train_cnn's
+SERVE_TOL = dict(atol=1e-4, rtol=1e-3)   # serve vs QAT (the reference's)
+SOLO = (B1, B7, B8, B9, B8_BWD, B9_BWD)
+
+
+def _solo_counts():
+    counts = kernels.launch_counts()
+    return {name: counts[name] for name in SOLO}
+
+
+def _since(before):
+    now = _solo_counts()
+    return {name: now[name] - before[name] for name in SOLO
+            if now[name] != before[name]}
+
+
+def _expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, derived {want}")
+
+
+def phase_soniq_linear(dev):
+    """Phase 17(a): the façade on one full-width h2o-danube-1.8b q
+    projection: init_linear, SONIQ_STEPS Phase-I steps, to_qat,
+    SONIQ_STEPS Phase-II steps, to_serve and the packed forward; kernel vs
+    QAT < 1e-4. Launches derived from the rules: a Phase-I step is one B9
+    and one B9 backward; a Phase-II step two B8 (weight, activation) and
+    one B8 backward (the input takes no gradient); to_serve one B7; the
+    packed forward one B1."""
+    from repro_torch import soniq
+    cfg = get_config(ARCH)
+    k, n = cfg.d_model, cfg.num_heads * cfg.hd
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn((64, k), generator=g, device=dev)
+    target = torch.randn((64, n), generator=g, device=dev) * 0.1
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = soniq.init_linear(k, n, soniq.QuantConfig(
+        mode=soniq.Phase.NOISE, lam=SONIQ_LAM), seed=SEED, device=dev)
+    lin = state.model
+    set_mixed_logits(lin, SEED + 17)       # a [K4|K2|K1] split to serve
+    steps = []
+    for i in range(SONIQ_STEPS):
+        before = _solo_counts()
+        loss = torch.mean((soniq.apply(state, x, noise=(SEED, i)) - target)
+                          ** 2) + SONIQ_LAM * soniq.bit_penalty(lin.s)
+        gw, gs = torch.autograd.grad(loss, [lin.w, lin.s])
+        with torch.no_grad():
+            lin.w -= 0.01 * gw
+            lin.s -= 0.08 * gs
+        steps.append(_since(before))
+        _expect(f"[17a] Phase-I step {i}", steps[-1], {B9: 1, B9_BWD: 1})
+    qat, report = soniq.to_qat(state)
+    for i in range(SONIQ_STEPS):
+        before = _solo_counts()
+        loss = torch.mean((soniq.apply(qat, x) - target) ** 2)
+        (gw,) = torch.autograd.grad(loss, [lin.w])
+        with torch.no_grad():
+            lin.w -= 0.01 * gw
+        steps.append(_since(before))
+        _expect(f"[17a] Phase-II step {i}", steps[-1], {B8: 2, B8_BWD: 1})
+    with torch.no_grad():
+        y_qat = soniq.apply(qat, x)
+        before = _solo_counts()
+        served = soniq.to_serve(qat)
+        pack = _since(before)
+        before = _solo_counts()
+        y = soniq.apply(served, x)
+        fwd = _since(before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _expect("[17a] to_serve", pack, {B7: 1})
+    _expect("[17a] packed forward", fwd, {B1: 1})
+    err = float((y - y_qat).abs().max())
+    log(f"[17a] soniq on one {ARCH} q projection [{k}, {n}]: "
+        f"{SONIQ_STEPS} + {SONIQ_STEPS} steps, bpp "
+        f"{soniq.average_bpp(report):.3f}, kernel vs QAT max err {err:.3e} "
+        f"(< 1e-4), {wall:.2f} s")
+    if not err < 1e-4:
+        raise AssertionError(f"kernel vs QAT max err {err}")
+    return {"k": k, "n": n, "kernel_vs_qat": err, "s": round(wall, 3),
+            "bpp": soniq.average_bpp(report),
+            "launches": _solo_counts()}
+
+
+class HostNoise:
+    """Phase-I draws made on the host (a CPU generator keyed by path) and
+    moved to x's device: the same draws on the card and the CPU."""
+
+    def __init__(self, key):
+        self.src = smol.StepNoise(key)
+
+    def draw(self, path, x, experts=None):
+        d = self.src.draw(path, torch.empty(x.shape, dtype=x.dtype),
+                          experts)
+        return smol.NoiseDraw(d.seed.to(x.device), None if d.act_eps is None
+                              else d.act_eps.to(x.device))
+
+
+def _cnn_busy(fn):
+    """Device busy ms and kernels of one call, profiled on the device
+    alone, with its five longest kernels (name, ms, count)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = step_profile.device_busy(prof)
+    kern = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")),
+                  key=lambda e: -e.device_time_total)
+    out["top"] = [(e.key[:60], round(e.device_time_total / 1e3, 3), e.count)
+                  for e in kern[:5]]
+    return out
+
+
+def _cnn_run(cell, dev, *, cpu_check=False, profiled=False):
+    """Phase 17(b)/(c): ``benchmarks/_common.py::train_cnn``'s recipe
+    through the façade on the card, the logits spread over the 4/2/1-bit
+    bands first: an FP warm start of max(t1 // 2, 20) steps, t1 Phase-I steps (AdamW, s_lr_mult 25), to_qat, Phase II to t2,
+    test accuracy and bits per parameter, to_serve; serve vs QAT logits on
+    a test batch. Each quantized (pw) conv is one B9 and one B9 backward a
+    Phase-I step, two B8 and two B8 backward a Phase-II step (weight and
+    activation), one B7 at to_serve and one B8 a served forward."""
+    from repro_torch import soniq
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw
+    c = CNN_CELLS[cell]
+    (xtr, ytr), (xte, yte) = synthetic.classification_dataset(
+        num_classes=10, dim=c["img"], n_train=c["n_train"], n_test=256,
+        seed=SEED)
+    xtr_d, ytr_d = torch.as_tensor(xtr, device=dev), torch.as_tensor(
+        ytr, device=dev)
+    qcfg = QuantConfig(mode="qat")
+    cfg = cnn.CNNConfig(channels=c["channels"], blocks_per_stage=c["blocks"],
+                        quant=qcfg.with_mode("noise"))
+    state = soniq.init(cfg, seed=SEED, device=dev)
+    model = state.model
+    # A few Phase-I steps cannot move s across its bands, so the logits
+    # start spread over them (as phase 16's): the freeze then yields 4-,
+    # 2- and 1-bit groups, which B8 and the packed serve path run.
+    set_mixed_logits(model, SEED + 17)
+    pw = sum(1 for name, _ in smol.smol_linears(model)
+             if name.endswith(".pw"))
+    per_step = {1: {B9: pw, B9_BWD: pw}, 2: {B8: 2 * pw, B8_BWD: 2 * pw}}
+    ocfg = adamw.AdamWConfig(**CNN_OPT)
+    opt = adamw.init_state(model)
+
+    def step(fcfg, idx, noise):
+        batch = {"x": xtr_d[idx], "y": ytr_d[idx]}
+        loss, _ = cnn.xent_loss(model, batch, fcfg, noise)
+        params = adamw.trainable(model)
+        # The FP warm start leaves the logits s unused (no update).
+        grads = torch.autograd.grad(loss, [p for _, p in params],
+                                    allow_unused=True)
+        adamw.apply_updates(model, {name: gr for (name, _), gr in
+                                    zip(params, grads)}, opt, ocfg)
+        return loss.detach()
+
+    def cpu_loss(fcfg, idx, key):
+        """This step's loss on the card and, from a host copy of the
+        model, on the CPU (the same draws)."""
+        host = copy.deepcopy(model).cpu()
+        batch = {"x": xtr[idx.cpu().numpy()], "y": ytr[idx.cpu().numpy()]}
+        with torch.no_grad():
+            card = cnn.xent_loss(model, batch, fcfg, HostNoise(key))[0]
+            cpu = cnn.xent_loss(host, batch, fcfg, HostNoise(key))[0]
+        return abs(float(card) - float(cpu)) / abs(float(cpu))
+
+    fp_cfg = soniq.with_phase(cfg, "fp")
+    rng_w = np.random.default_rng(SEED + 7)
+    for _ in range(max(c["t1"] // 2, 20)):
+        step(fp_cfg, torch.as_tensor(rng_w.integers(0, len(xtr), c["batch"]),
+                                     device=dev), None)
+    rng = np.random.default_rng(SEED)
+    records, busy, card_vs_cpu, report = [], {}, {}, None
+    fcfg = cfg
+    for it in range(c["t2"]):
+        if it == c["t1"]:
+            state, report = soniq.to_qat(state)
+            fcfg = state.forward_cfg
+            opt = adamw.init_state(model)
+        phase = 1 if it < c["t1"] else 2
+        idx = torch.as_tensor(rng.integers(0, len(xtr), c["batch"]),
+                              device=dev)
+        key = (SEED, 1000 + it)
+        noise = smol.StepNoise(key) if phase == 1 else None
+        if cpu_check and it in (0, c["t1"]):
+            card_vs_cpu[f"phase{phase}_loss_rel"] = cpu_loss(fcfg, idx, key)
+        if profiled and it in (c["t1"] - 1, c["t1"]):
+            busy[f"phase{phase}"] = _cnn_busy(
+                lambda: step(fcfg, idx, noise))
+            continue
+        before = _solo_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(fcfg, idx, noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _since(before)
+        _expect(f"[17] {cell} step {it} (phase {phase})", got,
+                per_step[phase])
+        records.append({"step": it, "phase": phase, "loss": float(loss),
+                        "ms": ms})
+    with torch.no_grad():
+        acc = cnn.accuracy(model, xte, yte, fcfg)
+        bpp = cnn.bits_per_param(model, qcfg)
+        probe = torch.as_tensor(xte[:c["batch"]], device=dev)
+        y_qat = soniq.apply(state, probe)
+        before = _solo_counts()
+        served = soniq.to_serve(state)
+        pack = _since(before)
+        before = _solo_counts()
+        y_srv = soniq.apply(served, probe)
+        fwd = _since(before)
+    _expect(f"[17] {cell} to_serve", pack, {B7: pw})
+    _expect(f"[17] {cell} served forward", fwd, {B8: pw})
+    torch.testing.assert_close(y_srv, y_qat, **SERVE_TOL)
+    err = float((y_srv - y_qat).abs().max())
+    out = {"channels": list(c["channels"]), "blocks": c["blocks"],
+           "img": list(c["img"]), "batch": c["batch"], "t1": c["t1"],
+           "t2": c["t2"], "pw_convs": pw, "accuracy": acc, "bpp": bpp,
+           "average_bpp": soniq.average_bpp(report),
+           "serve_vs_qat_max_abs": err, "steps": records,
+           "launches_per_step": {str(p): v for p, v in per_step.items()},
+           "to_serve_b7": pack.get(B7, 0),
+           "served_forward_b8": fwd.get(B8, 0)}
+    if busy:
+        out["busy"] = busy
+    if card_vs_cpu:
+        out["card_vs_cpu"] = card_vs_cpu
+    return out, [p.detach().clone() for p in served.model.parameters()] + [
+        b.detach().clone() for b in served.model.buffers()
+        if b is not None], y_srv
+
+
+def phase_soniq_cnn(dev):
+    """Phase 17(b) and (c): the benchmarks' CNN twice (the second run
+    bitwise the first), then the CIFAR-size CNN with one step of each
+    phase card vs CPU (loss within 1e-5 relative) and the device busy of
+    a Phase-I and a Phase-II step."""
+    out = {}
+    first, tensors, y = _cnn_run("bench", dev)
+    again, tensors2, y2 = _cnn_run("bench", dev)
+    same = torch.equal(y, y2) and len(tensors) == len(tensors2) and all(
+        torch.equal(a, b) for a, b in zip(tensors, tensors2)) and [
+        r["loss"] for r in first["steps"]] == [r["loss"]
+                                               for r in again["steps"]]
+    if not same:
+        raise AssertionError("[17b] the second CNN run is not bitwise the "
+                             "first")
+    first["second_run_bitwise"] = True
+    out["cnn_bench"] = first
+    log(f"[17b] benchmarks' CNN {first['channels']} x {first['blocks']} on "
+        f"{first['img']} batch {first['batch']}: accuracy "
+        f"{first['accuracy']:.4f}, bpp {first['bpp']:.4f}, serve vs QAT "
+        f"{first['serve_vs_qat_max_abs']:.3e}, second run bitwise; steps "
+        f"{[(r['phase'], round(r['ms'], 2)) for r in first['steps']]} ms")
+    del tensors, tensors2
+    cifar, _tensors, _y = _cnn_run("cifar", dev, cpu_check=True,
+                                   profiled=True)
+    bad = {k: v for k, v in cifar["card_vs_cpu"].items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"[17c] card vs CPU loss {bad} > 1e-5")
+    out["cnn_cifar"] = cifar
+    log(f"[17c] CIFAR-size CNN {cifar['channels']} x {cifar['blocks']} on "
+        f"{cifar['img']} batch {cifar['batch']}: serve vs QAT "
+        f"{cifar['serve_vs_qat_max_abs']:.3e}, card vs CPU "
+        f"{cifar['card_vs_cpu']}, busy {cifar['busy']}, steps "
+        f"{[(r['phase'], round(r['ms'], 2)) for r in cifar['steps']]} ms")
+    return out
+
+
+def phase_examples():
+    """Phase 17(d): the port's three examples in subprocesses on the card;
+    each must exit 0. Returns their seconds."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = {"quickstart": ["examples/torch_quickstart.py", "--steps",
+                           "200"],
+            "serve_quantized": ["examples/torch_serve_quantized.py",
+                                "--steps", "10"],
+            "train_lm_100m": ["examples/torch_train_lm_soniq.py", "--preset",
+                              "100m", "--steps", "4"]}
+    out = {}
+    for tag, args in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], capture_output=True,
+                              text=True, env=env, cwd=root, timeout=600)
+        out[tag] = round(time.perf_counter() - t0, 2)
+        lines = proc.stdout.strip().splitlines()
+        log(f"[17d] {tag} exit {proc.returncode} in {out[tag]} s: "
+            f"{[ln for ln in lines if 'err' in ln or 'bpp' in ln or 'bytes' in ln][:3] or lines[-2:]}")
+        if proc.returncode:
+            raise AssertionError(f"{tag} failed:\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+    return out
+
+
 # ------------------------------------------------------------ MoE serve ----
 def phase_moe_serve(dev, rng, launches, per_step, spec_runs):
     """Full-width, 28-layer deepseek-moe-16b from random QAT weights of the
@@ -3399,6 +3731,14 @@ def main() -> int:
     clock.lap(16)
 
     # ------------------------------------------------------- phase 17 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    soniq_out = {"linear": phase_soniq_linear(dev)}
+    soniq_out.update(phase_soniq_cnn(dev))
+    soniq_out["examples_s"] = phase_examples()
+    clock.lap(17)
+
+    # ------------------------------------------------------- phase 18 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; launches: "
@@ -3484,6 +3824,24 @@ def main() -> int:
                     rest["launches_per_step"][tag][2][key]
         if name == B7:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
+        if name in SOLO:
+            lin = soniq_out["linear"]["launches"][name]
+            if lin:
+                rows[-1]["soniq_linear_launches"] = lin
+            for cell in ("cnn_bench", "cnn_cifar"):
+                cell_out = soniq_out[cell]
+                per = {n: v.get(name, 0)
+                       for n, v in cell_out["launches_per_step"].items()}
+                if any(per.values()):
+                    rows[-1][f"{cell}_launches_per_step"] = per
+            if name == B7:
+                rows[-1]["cnn_to_serve_launches"] = {
+                    cell: soniq_out[cell]["to_serve_b7"]
+                    for cell in ("cnn_bench", "cnn_cifar")}
+            if name == B8:
+                rows[-1]["cnn_served_forward_launches"] = {
+                    cell: soniq_out[cell]["served_forward_b8"]
+                    for cell in ("cnn_bench", "cnn_cifar")}
         if name in moe_train["launches_per_step"]:
             rows[-1].update((k, v) for k, v in r.items()
                             if k.startswith("bank_"))
@@ -3514,6 +3872,7 @@ def main() -> int:
         for tag, v in spec_runs.items()}}))
     print(json.dumps({"fp_paged_serve": fp_paged}))
     print(json.dumps({"dense_configs": dense}))
+    print(json.dumps({"soniq": soniq_out}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(card)
     print(json.dumps({"ok": True, "device": {

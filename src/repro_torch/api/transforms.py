@@ -1,19 +1,39 @@
-"""Lifecycle transforms. Counterpart of the pytree-level transforms of
-``repro.api.transforms``: the Phase I -> II boundary (``freeze_qat``) and
-the deploy packing of QAT leaves into packed serve leaves
-(``rebudget_pbits``, ``pack_linear``, ``convert_linear``,
-``convert_tree``).
+"""Lifecycle transforms. Counterpart of ``repro.api.transforms``.
+
+State level (the public ``soniq`` surface):
+
+    init / init_linear   build a SoniqState in the phase its config selects
+    apply                forward pass (a single linear, the CNN or the LM)
+    to_qat               Phase I -> Phase II (Problem 1 + PatternMatch +
+                         precision freeze, on the host)
+    to_serve             Phase II -> deployment (rebudget -> channel
+                         reorder -> bit-pack)
+
+The reference's transforms are functional: they copy the tree to the host
+and return a new one. The port's change the model in place, because a
+copy would double a full-width model on the card: the returned state
+shares the module, and the consumed state raises on any later
+``apply``, ``to_qat`` or ``to_serve``.
+
+Tree level (the same transforms without the state, what the train loop
+and the decode engine compose): the Phase I -> II boundary
+(``freeze_qat``) and the deploy packing of QAT leaves into packed serve
+leaves (``rebudget_pbits``, ``pack_linear``, ``pack_conv``,
+``convert_linear``, ``convert_tree``).
 
 Large tensors stay on their device; only the [.., K / 16] group arrays
 (precisions, group magnitudes) visit the host, where the channel order is
-decided: one copy there and one back per leaf. A linear, or a stacked
-[L | E, K, N] leaf, packs in one launch of the ``quantize_pack`` kernel
-(B7) on CUDA, which reads the rows through the channel order in place.
+decided: one copy there and one back per leaf. A linear, a conv (on its
+[Cin, kh * kw * Cout] rows), or a stacked [L | E, K, N] leaf, packs in one
+launch of the ``quantize_pack`` kernel (B7) on CUDA, which reads the rows
+through the channel order in place.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from collections import defaultdict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +43,14 @@ from repro_torch.backend import base as backend
 from repro_torch.core import patterns as patterns_lib
 from repro_torch.core import quant
 from repro_torch.core import schedule as schedule_lib
+from repro_torch.core import smol
+from repro_torch.core.phases import Phase
 from repro_torch.core.qtypes import QuantConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import cnn, lm
+from .state import LinearSpec, SoniqState
+
+average_bpp = schedule_lib.average_bpp
 
 
 def _host(a) -> np.ndarray:
@@ -241,6 +268,27 @@ def convert_linear(leaf: Dict, qcfg: QuantConfig, *,
                           rebudget)], qcfg)[0]
 
 
+def _conv_leaf(leaf: Dict, shape) -> Dict:
+    """A packed [Cin, kh * kw * Cout] leaf -> the conv's serve leaf:
+    carriers [rows, kh, kw, Cout] (rows given explicitly: a segment may
+    have none)."""
+    kh, kw, _cin, cout = shape
+    for name in ("w4", "w2", "w1"):
+        leaf[name] = leaf[name].reshape(leaf[name].shape[0], kh, kw, cout)
+    return leaf
+
+
+@torch.no_grad()
+def pack_conv(leaf: Dict, qcfg: QuantConfig) -> Dict:
+    """One trained conv [kh, kw, Cin, Cout] (w, pbits), quantized along
+    Cin, -> its serve leaf: the [Cin, kh * kw * Cout] rows packed as a
+    linear (one B7 launch), carriers [rows, kh, kw, Cout]."""
+    w = torch.as_tensor(leaf["w"])
+    packed = _pack_leaves([(cnn.conv_rows(w), leaf["pbits"], leaf.get("b"),
+                            False)], qcfg)[0]
+    return _conv_leaf(packed, tuple(w.shape))
+
+
 def _is_qat_leaf(node) -> bool:
     return isinstance(node, dict) and "w" in node and "pbits" in node
 
@@ -250,19 +298,26 @@ def convert_tree(tree, qcfg: QuantConfig, *, rebudget="auto"):
     """QAT tree (nested dicts/lists of tensors) -> serve tree. Every leaf
     packs in one launch, a leaf with leading stacked dims ([L, K, N],
     [E, K, N]) too; stacked slices are rebudgeted unless
-    ``rebudget=False``, since they must share packed shapes. The host work
-    of all leaves is batched (``_pack_leaves``)."""
+    ``rebudget=False``, since they must share packed shapes; a 2-D linear
+    and a conv ([kh, kw, Cin, Cout] with 1-D pbits) only when
+    ``rebudget is True``. The host work of all leaves is batched
+    (``_pack_leaves``)."""
     if rebudget not in (True, False, "auto"):
         raise ValueError(f"rebudget={rebudget!r}")
-    leaves = []
+    leaves, conv_shapes = [], []
 
     def collect(node):
         if _is_qat_leaf(node):
             w = torch.as_tensor(node["w"])
-            if w.dim() < 2 or torch.as_tensor(node["pbits"]).dim() != \
-                    w.dim() - 1:
-                raise NotImplementedError(
-                    "conv leaves are packed by a later port slice")
+            pb = torch.as_tensor(node["pbits"])
+            if w.dim() == 4 and pb.dim() == 1:      # conv [kh, kw, Cin, Cout]
+                conv_shapes.append(tuple(w.shape))
+                w = cnn.conv_rows(w)
+            elif w.dim() < 2 or pb.dim() != w.dim() - 1:
+                raise ValueError(f"pbits {tuple(pb.shape)} do not fit w "
+                                 f"{tuple(w.shape)}")
+            else:
+                conv_shapes.append(None)
             reb = rebudget is True if w.dim() == 2 else \
                 rebudget in (True, "auto")
             leaves.append((w, node["pbits"], node.get("b"), reb))
@@ -274,11 +329,12 @@ def convert_tree(tree, qcfg: QuantConfig, *, rebudget="auto"):
                 collect(v)
 
     collect(tree)
-    packed = iter(_pack_leaves(leaves, qcfg))
+    packed = iter(zip(_pack_leaves(leaves, qcfg), conv_shapes))
 
     def fix(node):
         if _is_qat_leaf(node):
-            return next(packed)
+            leaf, shape = next(packed)
+            return leaf if shape is None else _conv_leaf(leaf, shape)
         if isinstance(node, dict):
             return {k: fix(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -286,3 +342,149 @@ def convert_tree(tree, qcfg: QuantConfig, *, rebudget="auto"):
         return node
 
     return fix(tree)
+
+
+def tree_map_layers(fn, tree):
+    """Map ``fn`` over every dict node of a tree of tensors (returning a
+    new dict stops the recursion into that node): the layer-walking
+    primitive of the tree-level transforms."""
+    if isinstance(tree, dict):
+        new = fn(tree)
+        if new is not tree:
+            return new
+        return {k: tree_map_layers(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_layers(fn, v) for v in tree)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# The state level.
+# ---------------------------------------------------------------------------
+
+def with_phase(cfg, phase):
+    """Copy of a QuantConfig, ArchConfig, CNNConfig or LinearSpec in the
+    given lifecycle phase (a string or a Phase object)."""
+    phase = Phase.from_mode(phase)
+    if isinstance(cfg, QuantConfig):
+        return cfg.with_mode(phase)
+    if hasattr(cfg, "with_quant_mode"):      # ArchConfig
+        return cfg.with_quant_mode(phase)
+    return dataclasses.replace(cfg, quant=cfg.quant.with_mode(phase))
+
+
+def init(model_cfg, qcfg: Optional[QuantConfig] = None, *, seed: int = 0,
+         device: DeviceLike = None) -> SoniqState:
+    """A :class:`SoniqState` in the phase its quant config selects, with
+    random weights from the port's generator seeded with ``seed`` on
+    ``device`` (default: the card). ``model_cfg`` is an ``ArchConfig``
+    (LM), a ``CNNConfig`` or a :class:`LinearSpec`; ``qcfg`` (optional)
+    replaces its quant field. The parameters take gradients in the
+    trainable phases."""
+    if qcfg is not None:
+        model_cfg = dataclasses.replace(model_cfg, quant=qcfg)
+    phase = model_cfg.quant.phase
+    if phase is Phase.SERVE:
+        raise ValueError("a serve state comes from to_serve of a trained "
+                         "QAT state")
+    if isinstance(model_cfg, LinearSpec):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = smol.SmolLinear(smol.linear_init(
+            model_cfg.k, model_cfg.n, model_cfg.quant, generator=gen,
+            device=dev, use_bias=model_cfg.use_bias))
+    elif isinstance(model_cfg, cnn.CNNConfig):
+        model = cnn.cnn_init(model_cfg, seed=seed, device=device)
+    else:
+        model = lm.init_params(model_cfg, seed=seed, device=device)
+    model.requires_grad_(phase.trainable)
+    return SoniqState(phase, model, model_cfg)
+
+
+def init_linear(k: int, n: int, qcfg: QuantConfig, *, seed: int = 0,
+                use_bias: bool = False,
+                device: DeviceLike = None) -> SoniqState:
+    """Single-SmolLinear state (quickstart, unit tests)."""
+    return init(LinearSpec(k=k, n=n, use_bias=use_bias, quant=qcfg),
+                seed=seed, device=device)
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(itertools.chain(model.parameters(), model.buffers())).device
+
+
+def apply(state: SoniqState, x=None, *, noise=None, **inputs):
+    """Forward pass of a state in its phase.
+
+    * LinearSpec: ``apply(state, x)`` -> [..., N]
+    * CNNConfig:  ``apply(state, images)`` (NHWC) -> logits [B, classes]
+    * ArchConfig: ``apply(state, tokens)`` (or ``tokens=`` and
+      ``positions=``) -> fp32 logits [B, S, V]
+
+    Phase I needs ``noise``: a ``smol.NoiseSource`` (e.g. one replaying
+    other draws) or a key (an int or a tuple of ints) of a
+    ``smol.StepNoise``."""
+    state.check_live("apply")
+    cfg = state.forward_cfg
+    qcfg = cfg.quant
+    if noise is not None and not hasattr(noise, "draw"):
+        noise = smol.StepNoise(noise, qcfg.quantize_activations)
+    if state.phase is Phase.NOISE and noise is None:
+        raise ValueError(f"apply in {Phase.NOISE!r} needs noise draws")
+    model = state.model
+    if isinstance(state.model_cfg, LinearSpec):
+        return model(torch.as_tensor(x, device=_device(model)), qcfg, noise)
+    if isinstance(state.model_cfg, cnn.CNNConfig):
+        return cnn.cnn_apply(model, x, cfg, noise)
+    other = set(inputs) - {"tokens", "positions"}
+    if other:
+        raise NotImplementedError(f"inputs {sorted(other)} belong to "
+                                  f"families the port has not ported")
+    hidden, _ = lm.forward(model, cfg, inputs.get("tokens", x),
+                           positions=inputs.get("positions"), noise=noise)
+    return lm.logits(model, cfg, hidden)
+
+
+def _spend(state: SoniqState, by: str, phase) -> SoniqState:
+    """The state of ``state``'s module in ``phase``; ``state`` is spent."""
+    state.consumed_by = (by, phase)
+    return SoniqState(phase, state.model, state.model_cfg)
+
+
+def to_qat(state: SoniqState) -> Tuple[SoniqState, Dict]:
+    """Phase I -> Phase II boundary: freeze the trained ``s`` into
+    per-group ``pbits`` (Problem-1 solve + PatternMatch, on the host), in
+    place. Returns (the QAT state, sharing the module; the pattern
+    report). ``state`` is consumed."""
+    state.check_live("to_qat")
+    if state.phase is not Phase.NOISE:
+        raise ValueError(f"to_qat expects {Phase.NOISE!r}, got "
+                         f"{state.phase!r}")
+    _, report = freeze_qat(state.model, state.qcfg)
+    return _spend(state, "to_qat", Phase.QAT), report
+
+
+def to_serve(state: SoniqState, *, rebudget="auto") -> SoniqState:
+    """Phase II -> deployment, in place: every quantized leaf is
+    rebudgeted (where packed shapes must be shared), channel-reordered
+    (paper Obs. 4) and bit-packed, one B7 launch a leaf; its module then
+    holds the serve leaf. ``rebudget``: True (always), False (never) or
+    "auto" (the leaves the reference stacks: an LM's block linears, which
+    it holds [L, K, N]). Returns the serve state, sharing the module;
+    ``state`` is consumed."""
+    state.check_live("to_serve")
+    if state.phase is not Phase.QAT:
+        raise ValueError(f"to_serve expects {Phase.QAT!r}, got "
+                         f"{state.phase!r}")
+    model = state.model
+    if rebudget == "auto" and isinstance(model, lm.LM):
+        rebudget = True
+    lins = [lin for _path, lin in smol.smol_linears(model)
+            if "pbits" in lin._names]
+    packed = convert_tree([lin.leaf() for lin in lins],
+                          state.model_cfg.quant, rebudget=rebudget)
+    for lin, leaf in zip(lins, packed):
+        lin.set_leaf(leaf)
+    model.requires_grad_(False)
+    return _spend(state, "to_serve", Phase.SERVE)

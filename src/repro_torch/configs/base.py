@@ -67,7 +67,8 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
-    def with_quant_mode(self, mode: str) -> "ArchConfig":
+    def with_quant_mode(self, mode) -> "ArchConfig":
+        """Copy in another lifecycle phase (a mode string or a Phase)."""
         return dataclasses.replace(self, quant=self.quant.with_mode(mode))
 
     def layer_plan(self) -> Plan:

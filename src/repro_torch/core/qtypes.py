@@ -8,9 +8,9 @@ Counterpart of ``repro.core.qtypes``. Terminology:
               weight splits into contiguous runs [K4 | K2 | K1] of uniform
               precision.
 
-The lifecycle phase is a plain mode string here ("fp", "noise", "qat",
-"serve"); the JAX package's ``Phase`` objects live in a module that
-imports jax.
+The lifecycle phase is a plain mode string inside ("fp", "noise", "qat",
+"serve"); ``QuantConfig(mode=...)`` and ``with_mode`` also take a
+``core.phases.Phase`` object, and ``QuantConfig.phase`` gives it back.
 """
 from __future__ import annotations
 
@@ -19,8 +19,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .phases import Phase, PhaseSpec
+
 GROUP_SIZE = 16          # channels per precision group (paper Obs. 5)
 GROUPS_PER_BLOCK = 8     # groups per 128-channel block (one pattern)
+BLOCK_SIZE = GROUP_SIZE * GROUPS_PER_BLOCK
 ALLOWED_BITS = (1, 2, 4)  # paper Obs. 2
 MODES = ("fp", "noise", "qat", "serve")
 
@@ -66,6 +69,8 @@ class QuantConfig:
     skip: Tuple[str, ...] = ("embed", "lm_head", "router", "frontend")
 
     def __post_init__(self):
+        if isinstance(self.mode, PhaseSpec):   # QuantConfig(mode=Phase.QAT)
+            object.__setattr__(self, "mode", self.mode.name)
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
         if self.scale_mode not in ("none", "per_group"):
@@ -81,8 +86,14 @@ class QuantConfig:
             raise ValueError(f"draft_slice_bits {self.draft_slice_bits} "
                              f"not in {ALLOWED_BITS}")
 
-    def with_mode(self, mode: str) -> "QuantConfig":
-        return dataclasses.replace(self, mode=mode)
+    @property
+    def phase(self) -> PhaseSpec:
+        """The lifecycle phase this config selects (``Phase.FP`` ...)."""
+        return Phase.from_mode(self.mode)
+
+    def with_mode(self, mode) -> "QuantConfig":
+        """Copy in another phase (a mode string or a Phase object)."""
+        return dataclasses.replace(self, mode=Phase.from_mode(mode).name)
 
     # --------------------------------------------------- group geometry ----
     def eff_group_size(self, k: int) -> int:
@@ -120,5 +131,11 @@ class QuantConfig:
         return g4 * g, g2 * g, g1 * g
 
 
-# The paper's uniform 4-bit design point (every group at 4 bits).
+# The paper's design points: full precision, uniform 4 and 2 bits, and the
+# default mix under 4, 8 or 45 hardware patterns.
+FP32 = QuantConfig(mode="fp")
 U4 = QuantConfig(mode="qat", mix=(1.0, 0.0, 0.0))
+U2 = QuantConfig(mode="qat", mix=(0.0, 1.0, 0.0))
+P4 = QuantConfig(mode="qat", mix=(0.5, 0.375, 0.125), num_patterns=4)
+P8 = QuantConfig(mode="qat", mix=(0.5, 0.375, 0.125), num_patterns=8)
+P45 = QuantConfig(mode="qat", mix=(0.5, 0.375, 0.125), num_patterns=45)

@@ -32,15 +32,25 @@ class PhaseSchedule:
 
 
 def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
-    """Every (w, s) linear in the reference's tree order. The reference
-    stacks each plan group's layers ([L, ...] leaves under ``groups[i]``)
-    and walks its tree with dict keys sorted, so the order is: plan group,
-    then the path within a block (``attn.wk``, ..., ``moe.down``,
-    ``moe.shared.up``, ``moe.up``: sorted part by part), then the layer.
-    A linear outside the blocks sorts by its own path among the tree's
-    top-level keys."""
+    """Every (w, s) linear (or conv) in the reference's tree order. The
+    reference walks its tree with dict keys sorted and lists in order. An
+    LM stacks each plan group's layers ([L, ...] leaves under
+    ``groups[i]``), so there the order is: plan group, then the path
+    within a block (``attn.wk``, ..., ``moe.down``, ``moe.shared.up``,
+    ``moe.up``: sorted part by part), then the layer; a linear outside the
+    blocks sorts by its own path among the tree's top-level keys. Any
+    other model (the CNN: ``head``, ``stages`` by stage and block,
+    ``stem``) sorts by its module path, list indices as numbers."""
+    plan = getattr(getattr(model, "cfg", None), "layer_plan", None)
+    if plan is None:
+        def tree_key(name):
+            return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                         for p in name.split("."))
+        return [lin for name, lin in sorted(
+            smol.smol_linears(model), key=lambda r: tree_key(r[0]))
+            if "s" in lin._names]
     plan_group: List[int] = []
-    for gi, (_kind, count) in enumerate(model.cfg.layer_plan()):
+    for gi, (_kind, count) in enumerate(plan()):
         plan_group += [gi] * count
     keyed = []
     for name, lin in smol.smol_linears(model):

@@ -250,12 +250,21 @@ class SmolLinear(nn.Module):
 
     def __init__(self, leaf: Dict):
         super().__init__()
-        self._names = tuple(sorted(leaf, key=lambda n: (
-            self.ORDER.index(n) if n in self.ORDER else len(self.ORDER))))
         self.path = ""
         # The step's prequantized weight under ``qcfg.prequantized``
         # (:func:`hoisted_weights`), None otherwise.
         self.hoisted: Optional[torch.Tensor] = None
+        self._names = ()
+        self.set_leaf(leaf)
+
+    def set_leaf(self, leaf: Dict) -> None:
+        """Hold ``leaf`` in place of the current one (the deploy packing
+        swaps a QAT leaf for its serve leaf in the same module)."""
+        for name in self._names:
+            self._parameters.pop(name, None)
+            self._buffers.pop(name, None)
+        self._names = tuple(sorted(leaf, key=lambda n: (
+            self.ORDER.index(n) if n in self.ORDER else len(self.ORDER))))
         for name in self._names:
             t = leaf[name]
             if name in self.TRAINABLE and t is not None \
@@ -285,6 +294,15 @@ class SmolLinear(nn.Module):
         if noise is not None and qcfg.mode == "noise" and "s" in self._names:
             draw = noise.draw(self.path, x)
         return linear_apply(self.rule_leaf(qcfg), x, qcfg, draw)
+
+    def rows(self, w: torch.Tensor) -> torch.Tensor:
+        """The weight as the [K, N] rows its groups run along (a conv's
+        [Cin, kh * kw * Cout])."""
+        return w
+
+    def from_rows(self, w2: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`rows`."""
+        return w2
 
     def freeze(self, pbits: torch.Tensor) -> None:
         """Phase I -> II: drop the logits ``s``, hold frozen per-group
@@ -352,15 +370,16 @@ def bit_penalty_of_params(model: nn.Module) -> torch.Tensor:
 @torch.no_grad()
 def project_noise_weights(model: nn.Module, qcfg: QuantConfig) -> None:
     """The post-optimizer projection (paper Alg. 1 line 7), in place: every
-    (w, s) linear's w (a bank's every expert), normalized by its group
-    scale, is clipped to +-(2 - sigma(s))."""
+    (w, s) linear's w (a bank's every expert, a conv's [Cin, kh * kw *
+    Cout] rows), normalized by its group scale, is clipped to
+    +-(2 - sigma(s))."""
     for _name, lin in smol_linears(model):
         if "s" not in lin._names:
             continue
-        w = lin.w
+        w = lin.rows(lin.w)
         k = w.shape[-2]
         g = qcfg.eff_group_size(k)
         sw = _weight_scales(w, qcfg, g)
         sfull = quant.expand_groups(sw, k, g)[..., None]
         lim = noise_lib.clip_weights(w.float() / sfull, lin.s, g)
-        w.copy_((lim * sfull).to(w.dtype))
+        lin.w.copy_(lin.from_rows((lim * sfull).to(w.dtype)))

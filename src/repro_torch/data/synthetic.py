@@ -1,12 +1,13 @@
-"""Deterministic synthetic token data. Counterpart of
-``repro.data.synthetic`` (``TokenStream``): a Zipf-distributed Markov
-token source with injected n-gram structure, so a language model has
-signal to fit. Pure numpy: the same seed gives the reference's batches.
+"""Deterministic synthetic data. Counterpart of ``repro.data.synthetic``:
+``TokenStream``, a Zipf-distributed Markov token source with injected
+n-gram structure, so a language model has signal to fit; and
+``classification_dataset``, Gaussian-cluster images for the paper's CNN
+family. Pure numpy: the same seed gives the reference's data bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -53,3 +54,28 @@ class TokenStream:
             seq = self._sample_seq(b * (s + 1)).reshape(b, s + 1)
             yield {"tokens": seq[:, :-1].astype(np.int32),
                    "labels": seq[:, 1:].astype(np.int32)}
+
+
+def classification_dataset(num_classes: int = 10, dim: Tuple[int, ...] =
+                           (8, 8, 3), n_train: int = 2048, n_test: int = 512,
+                           seed: int = 0, noise: float = 0.35):
+    """Gaussian class prototypes + structured masks (images NHWC): linearly
+    nontrivial, learnable by a small CNN in a few hundred steps. Returns
+    ((x_train, y_train), (x_test, y_test)), float32 and int32."""
+    rng = np.random.default_rng(seed)
+    d = int(np.prod(dim))
+    protos = rng.normal(0, 1.0, (num_classes, d)).astype(np.float32)
+    # second-order structure: class-specific feature crosses
+    mix = rng.normal(0, 0.5, (num_classes, d, 8)).astype(np.float32)
+
+    def draw(n):
+        y = rng.integers(0, num_classes, n).astype(np.int32)
+        z = rng.normal(0, 1.0, (n, 8)).astype(np.float32)
+        x = protos[y] + np.einsum("ndk,nk->nd", mix[y], z) * 0.3
+        x += rng.normal(0, noise, (n, d)).astype(np.float32)
+        x = np.tanh(x)
+        return x.reshape((n,) + dim), y
+
+    xtr, ytr = draw(n_train)
+    xte, yte = draw(n_test)
+    return (xtr, ytr), (xte, yte)

@@ -16,8 +16,9 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None``/"cuda" -> the current CUDA device (raises without one);
-    "cpu" -> the CPU. On CUDA, fp32 matmuls are pinned to full fp32: the
-    readout and the parity contract of the port (no TF32)."""
+    "cpu" -> the CPU. On CUDA, fp32 matmuls and convs are pinned to full
+    fp32 (the parity contract of the port: no TF32), and convs to
+    deterministic cuDNN algorithms (a step repeats bitwise)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -27,6 +28,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "plain PyTorch versions of the kernels on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

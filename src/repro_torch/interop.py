@@ -1,5 +1,7 @@
 """Weight, train-state and cache bridge between numpy trees in the JAX
-package's layout and the port's model, train state and decode cache.
+package's layout and the port's model, train state and decode cache; and
+the weight bridge of a single linear and of the CNN (the reference's
+``linear_init`` leaf and ``cnn_init`` tree, in any phase).
 
 The JAX package keeps each plan group's layers stacked ``[L, ...]`` in a
 nested dict/list of arrays — QAT leaves (``w``, ``pbits``) from
@@ -27,8 +29,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import smol
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import lm
+from repro_torch.models import cnn, lm
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -83,6 +86,33 @@ def params_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> lm.LM:
     ``device`` (default: the card)."""
     dev = resolve_device(device)
     return lm.LM(cfg, _port_layout(tree, cfg, lambda a: _tensor(a, dev)))
+
+
+def linear_from_numpy(leaf: Dict, device: DeviceLike = None
+                      ) -> smol.SmolLinear:
+    """A reference linear leaf (numpy; FP, NOISE, QAT or SERVE) -> a
+    ``SmolLinear`` on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return smol.SmolLinear(_map(leaf, lambda a: _tensor(a, dev)))
+
+
+def linear_to_numpy(lin: smol.SmolLinear) -> Dict:
+    """A ``SmolLinear`` (or a conv) -> its leaf with numpy host copies."""
+    return _map(lin.leaf(), host_copy)
+
+
+def cnn_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> cnn.CNN:
+    """The reference's CNN tree (``stem``, ``stages[i][j].{dw, pw, bn_g,
+    bn_b}``, ``head``; numpy leaves, any phase) -> a
+    :class:`~repro_torch.models.cnn.CNN` on ``device`` (default: the
+    card)."""
+    dev = resolve_device(device)
+    return cnn.CNN(cfg, _map(tree, lambda a: _tensor(a, dev)))
+
+
+def cnn_to_numpy(model: cnn.CNN) -> Dict:
+    """The port's CNN -> the reference's tree with numpy host copies."""
+    return _map(model.tree(), host_copy)
 
 
 def host_copy(t: torch.Tensor) -> np.ndarray:

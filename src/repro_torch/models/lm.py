@@ -123,7 +123,7 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     return {"layers": layers}
 
 
-def _readout(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
+def logits(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
     """h [..., D] -> fp32 logits [..., V]. Serving takes the product in
     fixed row blocks (``core.numerics.row_block_matmul``), so a row's
     logits do not depend on how many rows the step reads out."""
@@ -171,7 +171,7 @@ def forward(model: LM, cfg, tokens, *, positions=None,
 
 def _chunk_loss(model: LM, cfg, h: torch.Tensor, y: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    lg = _readout(model, cfg, h)                        # [B, c, V] fp32
+    lg = logits(model, cfg, h)                          # [B, c, V] fp32
     mask = (y >= 0).float()
     yc = torch.clamp(y, min=0)
     logz = torch.logsumexp(lg, dim=-1)
@@ -258,7 +258,7 @@ def decode_step(model: LM, cfg, cache: Dict, tokens, pos, *, active=None):
     x = embed_lookup(model.embed.table, tok[:, None], dt)
     x = _decode_core(model, cfg, cache, x, pos[:, None])
     x = model.final_norm(x[:, 0], cfg.norm_eps)
-    return _readout(model, cfg, x), cache
+    return logits(model, cfg, x), cache
 
 
 def prefill_step(model: LM, cfg, cache: Dict, tokens, pos, last_idx):
@@ -275,7 +275,7 @@ def prefill_step(model: LM, cfg, cache: Dict, tokens, pos, last_idx):
                            device=dev)
     h = x[torch.arange(x.shape[0], device=dev), last]
     h = model.final_norm(h, cfg.norm_eps)
-    return _readout(model, cfg, h), cache
+    return logits(model, cfg, h), cache
 
 
 def verify_step(model: LM, cfg, cache: Dict, tokens, pos):
@@ -290,7 +290,7 @@ def verify_step(model: LM, cfg, cache: Dict, tokens, pos):
     x = embed_lookup(model.embed.table, tok, dt)
     x = _decode_core(model, cfg, cache, x, _host_array(pos))
     x = model.final_norm(x, cfg.norm_eps)
-    return _readout(model, cfg, x), cache
+    return logits(model, cfg, x), cache
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1032,3 +1032,119 @@ def test_moe_train_steps_repeat_bitwise(dev):
     first, second = run(), run()
     assert all(np.isfinite(v) for row in first for v in row)
     assert first == second
+
+
+# ----------------------------------------------------------------- CNN ----
+def _conv_operands(k, cin, cout, gen, dev):
+    """A conv weight HWIO [k, k, Cin, Cout] and its [Cin, k * k * Cout]
+    rows (``cnn.conv_rows``: a view for k = 1, a copy for k = 3), a few
+    elements beyond the clip and on rounding ties."""
+    from repro_torch.models import cnn
+    w = torch.rand((k, k, cin, cout), generator=gen, device=dev) * 2.2 - 1.1
+    w[0, 0, 0, :3] = torch.tensor([2.5, -2.5, 0.125], device=dev)
+    rows = cnn.conv_rows(w)
+    assert (rows.data_ptr() == w.data_ptr()) == (k == 1)
+    return w, rows
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv_rows_through_b9_and_b8_bitwise_plain(dev, k):
+    """B9 and B8 with their backward kernels on a conv's rows (a 1x1 view,
+    a 3x3 copy), as the CNN's Phase-I and Phase-II rules call them:
+    forward and dw/dx bitwise the plain versions, ds within
+    ``ni.ds_bound``, one launch each."""
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import noise_inject as ni
+    g = torch.Generator(device=dev).manual_seed(40 + k)
+    _w, rows = _conv_operands(k, 128, 96, g, dev)
+    rows = rows.contiguous()
+    s = torch.randn((128 // 16,), generator=g, device=dev) * 2.0
+    seed = torch.randint(0, 1 << 32, (1,), generator=g, device=dev)
+    cot = torch.randn(rows.shape, generator=g, device=dev)
+    kernels.reset_launch_counts()
+    out = ni.noise_inject(rows, s, seed)
+    dw, ds = ni.noise_inject_bwd(rows, s, seed, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ni.noise_inject_plain(rows, ni.group_sigma(s),
+                                                  seed))
+    dw_p, ds_p = ni.noise_inject_bwd_plain(rows, s, seed, cot)
+    assert torch.equal(_int_view(dw), _int_view(dw_p))
+    assert ((ds - ds_p).abs() <= ni.ds_bound(rows, s, seed, cot)).all()
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (128 // 16,), generator=g, device=dev)]
+    sc = quant.per_group_weight_scale(rows, 16)
+    wq = fq.fake_quant(rows, pb, sc, row_scale=False, k_dim=0)
+    dx = fq.fake_quant_bwd(rows, pb, sc, cot, row_scale=False, k_dim=0)
+    torch.cuda.synchronize()
+    assert torch.equal(wq, fq.fake_quant_plain(rows, pb, sc, row_scale=False,
+                                               k_dim=0))
+    assert torch.equal(_int_view(dx), _int_view(fq.fake_quant_bwd_plain(
+        rows, pb, sc, cot, row_scale=False, k_dim=0)))
+    counts = kernels.launch_counts()
+    assert [counts[n] for n in ("noise_inject", "noise_inject_bwd",
+                                "fake_quant", "fake_quant_bwd")] == \
+        [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_pack_conv_on_the_card_equals_the_cpu(dev, k):
+    """``pack_conv`` of a 1x1 and a 3x3 conv on the card: one B7 launch,
+    every serve leaf bitwise the CPU's."""
+    from repro_torch.api import transforms
+    g = torch.Generator(device=dev).manual_seed(50 + k)
+    w, _rows = _conv_operands(k, 128, 64, g, dev)
+    pb = torch.tensor([1, 2, 4], dtype=torch.int8, device=dev)[torch.randint(
+        0, 3, (128 // 16,), generator=g, device=dev)]
+    qcfg = QuantConfig(mode="qat")
+    kernels.reset_launch_counts()
+    got = transforms.pack_conv({"w": w, "pbits": pb}, qcfg)
+    assert kernels.launch_counts()["quantize_pack"] == 1
+    want = transforms.pack_conv({"w": w.cpu(), "pbits": pb.cpu()}, qcfg)
+    assert got["w4"].shape[1:] == (k, k, 64)
+    for name, t in want.items():
+        assert t.dtype == got[name].dtype and torch.equal(got[name].cpu(), t)
+
+
+def test_cnn_steps_repeat_bitwise_on_the_card(dev):
+    """Two Phase-I and two Phase-II steps of a CIFAR-shaped CNN on the card,
+    twice: losses and parameters bitwise (the convs take deterministic
+    cuDNN algorithms), B9 and B8 launched."""
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw
+
+    def run():
+        cfg = cnn.CNNConfig(channels=(128, 256), blocks_per_stage=1,
+                            quant=QuantConfig(mode="noise"))
+        model = cnn.cnn_init(cfg, seed=0, device=dev)
+        model.requires_grad_(True)
+        opt = adamw.init_state(model)
+        ocfg = adamw.AdamWConfig(lr=3e-3, weight_decay=1e-4, s_lr_mult=25.0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((16, 32, 32, 3), generator=g, device=dev)
+        y = torch.randint(0, 10, (16,), generator=g, device=dev)
+        losses = []
+        for step in range(4):
+            if step == 2:
+                from repro_torch.api import transforms
+                transforms.freeze_qat(model, cfg.quant)
+                cfg = cnn.CNNConfig(channels=(128, 256),
+                                    quant=QuantConfig(mode="qat"))
+                opt = adamw.init_state(model)
+            from repro_torch.core import smol
+            noise = smol.StepNoise((0, step)) if step < 2 else None
+            loss, _ = cnn.xent_loss(model, {"x": x, "y": y}, cfg, noise)
+            params = adamw.trainable(model)
+            grads = torch.autograd.grad(loss, [p for _, p in params])
+            adamw.apply_updates(model, {n: gr for (n, _), gr in
+                                        zip(params, grads)}, opt, ocfg)
+            losses.append(loss.detach())
+        return torch.stack(losses), [p.detach().clone()
+                                     for p in model.parameters()]
+
+    kernels.reset_launch_counts()
+    l1, p1 = run()
+    counts = kernels.launch_counts()
+    assert counts["noise_inject"] > 0 and counts["fake_quant"] > 0
+    l2, p2 = run()
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))

@@ -67,6 +67,35 @@ def test_importing_the_port_pulls_in_no_jax():
     assert out.stdout.startswith("clean")
 
 
+SONIQ_NAMES = ("Phase", "PhaseSpec", "SoniqState", "LinearSpec", "init",
+               "init_linear", "apply", "to_qat", "to_serve", "with_phase",
+               "tree_map_layers", "pack_conv", "average_bpp", "QuantConfig",
+               "DecodeEngine", "LockstepEngine", "EngineConfig", "Request",
+               "Completion", "Scheduler", "packed_bytes")
+
+
+def test_soniq_facade_exports_without_jax():
+    """``from repro_torch import soniq`` gives the façade's names (the
+    serve names lazily) and loads no jax and nothing of the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "from repro_torch import soniq\n"
+        f"missing = [n for n in {SONIQ_NAMES!r} if not hasattr(soniq, n)]\n"
+        "assert not missing, missing\n"
+        "assert set(soniq.__all__) >= set(" + repr(SONIQ_NAMES) + ")\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
     r"from\s+repro(\.|\s))", re.M)
@@ -74,7 +103,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py"))))
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
