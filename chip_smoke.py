@@ -216,15 +216,46 @@ Phases (none catches an error; any failure exits non-zero):
      subprocesses (quickstart --steps 200, serve_quantized --steps 10,
      train_lm_soniq --preset 100m --steps 4), each timed; each must exit
      0. The ``soniq`` JSON line.
- 18. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 18. SSM serve: mamba2-2.7b at full width and depth (64 layers, d_model
+     2560, 80 SSD heads of 64, state 128, ssm_chunk 256; random QAT
+     weights of the seed). (a) B7 and B1 at its linears' shapes (in_proj
+     2560 x 10576, whose N leaves a partial column tile, and out_proj
+     5120 x 2560): B7 bitwise its plain version, B1 at M = 4, 16 and 32
+     within the fp32 reordering bound, its draft launches within it and
+     bitwise the launch at k_off 0; both timed on both rulers beside
+     torch.matmul on the dequantized operands. (b) The DecodeEngine
+     (default mix, max_batch 4, prefill chunk 8, greedy; 8 requests of
+     16-64 prompt tokens and 16 new): 128 B7 launches at load and 128 B1
+     a decode step (checked), pack_s and the load's device busy, a second
+     run bitwise the first, decode-step host ms, a device profile of a
+     decode step and an 8-lane prefill step (kernels, busy, B1 ms, the
+     plain ops split by op with the chunked SSD apart, idle share), the
+     resident SSM state bytes. (c) The first 4 requests at prefill chunk
+     1, through the LockstepEngine (prompts cut to 16 tokens) and
+     speculatively (k = 3, draft bits 2;
+     ``spec_stats``, round ms, 640 B1 launches a drafting round checked:
+     3 drafts, the verify and the recommit): token agreement with the
+     chunk-8 run, reported (chunked SSD and the decode recurrence are
+     different sums); teacher-forced on the chunk-8 run's tokens, the
+     logits of chunked steps 8 and 4 lanes wide against token-by-token
+     decode within 1e-2 relative L2 at every lane, at fp32 compute with
+     the activations unquantized (~1e-6 apart; in the served form one
+     flipped activation code moves every later lane by order 1, so there
+     the bitwise-equal lanes are reported). (d) Card vs CPU,
+     fp32: the reduced config's tokens identical and its logits within
+     1e-5; full width at 2 layers, teacher-forced, every serve linear
+     and the chunked SSD's output and state within relative L2 1e-5.
+     The ``ssm_serve`` JSON line.
+ 19. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
-     B8, B9 and the backward rows), the ``kv4_serve``, ``training``,
+     B8, B9 and the backward rows; phase 18's ``ssm_*`` keys and SSM
+     launches on B1 and B7), the ``kv4_serve``, ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
-     ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq`` and
-     ``phase_seconds`` JSON lines, the nvidia-smi line, and last the
-     ``{"ok": true, ...}`` line.
+     ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
+     ``ssm_serve`` and ``phase_seconds`` JSON lines, the nvidia-smi line,
+     and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -371,8 +402,13 @@ def bound(nbytes: float, flops: float):
 
 # ---------------------------------------------------------------- shapes ----
 def layer_linears(cfg):
-    """(name, K, N) of one decoder layer's linears: seven, or six where
-    the MLP has no gate (non-gated gelu)."""
+    """(name, K, N) of one layer's serve linears: a decoder layer's seven,
+    or six where the MLP has no gate (non-gated gelu); a mamba layer's
+    in_proj (to z, x, B, C and dt) and out_proj."""
+    if cfg.family == "ssm":
+        di, n = cfg.d_inner, cfg.ssm_state
+        return [("in_proj", cfg.d_model, 2 * di + 2 * n + di // 64),
+                ("out_proj", di, cfg.d_model)]
     d, f = cfg.d_model, cfg.d_ff
     hq, hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
     gate = [("gate", d, f)] if cfg.mlp_act == "swiglu" else []
@@ -3377,6 +3413,503 @@ def phase_dense_configs(dev, rng, spec_runs):
     return stats
 
 
+# ------------------------------------------------------------- SSM serve ----
+SSM_ARCH = "mamba2-2.7b"
+SSM_LINEARS = 2                 # in_proj, out_proj: one B7 / B1 launch each
+# Phase 18(c)'s cross-form bound: teacher-forced logits of the chunked
+# steps against token-by-token decode, relative L2 at every lane.
+SSM_CROSS_FORM = 1e-2
+
+
+def phase_ssm_kernels(cfg, qcfg, gen, dev):
+    """Phase 18(a): B7 and B1 at one full-width mamba2-2.7b layer's serve
+    linears (in_proj 2560 x 10576: N not a multiple of B1's 32-column or
+    B7's 128-column tile; out_proj 5120 x 2560). B7 through its one-launch
+    entry bitwise its plain version (2 launches), timed on both rulers; B1
+    at M = 4 (decode), 16 (the verify of k = 3 at batch 4) and 32 (an
+    8-lane prefill at batch 4) within the fp32 reordering bound and timed
+    on both rulers beside torch.matmul on the dequantized operands; its
+    draft launches within the bound and bitwise the launch at k_off 0.
+    Returns {B7: numbers, B1: numbers}."""
+    calls = [pack_operands((k, n), qcfg, gen, dev)
+             for _name, k, n in layer_linears(cfg)]
+    _check_pack(calls)
+    b_ms, b_by = _pack_bound(calls)
+    b7 = dict(ssm_layer_ms=time_ms(lambda: _pack_layer(calls), 10),
+              ssm_layer_device_ms=device_ms(lambda: _pack_layer(calls), 10),
+              ssm_layer_plain_ms=time_ms(lambda: _pack_layer_plain(calls),
+                                         2),
+              ssm_layer_bound_ms=b_ms, ssm_layer_bound_by=b_by,
+              ssm_layer_launches=len(calls))
+    del calls
+    torch.cuda.empty_cache()
+    b1 = {}
+    for m in (4, 4 * (SPEC_TOKENS + 1), 32):
+        sets = [LayerOperands(cfg, qcfg, m, gen, dev) for _ in range(4)]
+        err = check_segment_gemm(B1, sets[:1])
+        res = time_segment_gemm(B1, sets)
+        b1.update({f"ssm_M{m}_{k}": v for k, v in res.items()},
+                  **{f"ssm_M{m}_max_abs_err": err})
+        if m == 4:
+            draft = [DraftView(ops) for ops in sets]
+            b1["ssm_draft_max_abs_err"] = check_segment_gemm(B1, draft[:1])
+            b1["ssm_draft_bitwise_k_off_0"] = check_draft_at_offset(
+                B1, draft[0].linears)
+            res = time_segment_gemm(B1, draft)
+            b1.update({f"ssm_draft_{k}": v for k, v in res.items()})
+            del draft
+        del sets
+        torch.cuda.empty_cache()
+    return {B7: b7, B1: b1}
+
+
+def _agreement(want, got):
+    """Token agreement of two runs' new tokens for the same requests
+    (lists of arrays): tokens equal position by position, and each
+    request's leading run of equal tokens."""
+    same = total = 0
+    lead = []
+    for a, b in zip(want, got):
+        eq = np.asarray(a) == np.asarray(b)
+        same += int(eq.sum())
+        total += eq.size
+        lead.append(int(eq.size if eq.all() else np.argmin(eq)))
+    return dict(equal_tokens=same, tokens=total, leading_equal=lead)
+
+
+def ssm_profile_steps(eng):
+    """Device view (torch profiler, ``step_profile.SSM_SPANS``) of one
+    greedy decode step and of one 8-lane prefill step at batch max_batch on
+    a fresh cache, beside the host-clock ms of each unprofiled: kernels,
+    busy ms, idle share (1 - busy / host ms), B1 ms and the plain ops
+    split by op (``ssd``: the chunked scan; ``mixer``: the mixer's other
+    ops; ``serve_linear``: the driver's ops around B1; ``readout``;
+    ``rest``)."""
+    from torch.profiler import ProfilerActivity, profile
+    b, c = eng.ecfg.max_batch, eng.chunk
+    tokens = np.arange(1, b * c + 1, dtype=np.int32).reshape(b, c)
+
+    def prefill(cache):
+        lm.prefill_step(eng.model, eng.cfg, cache, tokens,
+                        np.tile(np.arange(c), (b, 1)), np.full(b, c - 1))
+
+    def decode(cache):
+        lm.decode_step(eng.model, eng.cfg, cache, tokens[:, 0],
+                       np.full(b, c))
+
+    out = {}
+    undo = step_profile.install_spans(step_profile.SSM_SPANS)
+    try:
+        for name, fn in (("decode", decode), ("prefill", prefill)):
+            cache = fresh_cache(eng)
+            fn(cache)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(cache)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            host = float(np.median(times))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(cache)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")
+                    and not e.key.startswith(("ProfilerStep",
+                                              step_profile.PREFIX))]
+            busy = sum(e.device_time_total for e in kern) / 1e3
+            b1 = sum(e.device_time_total for e in kern
+                     if "segment_gemm" in e.key) / 1e3
+            by_op = step_profile.op_split(prof.events(),
+                                          lambda k: "segment_gemm" in k)
+            by_op["unlinked"] = busy - b1 - sum(by_op.values())
+            top = sorted(kern, key=lambda e: -e.device_time_total)[:5]
+            out[name] = {
+                "host_ms": host, "kernels": sum(e.count for e in kern),
+                "device_busy_ms": busy, "idle_share": 1 - busy / host,
+                "b1_ms": b1,
+                "plain_by_op_ms": {k: round(v, 3) for k, v in by_op.items()},
+                "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
+                         e.count) for e in top]}
+    finally:
+        undo()
+    return out
+
+
+def _decode_logits(eng, cfg, tokens, lens):
+    """fp32 logits [N] x [B, V] of token-by-token ``decode_step``s over
+    ``tokens`` [B, N] from a fresh state (row i live for its first
+    ``lens[i]`` lanes)."""
+    b, n = tokens.shape
+    cache = fresh_cache(eng)
+    ref = []
+    for t in range(n):
+        lg, cache = lm.decode_step(eng.model, cfg, cache, tokens[:, t],
+                                   np.full(b, t), active=t < lens)
+        ref.append(lg.float())
+    return ref
+
+
+def _lane_errors(eng, cfg, tokens, lens, width, ref):
+    """Relative L2 [B, N] of each lane's fp32 logits from ``verify_step``s
+    ``width`` lanes wide over ``tokens`` (from a fresh state) against the
+    decode logits ``ref`` (NaN at dead lanes)."""
+    b, n = tokens.shape
+    cache = fresh_cache(eng)
+    err = np.full((b, n), np.nan)
+    for t0 in range(0, n, width):
+        pos = t0 + np.tile(np.arange(width), (b, 1))
+        pos = np.where(pos < lens[:, None], pos, -1)
+        chunk = np.zeros((b, width), np.int32)
+        take = tokens[:, t0:t0 + width]
+        chunk[:, :take.shape[1]] = take
+        lg, cache = lm.verify_step(eng.model, cfg, cache, chunk, pos)
+        for j in range(min(width, n - t0)):
+            want = ref[t0 + j].double()
+            got = lg[:, j].double()
+            e = ((got - want).norm(dim=-1) / want.norm(dim=-1)).cpu().numpy()
+            err[:, t0 + j] = np.where(pos[:, j] >= 0, e, np.nan)
+    return err
+
+
+def ssm_cross_form(eng, done, widths=(8, SPEC_TOKENS + 1)):
+    """Phase 18(c)'s must-hold: on the token streams (prompt + new) of the
+    first max_batch completions, teacher-forced, the fp32 logits of every
+    lane of chunked steps (``verify_step`` as wide as the prefill chunk and
+    as the verify) against those of token-by-token decode from the same
+    fresh state.
+
+    Held (largest relative L2 over the lanes within ``SSM_CROSS_FORM``;
+    a stale or wrong state gives order 1) at fp32 compute with the
+    activations unquantized, where the two forms differ only by the
+    summation order of the SSD (~1e-6). In the served form (bf16, the
+    activations requantized to 1/2/4 bits) one code that a last-bit
+    difference flips anywhere in the 64 layers moves every later lane by
+    order 1, whatever the state, so there the lanes bitwise equal, the
+    largest value and the first lane past the bound are reported, not
+    held. Returns the numbers."""
+    b = eng.ecfg.max_batch
+    streams = [np.concatenate([c.request.prompt, c.new_tokens])
+               for c in done[:b]]
+    lens = np.array([len(t) for t in streams])
+    tokens = np.zeros((b, int(lens.max())), np.int32)
+    for i, t in enumerate(streams):
+        tokens[i, :len(t)] = t
+    smooth = dataclasses.replace(eng.cfg, dtype="float32", quant=(
+        dataclasses.replace(eng.cfg.quant, quantize_activations=False)))
+    out = {"lanes": int(lens.sum())}
+    ref = _decode_logits(eng, smooth, tokens, lens)
+    for w in widths:
+        err = _lane_errors(eng, smooth, tokens, lens, w, ref)
+        worst = float(np.nanmax(err))
+        out[f"fp32_unquantized_width_{w}_max_rel_l2"] = worst
+        if not worst <= SSM_CROSS_FORM:
+            raise AssertionError(f"cross-form logits at width {w}: relative "
+                                 f"L2 {worst:.3e} > {SSM_CROSS_FORM}")
+    ref = _decode_logits(eng, eng.cfg, tokens, lens)
+    err = _lane_errors(eng, eng.cfg, tokens, lens, widths[0], ref)
+    live = ~np.isnan(err)
+    over = [int(np.argmax(r > SSM_CROSS_FORM)) if (r > SSM_CROSS_FORM).any()
+            else -1 for r in np.nan_to_num(err)]
+    out[f"served_width_{widths[0]}"] = dict(
+        max_rel_l2=float(np.nanmax(err)),
+        lanes_bitwise=int((err[live] == 0).sum()),
+        first_lane_over_bound=over)
+    return out
+
+
+class SSDTape:
+    """Records every ``ssm.ssd_chunked`` call's arguments and outputs in
+    call order; with ``feed`` (another tape) each call runs on the fed
+    call's arguments instead (teacher forcing, as ``LinearTape``)."""
+
+    def __init__(self, feed=None):
+        from repro_torch.models import ssm
+        self.ssm, self.real = ssm, ssm.ssd_chunked
+        self.args, self.outputs, self.feed = [], [], feed
+
+        def run(*args, **kw):
+            if self.feed is not None:
+                fed, fed_kw = self.feed.args[len(self.args)]
+                dev = args[0].device
+                args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                             for a in fed)
+                kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                      for k, v in fed_kw.items()}
+            # Copies: h0 is the cache's state, which the step then
+            # overwrites in place.
+            self.args.append((
+                tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in kw.items()}))
+            out = self.real(*args, **kw)
+            self.outputs.append(out)
+            return out
+
+        ssm.ssd_chunked = run
+
+    def close(self):
+        self.ssm.ssd_chunked = self.real
+
+
+def check_ssm_against_cpu(dev, ecfg):
+    """Phase 18(d): the card against the plain versions on the CPU, fp32.
+    (1) Reduced mamba2-2.7b end to end: the greedy tokens of 4 requests
+    identical, and the logits of a prefill chunk and a decode step within
+    relative L2 1e-5. (2) Full width cut to 2 layers, a prefill chunk and
+    a decode step teacher-forced (``LinearTape``, ``SSDTape``): every serve
+    linear's output on the CPU's input and its input as the card's own ops
+    made it, the chunked SSD's output and final state on the CPU's
+    arguments, and the logits, each within relative L2 1e-5. Returns the
+    numbers."""
+    out = {}
+    small = get_config(SSM_ARCH).reduced().with_quant_mode("qat")
+    eng = engine.DecodeEngine(lm.init_params(small, seed=SEED + 9,
+                                             device=dev), small, ecfg,
+                              device=dev)
+    host = engine.DecodeEngine(copy.deepcopy(eng.model).to("cpu"), small,
+                               ecfg, already_serve=True, device="cpu")
+    reqs = requests(small.vocab_size, np.random.default_rng(SEED + 9), n=4,
+                    lo=8, hi=16, new=8)
+    card_out, _ = serve_all(eng, reqs)
+    cpu_out = {c.request_id: c for c in host.serve(
+        [dataclasses.replace(r) for r in reqs])}
+    base = min(cpu_out)
+    for i, c in enumerate(card_out):
+        if not np.array_equal(c.tokens, cpu_out[base + i].tokens):
+            raise AssertionError(f"reduced SSM card != CPU tokens (request "
+                                 f"{i}): {c.new_tokens} vs "
+                                 f"{cpu_out[base + i].new_tokens}")
+    card = _prefill_then_decode(eng.model, eng.cfg, dev)
+    cpu = _prefill_then_decode(host.model, host.cfg, "cpu")
+    out["reduced_tokens_identical"] = len(reqs)
+    out["reduced_logits_rel_l2"] = max(rel_l2(a, b)
+                                       for a, b in zip(card, cpu))
+    del eng, host
+    wide = dataclasses.replace(get_config(SSM_ARCH), num_layers=2,
+                               dtype="float32").with_quant_mode("qat")
+    eng = engine.DecodeEngine(lm.init_params(wide, seed=SEED + 9,
+                                             device=dev), wide, ecfg,
+                              device=dev)
+    host = copy.deepcopy(eng.model).to("cpu")
+    tape_cpu, ssd_cpu = LinearTape(host), SSDTape()
+    try:
+        logits_cpu = _prefill_then_decode(host, eng.cfg, "cpu")
+    finally:
+        tape_cpu.close()
+        ssd_cpu.close()
+    tape_card, ssd_card = LinearTape(eng.model, feed=tape_cpu.inputs), \
+        SSDTape(feed=ssd_cpu)
+    try:
+        logits_card = _prefill_then_decode(eng.model, eng.cfg, dev)
+    finally:
+        tape_card.close()
+        ssd_card.close()
+    calls = len(tape_cpu.inputs)
+    if len(tape_card.inputs) != calls or calls != SSM_LINEARS * 2 * 2 \
+            or len(ssd_card.outputs) != 2 or len(ssd_cpu.outputs) != 2:
+        raise AssertionError(f"calls: card {len(tape_card.inputs)}, CPU "
+                             f"{calls}; SSD {len(ssd_card.outputs)}, "
+                             f"{len(ssd_cpu.outputs)}")
+    worst = {}
+    for (name, _lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        kind = name.rsplit(".", 1)[-1]
+        for what, a, b in (("out", y_card, y_cpu), ("in", x_card, x_cpu)):
+            key = f"{kind}.{what}"
+            worst[key] = max(worst.get(key, 0.0), rel_l2(a, b))
+    for (y_c, h_c), (y_h, h_h) in zip(ssd_card.outputs, ssd_cpu.outputs):
+        worst["ssd.y"] = max(worst.get("ssd.y", 0.0), rel_l2(y_c, y_h))
+        worst["ssd.h"] = max(worst.get("ssd.h", 0.0), rel_l2(h_c, h_h))
+    worst["logits"] = max(rel_l2(a, b) for a, b in zip(logits_card,
+                                                       logits_cpu))
+    out["full_width_2_layers"] = worst
+    out["full_width_linear_calls"] = calls
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if not out["reduced_logits_rel_l2"] <= 1e-5 or bad:
+        raise AssertionError(f"SSM card vs CPU over 1e-5: {bad}; {out}")
+    del eng, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_spec_serve(model, cfg, ecfg, reqs, want, dev):
+    """Speculative decoding (k = SPEC_TOKENS, draft bits DRAFT_BITS) of the
+    SSM on ``reqs``: the snapshot/recommit round drafts k steps, verifies
+    k + 1 lanes and re-feeds the accepted ones, five forwards a drafting
+    round (one B1 launch a linear each: asserted). Tokens need not equal
+    spec-off at bf16 (the verify lanes are a chunked sum); their agreement
+    with ``want`` is reported. Returns ``spec_stats``, round ms, tokens/s,
+    the launches of a round and the agreement."""
+    eng = engine.DecodeEngine(model, cfg, dataclasses.replace(
+        ecfg, spec_tokens=SPEC_TOKENS, spec_draft_bits=DRAFT_BITS),
+        already_serve=True, device=dev)
+    drafts = backend.draft_matmul_call_count()
+    round_counts = {}
+    out, wall, round_ms = timed_serve(eng, reqs, round_counts)
+    st = eng.spec_stats()
+    if st["rounds"] == 0 or backend.draft_matmul_call_count() == drafts:
+        raise AssertionError(f"no draft ran: {st}")
+    per_round = (SPEC_TOKENS + 2) * SSM_LINEARS * cfg.num_layers
+    if round_counts.get(B1) != per_round:
+        raise AssertionError(f"{round_counts.get(B1)} {B1} launches a "
+                             f"drafting round, not {per_round}")
+    new = sum(c.new_tokens.size for c in out)
+    return dict(spec=st, tok_s=new / wall, wall_s=wall, round_ms=round_ms,
+                round_launches=round_counts,
+                agreement_with_spec_off=_agreement(
+                    [c.new_tokens for c in want],
+                    [c.new_tokens for c in out]))
+
+
+def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
+    """Phase 18: serve the SSM family at the full width and depth of
+    mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads of 64, state 128,
+    ssm_chunk 256). (a) B7 and B1 at its linears' shapes
+    (``phase_ssm_kernels``, into ``results``). (b) DecodeEngine from
+    random QAT weights of the seed (default mix, max_batch 4, prefill
+    chunk 8, greedy; 8 requests of 16-64 prompt tokens and 16 new): 128
+    B7 launches at load and 128 B1 a decode step (asserted), the load's
+    pack_s and device busy, a second run bitwise the first, decode-step
+    host ms, a device profile of a decode step and an 8-lane prefill step,
+    the resident SSM state bytes. (c) The first 4 requests at prefill
+    chunk 1, through the LockstepEngine (prompts cut to 16 tokens, one
+    batch) and speculatively (k = 3, draft bits 2; 640 B1 launches a
+    drafting round): token agreement with the chunk-8 run;
+    the teacher-forced cross-form logits within 1e-2 relative L2
+    (``ssm_cross_form``). (d) Card vs CPU (``check_ssm_against_cpu``).
+    Returns the numbers."""
+    cfg = get_config(SSM_ARCH).with_quant_mode("qat")
+    qcfg = QuantConfig(mode="qat")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    for name, rec in phase_ssm_kernels(cfg, qcfg, gen, dev).items():
+        results[name].update(rec)
+    log(f"[18] {B7} and {B1} at the {SSM_ARCH} linears "
+        f"({layer_linears(cfg)}): B7 bitwise, B1 within the fp32 bound, "
+        f"drafts bitwise at k_off 0: "
+        f"{ {k: v for k, v in results[B7].items() if k.startswith('ssm')} }"
+        f"; {B1}: "
+        f"{ {k: v for k, v in results[B1].items() if k.startswith('ssm')} }")
+    lap("kernels")
+    st = {"layers": cfg.num_layers}
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=SEED + 9, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.DecodeEngine(params, cfg, ecfg)
+    torch.cuda.synchronize()
+    st["pack_s"] = time.perf_counter() - t0
+    launches["b7_ssm_load"] = kernels.launch_counts()[B7]
+    want = SSM_LINEARS * cfg.num_layers
+    if launches["b7_ssm_load"] != want or packed_leaves(eng.model) != want:
+        raise AssertionError(f"{launches['b7_ssm_load']} B7 launches at the "
+                             f"SSM load, not one a linear ({want})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, prof = profile_load(lambda: engine.DecodeEngine(params, cfg, ecfg))
+    del params
+    torch.cuda.empty_cache()
+    st["load"] = dict(device_busy_ms=prof["device_busy_ms"],
+                      device_events=prof["device_events"],
+                      idle_share=1 - prof["device_busy_ms"]
+                      / (st["pack_s"] * 1e3), by_op=prof["by_op"])
+    st["peak_gib_init_and_pack"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    st["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    log(f"[18] {SSM_ARCH} load: pack_s {st['pack_s']:.3f}, "
+        f"{launches['b7_ssm_load']} B7 launches; {st['load']}")
+    lap("load")
+    reqs = requests(cfg.vocab_size, rng)
+    kernels.reset_launch_counts()
+    first, wall1 = serve_all(eng, reqs)
+    counts = kernels.launch_counts()
+    launches["b1_ssm_serve"] = counts[B1]
+    if counts[B1] == 0 or counts[B2] or counts[B3] or counts[B8]:
+        raise AssertionError(f"SSM serve launches {counts}")
+    for c in first:
+        if c.new_tokens.size != 16 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad SSM completion {c.new_tokens}")
+    second, wall2 = serve_all(eng, reqs)
+    for a, b in zip(first, second):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError("SSM: a second identical run gave other "
+                                 "tokens")
+    new = sum(c.new_tokens.size for c in second)
+    st.update(tok_s=new / wall2, wall_s=[wall1, wall2],
+              steps=eng.sched.step_count,
+              state_bytes=lm.seq_state_bytes(eng.cache),
+              decode_step_ms=decode_step_ms(eng))
+    per_step["b1_ssm"] = step_launches(eng)[B1]
+    if per_step["b1_ssm"] != want:
+        raise AssertionError(f"{per_step['b1_ssm']} {B1} launches an SSM "
+                             f"decode step, not {want}")
+    log(f"[18] served {len(reqs)} requests ({new} new tokens, a second run "
+        f"bitwise) in {st['steps']} steps: {st['tok_s']:.2f} tok/s; decode "
+        f"step {st['decode_step_ms']:.2f} ms; {per_step['b1_ssm']} B1 a "
+        f"step; state {st['state_bytes']:,} bytes; tokens[0] "
+        f"{second[0].new_tokens[:8]}")
+    lap("serve")
+    st["profile"] = ssm_profile_steps(eng)
+    log(f"[18] step profiles: {st['profile']}")
+    lap("profiles")
+    # (c) Other forms of the same requests.
+    one = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, prefill_chunk=1), already_serve=True, device=dev)
+    out1, wall = serve_all(one, reqs[:4])
+    st["chunk1"] = dict(
+        tok_s=sum(c.new_tokens.size for c in out1) / wall,
+        agreement=_agreement([c.new_tokens for c in second[:4]],
+                             [c.new_tokens for c in out1]))
+    del one
+    lap("chunk1")
+    cut = [dataclasses.replace(r, prompt=r.prompt[:16]) for r in reqs[:4]]
+    cut_out, _ = serve_all(eng, cut)
+    lock = engine.LockstepEngine(eng.model, cfg, ecfg, already_serve=True,
+                                 device=dev)
+    t0 = time.perf_counter()
+    grid = lock.generate(np.stack([r.prompt for r in cut]), 16)
+    wall = time.perf_counter() - t0
+    st["lockstep"] = dict(tok_s=grid[:, 16:].size / wall,
+                          agreement=_agreement(
+                              [c.new_tokens for c in cut_out], grid[:, 16:]))
+    del lock
+    lap("lockstep")
+    st["spec"] = ssm_spec_serve(eng.model, cfg, ecfg, reqs[:4], second[:4],
+                                dev)
+    per_step["b1_ssm_spec_round"] = st["spec"]["round_launches"][B1]
+    lap("spec")
+    st["cross_form"] = ssm_cross_form(eng, second)
+    log(f"[18] chunk 1: {st['chunk1']}; lockstep: {st['lockstep']}; spec: "
+        f"{st['spec']}")
+    log(f"[18] cross-form logits (teacher-forced; held at fp32 with the "
+        f"activations unquantized): {st['cross_form']}")
+    lap("cross_form")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["card_vs_cpu"] = check_ssm_against_cpu(dev, ecfg)
+    log(f"[18] card vs CPU (fp32, relative L2): {st['card_vs_cpu']}")
+    lap("card_vs_cpu")
+    st["seconds"] = laps
+    log(f"[18] seconds by part: {laps}")
+    return st
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3739,15 +4272,26 @@ def main() -> int:
     clock.lap(17)
 
     # ------------------------------------------------------- phase 18 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_out = phase_ssm_serve(dev, rng, gen, results, launches, per_step)
+    clock.lap(18)
+
+    # ------------------------------------------------------- phase 19 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
-                "one deepseek-moe-16b MoE layer, 10 launches; launches: "
+                "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
+                "one mamba2-2.7b layer, 2 launches; launches: "
                 "the h2o-danube-1.8b load, moe_load_launches: the "
-                "deepseek-moe-16b load)",
+                "deepseek-moe-16b load, ssm_load_launches: the mamba2-2.7b "
+                "load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
                 "launches, one a linear; prefill_*: M=32; verify_*: M=16, "
                 "the verify step of k=3 at batch 4; draft_*: the draft "
-                "launches over the [K2|K1] slice at M=4)",
+                "launches over the [K2|K1] slice at M=4; ssm_M{4,16,32}_*"
+                ", ssm_draft_*: one mamba2-2.7b layer, in_proj 2560x10576 "
+                "and out_proj 5120x2560, 2 launches; ssm_serve_launches: "
+                "the mamba2-2.7b serve run)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
                 "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
@@ -3812,7 +4356,7 @@ def main() -> int:
             if key in r:
                 rows[-1][key] = r[key]
         rows[-1].update((k, v) for k, v in r.items()
-                        if k.startswith(("verify_", "draft_")))
+                        if k.startswith(("verify_", "draft_", "ssm_")))
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
@@ -3824,6 +4368,12 @@ def main() -> int:
                     rest["launches_per_step"][tag][2][key]
         if name == B7:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
+            rows[-1]["ssm_load_launches"] = launches["b7_ssm_load"]
+        if name == B1:
+            rows[-1]["ssm_serve_launches"] = launches["b1_ssm_serve"]
+            rows[-1]["ssm_launches_per_decode_step"] = per_step["b1_ssm"]
+            rows[-1]["ssm_launches_per_spec_round"] = \
+                per_step["b1_ssm_spec_round"]
         if name in SOLO:
             lin = soniq_out["linear"]["launches"][name]
             if lin:
@@ -3873,6 +4423,7 @@ def main() -> int:
     print(json.dumps({"fp_paged_serve": fp_paged}))
     print(json.dumps({"dense_configs": dense}))
     print(json.dumps({"soniq": soniq_out}))
+    print(json.dumps({"ssm_serve": ssm_out}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """ArchConfig: one dataclass describes an architecture. Counterpart of
 ``repro.configs.base`` — same fields, so a config built for the JAX
 package maps onto the port field by field; the port serves the dense
-``attn_mlp`` plan and the MoE plan (``attn_mlp`` then ``attn_moe``) so
-far."""
+``attn_mlp`` plan, the MoE plan (``attn_mlp`` then ``attn_moe``) and the
+SSM plan (``mamba``) so far."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +66,10 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def with_quant_mode(self, mode) -> "ArchConfig":
         """Copy in another lifecycle phase (a mode string or a Phase)."""

@@ -207,10 +207,11 @@ def state_from_tree(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
 def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
     """The JAX package's decode cache (numpy leaves, each plan group's
     layers stacked ``[L, ...]`` under ``groups``) -> the port's
-    ``{"layers": [{"kv": {...}}]}`` on ``device``: fp ring, packed 4-bit
-    ring or packed 4-bit page pool. The fp ring's ``pos`` becomes int64
-    (the port's fp ring stamps); the paged layers share one page table,
-    as the reference broadcasts one table to every layer."""
+    ``{"layers": [...]}`` on ``device``: a layer's ``kv`` (fp ring, packed
+    4-bit ring or packed 4-bit page pool) and its ``ssm`` state (``h``
+    fp32, the ``conv`` window in the cache dtype). The fp ring's ``pos``
+    becomes int64 (the port's fp ring stamps); the paged layers share one
+    page table, as the reference broadcasts one table to every layer."""
     dev = resolve_device(device)
     plan = cfg.layer_plan()
     if len(tree["groups"]) != len(plan):
@@ -219,19 +220,25 @@ def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
     layers = []
     table = None
     for (_kind, count), group in zip(plan, tree["groups"]):
-        kv = group["kv"]
         for i in range(count):
-            layer = {name: _tensor(a[i], dev) for name, a in kv.items()}
-            if "k" in layer:
-                layer["pos"] = layer["pos"].long()
-            if "page_table" in layer:
-                if table is None:
-                    table = layer["page_table"]
-                elif not torch.equal(table, layer["page_table"]):
-                    raise ValueError("paged layers disagree on the page "
-                                     "table")
-                layer["page_table"] = table
-            layers.append({"kv": layer})
+            layer = {}
+            if "ssm" in group:
+                layer["ssm"] = {name: _tensor(a[i], dev)
+                                for name, a in group["ssm"].items()}
+            if "kv" in group:
+                kv = {name: _tensor(a[i], dev)
+                      for name, a in group["kv"].items()}
+                if "k" in kv:
+                    kv["pos"] = kv["pos"].long()
+                if "page_table" in kv:
+                    if table is None:
+                        table = kv["page_table"]
+                    elif not torch.equal(table, kv["page_table"]):
+                        raise ValueError("paged layers disagree on the "
+                                         "page table")
+                    kv["page_table"] = table
+                layer["kv"] = kv
+            layers.append(layer)
     return {"layers": layers}
 
 

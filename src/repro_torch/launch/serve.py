@@ -3,6 +3,7 @@ a request queue, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
 Initializes random QAT weights from ``--seed`` (or loads the JAX
 package's checkpoint with ``--ckpt``), packs them to the 1/2/4-bit serve
@@ -10,8 +11,10 @@ format through the ``quantize_pack`` kernel, and streams a mixed-length
 synthetic workload through the continuous-batching ``DecodeEngine``.
 ``--lockstep`` runs the fixed-batch baseline instead. ``--kv-bits 4``
 keeps the KV cache as packed 4-bit codes, and ``--kv-layout paged`` (with
-``--page-size``) in a page pool shared by prompt prefixes. ``--device
-cpu`` runs the kernels' plain versions (use with ``--reduced``).
+``--page-size``) in a page pool shared by prompt prefixes; an SSM arch
+keeps its recurrent state instead (the KV options do not apply to it)
+and reports that state's bytes. ``--device cpu`` runs the kernels' plain
+versions (use with ``--reduced``).
 """
 from __future__ import annotations
 
@@ -94,11 +97,18 @@ def main(argv=None):
                                kv_layout=args.kv_layout,
                                page_size=args.page_size)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    ssm = lm.serve_capabilities(cfg).state == "ssm"
+    if ssm:
+        state = (f"ssm state: h fp32 + conv window "
+                 f"{engine.EngineConfig.cache_dtype}")
+    else:
+        state = (f"kv cache: "
+                 f"{'fp' if args.kv_bits is None else f'q{args.kv_bits}'}, "
+                 f"layout: {args.kv_layout}"
+                 + (f" (page_size {args.page_size})"
+                    if args.kv_layout == "paged" else ""))
     print(f"device: {name}, arch {cfg.name}, {cfg.num_layers} layers; "
-          f"kv cache: {'fp' if args.kv_bits is None else f'q{args.kv_bits}'}"
-          f", layout: {args.kv_layout}"
-          + (f" (page_size {args.page_size})"
-             if args.kv_layout == "paged" else ""))
+          f"{state}")
     rng = np.random.default_rng(args.seed)
 
     if args.lockstep:
@@ -139,7 +149,10 @@ def main(argv=None):
     print(f"[continuous] {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s, {eng.sched.step_count} engine "
           f"steps, max_batch {args.max_batch})")
-    if args.kv_layout == "paged":
+    if ssm:
+        print(f"[ssm-state] {lm.seq_state_bytes(eng.cache):,} bytes "
+              f"resident at max_batch {args.max_batch}")
+    elif args.kv_layout == "paged":
         st = eng.paged_kv_stats()
         eng.pool.check()
         print(f"[paged-kv] {st['num_pages']} pages x {st['page_size']} "

@@ -57,6 +57,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    try:
+        state_lib.check_trainable(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
     tcfg = state_lib.TrainConfig(
         num_microbatches=args.microbatches, t1=args.t1, t2=args.steps,
         warmup=max(args.steps // 10, 1), seed=args.seed,

@@ -1,9 +1,10 @@
-"""Decoder block assembly: the dense ``attn_mlp`` kind and the MoE
-``attn_moe`` kind. Counterpart of ``repro.models.blocks``: the
-full-sequence forward (``block_apply``) and the decode step over the KV
-cache; the other kinds arrive with their families. As in the reference,
-every ``attn_mlp`` layer is ``cfg.d_ff`` wide (the reference's plan never
-selects ``dense_d_ff``)."""
+"""Decoder block assembly: the dense ``attn_mlp`` kind, the MoE
+``attn_moe`` kind and the SSM ``mamba`` kind (an RMS-normed Mamba2 mixer,
+no FFN). Counterpart of ``repro.models.blocks``: the full-sequence forward
+(``block_apply``) and the decode step over the layer's cache (KV for
+attention, the recurrent state for the mixer); the other kinds arrive
+with their families. As in the reference, every ``attn_mlp`` layer is
+``cfg.d_ff`` wide (the reference's plan never selects ``dense_d_ff``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -16,9 +17,10 @@ from repro_torch.serve import kv_pool, kv_quant
 from . import attention
 from . import mlp as mlp_lib
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .common import RMSNorm, rms_norm_init
 
-KINDS = ("attn_mlp", "attn_moe")
+KINDS = ("attn_mlp", "attn_moe", "mamba")
 
 
 def _check_kind(kind: str) -> None:
@@ -32,6 +34,11 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
                device) -> Dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
+    if kind == "mamba":
+        return {"ln_mixer": rms_norm_init(cfg.d_model, device=device),
+                "mamba": ssm_lib.mamba2_init(
+                    cfg.d_model, cfg.ssm_state, qcfg, generator=generator,
+                    device=device, expand=cfg.ssm_expand, dtype=dt)}
     p = {
         "ln_attn": rms_norm_init(cfg.d_model, device=device),
         "attn": attention.attn_init(
@@ -57,20 +64,28 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
                      kv_bits: Optional[int] = None, kv_layout: str = "ring",
                      page_size: int = 16, num_pages: Optional[int] = None,
                      page_table: Optional[torch.Tensor] = None) -> Dict:
-    """KV cache of one layer. The ring length is ``cache_len`` clipped to
-    the window. ``kv_bits=None`` keeps the fp ring in ``dtype``; 4 the
-    packed 4-bit ring (``serve/kv_quant.py``). ``kv_layout="paged"`` (fp or
-    4-bit) draws ``page_size``-token pages from a pool of ``num_pages``
-    (null page 0 included; None: ``batch * pages_per_seq + 1``) through a
-    page table whose length is the ring length in pages, so ``page_size``
-    must divide it; ``page_table`` shares one table across layers."""
+    """Cache of one layer: the recurrent state of a ``mamba`` layer
+    (``{"ssm": {"h", "conv"}}``: h fp32, the conv window in ``dtype``; the
+    KV options do not apply, the state stays fp as in the reference,
+    DESIGN.md §5), else the KV cache. The ring length is ``cache_len``
+    clipped to the window. ``kv_bits=None`` keeps the fp ring in
+    ``dtype``; 4 the packed 4-bit ring (``serve/kv_quant.py``).
+    ``kv_layout="paged"`` (fp or 4-bit) draws ``page_size``-token pages
+    from a pool of ``num_pages`` (null page 0 included; None: ``batch *
+    pages_per_seq + 1``) through a page table whose length is the ring
+    length in pages, so ``page_size`` must divide it; ``page_table``
+    shares one table across layers."""
     _check_kind(kind)
-    clen = min(cache_len, cfg.window) if cfg.window else cache_len
     if kv_bits not in (None, 4):
         raise ValueError(f"kv_bits must be None or 4, got {kv_bits}")
     if kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r} (expected "
                          f"'ring' or 'paged')")
+    if kind == "mamba":
+        return {"ssm": ssm_lib.init_ssm_cache(
+            batch, cfg.d_model, cfg.ssm_state, expand=cfg.ssm_expand,
+            dtype=dtype, device=device)}
+    clen = min(cache_len, cfg.window) if cfg.window else cache_len
     if kv_layout == "paged":
         if clen % page_size:
             raise ValueError(
@@ -94,6 +109,10 @@ class Block(nn.Module):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
+        if kind == "mamba":
+            self.ln_mixer = RMSNorm(tree["ln_mixer"])
+            self.mamba = ssm_lib.Mamba2(tree["mamba"])
+            return
         self.ln_attn = RMSNorm(tree["ln_attn"])
         self.attn = attention.Attention(tree["attn"])
         self.ln_ffn = RMSNorm(tree["ln_ffn"])
@@ -103,6 +122,9 @@ class Block(nn.Module):
             self.mlp = mlp_lib.MLP(tree["mlp"], act=act)
 
     def tree(self) -> Dict:
+        if self.kind == "mamba":
+            return {"ln_mixer": self.ln_mixer.tree(),
+                    "mamba": self.mamba.tree()}
         out = {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree(),
                "ln_ffn": self.ln_ffn.tree()}
         if self.kind == "attn_moe":
@@ -128,6 +150,11 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence pre-norm residual block (training forward). Returns
     (x, the MoE load-balancing loss or None)."""
+    if block.kind == "mamba":
+        h = block.ln_mixer(x, cfg.norm_eps)
+        return x + ssm_lib.mamba2_apply(
+            block.mamba, h, qcfg, noise, d_state=cfg.ssm_state,
+            expand=cfg.ssm_expand, chunk=cfg.ssm_chunk), None
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_apply(
         block.attn, h, positions, num_heads=cfg.num_heads,
@@ -142,8 +169,22 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,
                  pos: torch.Tensor, cfg, qcfg: QuantConfig, *, rope,
                  write) -> torch.Tensor:
-    """Pre-norm residual block over an S-token chunk; updates the layer's
-    KV cache in place."""
+    """Pre-norm residual block over an S-token chunk at positions ``pos``
+    [B, S] (< 0: a masked lane); updates the layer's cache in place. A
+    ``mamba`` layer dispatches as the reference does: S > 1 through the
+    chunked prefill (its padding lanes state-neutral), S = 1 through the
+    O(1) decode, which advances every row; ``rope`` and ``write`` are the
+    attention's and unused there."""
+    if block.kind == "mamba":
+        h = block.ln_mixer(x, cfg.norm_eps)
+        kw = dict(d_state=cfg.ssm_state, expand=cfg.ssm_expand)
+        if x.shape[1] > 1:
+            y = ssm_lib.mamba2_prefill(block.mamba, h, cache["ssm"], pos,
+                                       qcfg, chunk=cfg.ssm_chunk, **kw)
+        else:
+            y = ssm_lib.mamba2_decode(block.mamba, h, cache["ssm"], qcfg,
+                                      **kw)
+        return x + y
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_decode(
         block.attn, h, cache["kv"], pos, num_heads=cfg.num_heads,

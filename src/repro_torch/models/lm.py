@@ -6,11 +6,12 @@ verify steps, and the serving capabilities of a family. Counterpart of
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
 ``blocks`` list, where the JAX package stacks layers ``[L, ...]``). Steps
-update the KV cache (fp or 4-bit, ring or page pool) in place and
-return it with the logits. The training forward recomputes each block in
-its backward (``torch.utils.checkpoint``) unless ``cfg.remat == "none"``,
-as the reference remats every layer; the Phase-I draws are keyed by the
-linear's path, so the recomputation sees the same noise.
+update the cache (KV: fp or 4-bit, ring or page pool; the SSM's recurrent
+state) in place and return it with the logits. The training forward
+recomputes each block in its backward (``torch.utils.checkpoint``) unless
+``cfg.remat == "none"``, as the reference remats every layer; the Phase-I
+draws are keyed by the linear's path, so the recomputation sees the same
+noise.
 """
 from __future__ import annotations
 
@@ -102,14 +103,15 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                kv_layout: str = "ring", page_size: int = 16,
                num_pages: Optional[int] = None) -> Dict:
     """Decode cache, ``{"layers": [{"kv": {...}}]}`` with one dict per
-    layer. ``kv_bits=None`` keeps fp rings in ``dtype``; 4 selects the
-    packed 4-bit family (``serve/kv_quant.py``, attention through kernel
-    B4). ``kv_layout="paged"`` swaps the per-slot rings for a page pool
-    per layer (``serve/kv_pool.py``; kernel B5 at 4 bits, the fp ring's
-    plain attention over the gathered pages at fp): ``num_pages`` pages of
-    ``page_size`` tokens shared by the slots through one page table that
-    every layer reads. The paged layout needs the engine's ``PagePool``
-    to drive allocation."""
+    layer (a ``mamba`` layer holds ``{"ssm": {"h", "conv"}}`` instead: the
+    KV options do not apply to it). ``kv_bits=None`` keeps fp rings in
+    ``dtype``; 4 selects the packed 4-bit family (``serve/kv_quant.py``,
+    attention through kernel B4). ``kv_layout="paged"`` swaps the
+    per-slot rings for a page pool per layer (``serve/kv_pool.py``;
+    kernel B5 at 4 bits, the fp ring's plain attention over the gathered
+    pages at fp): ``num_pages`` pages of ``page_size`` tokens shared by
+    the slots through one page table that every layer reads. The paged
+    layout needs the engine's ``PagePool`` to drive allocation."""
     dev = resolve_device(device)
     layers = []
     table = None
@@ -119,8 +121,14 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                 kind, cfg, batch, cache_len, dtype, device=dev,
                 kv_bits=kv_bits, kv_layout=kv_layout, page_size=page_size,
                 num_pages=num_pages, page_table=table))
-            table = layers[-1]["kv"].get("page_table")
+            table = layers[-1].get("kv", {}).get("page_table")
     return {"layers": layers}
+
+
+def has_attention(cfg) -> bool:
+    """Whether the plan holds an attention layer (RoPE tables and a KV
+    write index are built only then)."""
+    return any("attn" in kind for kind, _ in cfg.layer_plan())
 
 
 def logits(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -154,7 +162,8 @@ def forward(model: LM, cfg, tokens, *, positions=None,
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
     positions = torch.as_tensor(positions, device=dev).long()
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta) \
+        if has_attention(cfg) else None
     aux = None
     for block in model.blocks:
         if _recompute(cfg):
@@ -224,14 +233,18 @@ def loss_fn(model: LM, batch: Dict, cfg,
 
 def _decode_core(model: LM, cfg, cache: Dict, x: torch.Tensor,
                  pos) -> torch.Tensor:
-    """Run x [B, S, D] at host positions ``pos`` [B, S] (< 0 = masked lane,
-    its cache writes dropped) through every block, updating the cache in
-    place. Returns the hidden state before the final norm."""
+    """Run x [B, S, D] at host positions ``pos`` [B, S] through every
+    block, updating the cache in place. A masked lane (pos < 0) writes no
+    KV and, in a chunked step (S > 1), leaves a mamba layer's state as it
+    is; a one-token step advances every row's recurrent state, as the
+    reference's does. Returns the hidden state before the final norm."""
     pos_host = np.asarray(pos, np.int64)
     posb = torch.as_tensor(pos_host, device=x.device)
-    rope = rope_tables(posb, cfg.hd, cfg.rope_theta)
-    write = attention.cache_write_index(cache["layers"][0]["kv"], pos_host,
-                                        x.device)
+    rope = write = None
+    if has_attention(cfg):
+        rope = rope_tables(posb, cfg.hd, cfg.rope_theta)
+        kv = next(layer["kv"] for layer in cache["layers"] if "kv" in layer)
+        write = attention.cache_write_index(kv, pos_host, x.device)
     for block, layer_cache in zip(model.blocks, cache["layers"]):
         x = blocks.block_decode(block, x, layer_cache, posb, cfg, cfg.quant,
                                 rope=rope, write=write)
@@ -246,8 +259,9 @@ def _host_array(a) -> np.ndarray:
 
 def decode_step(model: LM, cfg, cache: Dict, tokens, pos, *, active=None):
     """One decode step. tokens [B], pos [B] (host arrays or tensors);
-    ``active`` [B] bool marks live slots (others get position -1: no
-    cache write, logits ignored). Returns (fp32 logits [B, V], cache)."""
+    ``active`` [B] bool marks live slots (others get position -1: no KV
+    write, logits ignored; their recurrent state advances, garbage that
+    admission wipes). Returns (fp32 logits [B, V], cache)."""
     pos = _host_array(pos).astype(np.int64)
     if active is not None:
         pos = np.where(_host_array(active), pos, -1)
@@ -299,8 +313,8 @@ class ServeCaps:
     ``chunkable``: steps may feed C > 1 tokens a slot. ``spec_capable``:
     speculative rounds are supported. ``state``: "kv" (attention only),
     "ssm" or "hybrid"; recurrent state needs the snapshot/recommit
-    flavour of speculation, which arrives with the SSM port. ``note``: why
-    a capability is off, for the engine's error."""
+    flavour of speculation (the engine's ``_spec_step``). ``note``: why a
+    capability is off, for the engine's error."""
     family: str
     chunkable: bool = True
     spec_capable: bool = True
@@ -310,27 +324,89 @@ class ServeCaps:
 
 def serve_capabilities(cfg) -> ServeCaps:
     """The capability descriptor of an arch config, as the reference
-    derives it from the layer plan."""
+    derives it from the layer plan. The hybrid family (attention beside
+    recurrent state) is not ported yet, so it stays refused."""
     kinds = [kind for kind, _ in cfg.layer_plan()]
     has_ssm = any("mamba" in k or k.startswith("hybrid") for k in kinds)
     has_attn = bool(cfg.encoder_layers) or any(
         "attn" in k or k in ("dec", "enc") or k.startswith("hybrid")
         for k in kinds)
     state = "kv" if not has_ssm else ("hybrid" if has_attn else "ssm")
-    if state == "kv":
-        return ServeCaps(family=cfg.family)
-    return ServeCaps(family=cfg.family, spec_capable=False, state=state,
-                     note="speculative decoding of recurrent state "
-                          "(snapshot/recommit) is not ported yet")
+    if state == "hybrid":
+        return ServeCaps(family=cfg.family, spec_capable=False, state=state,
+                         note="the hybrid family (attention beside "
+                              "recurrent state) is not ported yet")
+    return ServeCaps(family=cfg.family, state=state)
+
+
+# The recurrent-state leaves of a decode cache (``ssm.init_ssm_cache``).
+# Unlike ring or paged K/V, whose rejected speculative writes roll back by
+# position stamps or page release, they accumulate and cannot be
+# un-written, so the engine snapshots them around speculative rounds.
+SEQ_STATE_LEAVES = frozenset({"h", "conv"})
+
+
+def _walk_state(tree, fn, name=""):
+    if isinstance(tree, dict):
+        return {k: _walk_state(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk_state(v, fn, name) for v in tree]
+    if tree is None or name not in SEQ_STATE_LEAVES:
+        return None
+    return fn(tree)
+
+
+def extract_seq_state(cache: Dict):
+    """A snapshot of the cache's recurrent-state (``h``/``conv``) leaves: a
+    tree mirroring ``cache`` with copies of those leaves and None
+    everywhere else (a copy, as the steps write the cache in place)."""
+    return _walk_state(cache, lambda t: t.clone())
+
+
+def restore_seq_state(cache: Dict, snap) -> Dict:
+    """Write an :func:`extract_seq_state` snapshot back into ``cache`` in
+    place (the snapshot stays valid for another restore); every other leaf
+    is left as it is."""
+    def walk(c, s):
+        if isinstance(c, dict):
+            for k, v in c.items():
+                walk(v, s[k])
+        elif isinstance(c, (list, tuple)):
+            for v, sv in zip(c, s):
+                walk(v, sv)
+        elif s is not None:
+            c.copy_(s)
+    walk(cache, snap)
+    return cache
+
+
+def seq_state_bytes(cache: Dict) -> int:
+    """Bytes of the cache's recurrent-state leaves (0 without any)."""
+    total = 0
+
+    def add(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+    _walk_state(cache, add)
+    return total
 
 
 def reset_cache_slots(cache: Dict, slots) -> Dict:
     """Wipe the cache rows of the given batch slots in place: fp K/V and
-    4-bit codes/scales to 0, ``pos`` to -1 (entries read as empty). A
-    paged layer's pool is shared state owned by the host allocator: only
-    the slots' page-table rows become -1 (every logical page unmapped);
-    ``PagePool.release`` and ``kv_pool.apply_step_ops`` recycle pages."""
+    4-bit codes/scales to 0, ``pos`` to -1 (entries read as empty), the
+    recurrent state (``h``, ``conv``) to 0. A paged layer's pool is shared
+    state owned by the host allocator: only the slots' page-table rows
+    become -1 (every logical page unmapped); ``PagePool.release`` and
+    ``kv_pool.apply_step_ops`` recycle pages."""
     for layer in cache["layers"]:
+        if "ssm" in layer:
+            st = layer["ssm"]
+            idx = torch.as_tensor(np.asarray(slots, np.int64),
+                                  device=st["h"].device)
+            for leaf in st.values():
+                leaf[idx] = 0
+        if "kv" not in layer:
+            continue
         kv = layer["kv"]
         if "page_table" in kv:
             idx = torch.as_tensor(np.asarray(slots, np.int64),

@@ -15,11 +15,13 @@ cache is an fp ring, a packed 4-bit ring (``kv_bits=4``, kernel B4) or,
 for the ``DecodeEngine``, a page pool (``kv_layout="paged"``; 4-bit
 through kernel B5, or fp) whose host ``PagePool`` shares prompt-prefix
 pages between requests with copy-on-write. Both serve the dense and the
-MoE decoders (expert banks through the grouped segment GEMM, kernel B6).
-The ``DecodeEngine`` also decodes self-speculatively (``spec_tokens``,
-DESIGN.md §14): k drafts from the low-bit [K2|K1] slice of the same
-packed carriers, verified in one full-mix step of k + 1 lanes; greedy
-tokens equal the spec-off tokens.
+MoE decoders (expert banks through the grouped segment GEMM, kernel B6)
+and the SSM (mamba2: the recurrent state in place of KV, the KV options
+ignored). The ``DecodeEngine`` also decodes self-speculatively
+(``spec_tokens``, DESIGN.md §14): k drafts from the low-bit [K2|K1] slice
+of the same packed carriers, verified in one full-mix step of k + 1
+lanes; greedy tokens equal the spec-off tokens. Recurrent state is
+snapshotted before a round and recommitted for the accepted tokens.
 """
 from __future__ import annotations
 
@@ -216,6 +218,10 @@ class DecodeEngine(_PackedEngine):
                          already_serve=already_serve, device=device)
         self.caps = lm.serve_capabilities(self.cfg)
         self.chunk = max(ecfg.prefill_chunk, 1)
+        # Recurrent state cannot be un-written in place as ring or paged
+        # K/V can: speculative rounds snapshot it and recommit the
+        # accepted prefix (``_spec_step``).
+        self._seq_state = self.caps.state != "kv"
         # A speculative round drafts with the low-slice forward (same
         # packed weights, high-bit carriers skipped) and verifies k + 1
         # lanes with the full mix.
@@ -472,7 +478,12 @@ class DecodeEngine(_PackedEngine):
         prefix and the verify step's own token committed, the rejected
         suffix rolled back (ring: nothing to do, its entries carry future
         positions that the causal mask hides until they are rewritten;
-        pages: the pages holding only rejected entries are released).
+        pages: the pages holding only rejected entries are released;
+        recurrent state: snapshotted before the drafts, which advance
+        every row's state, bystanders' too; restored before the verify;
+        restored again after acceptance and recommitted by a second verify
+        step with the rejected lanes at position -1, so it holds exactly
+        the accepted tokens).
 
         A slot whose round would wrap the ring does not draft (the wrap
         would overwrite history that a reject could not restore); it
@@ -499,6 +510,9 @@ class DecodeEngine(_PackedEngine):
             if ops.any():
                 self._table_dirty = True
             self._flush_pool_ops(ops)
+        snap = None
+        if self._seq_state and draft_slots:
+            snap = lm.extract_seq_state(self.cache)
 
         # Drafts: decode-phase slots only (a draft written at a prompt
         # position would never be rewritten by the verify step).
@@ -531,7 +545,10 @@ class DecodeEngine(_PackedEngine):
                 drafts[s].append(tok)
                 cur[s] = tok
 
-        # One batched full-mix verify (and prefill feed) step.
+        # One batched full-mix verify (and prefill feed) step, from the
+        # pre-round recurrent state.
+        if snap is not None:
+            lm.restore_seq_state(self.cache, snap)
         tokens = np.zeros((b, c), np.int32)
         pos = np.full((b, c), -1, np.int64)
         for s, toks in plan.items():
@@ -570,6 +587,18 @@ class DecodeEngine(_PackedEngine):
                 self.spec_rounds += 1
                 self.spec_drafted += k
                 self.spec_accepted += a
+
+        # Recurrent state: the verify advanced it through every fed lane,
+        # accepted or not. Restore the snapshot and feed the same lanes
+        # again with the rejected drafts masked (pos -1: state-neutral), so
+        # the state holds exactly the committed tokens; prompt lanes feed
+        # the same inputs from the same state again.
+        if snap is not None:
+            lm.restore_seq_state(self.cache, snap)
+            pos2 = pos.copy()
+            for s in draft_slots:
+                pos2[s, fed[s]:] = -1
+            lm.verify_step(self.model, self.cfg, self.cache, tokens, pos2)
 
         # Paged rollback of the pages holding only rejected entries, then
         # advance.
@@ -697,8 +726,9 @@ class DecodeEngine(_PackedEngine):
 # Leaf-name vocabulary for packed_model_bytes: packed carriers count one
 # byte per element, fp leaves their dtype size, metadata is excluded.
 _PACKED_LEAVES = frozenset({"w4", "w2", "w1"})
-_FP_LEAVES = frozenset({"w", "table", "wscale", "b", "g"})
-_META_LEAVES = frozenset({"perm", "pbits_sorted", "pbits"})
+_FP_LEAVES = frozenset({"w", "table", "wscale", "b", "g", "conv_w",
+                        "conv_b", "A_log", "D", "dt_bias", "norm_g"})
+_META_LEAVES = frozenset({"perm", "pbits_sorted", "pbits", "s"})
 
 
 def packed_model_bytes(model) -> int:

@@ -1148,3 +1148,51 @@ def test_cnn_steps_repeat_bitwise_on_the_card(dev):
     l2, p2 = run()
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+@pytest.mark.parametrize("k,n", [(2560, 10576), (5120, 2560)],
+                         ids=["in_proj", "out_proj"])
+def test_ssm_linears_b7_bitwise_and_b1_within_bound(dev, k, n):
+    """mamba2-2.7b's serve linears: in_proj (N = 10576 = 2 * 5120 + 2 * 128
+    + 80, a partial column tile of B1's 32 and of B7's 128) and out_proj
+    (K = 5120). B7 bitwise its plain version in one launch; B1 on its
+    carriers at M = 4, 16 and 32 within the fp32 reordering bound, one
+    launch; the draft launch over the [K2|K1] slice bitwise the same
+    launch on x's columns from K4 on."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w, perm, sc, segs = _pack_operands((k, n), g, dev)
+    kernels.reset_launch_counts()
+    carriers = qp.quantize_pack_segments(w, perm, sc, segments=segs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quantize_pack"] == 1
+    for a, b in zip(carriers, qp.quantize_pack_segments_plain(
+            w, perm, sc, segments=segs)):
+        assert a.shape == b.shape and torch.equal(a, b)
+    ops, off = [], 0
+    for wp, p, kp in zip(carriers, (4, 2, 1), segs):
+        if kp:
+            ops.append((wp, sc[off // 16:(off + kp) // 16].contiguous(), p,
+                        off))
+            off += kp
+    for m in (4, 16, 32):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        x[0, :k // 2] *= 40.0                      # an outlier row
+        sx = quant.abs_max_scale(x, dim=-1).float().contiguous()
+        kernels.reset_launch_counts()
+        got = pm.segments_matmul(x, ops, sx=sx)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_act_segment_matmul"] == 1
+        want = pm.segments_matmul_plain(x, ops, sx=sx)
+        xq = torch.cat([pm.act_quant(x[:, o:o + wp.shape[0] * 8 // p], sx, p)
+                        for wp, _s, p, o in ops], dim=-1)
+        wd = torch.cat([pm.unpack_dequant(wp, p, s) for wp, s, p, _o in ops])
+        assert torch.isfinite(got).all() and got.shape == (m, n)
+        assert _within_reorder_bound(got, want, xq, wd)
+    draft = backend.draft_segments(ops, 2, bits_of=lambda op: op[2])
+    k0 = draft[0][3]
+    assert k0 > 0
+    got = pm.segments_matmul(x, draft, sx=sx)
+    at0 = pm.segments_matmul(x[:, k0:], [(wp, s, p, o - k0)
+                                         for wp, s, p, o in draft], sx=sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, at0)

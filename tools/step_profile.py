@@ -55,13 +55,25 @@ SPANS = (
     ("repro_torch.optim.grad_compress", "compress_tree", "grad_compress"),
     ("repro_torch.optim.grad_compress", "decompress_tree", "grad_compress"),
 )
+# A serve step of the SSM (``ssm_spans``): the mixer's plain ops, its
+# chunked SSD scan, the serve linears' driver ops around B1, and the
+# readout; what they leave (the embedding, the block norms, the residual
+# adds) is ``rest``.
+SSM_SPANS = (
+    ("repro_torch.models.ssm", "mamba2_decode", "mixer"),
+    ("repro_torch.models.ssm", "mamba2_prefill", "mixer"),
+    ("repro_torch.models.ssm", "ssd_chunked", "ssd"),
+    ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
+    ("repro_torch.models.lm", "logits", "readout"),
+)
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
                   "_FakeQuantBackward": "fake_quant_bwd"}
 
 
-def install_spans() -> Callable[[], None]:
-    """Wrap every function of ``SPANS`` in a profiler range named
-    ``soniq::<label>``; returns the function that restores them."""
+def install_spans(spans=SPANS) -> Callable[[], None]:
+    """Wrap every function of ``spans`` (default ``SPANS``; ``SSM_SPANS``
+    for an SSM serve step) in a profiler range named ``soniq::<label>``;
+    returns the function that restores them."""
     import torch
     from torch.profiler import record_function
 
@@ -74,7 +86,7 @@ def install_spans() -> Callable[[], None]:
         return run
 
     saved = []
-    for module, path, label in SPANS:
+    for module, path, label in spans:
         try:
             owner = importlib.import_module(module)
         except ModuleNotFoundError:         # an older checkout
