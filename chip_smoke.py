@@ -84,7 +84,7 @@ Phases (none catches an error; any failure exits non-zero):
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
   6. 4-bit KV serve at full width, cut to KV4_LAYERS = 12 of its 24
-     layers (so the script stays near half its time limit; the lockstep
+     layers (so the script stays inside its time limit; the lockstep
      engine's host-bound steps set the phase's time): the ring
      DecodeEngine (built
      from the QAT weights, so it packs), the LockstepEngine and the paged
@@ -120,7 +120,7 @@ Phases (none catches an error; any failure exits non-zero):
      timed on both rulers beside the plain versions and the single
      launches.
   8. Training: full-width h2o-danube-1.8b cut to TRAIN_LAYERS = 12 of its
-     24 layers (phase 16 trains all 24) through Phase I
+     24 layers (phase 11's launcher runs all 24) through Phase I
      (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
      with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
      per step the phase, loss, gradient norm, step ms, B8/B9 launches
@@ -174,14 +174,16 @@ Phases (none catches an error; any failure exits non-zero):
      Then one MoE layer's three banks (16 experts each), card vs CPU,
      teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
      1e-5.
- 16. Training, the rest: (a) full-width, 24-layer h2o-danube-1.8b, every
-     linear's logits drawn over the 4/2/1-bit bands of the default mix,
+ 16. Training, the rest: (a) full-width h2o-danube-1.8b cut to
+     REST_LAYERS = 12 of its 24 layers (so phase 19 fits the time
+     limit), every linear's logits drawn over the 4/2/1-bit bands of the
+     default mix,
      through 3 Phase-I and 3 Phase-II steps at 2 microbatches on phase
      8's stream, hoisted (B8 once a weight a step), so the frozen model
      holds 1-, 2- and 4-bit groups (histogram, average bpp) and B8 and
      its backward run at all three inside a step; the B8 and B9 launches
-     of every step checked (hoisted: 168 + 672 B8 and 168 + 336 B8
-     backward a Phase-II step; unhoisted: 1,344 and 672); the unhoisted
+     of every step checked (hoisted: 84 + 336 B8 and 84 + 168 B8
+     backward a Phase-II step; unhoisted: 672 and 336); the unhoisted
      run bitwise the hoisted one (losses, gradient norms, parameters);
      with int8 gradient compression twice, bitwise (the state holds
      ``err``); host ms and peak GiB a step of each, the device busy of
@@ -246,15 +248,39 @@ Phases (none catches an error; any failure exits non-zero):
      1e-5; full width at 2 layers, teacher-forced, every serve linear
      and the chunked SSD's output and state within relative L2 1e-5.
      The ``ssm_serve`` JSON line.
- 19. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 19. SSM training: mamba2-2.7b at full width. (a) B9, B8 and both
+     backward kernels at one layer's training linears (in_proj 2560 x
+     10576, N not a multiple of 64; out_proj 5120 x 2560; activations
+     [8 * 128, K] bf16) against their plain versions as in phase 7
+     (forward, dw and dx bitwise, ds within its bound), one layer's calls
+     timed on both rulers (``ssm_train_*`` keys). (b) SSM_TRAIN_LAYERS =
+     16 layers, the logits drawn over the 4/2/1-bit bands, through 3
+     Phase-I steps, the freeze and 3 Phase-II steps on TokenStream(batch
+     8, seq 128, seed 0): every step's launches asserted (64 B9 and 32
+     B9 backward a Phase-I step, 128 B8 and 64 B8 backward a Phase-II
+     step: each block is recomputed), peak memory, a device profile of
+     steps 2 and 5 (busy, fp32 GEMMs, B8/B9 and their backward, the
+     chunked SSD's forward and backward apart, the rest); a second run
+     bitwise the first (losses, gradient norms, every parameter); the
+     frozen precision histogram and bpp; ``soniq.to_serve`` (32 B7
+     launches, asserted) and a DecodeEngine run of 4 requests (32 B1 a
+     decode step, asserted), tokens reported. (c) Two full-width layers,
+     fp32, card vs CPU teacher-forced at NOISE (the same host-made draws)
+     and QAT: each block's y, dx and every leaf's gradient within
+     relative L2 1e-5. (d) Full depth (64 layers): one Phase-I step, the
+     freeze and one Phase-II step (launches asserted), each step's peak
+     memory under the card's. The ``ssm_training`` JSON line.
+ 20. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
      B8, B9 and the backward rows; phase 18's ``ssm_*`` keys and SSM
-     launches on B1 and B7), the ``kv4_serve``, ``training``,
+     launches on B1 and B7; phase 19's ``ssm_train_*`` keys on B8, B9
+     and the backward rows), the ``kv4_serve``, ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
-     ``ssm_serve`` and ``phase_seconds`` JSON lines, the nvidia-smi line,
+     ``ssm_serve``, ``ssm_training``, ``phase_seconds`` and
+     ``phase_cpu_seconds`` JSON lines, the nvidia-smi line,
      and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -310,10 +336,10 @@ B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
 KV4_LAYERS = 12              # phase 6's depth (h2o-danube-1.8b has 24)
-# Phase 8's depth (phase 16 trains all 24 layers).
+# Phase 8's depth (phase 11's launcher runs all 24 layers).
 TRAIN_LAYERS = 12
 # The other dense configs (arch, depth: None = the config's own), each at
-# full width.
+# full width; starcoder2-7b has 32 layers.
 DENSE_CONFIGS = ((DENSE_ARCH, None), ("deepseek-67b", 2),
                  ("mistral-large-123b", 2))
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
@@ -347,17 +373,22 @@ def log(msg: str) -> None:
 
 
 class PhaseClock:
-    """Wall seconds of each phase, logged as it ends."""
+    """Wall seconds of each phase, logged as it ends, and the CPU seconds
+    this process used in it (all its threads): a host that holds the
+    script back raises the wall seconds of a phase and not its CPU
+    seconds."""
 
     def __init__(self):
-        self.laps = {}
-        self.t = time.perf_counter()
+        self.laps, self.cpu_s = {}, {}
+        self.t, self.cpu = time.perf_counter(), time.process_time()
 
     def lap(self, phase: int) -> None:
-        now = time.perf_counter()
+        now, cpu = time.perf_counter(), time.process_time()
         self.laps[phase] = round(now - self.t, 2)
-        self.t = now
-        log(f"[{phase}] phase done in {self.laps[phase]:.2f} s")
+        self.cpu_s[phase] = round(cpu - self.cpu, 2)
+        self.t, self.cpu = now, cpu
+        log(f"[{phase}] phase done in {self.laps[phase]:.2f} s "
+            f"({self.cpu_s[phase]:.2f} s of process CPU)")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1345,10 +1376,11 @@ def rel_l2(a, b) -> float:
 
 
 class LinearTape:
-    """Hooks on every serve linear of a model, recording each call's input
-    and output in call order. With ``feed`` (another tape's inputs) each
-    call runs on the fed input; the input the model's own ops made is
-    still what the tape records."""
+    """Hooks on every linear of a model, recording each call's input and
+    output in call order. With ``feed`` (another tape's inputs) each call
+    runs on the fed input; the input the model's own ops made is still
+    what the tape records, and a gradient still reaches it (the fed values
+    enter as ``fed + (x - x.detach())``)."""
 
     def __init__(self, model, feed=None):
         self.inputs, self.outputs, self.feed = [], [], feed
@@ -1367,7 +1399,10 @@ class LinearTape:
             fed_name, _mod, x = self.feed[len(self.inputs) - 1]
             if fed_name != name:
                 raise AssertionError(f"call order: {name} vs {fed_name}")
-            return (x.to(args[0].device),) + tuple(args[1:])
+            x = x.to(args[0].device)
+            if args[0].requires_grad:
+                x = x + (args[0] - args[0].detach())
+            return (x,) + tuple(args[1:])
         return hook
 
     def _post(self, mod, args, out):
@@ -1913,13 +1948,31 @@ def training_backward_kernels(b9_ops, b8_w, b8_x, gen, dev, reps):
 
 
 # ------------------------------------------------------------- training ----
-def phase_training(cfg, dev):
-    """Full-width two-phase training through ``train.loop.train``. Returns
-    (the trained model, per-step records, profiles, pattern report)."""
+def train_step_launches(cfg, phase):
+    """B8/B9 launches a step of one microbatch, unhoisted: every block is
+    recomputed in the backward, so each quantized linear runs its forward
+    twice: Phase I one B9 a forward and one B9 backward; Phase II two B8
+    (weight and activation) a forward and two B8 backward."""
+    n = len(layer_linears(cfg)) * cfg.num_layers
+    if phase == 1:
+        return {"b9": 2 * n, "b9_bwd": n, "b8": 0, "b8_bwd": 0}
+    return {"b8": 4 * n, "b8_bwd": 2 * n, "b9": 0, "b9_bwd": 0}
+
+
+def phase_training(cfg, dev, tag=8, spans=step_profile.SPANS,
+                   summary=step_profile.device_summary, profiled=True,
+                   t1=T1, t2=T2, mixed_seed=None):
+    """Full-width two-phase training through ``train.loop.train`` (``t1``
+    Phase-I steps of ``t2``), every step's B8/B9 launches checked
+    (``train_step_launches``) and its peak memory kept; with ``profiled``,
+    a device profile (``summary`` under ``spans``) of the last step of
+    each phase; with ``mixed_seed``, the logits drawn over the 4/2/1-bit
+    bands first (``set_mixed_logits``). Returns (the trained state,
+    per-step records, profiles, pattern report)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.profiler import schedule as prof_schedule
     from repro_torch.train import state as state_lib
-    tcfg = state_lib.TrainConfig(t1=T1, t2=T2, warmup=1, seed=SEED)
+    tcfg = state_lib.TrainConfig(t1=t1, t2=t2, warmup=1, seed=SEED)
     stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         batch_size=TRAIN_BATCH, seed=0))
@@ -1928,7 +1981,7 @@ def phase_training(cfg, dev):
     prev = dict.fromkeys(counted.values(), 0)
 
     def on_ready(prof):
-        profiles[records[-1]["step"]] = step_profile.device_summary(prof)
+        profiles[records[-1]["step"]] = summary(prof)
 
     def hook(step, _state, met):
         counts = kernels.launch_counts()
@@ -1939,48 +1992,53 @@ def phase_training(cfg, dev):
                     for key, name in counted.items()})
         prev.update({name: counts[name] for name in counted.values()})
         records.append(rec)
-        log(f"[8] step {step} phase {rec['phase']}: loss {rec['loss']:.4f} "
-            f"gnorm {rec['grad_norm']:.4f} {rec['ms']:.1f} ms, launches "
-            f"B8 {rec['b8']} B9 {rec['b9']} B8 backward {rec['b8_bwd']} B9 "
-            f"backward {rec['b9_bwd']}, peak {rec['peak_gib']:.2f} GiB")
-        prof.step()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[{tag}] step {step} phase {rec['phase']}: loss "
+            f"{rec['loss']:.4f} gnorm {rec['grad_norm']:.4f} "
+            f"{rec['ms']:.1f} ms, launches B8 {rec['b8']} B9 {rec['b9']} "
+            f"B8 backward {rec['b8_bwd']} B9 backward {rec['b9_bwd']}, "
+            f"peak {rec['peak_gib']:.2f} GiB")
+        if prof is not None:
+            prof.step()
 
     model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED,
                            device=dev)
+    if mixed_seed is not None:
+        set_mixed_logits(model, mixed_seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    undo_spans = step_profile.install_spans()
     t0 = time.perf_counter()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=prof_schedule(wait=T1 - 1, warmup=0,
-                                            active=1, repeat=2),
-                     on_trace_ready=on_ready) as prof:
-            out = loop.train(cfg, tcfg, stream.batches(), model=model,
-                             device=dev, hooks=[hook])
-    finally:
-        undo_spans()
+    prof = None
+    if profiled:
+        undo_spans = step_profile.install_spans(spans)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=prof_schedule(wait=t1 - 1, warmup=0,
+                                                active=1, repeat=2),
+                         on_trace_ready=on_ready) as prof:
+                out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                                 device=dev, hooks=[hook])
+        finally:
+            undo_spans()
+    else:
+        out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                         device=dev, hooks=[hook])
     wall = time.perf_counter() - t0
-    # One backward a linear a step: 7 noise_inject_bwd a Phase-I layer;
-    # 7 weights and 7 activations through fake_quant_bwd a Phase-II layer.
-    per_layer = {1: dict(b9_bwd=7, b8_bwd=0), 2: dict(b8_bwd=14, b9_bwd=0)}
     for r in records:
         if not math.isfinite(r["loss"]):
             raise AssertionError(f"non-finite loss at step {r['step']}")
-        fwd, off = ("b9", "b8") if r["phase"] == 1 else ("b8", "b9")
-        want = {k: n * cfg.num_layers
-                for k, n in per_layer[r["phase"]].items()}
-        if r[fwd] == 0 or r[off] != 0 or any(r[k] != n
-                                             for k, n in want.items()):
+        want = train_step_launches(cfg, r["phase"])
+        if any(r[k] != n for k, n in want.items()):
             raise AssertionError(f"step {r['step']} (phase {r['phase']}) "
                                  f"launches { {k: r[k] for k in counted} }, "
-                                 f"backward wanted {want}")
+                                 f"wanted {want}")
     rep = out["pattern_report"]
-    log(f"[8] boundary: average bpp {schedule.average_bpp(rep):.4f} over "
-        f"{len(rep['layers'])} linears; allowed patterns {rep['allowed']}")
-    log(f"[8] {T2} steps in {wall:.2f} s; profiles {profiles}")
+    log(f"[{tag}] boundary: average bpp {schedule.average_bpp(rep):.4f} "
+        f"over {len(rep['layers'])} linears; allowed patterns "
+        f"{rep['allowed']}")
+    log(f"[{tag}] {t2} steps in {wall:.2f} s; profiles {profiles}")
     return out["state"], records, profiles, rep
 
 
@@ -2496,6 +2554,7 @@ def phase_launcher():
 
 # ----------------------------------------------------- training, the rest ----
 REST_MB = 2                  # phase 16's microbatches a step
+REST_LAYERS = 12             # phase 16(a)'s depth (h2o-danube-1.8b has 24)
 CKPT_LAYERS = 2              # phase 16(b)'s depth (full width)
 # The middle of each precision's band of the logit s, where p = 1 +
 # round(log2(1 + e^-s)): (-2.33, -1.54] gives 4 bits, (-0.60, 0.88] 2 and
@@ -2602,8 +2661,9 @@ def _release():
 
 def phase_mixed_training(cfg, dev):
     from repro_torch.optim import grad_compress as gcomp
-    """Phase 16(a): full-width, 24-layer h2o-danube-1.8b from mixed logits
-    through 3 Phase-I and 3 Phase-II steps at REST_MB microbatches,
+    """Phase 16(a): full-width h2o-danube-1.8b cut to REST_LAYERS, from
+    mixed logits through 3 Phase-I and 3 Phase-II steps at REST_MB
+    microbatches,
     hoisted, unhoisted and compressed (twice); the launches of every step
     checked, hoisted bitwise unhoisted, compressed bitwise run to run.
     Returns its record and (layer 0's frozen pbits by linear name)."""
@@ -3910,6 +3970,251 @@ def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
     return st
 
 
+# ---------------------------------------------------------- SSM training ----
+SSM_TRAIN_LAYERS = 16        # phase 19(b)'s depth (mamba2-2.7b has 64)
+SSM_CPU_TOKENS = 128         # phase 19(c)'s tokens a layer (1 x 128)
+
+
+def param_digest(model) -> float:
+    """A float64 sum of every parameter, weighted by its position in the
+    model (a printable fingerprint; equality is checked tensor by
+    tensor)."""
+    total = 0.0
+    for i, p in enumerate(model.parameters()):
+        total += (i + 1) * p.detach().double().sum().item()
+    return total
+
+
+def _block_grads(block, x, g, cfg, noise, feed=None):
+    """One mamba block's forward and backward on x's device, its linears'
+    inputs fed from ``feed`` (a LinearTape's inputs) when given: (y, dx,
+    {parameter name: gradient}, the LinearTape)."""
+    from repro_torch.models import blocks as blocks_lib
+    tape = LinearTape(block, feed)
+    try:
+        xt = x.clone().requires_grad_(True)
+        y, _ = blocks_lib.block_apply(block, xt, None, cfg, cfg.quant, noise)
+        names, params = zip(*block.named_parameters())
+        grads = torch.autograd.grad(y, (xt,) + params, g)
+    finally:
+        tape.close()
+    return y.detach(), grads[0], dict(zip(names, grads[1:])), tape
+
+
+def check_ssm_training_against_cpu(dev):
+    """Phase 19(c): full-width mamba2-2.7b cut to 2 layers, fp32, at NOISE
+    (logits over the 4/2/1-bit bands, the same host-made draws) and QAT
+    (the default mix): each block on the card and on the CPU from the same
+    weights, input and cotangent, teacher-forced: layer 1 takes the card's
+    layer-0 output on both, and each linear on the card runs on the CPU's
+    input to it (``LinearTape``; a 1/2/4-bit activation code that the
+    upstream ops' rounding flips would otherwise move the block by order
+    1e-2). Every linear's output and its input as the card's own ops made
+    it, the block's y, dx and every leaf's gradient (the two linears' w
+    and s, conv_w, conv_b, A_log, D, dt_bias, norm_g, the block norm's g)
+    within relative L2 1e-5. Returns the worst of each."""
+    worst = {}
+    wide = dataclasses.replace(get_config(SSM_ARCH), num_layers=2,
+                               dtype="float32")
+    for mode in ("noise", "qat"):
+        cfg = wide.with_quant_mode(mode)
+        host = lm.init_params(cfg, seed=SEED + 19, device="cpu")
+        if mode == "noise":
+            set_mixed_logits(host, SEED + 19)
+        card = copy.deepcopy(host).to(dev)
+        host.requires_grad_(True)
+        card.requires_grad_(True)
+        noise = HostNoise((SEED, 19)) if mode == "noise" else None
+        gen = torch.Generator().manual_seed(SEED + 19)
+        x = torch.randn((1, SSM_CPU_TOKENS, cfg.d_model), generator=gen)
+        for i in range(cfg.num_layers):
+            g = torch.randn(x.shape, generator=gen)
+            yh, dxh, gh, th = _block_grads(host.blocks[i], x, g, cfg, noise)
+            yc, dxc, gc_, tc = _block_grads(card.blocks[i], x.to(dev),
+                                            g.to(dev), cfg, noise,
+                                            feed=th.inputs)
+            pairs = [("y", yc, yh), ("dx", dxc, dxh)] + [
+                (n, gc_[n], gh[n]) for n in gh]
+            for (name, _m, xc), (_n, _mh, xh), oc, oh in zip(
+                    tc.inputs, th.inputs, tc.outputs, th.outputs):
+                kind = name.rsplit(".", 1)[-1]
+                pairs += [(f"{kind}.in", xc, xh), (f"{kind}.out", oc, oh)]
+            for what, a, b in pairs:
+                key = f"{mode}.{what}"
+                worst[key] = max(worst.get(key, 0.0), rel_l2(a, b))
+            x = yc.cpu()
+        del host, card
+        torch.cuda.empty_cache()
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"SSM training card vs CPU over 1e-5: {bad}")
+    return worst
+
+
+def _ssm_training_summary(records, profiles, rep, model):
+    """Phase 19(b)'s record; the report must walk the mixer's linears as
+    the reference does, every layer's in_proj (K = 2560 channels: 160
+    groups) before every layer's out_proj (5120: 320 groups)."""
+    channels = [sum(layer["hist"]) for layer in rep["layers"]]
+    n = len(channels) // SSM_LINEARS
+    cfg = get_config(SSM_ARCH)
+    if channels != [cfg.d_model] * n + [cfg.d_inner] * n:
+        raise AssertionError(f"freeze order or widths: {channels}")
+    return {"steps": records, "profiles": profiles,
+            "histogram": precision_histogram(model),
+            "average_bpp": schedule.average_bpp(rep),
+            "allowed_patterns": rep["allowed"], "linears": len(rep["layers"])}
+
+
+def phase_ssm_training(dev, gen, results, rng):
+    """Phase 19: train the SSM family at the full width of mamba2-2.7b.
+    (a) B9, B8 and both backward kernels against their plain versions at
+    one layer's training linears (in_proj 2560 x 10576, N not a multiple
+    of 64; out_proj 5120 x 2560; B8's activations [8 * 128, K] bf16):
+    forward, dw and dx bitwise, ds within ``noise_inject.ds_bound``, one
+    layer's calls timed on both rulers (``phase_training_kernels``, into
+    ``results`` as ``ssm_train_*``). (b) SSM_TRAIN_LAYERS
+    layers, the logits over the 4/2/1-bit bands, 3 Phase-I steps, the
+    freeze and 3 Phase-II steps on TokenStream(batch 8, seq 128, seed 0)
+    (``phase_training``: each step's launches asserted, 4L B9 and 2L B9
+    backward a Phase-I step, 8L B8 and 4L B8 backward a Phase-II step;
+    peak memory; a device profile of steps 2 and 5 with the chunked SSD
+    apart, ``step_profile.ssm_train_summary``), then a second run bitwise
+    the first (losses, gradient norms, every parameter); the trained
+    model through ``soniq.to_serve`` (2L B7 launches, asserted) and a
+    DecodeEngine run of 4 requests (2L B1 a decode step, asserted).
+    (c) ``check_ssm_training_against_cpu``. (d) Full depth (64 layers):
+    one Phase-I step, the freeze and one Phase-II step, each step's
+    launches asserted and its peak memory under the card's. Returns the
+    numbers."""
+    from repro_torch import soniq
+    from repro_torch.api.state import SoniqState
+    from repro_torch.core.phases import Phase
+    out, laps, t_lap = {}, {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    full = get_config(SSM_ARCH)
+    for name, rec in phase_training_kernels(full, gen, dev).items():
+        results[name].update({f"ssm_train_{k}": v for k, v in rec.items()})
+    log(f"[19] {B9}, {B8} and both backward kernels at the {SSM_ARCH} "
+        f"training linears ({layer_linears(full)}): forward, dw and dx "
+        f"bitwise, ds within its bound: "
+        f"{ {n: results[n] for n in (B9, B8, B9_BWD, B8_BWD)} }")
+    torch.cuda.empty_cache()
+    lap("kernels")
+
+    cfg = dataclasses.replace(full, num_layers=SSM_TRAIN_LAYERS)
+    runs = []
+    for profiled in (True, False):
+        state, records, profiles, rep = phase_training(
+            cfg, dev, tag=19, spans=step_profile.SSM_TRAIN_SPANS,
+            summary=step_profile.ssm_train_summary, profiled=profiled,
+            mixed_seed=SEED + 19)
+        state["opt"] = None
+        runs.append((state["model"], records, profiles, rep))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if profiled:
+            lap("train_16")
+    (model, records, profiles, rep), (again, rec2, _p, rep2) = runs
+    del runs
+    same = [(r["loss"], r["grad_norm"]) for r in records] == \
+        [(r["loss"], r["grad_norm"]) for r in rec2]
+    params_same = all(torch.equal(a, b) for a, b in zip(
+        model.parameters(), again.parameters()))
+    if not (same and params_same and rep["layers"] == rep2["layers"]):
+        raise AssertionError(f"a second SSM training run differs: losses "
+                             f"equal {same}, parameters equal "
+                             f"{params_same}")
+    digest = param_digest(model)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train_16_again")
+    st = _ssm_training_summary(records, profiles, rep, model)
+    st.update(layers=cfg.num_layers, second_run_bitwise=True,
+              param_digest=digest,
+              second_run_ms=[r["ms"] for r in rec2],
+              launches_per_step={p: train_step_launches(cfg, p)
+                                 for p in (1, 2)})
+    log(f"[19] {cfg.num_layers} layers: a second run bitwise the first "
+        f"(losses, gradient norms, parameters; digest {digest!r}); frozen "
+        f"groups by precision {st['histogram']}, average bpp "
+        f"{st['average_bpp']:.4f} over {st['linears']} linears")
+    for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
+                      (B9_BWD, "b9_bwd")):
+        results[name]["ssm_train_run_launches"] = sum(r[key]
+                                                      for r in records)
+        results[name]["ssm_train_launches_per_step"] = max(
+            r[key] for r in records)
+    qcfg = cfg.with_quant_mode("qat")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = soniq.to_serve(SoniqState(Phase.QAT, model, qcfg))
+    torch.cuda.synchronize()
+    st["to_serve_s"] = time.perf_counter() - t0
+    st["to_serve_b7"] = kernels.launch_counts()[B7]
+    if st["to_serve_b7"] != SSM_LINEARS * cfg.num_layers:
+        raise AssertionError(f"{st['to_serve_b7']} B7 launches at to_serve,"
+                             f" not one a linear")
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    eng = engine.DecodeEngine(served.model, qcfg, ecfg, already_serve=True,
+                              device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    kernels.reset_launch_counts()
+    tokens = eng.generate(prompts, 8)
+    st["serve_b1"] = kernels.launch_counts()[B1]
+    st["b1_per_decode_step"] = step_launches(eng)[B1]
+    if st["b1_per_decode_step"] != SSM_LINEARS * cfg.num_layers \
+            or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"trained SSM serve: {st['b1_per_decode_step']}"
+                             f" B1 a decode step, tokens {tokens}")
+    st["served_tokens"] = tokens[:, 16:].tolist()
+    log(f"[19] to_serve: {st['to_serve_b7']} B7 launches in "
+        f"{st['to_serve_s']:.3f} s; served 4 requests ({st['serve_b1']} B1 "
+        f"launches, {st['b1_per_decode_step']} a decode step): tokens "
+        f"{st['served_tokens']}")
+    out["train_16"] = st
+    del eng, served, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+
+    out["card_vs_cpu"] = check_ssm_training_against_cpu(dev)
+    log(f"[19] two full-width layers, card vs CPU (fp32, relative L2; y, "
+        f"dx, every leaf's gradient): {out['card_vs_cpu']}")
+    lap("card_vs_cpu")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, records, _prof, rep = phase_training(
+        full, dev, tag=19, profiled=False, t1=1, t2=2)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = {r["phase"]: r["peak_gib"] for r in records}
+    if max(peaks.values()) * 2 ** 30 >= card_bytes:
+        raise AssertionError(f"full-depth peaks {peaks} GiB")
+    out["full_depth"] = dict(layers=full.num_layers, steps=records,
+                             peak_gib_by_phase=peaks,
+                             card_gib=card_bytes / 2 ** 30,
+                             qat_parameters=n_params,
+                             average_bpp=schedule.average_bpp(rep))
+    log(f"[19] full depth ({full.num_layers} layers, {n_params:,} "
+        f"parameters after the freeze): peak GiB by phase {peaks} of "
+        f"{card_bytes / 2 ** 30:.1f}")
+    lap("full_depth")
+    out["seconds"] = laps
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4251,7 +4556,8 @@ def main() -> int:
     clock.lap(15)
 
     # ------------------------------------------------------- phase 16 ----
-    rest, layer0 = phase_mixed_training(cfg, dev)
+    rest, layer0 = phase_mixed_training(
+        dataclasses.replace(cfg, num_layers=REST_LAYERS), dev)
     rest["layer0_card_vs_cpu"] = check_training_against_cpu(
         cfg, dev, qat_pbits=layer0, modes=("qat",))
     log(f"[16] phase 10's QAT linears on layer 0's frozen precisions "
@@ -4278,6 +4584,12 @@ def main() -> int:
     clock.lap(18)
 
     # ------------------------------------------------------- phase 19 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_train = phase_ssm_training(dev, gen, results, rng)
+    clock.lap(19)
+
+    # ------------------------------------------------------- phase 20 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
@@ -4334,7 +4646,13 @@ def main() -> int:
     for name, text in bank_work.items():
         work[name] += text + ("; moe_train_launches: the MoE training run"
                               ", launches_per_moe_train_step: a Phase-I "
-                              "(B9) or Phase-II (B8) step of it")
+                              "(B9) or Phase-II (B8) step of it; "
+                              "ssm_train_*: one mamba2-2.7b layer's "
+                              "training linears (in_proj 2560x10576, "
+                              "out_proj 5120x2560; B8 also their 8 x 128 "
+                              "bf16 activations), ssm_train_run_launches "
+                              "and ssm_train_launches_per_step: phase 19's "
+                              "16-layer run and a step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -4424,7 +4742,9 @@ def main() -> int:
     print(json.dumps({"dense_configs": dense}))
     print(json.dumps({"soniq": soniq_out}))
     print(json.dumps({"ssm_serve": ssm_out}))
+    print(json.dumps({"ssm_training": ssm_train}))
     print(json.dumps({"phase_seconds": clock.laps}))
+    print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

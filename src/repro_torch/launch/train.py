@@ -8,6 +8,8 @@ tokens, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-moe-16b --reduced --device cpu --steps 4 --t1 2 \
         --batch 2 --seq 16                                 # MoE, CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --reduced --device cpu --steps 4 --t1 2 --batch 2 --seq 16  # SSM
 
 Runs ``--t1`` Phase-I (noise) steps, the boundary, then Phase II (QAT) up
 to ``--steps``, on random weights from ``--seed`` and ``TokenStream``
@@ -57,10 +59,6 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    try:
-        state_lib.check_trainable(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
     tcfg = state_lib.TrainConfig(
         num_microbatches=args.microbatches, t1=args.t1, t2=args.steps,
         warmup=max(args.steps // 10, 1), seed=args.seed,

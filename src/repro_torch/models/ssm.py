@@ -83,23 +83,50 @@ class Mamba2(nn.Module):
         return out
 
 
+def _replace_inf(t: torch.Tensor) -> torch.Tensor:
+    """+inf -> 0 (JAX's guard in ``logaddexp``'s derivative)."""
+    return torch.where(t == float("inf"), torch.zeros((), dtype=t.dtype,
+                                                      device=t.device), t)
+
+
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` as JAX computes it,
+    with JAX's derivative: the forward is ``max(x, 0) + log1p(exp(-|x|))``
+    (``F.softplus`` returns x itself above its threshold of 20); the
+    backward is ``logaddexp``'s custom JVP, ``g * exp(x - out)`` with +inf
+    read as 0, which is 0.5 at x = 0 (autograd of the forward's formula
+    gives 1 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(_replace_inf(x) - _replace_inf(out))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` as JAX computes it:
-    ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` returns x itself
-    above its threshold of 20)."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus`` with JAX's derivative (:class:`_Softplus`)."""
+    return _Softplus.apply(x)
 
 
 def _segsum_exp(da: torch.Tensor) -> torch.Tensor:
     """da [..., L] log-decays -> lower-triangular decay matrix
-    L[i, j] = exp(sum_{j < t <= i} da_t), 0 for j > i. [..., L, L]."""
+    L[i, j] = exp(sum_{j < t <= i} da_t), 0 for j > i. [..., L, L]. The
+    upper triangle is set to -inf before the ``exp`` (which gives 0
+    exactly, with a zero gradient): masking after it would multiply an
+    overflowed ``exp(diff)`` by a zero cotangent, NaN in the backward."""
     n = da.shape[-1]
     cs = torch.cumsum(da, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]          # [..., i, j]
     mask = torch.tril(torch.ones((n, n), dtype=torch.bool,
                                  device=da.device))
-    return torch.where(mask, torch.exp(diff), torch.zeros((), dtype=da.dtype,
-                                                          device=da.device))
+    return torch.exp(torch.where(mask, diff, torch.full(
+        (), float("-inf"), dtype=da.dtype, device=da.device)))
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:

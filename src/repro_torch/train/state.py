@@ -25,18 +25,6 @@ from repro_torch.optim import adamw, grad_compress, schedules
 StepNoiseFn = Callable[[int], smol.NoiseSource]
 
 
-def check_trainable(arch_cfg) -> None:
-    """Refuse a family whose training is not ported: the SSM (the mixer
-    under NOISE and QAT with the reference's draws replayed, the freeze
-    over ``in_proj``/``out_proj``, its checkpoints) is the next slice of
-    the port; it serves already."""
-    if arch_cfg.family == "ssm":
-        raise NotImplementedError(
-            f"training {arch_cfg.name} (family 'ssm') belongs to the next "
-            f"port slice, SSM training; the port serves it "
-            f"(repro_torch.launch.serve)")
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     num_microbatches: int = 1
@@ -103,7 +91,6 @@ def train_step(state: Dict, batch: Dict, arch_cfg, tcfg: TrainConfig,
     backward through B8 (the clipped STE: a mask, so the result is
     bitwise the unhoisted step's). ``tcfg.grad_compress``: the gradients
     then pass through int8 compression with error feedback."""
-    check_trainable(arch_cfg)
     model = state["model"]
     phase1 = arch_cfg.quant.mode == "noise"
     if phase1 and noise is None:

@@ -34,7 +34,8 @@ from repro_torch.train import checkpoint as pckpt
 from repro_torch.train import loop as ploop
 from repro_torch.train import state as pstate
 
-from test_torch_train import _abs_diffs, _configs, _true_division
+from test_torch_train import ARCH, SSM_ARCH, _abs_diffs, _configs, \
+    _true_division
 
 TK = dict(t1=0, t2=4, warmup=1, seed=3, checkpoint_every=2)
 
@@ -182,14 +183,20 @@ def test_port_checkpoint_continues_on_jax(reference_run, tmp_path):
 
 
 # ------------------------------------------------- states, both ways ----
-@pytest.mark.parametrize("mode,compress", [("noise", False), ("qat", True),
-                                           ("noise", True)])
-def test_states_cross_both_ways_bitwise(mode, compress, tmp_path):
+@pytest.mark.parametrize("mode,compress,arch", [
+    ("noise", False, ARCH), ("qat", True, ARCH), ("noise", True, ARCH),
+    ("noise", True, SSM_ARCH), ("qat", True, SSM_ARCH)],
+    ids=["noise-False", "qat-True", "noise-True", "ssm-noise-True",
+         "ssm-qat-True"])
+def test_states_cross_both_ways_bitwise(mode, compress, arch, tmp_path):
     """A port state (random moments and, compressing, errors) saved by the
     port restores in the reference's ``restore`` with its ``init_state``
     as template, bit for bit; the reference saves what it restored, and
-    the port restores it into the same state, bit for bit."""
-    jcfg, pcfg = _configs()
+    the port restores it into the same state, bit for bit. On the SSM the
+    mixer's fp leaves (``conv_w`` ... ``norm_g``), their moments and
+    errors cross with its two linears, stacked under
+    ``groups[0]["mamba"]``."""
+    jcfg, pcfg = _configs(arch=arch)
     jcfg, pcfg = jcfg.with_quant_mode(mode), pcfg.with_quant_mode(mode)
     tk = dict(grad_compress=compress, t1=2, t2=4)
     pt = pstate.TrainConfig(**tk)
@@ -218,8 +225,13 @@ def test_states_cross_both_ways_bitwise(mode, compress, tmp_path):
             continue
         a, b = np.asarray(leaf), pflat[path]
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
-    if compress:
+    if compress and arch == ARCH:
         assert np.asarray(jrest["err"]["groups"][0]["attn"]["wq"]["w"]).any()
+    elif compress:
+        for leaf in ("conv_w", "dt_bias"):
+            assert np.asarray(jrest["err"]["groups"][0]["mamba"][leaf]).any()
+        assert np.asarray(jrest["opt"]["mu"]["groups"][0]["mamba"][
+            "in_proj"]["w"]).any()
     jd = str(tmp_path / "jax")
     jckpt.save(jax.tree.map(jnp.asarray, jrest), jd, 3)
     back, _ = pckpt.restore(jd)

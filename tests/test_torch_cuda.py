@@ -706,7 +706,13 @@ def test_verify_lanes_bitwise_the_decode_rows(dev, hk, gq, d, paged):
 
 
 # ------------------------------------------------------------ training ----
-@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+# h2o-danube-1.8b's training linears, a ragged one, and mamba2-2.7b's
+# in_proj (N = 10576, not a multiple of 64) and out_proj.
+TRAIN_SHAPES = [(2560, 640), (6912, 2560), (48, 13), (2560, 10576),
+                (5120, 2560)]
+
+
+@pytest.mark.parametrize("k,n", TRAIN_SHAPES)
 def test_noise_inject_bit_equal(dev, k, n):
     from repro_torch.kernels import noise_inject as ni
     g = torch.Generator(device=dev).manual_seed(k + n)
@@ -747,12 +753,35 @@ def test_fake_quant_bit_equal(dev, dtype, row_scale, k_dim):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("k,n", [(2560, 10576), (5120, 2560)])
+def test_fake_quant_bit_equal_at_the_ssm_shapes(dev, k, n):
+    """B8 at mamba2-2.7b's training linears: the fp32 weight [K, N] with
+    per-group scales (K along rows) and the bf16 activations [8 * 128, K]
+    with per-row scales, one launch each, bitwise the plain version."""
+    from repro_torch.kernels import fake_quant as fq
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (k // 16,), generator=g, device=dev)]
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    x = (torch.randn((1024, k), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    cases = ((w, quant.per_group_weight_scale(w, 16), False, 0),
+             (x, quant.abs_max_scale(x, dim=1).reshape(-1), True, 1))
+    for t, scale, row_scale, k_dim in cases:
+        kernels.reset_launch_counts()
+        got = fq.fake_quant(t, pb, scale, row_scale=row_scale, k_dim=k_dim)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fake_quant"] == 1
+        assert torch.equal(got, fq.fake_quant_plain(
+            t, pb, scale, row_scale=row_scale, k_dim=k_dim))
+
+
 def _int_view(t):
     """Bits of a float tensor, so -0 and +0 compare unequal."""
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+@pytest.mark.parametrize("k,n", TRAIN_SHAPES)
 def test_noise_inject_bwd_equals_plain(dev, k, n):
     """B9's backward kernel: dw bitwise the plain version, ds within
     ``ni.ds_bound`` (the same fp32 terms summed in another order), one
@@ -780,7 +809,7 @@ def test_noise_inject_bwd_equals_plain(dev, k, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
                                              (False, 0), (True, 0)])
-@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560), (48, 13)])
+@pytest.mark.parametrize("k,n", TRAIN_SHAPES)
 def test_fake_quant_bwd_equals_plain(dev, k, n, row_scale, k_dim, dtype):
     """B8's backward kernel, bitwise the plain version (-0 and NaN
     included) on every layout, one launch a call, run to run."""

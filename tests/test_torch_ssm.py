@@ -38,7 +38,6 @@ from repro_torch.models import lm as plm
 from repro_torch.models import ssm as pssm
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
-from repro_torch.train import state as pstate
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "mamba2-2.7b"
@@ -673,13 +672,3 @@ def test_serve_launcher_serves_the_ssm_without_jax():
     want = 4 * (4 * 4 * 64 * 32 * 4 + 4 * 3 * 320 * 4)
     assert f"[ssm-state] {want:,} bytes" in out.stdout
 
-
-def test_training_an_ssm_is_refused_with_the_next_slice():
-    cfg = pget_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        pstate.check_trainable(cfg)
-    pstate.check_trainable(pget_config("h2o-danube-1.8b").reduced())
-    from repro_torch.launch import train as ptrain
-    with pytest.raises(SystemExit) as e:
-        ptrain.main(["--arch", ARCH, "--reduced", "--device", "cpu"])
-    assert e.value.code == 2

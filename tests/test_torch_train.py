@@ -56,16 +56,17 @@ from repro_torch.train import loop as ploop
 from repro_torch.train import state as pstate
 
 ARCH = "h2o-danube-1.8b"
+SSM_ARCH = "mamba2-2.7b"
 LINEARS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.up",
            "mlp.gate", "mlp.down")
 
 
 # ------------------------------------------------------------- helpers ----
-def _configs(layers=2):
-    j = jget_config(ARCH).reduced()
+def _configs(layers=2, arch=ARCH):
+    j = jget_config(arch).reduced()
     j = dataclasses.replace(j, num_layers=layers, quant=dataclasses.replace(
         j.quant, backend="xla_ref"))
-    p = dataclasses.replace(pget_config(ARCH).reduced(), num_layers=layers)
+    p = dataclasses.replace(pget_config(arch).reduced(), num_layers=layers)
     return j, p
 
 
@@ -95,15 +96,22 @@ def _true_division():
         yield
 
 
-def linear_key_paths(rng, num_layers):
+def linear_key_paths(rng, num_layers, ssm=False):
     """{port linear path: its JAX key} as ``lm.forward`` splits ``rng``
     (group fold_in, per-layer scan split, block split in 4, attention's
-    (qkv, o) split then qkv in 3, the MLP's split in 3)."""
+    (qkv, o) split then qkv in 3, the MLP's split in 3; with ``ssm``, the
+    block's third key to the mixer, split in 2 for ``in_proj`` and
+    ``out_proj``)."""
     key = jax.random.fold_in(rng, 0)
     out = {}
     for i in range(num_layers):
         key, sub = jax.random.split(key)
         rs = jax.random.split(sub, 4)
+        if ssm:
+            kin, kout = jax.random.split(rs[2])
+            out[f"blocks.{i}.mamba.in_proj"] = kin
+            out[f"blocks.{i}.mamba.out_proj"] = kout
+            continue
         a, ao = jax.random.split(rs[0])
         q3 = jax.random.split(a, 3)
         m3 = jax.random.split(rs[3], 3)
@@ -147,6 +155,8 @@ def _random_s(tree, rng):
 
 def _stacked_linears(tree):
     blk = tree["groups"][0]
+    if "mamba" in blk:
+        return [blk["mamba"][n] for n in ("in_proj", "out_proj")]
     return [blk["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
         [blk["mlp"][n] for n in ("up", "gate", "down")]
 
@@ -297,12 +307,15 @@ def test_solve_problem1_equals_jax(hist, np_patterns):
         (j.num_vectors, j.counts, j.capacity)
 
 
-@pytest.mark.parametrize("num_patterns", [4, 6])
-def test_freeze_qat_equals_jax(num_patterns):
+@pytest.mark.parametrize("arch,num_patterns", [
+    (ARCH, 4), (ARCH, 6), (SSM_ARCH, 4), (SSM_ARCH, 6)],
+    ids=["4", "6", "ssm-4", "ssm-6"])
+def test_freeze_qat_equals_jax(arch, num_patterns):
     """pattern_match_params / freeze_qat on the same trained logits: the
     same frozen pbits per linear, the same report (per-layer histograms,
-    vectors, bpp, allowed patterns)."""
-    jcfg, pcfg = _configs()
+    vectors, bpp, allowed patterns). On the SSM the mixer's two linears,
+    ``in_proj`` before ``out_proj``, then the layer."""
+    jcfg, pcfg = _configs(arch=arch)
     jcfg = jcfg.with_quant_mode("noise")
     jq = dataclasses.replace(jcfg.quant, num_patterns=num_patterns)
     pq = dataclasses.replace(pcfg.quant, mode="noise",
@@ -378,8 +391,10 @@ def test_token_stream_equals_jax():
 
 
 # --------------------------------------------------------- train step ----
-@pytest.mark.parametrize("mode", ["qat", "noise"])
-def test_train_step_equals_jax(mode):
+@pytest.mark.parametrize("arch,mode", [
+    (ARCH, "qat"), (ARCH, "noise"), (SSM_ARCH, "qat"), (SSM_ARCH, "noise")],
+    ids=["qat", "noise", "ssm-qat", "ssm-noise"])
+def test_train_step_equals_jax(arch, mode):
     """One step of the 2-layer reduced fp32 model from the same weights
     and batch (NOISE on replayed draws): the loss and the gradient norm
     within rtol 1e-5; the updated parameters within 2e-6 absolute but for
@@ -388,8 +403,9 @@ def test_train_step_equals_jax(mode):
     differs by summation order barely moves it, except where the gradient
     cancels to within ~1e-8 of zero and eps = 1e-8 makes the update
     sensitive: measured, 1 element of 32,768 of one weight, off by 3.3e-6
-    (QAT) and 2.7e-5 (NOISE)."""
-    jcfg, pcfg = _configs()
+    (QAT) and 2.7e-5 (NOISE). On the SSM (the mixer's fp leaves train
+    too) the same bounds."""
+    jcfg, pcfg = _configs(arch=arch)
     jcfg, pcfg = jcfg.with_quant_mode(mode), pcfg.with_quant_mode(mode)
     tree = _jax_params(jcfg)
     tcfg_kw = dict(warmup=1, t1=1 if mode == "noise" else 0, t2=4)
@@ -408,7 +424,8 @@ def test_train_step_equals_jax(mode):
     model = interop.params_from_numpy(tree, pcfg, "cpu")
     pst = pstate.init_state(pcfg, pt, model=model)
     pst["step"] = 1
-    draws = JaxDraws(linear_key_paths(rng, pcfg.num_layers))
+    draws = JaxDraws(linear_key_paths(rng, pcfg.num_layers,
+                                      ssm=arch == SSM_ARCH))
     pst, pm = pstate.train_step(pst, batch, pcfg, pt,
                                 (lambda i: draws) if mode == "noise"
                                 else None)
@@ -428,7 +445,13 @@ def test_microbatches_average_their_gradients():
     within the port: against the reference, the batch-1 microbatch of this
     batch puts the abs-max activation of block 0 on the STE knife edge
     (|x / s| = 1.875 -+ 1 ulp, ROADMAP §C)."""
-    _, pcfg = _configs()
+    microbatch_case(ARCH)
+
+
+def microbatch_case(arch):
+    """``test_microbatches_average_their_gradients`` on the reduced
+    ``arch``."""
+    _, pcfg = _configs(arch=arch)
     pcfg = pcfg.with_quant_mode("qat")
     batch = next(psynthetic.TokenStream(psynthetic.TokenStreamConfig(
         vocab_size=pcfg.vocab_size, seq_len=16, batch_size=2,
@@ -463,7 +486,20 @@ def test_recomputed_blocks_see_the_same_noise():
     linear's path, so recomputing each block in the backward gives the
     gradients of the plain backward bit for bit, and a second draw of the
     same (key, path) is the same noise."""
-    _, pcfg = _configs()
+    recompute_case(ARCH)
+    src = psmol.StepNoise((1, 0, 0))
+    x = torch.zeros(2, 3, 128)
+    d1, d2 = src.draw("blocks.0.attn.wq", x), src.draw("blocks.0.attn.wq", x)
+    d3 = src.draw("blocks.0.attn.wk", x)
+    assert torch.equal(d1.seed, d2.seed) and torch.equal(d1.act_eps,
+                                                         d2.act_eps)
+    assert not torch.equal(d1.act_eps, d3.act_eps)
+
+
+def recompute_case(arch):
+    """A NOISE loss and its gradients with every block recomputed in the
+    backward equal the plain backward's, bit for bit (reduced ``arch``)."""
+    _, pcfg = _configs(arch=arch)
     pcfg = pcfg.with_quant_mode("noise")
     batch = next(psynthetic.TokenStream(psynthetic.TokenStreamConfig(
         vocab_size=pcfg.vocab_size, seq_len=16, batch_size=2,
@@ -479,13 +515,6 @@ def test_recomputed_blocks_see_the_same_noise():
     assert grads["full"][0] == grads["none"][0]
     for a, b in zip(grads["full"][1], grads["none"][1]):
         assert torch.equal(a, b)
-    src = psmol.StepNoise((1, 0, 0))
-    x = torch.zeros(2, 3, 128)
-    d1, d2 = src.draw("blocks.0.attn.wq", x), src.draw("blocks.0.attn.wq", x)
-    d3 = src.draw("blocks.0.attn.wk", x)
-    assert torch.equal(d1.seed, d2.seed) and torch.equal(d1.act_eps,
-                                                         d2.act_eps)
-    assert not torch.equal(d1.act_eps, d3.act_eps)
 
 
 def test_loop_train_equals_jax():
@@ -493,19 +522,32 @@ def test_loop_train_equals_jax():
     (logits spread so the boundary mixes precisions) on the same batches
     and replayed draws: the loss history within 1e-4 and the frozen pbits
     and pattern report equal to the reference's."""
-    jcfg, pcfg = _configs()
-    tk = dict(t1=2, t2=4, warmup=1, seed=3)
-    jt = jstate.TrainConfig(**tk)
-    pt = pstate.TrainConfig(**tk)
+    assert_loop_train_equal(*loop_train_runs(ARCH))
+
+
+LOOP_TK = dict(t1=2, t2=4, warmup=1, seed=3)
+
+
+def loop_stream(jcfg):
+    """The loop runs' batches (the reference's token stream)."""
+    return jsynthetic.TokenStream(jsynthetic.TokenStreamConfig(
+        vocab_size=jcfg.vocab_size, seq_len=16, batch_size=2,
+        seed=2)).batches()
+
+
+def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None):
+    """The reference's ``loop.train`` and the port's on the reduced
+    ``arch`` (``LOOP_TK``) from the reference's initial model, its logits
+    spread, on the same batches and replayed draws; each checkpoints
+    every 2 steps into its directory when given one. Returns (the
+    reference's output, the port's)."""
+    jcfg, pcfg = _configs(arch=arch)
+    ck = dict(checkpoint_every=2)
+    jt = jstate.TrainConfig(ckpt_dir=jax_ckpt, **ck, **LOOP_TK)
+    pt = pstate.TrainConfig(ckpt_dir=port_ckpt, **ck, **LOOP_TK)
     tree = _random_s(jax.device_get(jstate.init_state(
         jax.random.PRNGKey(jt.seed), jcfg.with_quant_mode("noise"),
         jt)["params"]), np.random.default_rng(8))
-
-    def stream():
-        return jsynthetic.TokenStream(jsynthetic.TokenStreamConfig(
-            vocab_size=jcfg.vocab_size, seq_len=16, batch_size=2,
-            seed=2)).batches()
-
     real_init = jstate.init_state
 
     def init_with(key, cfg, tcfg):
@@ -515,16 +557,24 @@ def test_loop_train_equals_jax():
 
     with _true_division(), mock.patch.object(jstate, "init_state",
                                              init_with):
-        jout = jloop.train(jcfg, jt, stream())
+        jout = jloop.train(jcfg, jt, loop_stream(jcfg))
 
     def noise(step):
         keys = linear_key_paths(jax.random.fold_in(
-            jax.random.PRNGKey(jt.seed + 1), step), pcfg.num_layers)
+            jax.random.PRNGKey(jt.seed + 1), step), pcfg.num_layers,
+            ssm=arch == SSM_ARCH)
         draws = JaxDraws(keys)
         return lambda i: draws
 
-    pout = ploop.train(pcfg, pt, stream(), device="cpu", noise=noise,
+    pout = ploop.train(pcfg, pt, loop_stream(jcfg), device="cpu",
+                       noise=noise,
                        model=interop.params_from_numpy(tree, pcfg, "cpu"))
+    return jout, pout
+
+
+def assert_loop_train_equal(jout, pout):
+    """The history within 1e-4, the pattern report and every frozen pbits
+    equal, the precisions mixed."""
     assert [m["phase"] for m in pout["history"]] == [1, 1, 2, 2]
     np.testing.assert_allclose([m["loss"] for m in pout["history"]],
                                [m["loss"] for m in jout["history"]],

@@ -40,7 +40,7 @@ from repro_torch.train import loop as ploop
 from repro_torch.train import state as pstate
 
 from test_torch_moe_train import _configs as moe_configs, _tree as moe_tree
-from test_torch_train import (_abs_diffs, _configs, _jax_params,
+from test_torch_train import (ARCH, _abs_diffs, _configs, _jax_params,
                               _true_division)
 
 
@@ -241,8 +241,8 @@ def test_prequantize_banks_equal_jax():
 
 
 # ------------------------------------------------------------ hoisted step ----
-def _step_setup(mode="qat"):
-    jcfg, pcfg = _configs()
+def _step_setup(mode="qat", arch=ARCH):
+    jcfg, pcfg = _configs(arch=arch)
     jcfg, pcfg = jcfg.with_quant_mode(mode), pcfg.with_quant_mode(mode)
     batch = next(jsynthetic.TokenStream(jsynthetic.TokenStreamConfig(
         vocab_size=jcfg.vocab_size, seq_len=16, batch_size=4,
@@ -265,7 +265,13 @@ def test_hoisted_step_is_the_unhoisted_step_bitwise():
     gradient backward through it once) and unhoisted (a B8 call a weight
     in every microbatch): the same loss, gradient norm and parameters,
     bit for bit; also with compression, the same error."""
-    _, pcfg, tree, batch = _step_setup()
+    hoisted_case()
+
+
+def hoisted_case(arch=ARCH):
+    """``test_hoisted_step_is_the_unhoisted_step_bitwise`` on the reduced
+    ``arch``; returns the two compressed runs' states."""
+    _, pcfg, tree, batch = _step_setup(arch=arch)
     for compress in (False, True):
         runs = [_port_step(tree, pcfg, batch, num_microbatches=2,
                            hoist_weight_quant=h, grad_compress=compress)
@@ -279,6 +285,7 @@ def test_hoisted_step_is_the_unhoisted_step_bitwise():
         if compress:
             for n in a["err"]:
                 assert torch.equal(a["err"][n], b["err"][n]), n
+    return a, b
 
 
 def test_hoisted_step_equals_jax():

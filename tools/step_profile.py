@@ -9,6 +9,9 @@ load (deploy packing), split by the torch op or kernel that did the work
     summary = step_profile.device_summary(prof)   # in on_trace_ready
     undo()
 
+An SSM training step installs ``SSM_TRAIN_SPANS`` and reads
+``ssm_train_summary`` (the chunked SSD's forward and backward apart).
+
 The port carries no profiler ranges of its own. ``install_spans`` wraps a
 few functions of whichever checkout of ``repro_torch`` is imported (a
 function that an older checkout lacks, such as the gradient compression,
@@ -66,8 +69,15 @@ SSM_SPANS = (
     ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
     ("repro_torch.models.lm", "logits", "readout"),
 )
+# A training step of the SSM (``ssm_train_summary``): the training spans
+# and the chunked SSD scan, whose kernels count to ``ssd`` in the forward
+# and the recompute and to ``ssd_bwd`` in the backward (``SPLIT_BACKWARD``),
+# its float64 GEMMs included.
+SSM_TRAIN_SPANS = SPANS + (("repro_torch.models.ssm", "ssd_chunked", "ssd"),)
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
                   "_FakeQuantBackward": "fake_quant_bwd"}
+# Ranges whose backward nodes count apart, as ``<label>_bwd``.
+SPLIT_BACKWARD = frozenset({"ssd"})
 
 
 def install_spans(spans=SPANS) -> Callable[[], None]:
@@ -115,26 +125,47 @@ def _label(event, forward_labels):
             node = e.name[len(NODE):]
             if node in BACKWARD_NODES:
                 return BACKWARD_NODES[node]
-            return forward_labels.get((e.fwd_thread, e.sequence_nr))
+            label = forward_labels.get((e.fwd_thread, e.sequence_nr))
+            return f"{label}_bwd" if label in SPLIT_BACKWARD else label
         e = e.cpu_parent
     return None
 
 
-def op_split(events, skip: Callable[[str], bool]) -> Dict[str, float]:
-    """{label: device ms} over the kernels of a profiled window that the
-    profiler linked to the op that launched them, leaving out those whose
-    name ``skip`` accepts; ``rest`` holds the kernels no range claims."""
-    forward_labels = {}
+def forward_labels(events) -> Dict:
+    """{(thread, sequence number): label} of every forward op under a
+    range. A node's ``fwd_thread`` is the thread of the forward op that
+    made it; a forward op's own ``fwd_thread`` is 0, so its key is its
+    ``thread``."""
+    out = {}
     for e in events:
         if e.sequence_nr >= 0 and not e.name.startswith(NODE):
             label = _label(e, {})
             if label is not None:
-                forward_labels[(e.fwd_thread, e.sequence_nr)] = label
-    out: Dict[str, float] = defaultdict(float)
+                out[(e.thread, e.sequence_nr)] = label
+    return out
+
+
+def kernel_split(events, kind: Callable[[str], str]) -> Dict:
+    """{(label, kind(kernel name)): device ms} over the kernels of a
+    profiled window that the profiler linked to the op that launched them,
+    in one walk; ``rest`` labels the kernels no range claims."""
+    labels = forward_labels(events)
+    out: Dict = defaultdict(float)
     for e in events:
         for k in getattr(e, "kernels", ()):
-            if not skip(k.name):
-                out[_label(e, forward_labels) or "rest"] += k.duration / 1e3
+            out[(_label(e, labels) or "rest", kind(k.name))] += \
+                k.duration / 1e3
+    return out
+
+
+def op_split(events, skip: Callable[[str], bool]) -> Dict[str, float]:
+    """{label: device ms} over the kernels of a profiled window, leaving
+    out those whose name ``skip`` accepts (``kernel_split``)."""
+    out: Dict[str, float] = defaultdict(float)
+    for (label, keep), ms in kernel_split(
+            events, lambda name: not skip(name)).items():
+        if keep:
+            out[label] += ms
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -146,17 +177,24 @@ def _is_gemm(name: str) -> bool:
     return "gemm" in name.lower()
 
 
-def _named(name: str) -> bool:
-    """A kernel counted by its name: a GEMM or one of the port's."""
-    return _is_gemm(name) or any(k in name
-                                 for k in FWD_KERNELS + BWD_KERNELS)
+def kernel_kind(name: str) -> str:
+    """``gemm``, ``fwd`` (B8/B9), ``bwd`` (their backward kernels) or
+    ``other`` (plain torch ops)."""
+    if _is_gemm(name):
+        return "gemm"
+    if any(k in name for k in BWD_KERNELS):
+        return "bwd"
+    if any(k in name for k in FWD_KERNELS):
+        return "fwd"
+    return "other"
 
 
-def device_summary(prof) -> Dict:
+def device_summary(prof, split=None) -> Dict:
     """Device time of one profiled step by kernel: the total, the share of
     the fp32 GEMMs, of the port's B8/B9 forward kernels, of their backward
     kernels and of the rest (plain torch ops), the rest split by the op of
-    the port that launched it (``op_split``; ``unlinked``: kernels the
+    the port that launched it (``split``: ``kernel_split`` by
+    ``kernel_kind``, made here when not given; ``unlinked``: kernels the
     profiler tied to no op), and the top kernels. The step's own span
     annotation ("ProfilerStep*") and the ranges of ``install_spans``,
     which the profiler also lays on the device's timeline, are not
@@ -170,10 +208,16 @@ def device_summary(prof) -> Dict:
 
     busy = ms(lambda k: True)
     gemm = ms(_is_gemm)
-    fwd = ms(lambda k: any(n in k for n in FWD_KERNELS))
-    bwd = ms(lambda k: any(n in k for n in BWD_KERNELS))
+    fwd = ms(lambda k: kernel_kind(k) == "fwd")
+    bwd = ms(lambda k: kernel_kind(k) == "bwd")
     other = busy - gemm - fwd - bwd
-    by_op = op_split(prof.events(), _named)
+    if split is None:
+        split = kernel_split(prof.events(), kernel_kind)
+    by_op: Dict[str, float] = defaultdict(float)
+    for (label, kind), t in split.items():
+        if kind == "other":
+            by_op[label] += t
+    by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
     by_op["unlinked"] = other - sum(by_op.values())
     top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
     return {"kernels": sum(e.count for e in kern), "device_busy_ms": busy,
@@ -182,6 +226,28 @@ def device_summary(prof) -> Dict:
             "other_by_op": {k: round(v, 3) for k, v in by_op.items()},
             "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
                      e.count) for e in top]}
+
+
+def ssm_train_summary(prof) -> Dict:
+    """``device_summary`` of a training step of the SSM profiled under
+    ``SSM_TRAIN_SPANS``, with the chunked SSD apart: ``ssd_ms`` (its
+    forward and recompute) and ``ssd_bwd_ms`` (its backward), every kernel
+    of theirs counted, the float64 GEMMs too; ``fp32_gemm_ms`` the GEMMs
+    outside them; ``rest_ms`` what is left of the busy time after the
+    fp32 GEMMs, B8/B9 and their backward kernels and the SSD."""
+    split = kernel_split(prof.events(), kernel_kind)
+    out = device_summary(prof, split)
+    ssd = {k: sum(t for (label, _kind), t in split.items() if label == k)
+           for k in ("ssd", "ssd_bwd")}
+    ssd_gemm = sum(t for (label, kind), t in split.items()
+                   if label in ssd and kind == "gemm")
+    out.update(ssd_ms=round(ssd["ssd"], 3),
+               ssd_bwd_ms=round(ssd["ssd_bwd"], 3),
+               fp32_gemm_ms=round(out["gemm_ms"] - ssd_gemm, 3))
+    out["rest_ms"] = round(out["device_busy_ms"] - out["fp32_gemm_ms"]
+                           - out["b8_b9_ms"] - out["b8_b9_bwd_ms"]
+                           - sum(ssd.values()), 3)
+    return out
 
 
 def device_busy(prof) -> Dict:
