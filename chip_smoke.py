@@ -83,16 +83,18 @@ Phases (none catches an error; any failure exits non-zero):
      and the verify) and, on the fp ring, a profile of a round.
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
-  6. 4-bit KV serve at full width, cut to KV4_LAYERS = 12 of its 24
+  6. 4-bit KV serve at full width, cut to KV4_LAYERS = 6 of its 24
      layers (so the script stays inside its time limit; the lockstep
-     engine's host-bound steps set the phase's time): the ring
+     engine's host-bound steps set the phase's time; the 4-bit ring and
+     pool also serve full-depth starcoder2-7b, deepseek-moe-16b and
+     whisper-medium in phases 12, 14 and 20): the ring
      DecodeEngine (built
      from the QAT weights, so it packs), the LockstepEngine and the paged
      DecodeEngine on requests that share a 224-token prompt prefix and
      wrap the 256-entry ring, so the prefix map hits and shared pages are
      copied on write. Greedy tokens must be identical across the three;
      the ring runs must go through B4 and the paged run through B5, one
-     launch a layer (12 a decode step); the pool's invariants must hold.
+     launch a layer (6 a decode step); the pool's invariants must hold.
      Decode step times and tokens/s of each; a device profile of the ring
      and the paged decode step (busy time, B4/B5's share). Then
      speculative decoding over the 4-bit ring (B4) and pool (B5) on a
@@ -119,7 +121,7 @@ Phases (none catches an error; any failure exits non-zero):
      2^31) against per-expert plain versions; the layer's bank launches
      timed on both rulers beside the plain versions and the single
      launches.
-  8. Training: full-width h2o-danube-1.8b cut to TRAIN_LAYERS = 12 of its
+  8. Training: full-width h2o-danube-1.8b cut to TRAIN_LAYERS = 8 of its
      24 layers (phase 11's launcher runs all 24) through Phase I
      (noise, steps 0-2), the pattern freeze and Phase II (QAT, steps 3-5)
      with ``train.loop.train`` on TokenStream(batch 8, seq 128, seed 0);
@@ -128,9 +130,9 @@ Phases (none catches an error; any failure exits non-zero):
      of each phase (steps 2 and 5), its plain ops split by the op that
      launched them
      (``tools/step_profile.py``); the boundary's pattern report. Phase I
-     must launch B9 and not B8, with one B9 backward a linear (84 a step
-     at 12 layers); Phase II B8 and not B9, with one B8 backward a weight
-     and one an activation (168 a step); every loss finite.
+     must launch B9 and not B8, with one B9 backward a linear (56 a step
+     at 8 layers); Phase II B8 and not B9, with one B8 backward a weight
+     and one an activation (112 a step); every loss finite.
   9. The trained model packed (B7) and served: 4 requests through the
      DecodeEngine and the LockstepEngine, greedy tokens equal.
  10. Card vs CPU, teacher-forced: each of one full-width layer's seven
@@ -154,9 +156,10 @@ Phases (none catches an error; any failure exits non-zero):
      its dense layer and one MoE layer, and on full-width starcoder2-7b
      cut to two layers: every linear, expert bank, the router and the
      logits within relative L2 1e-5.
- 14. The other dense configs at full width: starcoder2-7b at its 32
-     layers (29 GB fp32 tree), deepseek-67b and mistral-large-123b at
-     depth 2 (their trees do not fit): packed (one B7 launch a linear),
+ 14. The other dense configs at full width: starcoder2-7b cut to 16 of
+     its 32 layers (so the script stays inside its time limit),
+     deepseek-67b and mistral-large-123b at depth 2 (their trees do not
+     fit): packed (one B7 launch a linear),
      served with the fp ring (4 requests of 16-48 prompt tokens, 12 new),
      lockstep equal to continuous; starcoder2-7b also speculatively
      (tokens identical to spec-off) and over the 4-bit ring and pool
@@ -175,15 +178,15 @@ Phases (none catches an error; any failure exits non-zero):
      teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
      1e-5.
  16. Training, the rest: (a) full-width h2o-danube-1.8b cut to
-     REST_LAYERS = 12 of its 24 layers (so phase 19 fits the time
+     REST_LAYERS = 8 of its 24 layers (so phases 19 and 20 fit the time
      limit), every linear's logits drawn over the 4/2/1-bit bands of the
      default mix,
      through 3 Phase-I and 3 Phase-II steps at 2 microbatches on phase
      8's stream, hoisted (B8 once a weight a step), so the frozen model
      holds 1-, 2- and 4-bit groups (histogram, average bpp) and B8 and
      its backward run at all three inside a step; the B8 and B9 launches
-     of every step checked (hoisted: 84 + 336 B8 and 84 + 168 B8
-     backward a Phase-II step; unhoisted: 672 and 336); the unhoisted
+     of every step checked (hoisted: 56 + 224 B8 and 56 + 112 B8
+     backward a Phase-II step; unhoisted: 448 and 224); the unhoisted
      run bitwise the hoisted one (losses, gradient norms, parameters);
      with int8 gradient compression twice, bitwise (the state holds
      ``err``); host ms and peak GiB a step of each, the device busy of
@@ -254,34 +257,66 @@ Phases (none catches an error; any failure exits non-zero):
      [8 * 128, K] bf16) against their plain versions as in phase 7
      (forward, dw and dx bitwise, ds within its bound), one layer's calls
      timed on both rulers (``ssm_train_*`` keys). (b) SSM_TRAIN_LAYERS =
-     16 layers, the logits drawn over the 4/2/1-bit bands, through 3
+     8 layers, the logits drawn over the 4/2/1-bit bands, through 3
      Phase-I steps, the freeze and 3 Phase-II steps on TokenStream(batch
-     8, seq 128, seed 0): every step's launches asserted (64 B9 and 32
-     B9 backward a Phase-I step, 128 B8 and 64 B8 backward a Phase-II
+     8, seq 128, seed 0): every step's launches asserted (32 B9 and 16
+     B9 backward a Phase-I step, 64 B8 and 32 B8 backward a Phase-II
      step: each block is recomputed), peak memory, a device profile of
      steps 2 and 5 (busy, fp32 GEMMs, B8/B9 and their backward, the
      chunked SSD's forward and backward apart, the rest); a second run
      bitwise the first (losses, gradient norms, every parameter); the
-     frozen precision histogram and bpp; ``soniq.to_serve`` (32 B7
-     launches, asserted) and a DecodeEngine run of 4 requests (32 B1 a
+     frozen precision histogram and bpp; ``soniq.to_serve`` (16 B7
+     launches, asserted) and a DecodeEngine run of 4 requests (16 B1 a
      decode step, asserted), tokens reported. (c) Two full-width layers,
      fp32, card vs CPU teacher-forced at NOISE (the same host-made draws)
      and QAT: each block's y, dx and every leaf's gradient within
      relative L2 1e-5. (d) Full depth (64 layers): one Phase-I step, the
      freeze and one Phase-II step (launches asserted), each step's peak
      memory under the card's. The ``ssm_training`` JSON line.
- 20. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 20. Encoder-decoder serve: whisper-medium at full width and depth (24
+     encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff
+     4096, GELU, LayerNorm, tied vocab 51865; random QAT weights of the
+     seed, bf16 compute). (a) B1 at the encoder's six linears at M = 4 x
+     1500 frames = 6000 rows and at the decoder's M = 4, 16 and 32,
+     within the fp32 reordering bound; B7 on one decoder layer's ten
+     linears, bitwise; B4 on the cross K/V (T = 1500, Hk = 16, G = 1,
+     D = 64, every key position 0, the queries at 2^30) at S = 1, 4 and
+     8 within its bound and each lane bitwise the S = 1 call; B4 and B5
+     on the self ring and pool at this geometry; each timed on both
+     rulers beside its plain version and torch.matmul / SDPA. (b) The
+     DecodeEngine's load: 384 B7 launches (asserted), pack_s, device
+     busy, peak memory. (c) One encode pass of 4 x 1500 mel frames: 144
+     B1 launches (asserted), host ms and device ms by op (B1, the
+     float64 attention, LayerNorm, GELU, the rest). (d) ``load_cross`` at
+     fp and at 4 bits: 48 B1 launches each (asserted), the cross
+     payload bytes. (e) 8 requests of 16-64 prompt tokens and 16 new
+     over the fp ring (twice, bitwise); the first 4 over the 4-bit ring
+     and the 4-bit pool (tokens equal the ring's) and, prompts cut to 16
+     tokens, speculatively (k = 3, draft bits 2; tokens equal spec-off,
+     768 B1 a round); per decode
+     step 192 B1 (the cross layer's wk/wv of x are not projected), 48 B4
+     on the 4-bit ring, 24 B5 and 24 B4 on the pool (asserted); a device
+     profile of a decode and an 8-lane prefill step. (f) Card vs CPU,
+     fp32: the reduced config's encoder output within relative L2 1e-5
+     and its tokens identical; one full-width encoder and decoder layer
+     teacher-forced, every linear and the logits within 1e-5. (g)
+     ``soniq.apply(..., frames=...)`` of the reduced config at SERVE,
+     card vs CPU within 1e-5. The ``whisper_serve`` JSON line.
+     ``python3 chip_smoke.py --only 20`` builds the kernels and runs this
+     phase alone.
+ 21. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
      B8, B9 and the backward rows; phase 18's ``ssm_*`` keys and SSM
      launches on B1 and B7; phase 19's ``ssm_train_*`` keys on B8, B9
-     and the backward rows), the ``kv4_serve``, ``training``,
+     and the backward rows; phase 20's ``whisper_*`` keys and launches
+     on B1, B4, B5 and B7), the ``kv4_serve``, ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
-     ``ssm_serve``, ``ssm_training``, ``phase_seconds`` and
-     ``phase_cpu_seconds`` JSON lines, the nvidia-smi line,
-     and last the ``{"ok": true, ...}`` line.
+     ``ssm_serve``, ``ssm_training``, ``whisper_serve``,
+     ``phase_seconds`` and ``phase_cpu_seconds`` JSON lines, the
+     nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -335,12 +370,12 @@ B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
-KV4_LAYERS = 12              # phase 6's depth (h2o-danube-1.8b has 24)
+KV4_LAYERS = 6               # phase 6's depth (h2o-danube-1.8b has 24)
 # Phase 8's depth (phase 11's launcher runs all 24 layers).
-TRAIN_LAYERS = 12
+TRAIN_LAYERS = 8
 # The other dense configs (arch, depth: None = the config's own), each at
 # full width; starcoder2-7b has 32 layers.
-DENSE_CONFIGS = ((DENSE_ARCH, None), ("deepseek-67b", 2),
+DENSE_CONFIGS = ((DENSE_ARCH, 16), ("deepseek-67b", 2),
                  ("mistral-large-123b", 2))
 SOURCES = {B1: "src/repro_torch/csrc/segment_gemm.cu",
            B2: "src/repro_torch/csrc/segment_gemm.cu",
@@ -1260,8 +1295,14 @@ def requests(vocab, rng, n=8, lo=16, hi=64, new=16):
                     max_new_tokens=new, seed=i) for i in range(n)]
 
 
-def serve_all(eng, reqs):
+def serve_all(eng, reqs, cross=None):
+    """``reqs`` through the emptied engine: (completions in request order,
+    wall seconds of the serve). ``cross``: an encoder output loaded first
+    (``load_cross``, outside the timed serve)."""
     eng.reset()
+    if cross is not None:
+        eng.load_cross(cross)
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = {c.request_id: c for c in eng.serve(
         [dataclasses.replace(r) for r in reqs])}
@@ -1518,13 +1559,16 @@ def shared_prefix_requests(vocab, rng, prefix=224, tail=16, waves=(8, 32),
     return reqs
 
 
-def timed_serve(eng, reqs, step_counts=None):
+def timed_serve(eng, reqs, step_counts=None, cross=None):
     """Serve ``reqs`` step by step: (completions in request order, wall
     seconds, median host-clock ms of the steps where every active slot
     decodes (a speculative engine's rounds), with the pool checked after
     every step). ``step_counts``, a dict, receives the kernel launches of
-    the first such step."""
+    the first such step. ``cross``: an encoder output, loaded into the
+    emptied engine (``load_cross``) before the requests."""
     eng.reset()
+    if cross is not None:
+        eng.load_cross(cross)
     for r in reqs:
         eng.submit(dataclasses.replace(r))
     out, decode_ms = {}, []
@@ -1554,7 +1598,7 @@ def timed_serve(eng, reqs, step_counts=None):
 
 
 def spec_serve(model, cfg, ecfg, reqs, want, dev, per_round=None,
-               profile=False):
+               profile=False, cross=None):
     """``reqs`` through a speculative DecodeEngine (k = SPEC_TOKENS, draft
     bits DRAFT_BITS) over ``ecfg``'s cache, on the packed ``model``: its
     greedy tokens must equal ``want`` (the spec-off completions), rounds
@@ -1563,13 +1607,16 @@ def spec_serve(model, cfg, ecfg, reqs, want, dev, per_round=None,
     round where every slot decodes, the kernel launches of one such round
     (checked against ``per_round``, {kernel: launches}, where given),
     ``spec_off_tok_s`` (a spec-off engine over the same cache and
-    requests, whose tokens must also equal ``want``) and, with
-    ``profile``, a device profile of a round."""
+    requests, whose tokens must also equal ``want``; None: they are the
+    reference the speculative tokens are held to) and, with ``profile``,
+    a device profile of a round. ``cross``: an encoder-decoder's encoder
+    output, loaded into each engine first."""
     t0 = time.perf_counter()
     off = engine.DecodeEngine(model, cfg, ecfg, already_serve=True,
                               device=dev)
-    off_out, off_wall, _step = timed_serve(off, reqs)
+    off_out, off_wall, _step = timed_serve(off, reqs, cross=cross)
     del off
+    want = off_out if want is None else want
     for a, b in zip(want, off_out):
         if not np.array_equal(a.tokens, b.tokens):
             raise AssertionError(f"spec-off rerun != spec-off tokens "
@@ -1580,7 +1627,7 @@ def spec_serve(model, cfg, ecfg, reqs, want, dev, per_round=None,
     drafts = backend.draft_matmul_call_count()
     kernels.reset_launch_counts()
     round_counts = {}
-    out, wall, round_ms = timed_serve(eng, reqs, round_counts)
+    out, wall, round_ms = timed_serve(eng, reqs, round_counts, cross=cross)
     for a, b in zip(want, out):
         if not np.array_equal(a.tokens, b.tokens):
             raise AssertionError(f"spec tokens != spec-off tokens (request "
@@ -2554,7 +2601,7 @@ def phase_launcher():
 
 # ----------------------------------------------------- training, the rest ----
 REST_MB = 2                  # phase 16's microbatches a step
-REST_LAYERS = 12             # phase 16(a)'s depth (h2o-danube-1.8b has 24)
+REST_LAYERS = 8              # phase 16(a)'s depth (h2o-danube-1.8b has 24)
 CKPT_LAYERS = 2              # phase 16(b)'s depth (full width)
 # The middle of each precision's band of the logit s, where p = 1 +
 # round(log2(1 + e^-s)): (-2.33, -1.54] gives 4 bits, (-0.60, 0.88] 2 and
@@ -3383,8 +3430,9 @@ def check_layers_against_cpu(arch, seed, ecfg, dev):
 
 def phase_dense_configs(dev, rng, spec_runs):
     """The other dense configs at full width from random QAT weights of
-    the seed: starcoder2-7b at its depth (32 layers; biases, non-gated
-    gelu, Hk = 4, G = 9), deepseek-67b and mistral-large-123b at depth 2
+    the seed: starcoder2-7b at the depth ``DENSE_CONFIGS`` gives (16 of
+    its 32 layers; biases, non-gated gelu, Hk = 4, G = 9), deepseek-67b
+    and mistral-large-123b at depth 2
     (their fp32 trees, ~268 and ~492 GB, do not fit the card). Each is
     packed (one B7 launch a linear: 6 a starcoder2-7b layer, whose MLP
     has no gate, 7 for the others) and served with the fp ring through
@@ -3537,8 +3585,32 @@ def _agreement(want, got):
     return dict(equal_tokens=same, tokens=total, leading_equal=lead)
 
 
-def ssm_profile_steps(eng):
-    """Device view (torch profiler, ``step_profile.SSM_SPANS``) of one
+def profile_summary(prof, host_ms):
+    """A profiled window beside the host-clock ms of the same work
+    unprofiled: kernels, busy ms, idle share (1 - busy / host ms), B1 ms,
+    the plain ops split by the op that launched them (the ranges of
+    ``step_profile.install_spans``) and the top kernels."""
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(("ProfilerStep", step_profile.PREFIX))]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    b1 = sum(e.device_time_total for e in kern
+             if "segment_gemm" in e.key) / 1e3
+    by_op = step_profile.op_split(prof.events(),
+                                  lambda k: "segment_gemm" in k)
+    by_op["unlinked"] = busy - b1 - sum(by_op.values())
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:5]
+    return {"host_ms": host_ms, "kernels": sum(e.count for e in kern),
+            "device_busy_ms": busy, "idle_share": 1 - busy / host_ms,
+            "b1_ms": b1,
+            "plain_by_op_ms": {k: round(v, 3) for k, v in by_op.items()},
+            "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
+                     e.count) for e in top]}
+
+
+def ssm_profile_steps(eng, spans=step_profile.SSM_SPANS):
+    """Device view (torch profiler, ``spans``: ``step_profile.SSM_SPANS``
+    by default) of one
     greedy decode step and of one 8-lane prefill step at batch max_batch on
     a fresh cache, beside the host-clock ms of each unprofiled: kernels,
     busy ms, idle share (1 - busy / host ms), B1 ms and the plain ops
@@ -3558,7 +3630,7 @@ def ssm_profile_steps(eng):
                        np.full(b, c))
 
     out = {}
-    undo = step_profile.install_spans(step_profile.SSM_SPANS)
+    undo = step_profile.install_spans(spans)
     try:
         for name, fn in (("decode", decode), ("prefill", prefill)):
             cache = fresh_cache(eng)
@@ -3570,29 +3642,11 @@ def ssm_profile_steps(eng):
                 fn(cache)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            host = float(np.median(times))
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn(cache)
                 torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA")
-                    and not e.key.startswith(("ProfilerStep",
-                                              step_profile.PREFIX))]
-            busy = sum(e.device_time_total for e in kern) / 1e3
-            b1 = sum(e.device_time_total for e in kern
-                     if "segment_gemm" in e.key) / 1e3
-            by_op = step_profile.op_split(prof.events(),
-                                          lambda k: "segment_gemm" in k)
-            by_op["unlinked"] = busy - b1 - sum(by_op.values())
-            top = sorted(kern, key=lambda e: -e.device_time_total)[:5]
-            out[name] = {
-                "host_ms": host, "kernels": sum(e.count for e in kern),
-                "device_busy_ms": busy, "idle_share": 1 - busy / host,
-                "b1_ms": b1,
-                "plain_by_op_ms": {k: round(v, 3) for k, v in by_op.items()},
-                "top": [(e.key[:60], round(e.device_time_total / 1e3, 3),
-                         e.count) for e in top]}
+            out[name] = profile_summary(prof, float(np.median(times)))
     finally:
         undo()
     return out
@@ -3971,7 +4025,7 @@ def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
 
 
 # ---------------------------------------------------------- SSM training ----
-SSM_TRAIN_LAYERS = 16        # phase 19(b)'s depth (mamba2-2.7b has 64)
+SSM_TRAIN_LAYERS = 8         # phase 19(b)'s depth (mamba2-2.7b has 64)
 SSM_CPU_TOKENS = 128         # phase 19(c)'s tokens a layer (1 x 128)
 
 
@@ -4215,7 +4269,480 @@ def phase_ssm_training(dev, gen, results, rng):
     return out
 
 
-def main() -> int:
+# ----------------------------------------------------- whisper serving ----
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH = 4
+WHISPER_FRAMES = 1500        # the reference's default enc_len: 30 s of audio
+WHISPER_ENC_LINEARS = 6      # q, k, v, o, up, down
+WHISPER_DEC_LINEARS = 10     # self q, k, v, o; cross q, k, v, o; up, down
+# The linears a decode step runs a decoder layer: self q, k, v, o, cross q
+# and o, up, down (the cross wk/wv run once a batch, in load_cross).
+WHISPER_STEP_LINEARS = 8
+
+
+class CrossOperands(RingOperands):
+    """B4 operands of cross attention over an encoder's K/V: the ring of
+    ``RingOperands`` at T entries with every stored key position 0 and
+    every query at ``attention.CROSS_QUERY_POS``, as the decoder calls B4
+    on its packed 4-bit cross K/V: every entry attended."""
+
+    def __init__(self, cfg, s, t, gen, dev, b=WHISPER_BATCH):
+        from repro_torch.models.attention import CROSS_QUERY_POS
+        super().__init__(cfg, s, t, None, gen, dev, b=b)
+        self.kv_pos = torch.zeros_like(self.kv_pos)
+        self.q_pos = torch.full_like(self.q_pos, CROSS_QUERY_POS)
+
+
+def check_cross_lanes(ops):
+    """Each lane of a multi-lane cross call bitwise the S = 1 call on its
+    query (all lanes share every key). Returns the lanes compared."""
+    full = ad.qkv_attn_decode(*ops.args())
+    args = list(ops.args())
+    s = ops.q.shape[1]
+    for j in range(s):
+        args[0] = ops.q[:, j:j + 1].contiguous()
+        args[-1] = ops.q_pos[:, j:j + 1].contiguous()
+        lane = ad.qkv_attn_decode(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(lane[:, 0], full[:, j]):
+            raise AssertionError(f"cross lane {j} of {s} differs from the "
+                                 f"S=1 call")
+    return s
+
+
+def phase_whisper_kernels(cfg, qcfg, gen, dev, results):
+    """Phase 20(a), into ``results`` (``whisper_*`` keys): B1 at the
+    encoder's six linears at M = 4 x 1500 (q/k/v/o 1024 x 1024, fc1 1024 x
+    4096, fc2 4096 x 1024; 1500 row tiles over each column tile) and at
+    the decoder's M = 4 (decode), 16 (verify of k = 3) and 32 (an 8-lane
+    prefill), within the fp32 reordering bound, timed on both rulers
+    beside torch.matmul on the dequantized operands; B7 on one decoder
+    layer's ten linears, bitwise; B4 on the cross K/V (T = 1500, Hk = 16,
+    G = 1, D = 64, key positions 0, queries at 2^30) at S = 1, 4 and 8
+    within its bound, the lanes bitwise the S = 1 calls, timed at S = 1
+    beside SDPA; B4 and B5 on the self ring (T = 256) and pool (16 pages
+    of 16) at this geometry, S = 1 and 8, timed at S = 1."""
+    m_enc = WHISPER_BATCH * WHISPER_FRAMES
+    for m, reps, nsets in ((m_enc, 3, 2), (4, 20, 4),
+                           (4 * (SPEC_TOKENS + 1), 20, 4), (32, 20, 4)):
+        sets = [LayerOperands(cfg, qcfg, m, gen, dev) for _ in range(nsets)]
+        err = check_segment_gemm(B1, sets[:1])
+        res = time_segment_gemm(B1, sets, reps=reps)
+        results[B1].update({f"whisper_M{m}_{k}": v for k, v in res.items()},
+                           **{f"whisper_M{m}_max_abs_err": err})
+        log(f"[20] {B1} at M={m} on one {WHISPER_ARCH} layer's "
+            f"{len(sets[0].linears)} linears: max |err| {err:.3e} within "
+            f"the fp32 bound; {res}")
+        del sets
+        torch.cuda.empty_cache()
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = [(d, d)] * 8 + [(d, f), (f, d)]
+    calls = [pack_operands(shape, qcfg, gen, dev) for shape in shapes]
+    _check_pack(calls)
+    b_ms, b_by = _pack_bound(calls)
+    results[B7].update(
+        whisper_layer_ms=time_ms(lambda: _pack_layer(calls), 10),
+        whisper_layer_device_ms=device_ms(lambda: _pack_layer(calls), 10),
+        whisper_layer_plain_ms=time_ms(lambda: _pack_layer_plain(calls), 2),
+        whisper_layer_bound_ms=b_ms, whisper_layer_bound_by=b_by,
+        whisper_layer_launches=len(calls))
+    del calls
+    lanes = 0
+    for s in (1, SPEC_TOKENS + 1, 8):
+        ops = CrossOperands(cfg, s, WHISPER_FRAMES, gen, dev)
+        err = check_attention(B4, ops)
+        results[B4]["whisper_cross_max_abs_err"] = max(
+            err, results[B4].get("whisper_cross_max_abs_err", 0.0))
+        if s > 1:
+            lanes += check_cross_lanes(ops)
+        else:
+            res = time_attention(B4, ops)
+            results[B4].update({f"whisper_cross_{k}": v
+                                for k, v in res.items()})
+        del ops
+    results[B4]["whisper_cross_lanes_bitwise"] = lanes
+    for name in (B4, B5):
+        for s in (1, 8):
+            ops = RingOperands(cfg, s, 256, None, gen, dev) if name == B4 \
+                else PagedOperands(cfg, s, 16, None, gen, dev)
+            err = check_attention(name, ops)
+            results[name]["whisper_self_max_abs_err"] = max(
+                err, results[name].get("whisper_self_max_abs_err", 0.0))
+            if s == 1:
+                res = time_attention(name, ops)
+                results[name].update({f"whisper_self_{k}": v
+                                      for k, v in res.items()})
+            del ops
+    torch.cuda.empty_cache()
+    log(f"[20] {B7} on one decoder layer (10 launches) bitwise; {B4} cross "
+        f"(T={WHISPER_FRAMES}, G=1, D=64) within the bound, {lanes} lanes "
+        f"bitwise the S=1 calls; self ring and pool within the bound: "
+        f"{B7}: { {k: v for k, v in results[B7].items() if 'whisper' in k} }"
+        f"; {B4}: "
+        f"{ {k: v for k, v in results[B4].items() if 'whisper' in k} }; "
+        f"{B5}: "
+        f"{ {k: v for k, v in results[B5].items() if 'whisper' in k} }")
+
+
+def whisper_frames(cfg, seed, batch=WHISPER_BATCH, frames=None):
+    """Random mel frames [batch, frames (default ``WHISPER_FRAMES``),
+    frontend_dim] fp32 from ``seed`` (the stub frontend's input)."""
+    return np.random.default_rng(seed).standard_normal(
+        (batch, frames or WHISPER_FRAMES, cfg.frontend_dim)).astype(
+            np.float32)
+
+
+def profile_encode(eng, frames):
+    """One encode pass at the engine's config: host-clock ms (median of
+    3, each ending in a synchronize) and a device profile split by op
+    (``step_profile.WHISPER_SPANS``): B1 ms, the float64 attention, the
+    LayerNorms, the GELU, the serve linears' driver ops, the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.encode(eng.model, eng.cfg, frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    undo = step_profile.install_spans(step_profile.WHISPER_SPANS)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lm.encode(eng.model, eng.cfg, frames)
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    return dict(profile_summary(prof, float(np.median(times))),
+                host_ms_runs=times)
+
+
+def _same_tokens(what, want, got):
+    for a, b in zip(want, got):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"{what} (request {a.request_id}): "
+                                 f"{a.new_tokens} vs {b.new_tokens}")
+
+
+def _whisper_pass(model, cfg, dev, frames):
+    """The encoder on ``frames``, every decoder layer's fp cross K/V of its
+    output, then a 2 x 8 prefill chunk and one decode step: [encoder
+    output, prefill logits, decode logits] in float64 on the host."""
+    rng = np.random.default_rng(3)
+    b, t = frames.shape[:2]
+    tokens = rng.integers(0, cfg.vocab_size, (b, 9)).astype(np.int32)
+    enc = lm.encode(model, cfg, frames)
+    cache = lm.init_cache(cfg, b, 64, torch.float32, device=dev, enc_len=t)
+    cache["cross"] = lm.build_cross_cache(model, cfg, enc)
+    a, cache = lm.prefill_step(model, cfg, cache, tokens[:, :8],
+                               np.tile(np.arange(8), (b, 1)), np.full(b, 7))
+    c, _ = lm.decode_step(model, cfg, cache, tokens[:, 8], np.full(b, 8))
+    return [enc.double().cpu(), a.double().cpu(), c.double().cpu()]
+
+
+def check_whisper_against_cpu(dev, ecfg):
+    """Phase 20(f) and (g): the card against the plain versions on the
+    CPU, fp32. (1) Reduced whisper-medium end to end: the encoder output
+    of 4 x 12 frames within relative L2 1e-5 and the greedy tokens of 4
+    requests served after ``load_cross`` of it identical. (2) Full width,
+    one encoder and one decoder layer, 2 x 64 frames, teacher-forced
+    (``LinearTape``): the frontend, the encoder layer's six linears, the
+    cross K/V of the decoder layer and its eight linears a step (self,
+    cross, MLP) on a prefill chunk and a decode step, each output on the
+    CPU's input and each input as the card's own ops made it (norms,
+    sinusoids, attention, GELU, residual adds), and the encoder output
+    and logits, within relative L2 1e-5. (3) ``soniq.apply(...,
+    frames=...)`` of the reduced config at SERVE (per-token activation
+    scales, as the engine's): logits within relative L2 1e-5. Returns
+    the numbers."""
+    from repro_torch import soniq
+    out = {}
+    small = get_config(WHISPER_ARCH).reduced().with_quant_mode("qat")
+    frames = whisper_frames(small, SEED + 10, frames=12)
+    eng = engine.DecodeEngine(lm.init_params(small, seed=SEED + 10,
+                                             device=dev), small, ecfg,
+                              device=dev)
+    host = engine.DecodeEngine(copy.deepcopy(eng.model).to("cpu"), small,
+                               ecfg, already_serve=True, device="cpu")
+    enc_card = lm.encode(eng.model, eng.cfg, frames)
+    enc_cpu = lm.encode(host.model, host.cfg, frames)
+    out["reduced_encode_rel_l2"] = rel_l2(enc_card, enc_cpu)
+    reqs = requests(small.vocab_size, np.random.default_rng(SEED + 10), n=4,
+                    lo=8, hi=16, new=8)
+    card_out, _ = serve_all(eng, reqs, enc_card)
+    cpu_out, _ = serve_all(host, reqs, enc_cpu)
+    _same_tokens("reduced whisper card != CPU tokens", card_out, cpu_out)
+    out["reduced_tokens_identical"] = len(reqs)
+    del eng, host
+    wide = dataclasses.replace(get_config(WHISPER_ARCH), num_layers=1,
+                               encoder_layers=1,
+                               dtype="float32").with_quant_mode("qat")
+    eng = engine.DecodeEngine(lm.init_params(wide, seed=SEED + 10,
+                                             device=dev), wide, ecfg,
+                              device=dev)
+    host = copy.deepcopy(eng.model).to("cpu")
+    frames = whisper_frames(wide, SEED + 11, batch=2, frames=64)
+    tape_cpu = LinearTape(host)
+    try:
+        ref = _whisper_pass(host, eng.cfg, "cpu", frames)
+    finally:
+        tape_cpu.close()
+    tape_card = LinearTape(eng.model, feed=tape_cpu.inputs)
+    try:
+        got = _whisper_pass(eng.model, eng.cfg, dev, frames)
+    finally:
+        tape_card.close()
+    calls = len(tape_cpu.inputs)
+    want_calls = 1 + WHISPER_ENC_LINEARS + 2 + 2 * WHISPER_STEP_LINEARS
+    if len(tape_card.inputs) != calls or calls != want_calls:
+        raise AssertionError(f"linear calls: card {len(tape_card.inputs)}, "
+                             f"CPU {calls}, expected {want_calls}")
+    worst = {}
+    for (name, _lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        kind = ".".join(name.split(".")[-2:]) if "." in name else name
+        if name.startswith("enc_blocks"):
+            kind = "enc." + kind
+        for what, a, b in (("out", y_card, y_cpu), ("in", x_card, x_cpu)):
+            key = f"{kind}.{what}"
+            worst[key] = max(worst.get(key, 0.0), rel_l2(a, b))
+    for key, a, b in zip(("encoder_out", "prefill_logits", "decode_logits"),
+                         got, ref):
+        worst[key] = rel_l2(a, b)
+    out["full_width_2_layers"] = worst
+    out["full_width_linear_calls"] = calls
+    del eng, host
+    torch.cuda.empty_cache()
+    tokens = np.random.default_rng(SEED + 12).integers(
+        0, small.vocab_size, (2, 6)).astype(np.int32)
+    fr = whisper_frames(small, SEED + 12, batch=2, frames=12)
+    scfg = dataclasses.replace(small, quant=dataclasses.replace(
+        small.quant, act_scale_mode="per_token"))
+    state = soniq.init(scfg, seed=SEED + 12, device=dev)
+    cpu_state = soniq.SoniqState(state.phase,
+                                 copy.deepcopy(state.model).to("cpu"), scfg)
+    logits = [soniq.apply(soniq.to_serve(st), tokens, frames=fr)
+              for st in (state, cpu_state)]
+    out["soniq_serve_rel_l2"] = rel_l2(*logits)
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if bad or not out["reduced_encode_rel_l2"] <= 1e-5 \
+            or not out["soniq_serve_rel_l2"] <= 1e-5:
+        raise AssertionError(f"whisper card vs CPU over 1e-5: {bad}; {out}")
+    return out
+
+
+def phase_whisper_serve(dev, rng, gen, results, launches, per_step):
+    """Phase 20: serve the encoder-decoder family at the full width and
+    depth of whisper-medium (24 encoder and 24 decoder layers, d_model
+    1024, 16 heads of 64, d_ff 4096, GELU, LayerNorm, tied vocab 51865;
+    random QAT weights of the seed, default mix, bf16 compute). (a) The
+    kernels at its shapes (``phase_whisper_kernels``). (b) The
+    DecodeEngine's load (max_batch 4, cache_len 256, prefill chunk 8): 384
+    B7 launches (asserted), pack_s, the load's device busy, peak memory.
+    (c) One encode pass of 4 x 1500 mel frames: 144 B1 launches (asserted),
+    host ms and a device profile by op. (d) ``load_cross`` of its output
+    at fp and at 4 bits: 48 B1 launches each (asserted), the cross
+    payload bytes. (e) 8 requests of 16-64 prompt tokens and 16 new over
+    the fp ring (twice: bitwise), the 4-bit ring and the 4-bit pool
+    (the first 4: tokens equal to the ring's), and the first 4, prompts
+    cut to 16 tokens, speculatively (k = 3, draft bits 2; tokens equal
+    spec-off; 768 B1 a round); 192 B1 launches
+    a decode step (asserted: the step skips the cross wk/wv of x), 48 B4
+    a 4-bit ring step, 24 B5 and 24 B4 a pool step; decode-step host ms
+    and a device profile of a decode and an 8-lane prefill step. (f), (g)
+    Card vs CPU (``check_whisper_against_cpu``). Returns the numbers."""
+    cfg = get_config(WHISPER_ARCH).with_quant_mode("qat")
+    qcfg = QuantConfig(mode="qat")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    phase_whisper_kernels(cfg, qcfg, gen, dev, results)
+    lap("kernels")
+    st = {"layers": [cfg.encoder_layers, cfg.num_layers],
+          "frames": [WHISPER_BATCH, WHISPER_FRAMES, cfg.frontend_dim]}
+    ecfg = engine.EngineConfig(max_batch=WHISPER_BATCH, cache_len=256,
+                               prefill_chunk=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=SEED + 10, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.DecodeEngine(params, cfg, ecfg)
+    torch.cuda.synchronize()
+    st["pack_s"] = time.perf_counter() - t0
+    launches["b7_whisper_load"] = kernels.launch_counts()[B7]
+    want = (WHISPER_ENC_LINEARS * cfg.encoder_layers
+            + WHISPER_DEC_LINEARS * cfg.num_layers)
+    if launches["b7_whisper_load"] != want or packed_leaves(eng.model) != \
+            want:
+        raise AssertionError(f"{launches['b7_whisper_load']} B7 launches at "
+                             f"the whisper load, not one a linear ({want})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, prof = profile_load(lambda: engine.DecodeEngine(params, cfg, ecfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["load"] = dict(device_busy_ms=prof["device_busy_ms"],
+                      device_events=prof["device_events"],
+                      idle_share=1 - prof["device_busy_ms"]
+                      / (st["pack_s"] * 1e3), by_op=prof["by_op"])
+    st["peak_gib_init_and_pack"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    st["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    log(f"[20] {WHISPER_ARCH} load: pack_s {st['pack_s']:.3f}, "
+        f"{launches['b7_whisper_load']} B7 launches, peak "
+        f"{st['peak_gib_init_and_pack']:.2f} GiB; {st['load']}")
+    lap("load")
+    # (c) The encoder.
+    frames = whisper_frames(cfg, SEED + 10)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    enc = lm.encode(eng.model, eng.cfg, frames)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches["b1_whisper_encode"] = counts[B1]
+    if counts[B1] != WHISPER_ENC_LINEARS * cfg.encoder_layers \
+            or counts[B2] or counts[B3] or counts[B8]:
+        raise AssertionError(f"encode launches {counts}")
+    if enc.shape != (WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model) \
+            or not torch.isfinite(enc).all():
+        raise AssertionError(f"encoder output {tuple(enc.shape)} not finite")
+    st["encode"] = profile_encode(eng, frames)
+    st["encode"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[20] encode {st['frames']}: {counts[B1]} B1 launches; "
+        f"{st['encode']}")
+    lap("encode")
+    # (d) The cross K/V at fp and at 4 bits.
+    eng4 = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, kv_bits=4), already_serve=True, device=dev)
+    st["load_cross"] = {}
+    for tag, e in (("fp", eng), ("kv4", eng4)):
+        e.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        e.load_cross(enc)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = kernels.launch_counts()[B1]
+        if n != 2 * cfg.num_layers:
+            raise AssertionError(f"load_cross ({tag}): {n} B1 launches, not "
+                                 f"{2 * cfg.num_layers}")
+        st["load_cross"][tag] = dict(
+            host_ms=ms, b1_launches=n,
+            cross_payload_bytes=kv_quant.cross_payload_bytes(e.cache),
+            ring_payload_bytes=kv_quant.cache_payload_bytes(e.cache))
+    launches["b1_whisper_load_cross"] = n
+    log(f"[20] load_cross: {st['load_cross']}")
+    lap("load_cross")
+    # (e) The engines.
+    reqs = requests(cfg.vocab_size, rng)
+    kernels.reset_launch_counts()
+    first, wall1 = serve_all(eng, reqs, enc)
+    counts = kernels.launch_counts()
+    launches["b1_whisper_serve"] = counts[B1] - 2 * cfg.num_layers
+    if counts[B1] == 0 or counts[B2] or counts[B3] or counts[B8] \
+            or counts[B4] or counts[B5]:
+        raise AssertionError(f"whisper fp serve launches {counts}")
+    for c in first:
+        if c.new_tokens.size != 16 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad whisper completion {c.new_tokens}")
+    second, wall2 = serve_all(eng, reqs, enc)
+    _same_tokens("whisper: a second identical run gave other tokens", first,
+                 second)
+    new = sum(c.new_tokens.size for c in second)
+    st["fp_ring"] = dict(tok_s=new / wall2, wall_s=[wall1, wall2],
+                         steps=eng.sched.step_count,
+                         decode_step_ms=decode_step_ms(eng))
+    per_step["b1_whisper"] = step_launches(eng)[B1]
+    if per_step["b1_whisper"] != WHISPER_STEP_LINEARS * cfg.num_layers:
+        raise AssertionError(f"{per_step['b1_whisper']} {B1} launches a "
+                             f"whisper decode step, not "
+                             f"{WHISPER_STEP_LINEARS * cfg.num_layers}")
+    log(f"[20] fp ring: {len(reqs)} requests ({new} new tokens, a second "
+        f"run bitwise): {st['fp_ring']}; {per_step['b1_whisper']} B1 a "
+        f"step; tokens[0] {second[0].new_tokens[:8]}")
+    lap("fp_ring")
+    st["profile"] = ssm_profile_steps(eng, step_profile.WHISPER_SPANS)
+    log(f"[20] step profiles: {st['profile']}")
+    lap("profiles")
+    wave = reqs[:WHISPER_BATCH]
+    new4 = sum(c.new_tokens.size for c in second[:WHISPER_BATCH])
+    kernels.reset_launch_counts()
+    ring4, wall = serve_all(eng4, wave, enc)
+    counts = kernels.launch_counts()
+    launches["b4_whisper_kv4_serve"] = counts[B4]
+    if counts[B4] == 0 or counts[B5]:
+        raise AssertionError(f"whisper 4-bit ring launches {counts}")
+    per_step["b4_whisper"] = step_launches(eng4)[B4]
+    if per_step["b4_whisper"] != 2 * cfg.num_layers:
+        raise AssertionError(f"{per_step['b4_whisper']} {B4} launches a "
+                             f"4-bit ring step, not {2 * cfg.num_layers}")
+    st["kv4_ring"] = dict(tok_s=new4 / wall, wall_s=wall,
+                          decode_step_ms=decode_step_ms(eng4),
+                          b4_launches_per_step=per_step["b4_whisper"])
+    del eng4
+    paged = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, kv_bits=4, kv_layout="paged", page_size=16),
+        already_serve=True, device=dev)
+    kernels.reset_launch_counts()
+    pool_out, wall = serve_all(paged, wave, enc)
+    counts = kernels.launch_counts()
+    launches["b5_whisper_paged_serve"] = counts[B5]
+    _same_tokens("whisper 4-bit pool != 4-bit ring", ring4, pool_out)
+    paged.pool.check()
+    step = step_launches(paged)
+    per_step["b5_whisper"] = step[B5]
+    if step[B5] != cfg.num_layers or step[B4] != cfg.num_layers:
+        raise AssertionError(f"a 4-bit pool step: {step[B5]} {B5}, "
+                             f"{step[B4]} {B4} (cross), not "
+                             f"{cfg.num_layers} each")
+    st["kv4_paged"] = dict(tok_s=new4 / wall, wall_s=wall,
+                           pool=paged.paged_kv_stats(),
+                           b5_b4_launches_per_step=[step[B5], step[B4]])
+    del paged
+    log(f"[20] 4-bit ring: {st['kv4_ring']}; 4-bit pool (tokens == ring): "
+        f"{st['kv4_paged']}; agreement of the 4-bit ring with the fp ring: "
+        f"{_agreement([c.new_tokens for c in second[:WHISPER_BATCH]], [c.new_tokens for c in ring4])}")
+    lap("kv4")
+    # Prompts cut to 16 tokens: the round's verify (k + 1 = 4 lanes)
+    # would otherwise prefill a 64-token prompt in 16 rounds.
+    short = [dataclasses.replace(r, prompt=r.prompt[:16]) for r in wave]
+    st["spec"] = spec_serve(
+        eng.model, cfg, ecfg, short, None, dev,
+        {B1: (SPEC_TOKENS + 1) * WHISPER_STEP_LINEARS * cfg.num_layers},
+        cross=enc)
+    st["spec"].pop("launches")
+    per_step["b1_whisper_spec_round"] = st["spec"]["round_launches"][B1]
+    log(f"[20] spec (tokens == spec-off): {st['spec']}")
+    lap("spec")
+    del eng, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["card_vs_cpu"] = check_whisper_against_cpu(dev, ecfg)
+    log(f"[20] card vs CPU (fp32, relative L2): {st['card_vs_cpu']}")
+    lap("card_vs_cpu")
+    st["seconds"] = laps
+    log(f"[20] seconds by part: {laps}")
+    return st
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", type=int, choices=[20], default=None,
+                    help="build the kernels and run this phase alone (no "
+                         "summary); the default runs every phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4238,6 +4765,18 @@ def main() -> int:
                 log(f"    ptxas {src}: {line.strip()}")
 
     clock.lap(1)
+    if args.only == 20:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        results = {name: {} for name in (B1, B4, B5, B7)}
+        out = phase_whisper_serve(dev, np.random.default_rng(SEED + 20),
+                                  gen, results, {}, {})
+        clock.lap(20)
+        print(json.dumps({"kernels_whisper": results}))
+        print(json.dumps({"whisper_serve": out}))
+        print(json.dumps({"phase_seconds": clock.laps}))
+        print(card)
+        return 0
 
     # -------------------------------------------------------- phase 2 ----
     cfg = get_config(ARCH)
@@ -4590,20 +5129,32 @@ def main() -> int:
     clock.lap(19)
 
     # ------------------------------------------------------- phase 20 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_out = phase_whisper_serve(dev, np.random.default_rng(SEED + 20),
+                                      gen, results, launches, per_step)
+    clock.lap(20)
+
+    # ------------------------------------------------------- phase 21 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
-                "one mamba2-2.7b layer, 2 launches; launches: "
+                "one mamba2-2.7b layer, 2 launches; whisper_layer_*: one "
+                "whisper-medium decoder layer, 10 launches; launches: "
                 "the h2o-danube-1.8b load, moe_load_launches: the "
                 "deepseek-moe-16b load, ssm_load_launches: the mamba2-2.7b "
-                "load)",
+                "load, whisper_load_launches: the whisper-medium load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
                 "launches, one a linear; prefill_*: M=32; verify_*: M=16, "
                 "the verify step of k=3 at batch 4; draft_*: the draft "
                 "launches over the [K2|K1] slice at M=4; ssm_M{4,16,32}_*"
                 ", ssm_draft_*: one mamba2-2.7b layer, in_proj 2560x10576 "
                 "and out_proj 5120x2560, 2 launches; ssm_serve_launches: "
-                "the mamba2-2.7b serve run)",
+                "the mamba2-2.7b serve run; whisper_M{6000,4,16,32}_*: one "
+                "whisper-medium layer's 6 linear shapes (q/k/v/o 1024x1024,"
+                " fc1 1024x4096, fc2 4096x1024), M=6000 the encoder's 4 x "
+                "1500 frames; whisper_{encode,load_cross,serve}_launches: "
+                "one encode pass, one load_cross, the fp ring serve run)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
                 "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
@@ -4617,10 +5168,16 @@ def main() -> int:
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring); shapes: T=4096 with window "
                 "1024, deepseek-moe-16b (Hk=16, G=1, D=128) and "
-                "starcoder2-7b (Hk=4, G=9, D=128) at T=256",
+                "starcoder2-7b (Hk=4, G=9, D=128) at T=256; "
+                "whisper_cross_*: whisper-medium's cross attention, B=4, "
+                "S=1, Hk=16, G=1, D=64 over T=1500 encoder entries (key "
+                "positions 0, query 2^30); whisper_self_*: its self ring, "
+                "T=256",
             B5: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "16 pages of 16 a slot; shapes: 256 pages with window "
-                "1024, deepseek-moe-16b and starcoder2-7b at 16 pages",
+                "1024, deepseek-moe-16b and starcoder2-7b at 16 pages; "
+                "whisper_self_*: whisper-medium (Hk=16, G=1, D=64) at 16 "
+                "pages",
             B8: "one h2o-danube-1.8b layer of Phase-II fake_quant: 7 "
                 "weights (fp32, group scale) + 7 activations (bf16, "
                 "8 x 128 tokens)",
@@ -4652,7 +5209,7 @@ def main() -> int:
                               "out_proj 5120x2560; B8 also their 8 x 128 "
                               "bf16 activations), ssm_train_run_launches "
                               "and ssm_train_launches_per_step: phase 19's "
-                              "16-layer run and a step of it")
+                              "8-layer run and a step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -4674,7 +5231,8 @@ def main() -> int:
             if key in r:
                 rows[-1][key] = r[key]
         rows[-1].update((k, v) for k, v in r.items()
-                        if k.startswith(("verify_", "draft_", "ssm_")))
+                        if k.startswith(("verify_", "draft_", "ssm_",
+                                         "whisper_")))
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
@@ -4687,11 +5245,29 @@ def main() -> int:
         if name == B7:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
             rows[-1]["ssm_load_launches"] = launches["b7_ssm_load"]
+            rows[-1]["whisper_load_launches"] = launches["b7_whisper_load"]
         if name == B1:
             rows[-1]["ssm_serve_launches"] = launches["b1_ssm_serve"]
             rows[-1]["ssm_launches_per_decode_step"] = per_step["b1_ssm"]
             rows[-1]["ssm_launches_per_spec_round"] = \
                 per_step["b1_ssm_spec_round"]
+            for key in ("encode", "load_cross", "serve"):
+                rows[-1][f"whisper_{key}_launches"] = \
+                    launches[f"b1_whisper_{key}"]
+            rows[-1]["whisper_launches_per_decode_step"] = \
+                per_step["b1_whisper"]
+            rows[-1]["whisper_launches_per_spec_round"] = \
+                per_step["b1_whisper_spec_round"]
+        if name == B4:
+            rows[-1]["whisper_kv4_serve_launches"] = \
+                launches["b4_whisper_kv4_serve"]
+            rows[-1]["whisper_launches_per_kv4_decode_step"] = \
+                per_step["b4_whisper"]
+        if name == B5:
+            rows[-1]["whisper_paged_serve_launches"] = \
+                launches["b5_whisper_paged_serve"]
+            rows[-1]["whisper_launches_per_paged_decode_step"] = \
+                per_step["b5_whisper"]
         if name in SOLO:
             lin = soniq_out["linear"]["launches"][name]
             if lin:
@@ -4743,6 +5319,7 @@ def main() -> int:
     print(json.dumps({"soniq": soniq_out}))
     print(json.dumps({"ssm_serve": ssm_out}))
     print(json.dumps({"ssm_training": ssm_train}))
+    print(json.dumps({"whisper_serve": whisper_out}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)

@@ -420,7 +420,8 @@ def apply(state: SoniqState, x=None, *, noise=None, **inputs):
     * LinearSpec: ``apply(state, x)`` -> [..., N]
     * CNNConfig:  ``apply(state, images)`` (NHWC) -> logits [B, classes]
     * ArchConfig: ``apply(state, tokens)`` (or ``tokens=`` and
-      ``positions=``) -> fp32 logits [B, S, V]
+      ``positions=``; an encoder-decoder also ``frames=`` [B, T,
+      frontend_dim]) -> fp32 logits [B, S, V]
 
     Phase I needs ``noise``: a ``smol.NoiseSource`` (e.g. one replaying
     other draws) or a key (an int or a tuple of ints) of a
@@ -437,12 +438,13 @@ def apply(state: SoniqState, x=None, *, noise=None, **inputs):
         return model(torch.as_tensor(x, device=_device(model)), qcfg, noise)
     if isinstance(state.model_cfg, cnn.CNNConfig):
         return cnn.cnn_apply(model, x, cfg, noise)
-    other = set(inputs) - {"tokens", "positions"}
+    other = set(inputs) - {"tokens", "positions", "frames"}
     if other:
         raise NotImplementedError(f"inputs {sorted(other)} belong to "
                                   f"families the port has not ported")
     hidden, _ = lm.forward(model, cfg, inputs.get("tokens", x),
-                           positions=inputs.get("positions"), noise=noise)
+                           positions=inputs.get("positions"),
+                           frames=inputs.get("frames"), noise=noise)
     return lm.logits(model, cfg, hidden)
 
 

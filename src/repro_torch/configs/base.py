@@ -1,8 +1,9 @@
 """ArchConfig: one dataclass describes an architecture. Counterpart of
 ``repro.configs.base`` — same fields, so a config built for the JAX
 package maps onto the port field by field; the port serves the dense
-``attn_mlp`` plan, the MoE plan (``attn_mlp`` then ``attn_moe``) and the
-SSM plan (``mamba``) so far."""
+``attn_mlp`` plan, the MoE plan (``attn_mlp`` then ``attn_moe``), the
+SSM plan (``mamba``) and the encoder-decoder's (``enc`` blocks beside the
+``dec`` plan) so far."""
 from __future__ import annotations
 
 import dataclasses

@@ -4,11 +4,13 @@ the weight bridge of a single linear and of the CNN (the reference's
 ``linear_init`` leaf and ``cnn_init`` tree, in any phase).
 
 The JAX package keeps each plan group's layers stacked ``[L, ...]`` in a
-nested dict/list of arrays — QAT leaves (``w``, ``pbits``) from
+nested dict/list of arrays (an encoder-decoder's encoder layers too, under
+``enc_groups``) — QAT leaves (``w``, ``pbits``) from
 ``lm.init_params`` or serve leaves (``w4/w2/w1/perm/pbits_sorted/wscale``,
 ``b``) from ``convert_tree``, or Phase-I leaves (``w``, ``s``). The port
-holds one module per layer, so stacked leaves are unstacked here and
-stacked again on the way back (``tree_to_numpy``). Nothing of JAX is
+holds one module per layer, so stacked leaves are unstacked here (into
+``blocks`` and ``enc_blocks``) and stacked again on the way back
+(``tree_to_numpy``). Nothing of JAX is
 imported: callers hand over numpy arrays (``jax.device_get``) or a
 checkpoint file.
 
@@ -51,32 +53,44 @@ def _map(node, fn):
     return None if node is None else fn(node)
 
 
+def _unstack(groups, counts, fn) -> list:
+    """Stacked layer groups -> one tree a layer, ``fn`` applied to every
+    leaf."""
+    if len(groups) != len(counts):
+        raise ValueError(f"{len(groups)} layer groups for {len(counts)}")
+    return [_map(group, lambda a, i=i: fn(a[i]))
+            for count, group in zip(counts, groups) for i in range(count)]
+
+
 def _port_layout(tree: Dict, cfg, fn) -> Dict:
-    """A tree in the JAX package's layout (stacked ``groups``) -> the
-    port's (a ``blocks`` list), ``fn`` applied to every leaf (None leaves
-    stay None)."""
-    plan = cfg.layer_plan()
-    if len(tree["groups"]) != len(plan):
-        raise ValueError(f"{len(tree['groups'])} layer groups for plan "
-                         f"{plan}")
-    blocks = []
-    for (_kind, count), group in zip(plan, tree["groups"]):
-        for i in range(count):
-            blocks.append(_map(group, lambda a, i=i: fn(a[i])))
-    out = {k: _map(v, fn) for k, v in tree.items() if k != "groups"}
-    out["blocks"] = blocks
+    """A tree in the JAX package's layout (stacked ``groups``, and
+    ``enc_groups`` for an encoder) -> the port's (``blocks`` and
+    ``enc_blocks`` lists), ``fn`` applied to every leaf (None leaves stay
+    None)."""
+    out = {k: _map(v, fn) for k, v in tree.items()
+           if k not in ("groups", "enc_groups")}
+    out["blocks"] = _unstack(tree["groups"],
+                             [count for _kind, count in cfg.layer_plan()],
+                             fn)
+    if "enc_groups" in tree:
+        out["enc_blocks"] = _unstack(tree["enc_groups"],
+                                     [cfg.encoder_layers], fn)
     return out
 
 
 def _jax_layout(tree: Dict, cfg) -> Dict:
-    """The port's layout (numpy leaves, a ``blocks`` list) -> the JAX
-    package's (one stacked ``groups`` entry per plan group)."""
-    out = {k: v for k, v in tree.items() if k != "blocks"}
+    """The port's layout (numpy leaves, ``blocks`` and ``enc_blocks``
+    lists) -> the JAX package's (one stacked ``groups`` entry per plan
+    group; the encoder's layers in one ``enc_groups`` entry)."""
+    out = {k: v for k, v in tree.items()
+           if k not in ("blocks", "enc_blocks")}
     groups, start = [], 0
     for _kind, count in cfg.layer_plan():
         groups.append(_stack_leaves(tree["blocks"][start:start + count]))
         start += count
     out["groups"] = groups
+    if "enc_blocks" in tree:
+        out["enc_groups"] = [_stack_leaves(tree["enc_blocks"])]
     return out
 
 
@@ -211,7 +225,9 @@ def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
     4-bit ring or packed 4-bit page pool) and its ``ssm`` state (``h``
     fp32, the ``conv`` window in the cache dtype). The fp ring's ``pos``
     becomes int64 (the port's fp ring stamps); the paged layers share one
-    page table, as the reference broadcasts one table to every layer."""
+    page table, as the reference broadcasts one table to every layer. An
+    encoder-decoder's ``cross`` K/V (fp or packed 4-bit, stacked over the
+    decoder's layers) carry over as they are."""
     dev = resolve_device(device)
     plan = cfg.layer_plan()
     if len(tree["groups"]) != len(plan):
@@ -239,7 +255,11 @@ def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
                     kv["page_table"] = table
                 layer["kv"] = kv
             layers.append(layer)
-    return {"layers": layers}
+    out = {"layers": layers}
+    if tree.get("cross") is not None:
+        out["cross"] = {name: _tensor(a, dev)
+                        for name, a in tree["cross"].items()}
+    return out
 
 
 def flatten_tree(tree) -> Dict[str, object]:

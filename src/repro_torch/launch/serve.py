@@ -4,6 +4,7 @@ a request queue, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 Initializes random QAT weights from ``--seed`` (or loads the JAX
 package's checkpoint with ``--ckpt``), packs them to the 1/2/4-bit serve
@@ -13,8 +14,11 @@ synthetic workload through the continuous-batching ``DecodeEngine``.
 keeps the KV cache as packed 4-bit codes, and ``--kv-layout paged`` (with
 ``--page-size``) in a page pool shared by prompt prefixes; an SSM arch
 keeps its recurrent state instead (the KV options do not apply to it)
-and reports that state's bytes. ``--device cpu`` runs the kernels' plain
-versions (use with ``--reduced``).
+and reports that state's bytes. An encoder-decoder serves as the
+reference's launcher serves it: with no frames, its decoder attends the
+zero cross K/V of a fresh cache (``DecodeEngine.load_cross`` installs an
+encoder's). ``--device cpu`` runs the kernels' plain versions (use with
+``--reduced``).
 """
 from __future__ import annotations
 

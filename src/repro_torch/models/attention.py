@@ -12,7 +12,11 @@ dispatch:
 * fp page pool (``page_table`` and ``k``): ``serve/kv_pool.py`` writes,
   the pages gathered into ring order feed the fp ring's plain attention
   (the reference runs a gather oracle here too, no kernel), so its rows
-  equal the fp ring's bitwise.
+  equal the fp ring's bitwise;
+
+and the encoder-decoder's cross attention over the encoder's K/V
+(``cross_attn_decode``: fp through the plain attention, packed 4-bit
+through kernel B4), never written by a step.
 
 Caches are updated in place: each live lane (pos >= 0) writes its K/V at
 ``pos % ring_len`` (or the page the table maps there); masked lanes
@@ -157,26 +161,39 @@ def attn_apply(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
                qcfg: QuantConfig, noise: Optional[smol.NoiseSource] = None,
                rope_theta: float = 1e4, window: Optional[int] = None,
                causal: bool = True, q_block: int = Q_BLOCK,
-               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-               ) -> torch.Tensor:
-    """Full-sequence self-attention (training, prefill). x [B, S, D],
-    positions [B, S]; ``rope`` the (cos, sin) tables of the positions when
-    the caller shares them across layers. Above ``CHUNK_THRESHOLD``
-    positions the attention runs in query blocks."""
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               use_rope: bool = True,
+               cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (training, prefill, the encoder, cross
+    attention). x [B, S, D], positions [B, S]; ``rope`` the (cos, sin)
+    tables of the positions when the caller shares them across layers
+    (``use_rope=False``: none, the encoder-decoder's sinusoids are added
+    to the embeddings instead). ``causal=False`` attends every position
+    (the encoder). With ``cross_x`` [B, T, D] the keys and values are its
+    projections at positions 0 .. T - 1, attended without a mask. Above
+    ``CHUNK_THRESHOLD`` positions the attention runs in query blocks."""
     b, s, _ = x.shape
+    xkv = x if cross_x is None else cross_x
+    t = xkv.shape[1]
     q = attn.wq(x, qcfg, noise).reshape(b, s, num_heads, head_dim)
-    k = attn.wk(x, qcfg, noise).reshape(b, s, num_kv_heads, head_dim)
-    v = attn.wv(x, qcfg, noise).reshape(b, s, num_kv_heads, head_dim)
-    cos, sin = rope if rope is not None else rope_tables(
-        positions, head_dim, rope_theta)
-    q = apply_rope_tables(q, cos, sin)
-    k = apply_rope_tables(k, cos, sin)
+    k = attn.wk(xkv, qcfg, noise).reshape(b, t, num_kv_heads, head_dim)
+    v = attn.wv(xkv, qcfg, noise).reshape(b, t, num_kv_heads, head_dim)
+    if cross_x is None:
+        if use_rope:
+            cos, sin = rope if rope is not None else rope_tables(
+                positions, head_dim, rope_theta)
+            q = apply_rope_tables(q, cos, sin)
+            k = apply_rope_tables(k, cos, sin)
+        k_pos = positions
+    else:
+        k_pos = torch.arange(t, device=x.device)[None].expand(b, t)
+        causal = False
     q = q.reshape(b, s, num_kv_heads, num_heads // num_kv_heads, head_dim)
     if s > q_block and s > CHUNK_THRESHOLD:
-        o = chunked_attention(q, k, v, positions, positions, causal=causal,
+        o = chunked_attention(q, k, v, positions, k_pos, causal=causal,
                               window=window, q_block=q_block)
     else:
-        o = full_attention(q, k, v, positions, positions, causal=causal,
+        o = full_attention(q, k, v, positions, k_pos, causal=causal,
                            window=window)
     return attn.wo(o.reshape(b, s, num_heads * head_dim), qcfg, noise)
 
@@ -184,21 +201,23 @@ def attn_apply(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
 def attn_decode(attn: Attention, x: torch.Tensor, cache: Dict,
                 pos: torch.Tensor, *, num_heads: int, num_kv_heads: int,
                 head_dim: int, qcfg: QuantConfig,
-                rope: Tuple[torch.Tensor, torch.Tensor],
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 write: CacheWrite,
                 window: Optional[int] = None) -> torch.Tensor:
     """S-token decode/prefill chunk. x [B, S, D]; pos [B, S] absolute
-    positions (< 0 = masked lane); ``rope`` the (cos, sin) tables of pos;
-    ``write`` the live-lane index of pos (:func:`cache_write_index`).
-    Writes the new K/V into the cache in place, then attends with the
-    causal-by-position (and sliding-window) mask."""
+    positions (< 0 = masked lane); ``rope`` the (cos, sin) tables of pos
+    (None: no rotary encoding, the encoder-decoder's); ``write`` the
+    live-lane index of pos (:func:`cache_write_index`). Writes the new
+    K/V into the cache in place, then attends with the causal-by-position
+    (and sliding-window) mask."""
     b, s = x.shape[:2]
     q = attn.wq(x, qcfg).reshape(b, s, num_heads, head_dim)
     k_new = attn.wk(x, qcfg).reshape(b, s, num_kv_heads, head_dim)
     v_new = attn.wv(x, qcfg).reshape(b, s, num_kv_heads, head_dim)
-    cos, sin = rope
-    q = apply_rope_tables(q, cos, sin)
-    k_new = apply_rope_tables(k_new, cos, sin)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope_tables(q, cos, sin)
+        k_new = apply_rope_tables(k_new, cos, sin)
     if "page_table" in cache and "k" in cache:      # fp page pool
         kv_pool.update_paged_cache(cache, k_new, v_new, pos, write=write)
         kk, vv, kp = kv_pool.gather_paged(cache, q.dtype)
@@ -268,3 +287,36 @@ def _paged_attn_decode(attn: Attention, x, cache, pos, k_new, v_new, q, *,
     o = backend.qkv_attn_decode_paged(qr, cache, pos, window=window)
     o = o.reshape(b, s, num_heads * head_dim).to(x.dtype)
     return attn.wo(o, qcfg)
+
+
+# The query position of cross attention over the packed 4-bit cross K/V:
+# above every stored key position (all 0), so B4's causal mask passes
+# every entry, as the reference's unbounded query does.
+CROSS_QUERY_POS = 2 ** 30
+
+
+def cross_attn_decode(attn: Attention, x: torch.Tensor, cross_kv: Dict, *,
+                      num_heads: int, num_kv_heads: int, head_dim: int,
+                      qcfg: QuantConfig) -> torch.Tensor:
+    """Cross attention of an S-token chunk x [B, S, D] over one decoder
+    layer's encoder K/V (``lm.build_cross_cache``: fp ``k``/``v`` [B, T,
+    Hk, D], or the packed 4-bit codes and scales), no mask, no cache
+    update. The fp form runs the plain attention of the fp ring; the
+    4-bit form kernel B4, with every stored key position read as 0 and
+    the query at ``CROSS_QUERY_POS``: every entry attended, unwritten
+    ones as zero K/V, as the reference's fp cross. Only q and the output
+    are projected: the reference also projects x through the cross
+    layer's ``wk`` and ``wv`` at every step and drops the result."""
+    b, s = x.shape[:2]
+    g = num_heads // num_kv_heads
+    q = attn.wq(x, qcfg).reshape(b, s, num_kv_heads, g, head_dim)
+    if "k_codes" in cross_kv:
+        layer = dict(cross_kv)
+        layer["pos"] = torch.zeros_like(cross_kv["pos"])
+        qpos = torch.full((b, s), CROSS_QUERY_POS, dtype=torch.int32,
+                          device=x.device)
+        o = backend.qkv_attn_decode(q, layer, qpos).to(x.dtype)
+    else:
+        o = sdpa(q, cross_kv["k"].to(q.dtype), cross_kv["v"].to(q.dtype),
+                 None)
+    return attn.wo(o.reshape(b, s, num_heads * head_dim), qcfg)

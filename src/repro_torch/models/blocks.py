@@ -1,9 +1,14 @@
-"""Decoder block assembly: the dense ``attn_mlp`` kind, the MoE
-``attn_moe`` kind and the SSM ``mamba`` kind (an RMS-normed Mamba2 mixer,
-no FFN). Counterpart of ``repro.models.blocks``: the full-sequence forward
-(``block_apply``) and the decode step over the layer's cache (KV for
-attention, the recurrent state for the mixer); the other kinds arrive
-with their families. As in the reference, every ``attn_mlp`` layer is
+"""Block assembly: the dense ``attn_mlp`` kind, the MoE ``attn_moe``
+kind, the SSM ``mamba`` kind (an RMS-normed Mamba2 mixer, no FFN) and the
+encoder-decoder's ``enc`` (bidirectional self-attention and the MLP) and
+``dec`` (causal self-attention, cross attention over the encoder's
+output, the MLP). Counterpart of ``repro.models.blocks``: the
+full-sequence forward (``block_apply``) and the decode step over the
+layer's cache (KV for attention, the recurrent state for the mixer; a
+``dec`` layer also reads its cross K/V); the other kinds arrive with their
+families. Norms are RMSNorm or LayerNorm as ``cfg.norm`` says; the
+encoder-decoder family has no rotary encoding (sinusoids are added to its
+embeddings). As in the reference, every ``attn_mlp`` layer is
 ``cfg.d_ff`` wide (the reference's plan never selects ``dense_d_ff``)."""
 from __future__ import annotations
 
@@ -18,9 +23,9 @@ from . import attention
 from . import mlp as mlp_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .common import RMSNorm, rms_norm_init
+from .common import RMSNorm, norm_init, norm_module, rms_norm_init
 
-KINDS = ("attn_mlp", "attn_moe", "mamba")
+KINDS = ("attn_mlp", "attn_moe", "mamba", "enc", "dec")
 
 
 def _check_kind(kind: str) -> None:
@@ -28,6 +33,12 @@ def _check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} belongs to a later port slice (the port "
             f"serves {KINDS} so far)")
+
+
+def uses_rope(cfg) -> bool:
+    """Whether attention takes rotary encodings (the reference's
+    ``use_rope``: not the audio family, which adds sinusoids)."""
+    return cfg.family != "audio"
 
 
 def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
@@ -39,14 +50,18 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
                 "mamba": ssm_lib.mamba2_init(
                     cfg.d_model, cfg.ssm_state, qcfg, generator=generator,
                     device=device, expand=cfg.ssm_expand, dtype=dt)}
-    p = {
-        "ln_attn": rms_norm_init(cfg.d_model, device=device),
-        "attn": attention.attn_init(
+
+    def attn():
+        return attention.attn_init(
             cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, qcfg,
             generator=generator, device=device, use_bias=cfg.attn_bias,
-            dtype=dt),
-        "ln_ffn": rms_norm_init(cfg.d_model, device=device),
-    }
+            dtype=dt)
+
+    p = {"ln_attn": norm_init(cfg, device=device), "attn": attn()}
+    if kind == "dec":
+        p["ln_cross"] = norm_init(cfg, device=device)
+        p["cross"] = attn()
+    p["ln_ffn"] = norm_init(cfg, device=device)
     if kind == "attn_moe":
         p["moe"] = moe_lib.moe_init(
             cfg.d_model, cfg.d_ff, cfg.num_experts, qcfg,
@@ -85,6 +100,8 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
         return {"ssm": ssm_lib.init_ssm_cache(
             batch, cfg.d_model, cfg.ssm_state, expand=cfg.ssm_expand,
             dtype=dtype, device=device)}
+    if kind == "enc":
+        raise ValueError("an encoder block keeps no decode cache")
     clen = min(cache_len, cfg.window) if cfg.window else cache_len
     if kv_layout == "paged":
         if clen % page_size:
@@ -113,9 +130,12 @@ class Block(nn.Module):
             self.ln_mixer = RMSNorm(tree["ln_mixer"])
             self.mamba = ssm_lib.Mamba2(tree["mamba"])
             return
-        self.ln_attn = RMSNorm(tree["ln_attn"])
+        self.ln_attn = norm_module(tree["ln_attn"])
         self.attn = attention.Attention(tree["attn"])
-        self.ln_ffn = RMSNorm(tree["ln_ffn"])
+        if kind == "dec":
+            self.ln_cross = norm_module(tree["ln_cross"])
+            self.cross = attention.Attention(tree["cross"])
+        self.ln_ffn = norm_module(tree["ln_ffn"])
         if kind == "attn_moe":
             self.moe = moe_lib.MoE(tree["moe"], act=act)
         else:
@@ -125,8 +145,11 @@ class Block(nn.Module):
         if self.kind == "mamba":
             return {"ln_mixer": self.ln_mixer.tree(),
                     "mamba": self.mamba.tree()}
-        out = {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree(),
-               "ln_ffn": self.ln_ffn.tree()}
+        out = {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree()}
+        if self.kind == "dec":
+            out["ln_cross"] = self.ln_cross.tree()
+            out["cross"] = self.cross.tree()
+        out["ln_ffn"] = self.ln_ffn.tree()
         if self.kind == "attn_moe":
             out["moe"] = self.moe.tree()
         else:
@@ -145,22 +168,32 @@ def _ffn(block: Block, h: torch.Tensor, cfg, qcfg: QuantConfig,
     return block.mlp(h, qcfg, noise), None
 
 
+def _attn_kwargs(cfg, qcfg: QuantConfig) -> Dict:
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.hd, qcfg=qcfg)
+
+
 def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
-                qcfg: QuantConfig, noise=None, *, rope=None
+                qcfg: QuantConfig, noise=None, *, rope=None, cross_x=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Full-sequence pre-norm residual block (training forward). Returns
-    (x, the MoE load-balancing loss or None)."""
+    """Full-sequence pre-norm residual block (training forward; the
+    encoder's blocks; a ``dec`` block attends ``cross_x``, the encoder's
+    output). Returns (x, the MoE load-balancing loss or None)."""
     if block.kind == "mamba":
         h = block.ln_mixer(x, cfg.norm_eps)
         return x + ssm_lib.mamba2_apply(
             block.mamba, h, qcfg, noise, d_state=cfg.ssm_state,
             expand=cfg.ssm_expand, chunk=cfg.ssm_chunk), None
+    kw = dict(_attn_kwargs(cfg, qcfg), noise=noise,
+              rope_theta=cfg.rope_theta, window=cfg.window,
+              q_block=cfg.q_block, use_rope=uses_rope(cfg))
     h = block.ln_attn(x, cfg.norm_eps)
-    x = x + attention.attn_apply(
-        block.attn, h, positions, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, qcfg=qcfg,
-        noise=noise, rope_theta=cfg.rope_theta, window=cfg.window,
-        q_block=cfg.q_block, rope=rope)
+    x = x + attention.attn_apply(block.attn, h, positions, rope=rope,
+                                 causal=block.kind != "enc", **kw)
+    if block.kind == "dec":
+        h = block.ln_cross(x, cfg.norm_eps)
+        x = x + attention.attn_apply(block.cross, h, positions,
+                                     cross_x=cross_x, **kw)
     h = block.ln_ffn(x, cfg.norm_eps)
     y, aux = _ffn(block, h, cfg, qcfg, noise)
     return x + y, aux
@@ -168,13 +201,15 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,
                  pos: torch.Tensor, cfg, qcfg: QuantConfig, *, rope,
-                 write) -> torch.Tensor:
+                 write, cross_kv: Optional[Dict] = None) -> torch.Tensor:
     """Pre-norm residual block over an S-token chunk at positions ``pos``
     [B, S] (< 0: a masked lane); updates the layer's cache in place. A
     ``mamba`` layer dispatches as the reference does: S > 1 through the
     chunked prefill (its padding lanes state-neutral), S = 1 through the
     O(1) decode, which advances every row; ``rope`` and ``write`` are the
-    attention's and unused there."""
+    attention's and unused there. A ``dec`` layer attends its cross K/V
+    ``cross_kv`` (one layer's slice of the cache's ``cross`` subtree)
+    after its self-attention."""
     if block.kind == "mamba":
         h = block.ln_mixer(x, cfg.norm_eps)
         kw = dict(d_state=cfg.ssm_state, expand=cfg.ssm_expand)
@@ -187,8 +222,11 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
         return x + y
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_decode(
-        block.attn, h, cache["kv"], pos, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, qcfg=qcfg,
-        rope=rope, write=write, window=cfg.window)
+        block.attn, h, cache["kv"], pos, rope=rope, write=write,
+        window=cfg.window, **_attn_kwargs(cfg, qcfg))
+    if block.kind == "dec" and cross_kv is not None:
+        h = block.ln_cross(x, cfg.norm_eps)
+        x = x + attention.cross_attn_decode(block.cross, h, cross_kv,
+                                            **_attn_kwargs(cfg, qcfg))
     h = block.ln_ffn(x, cfg.norm_eps)
     return x + _ffn(block, h, cfg, qcfg)[0]

@@ -1,8 +1,11 @@
-"""Shared model components: norms, embeddings, rotary encodings.
-Counterpart of ``repro.models.common``. The norm gains and the embedding
-table are parameters (frozen until training asks for gradients).
+"""Shared model components: norms, embeddings, rotary encodings and the
+encoder-decoder's fixed sinusoidal positions. Counterpart of
+``repro.models.common`` (and of ``repro.models.lm._sinusoid_at``). The
+norm gains and biases and the embedding table are parameters (frozen
+until training asks for gradients).
 
-The RMS mean follows the port's row-reduction rule (``core.numerics``).
+The RMS and LayerNorm means follow the port's row-reduction rule
+(``core.numerics``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,52 @@ class RMSNorm(nn.Module):
 
     def tree(self) -> Dict:
         return {"g": self.g}
+
+
+def layer_norm_init(d: int, *, device=None) -> Dict:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(g: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32: the row mean and the variance of the centred row
+    (float64 sums, one rounding each), ``rsqrt``, gain and bias, cast back
+    to x's dtype."""
+    xf = x.float()
+    d = xf.shape[-1]
+    mu = sum_fp64("...d->...", xf, divisor=d)[..., None]
+    xc = xf - mu
+    var = sum_fp64("...d,...d->...", xc, xc, divisor=d)[..., None]
+    y = xc * torch.rsqrt(var + eps)
+    return (y * g.float() + b.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, leaf: Dict):
+        super().__init__()
+        self.g = nn.Parameter(leaf["g"], requires_grad=False)
+        self.b = nn.Parameter(leaf["b"], requires_grad=False)
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return layer_norm(self.g, self.b, x, eps)
+
+    def tree(self) -> Dict:
+        return {"g": self.g, "b": self.b}
+
+
+def norm_init(cfg, *, device=None) -> Dict:
+    """The leaf of the config's norm (``cfg.norm``: "rms" or "ln")."""
+    if cfg.norm == "ln":
+        return layer_norm_init(cfg.d_model, device=device)
+    if cfg.norm == "rms":
+        return rms_norm_init(cfg.d_model, device=device)
+    raise ValueError(f"unknown norm {cfg.norm!r}")
+
+
+def norm_module(leaf: Dict) -> nn.Module:
+    """The norm a leaf holds: LayerNorm with a bias, RMSNorm without."""
+    return LayerNorm(leaf) if "b" in leaf else RMSNorm(leaf)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
@@ -85,6 +134,44 @@ def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------- sinusoid positions ----
+def sinusoid_positions(max_len: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [max_len, d] fp32 (the
+    encoder's): computed in float64 with numpy and rounded once, as the
+    reference computes them, so bitwise the reference's."""
+    pos = np.arange(max_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / (1e4 ** (dim / d))
+    out = np.zeros((max_len, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
+def sinusoid_denominators(d: int) -> np.ndarray:
+    """fp32 ``1e4 ** (dim / d)`` over dim = 0, 2, ..., d - 2: the exponent
+    an fp32 division, the power taken in float64 and rounded once (equal
+    to the reference's fp32 ``pow`` at every entry it was checked at,
+    where torch's fp32 ``pow`` is not)."""
+    expo = np.arange(0, d, 2).astype(np.float32) / np.float32(d)
+    return (1e4 ** expo.astype(np.float64)).astype(np.float32)
+
+
+def sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """The decoder's sinusoidal embedding at arbitrary positions: pos
+    [...] (int) -> fp32 [..., d], sin at even and cos at odd channels.
+    The angle is the position times the fp32 reciprocal of its
+    denominator, as XLA computes the reference's division by that
+    constant; its sin and cos are taken in float64 and rounded once (the
+    reference's XLA fp32 sin and cos are no formula: they differ from the
+    correctly rounded values in ~1% of entries, by one rounding)."""
+    recip = np.float32(1.0) / sinusoid_denominators(d)
+    ang = (pos.float()[..., None]
+           * torch.as_tensor(recip, device=pos.device)).double()
+    out = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return out.reshape(pos.shape + (d,)).float()
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,11 @@
 """Top-level language model: init, the full-sequence forward and the
 training loss, the decode cache, decode, chunked-prefill and speculative
 verify steps, and the serving capabilities of a family. Counterpart of
-``repro.models.lm``.
+``repro.models.lm``. The encoder-decoder (whisper) adds the encoder
+(``encode``: the stub frontend, one fp projection of mel frames, fixed
+sinusoids and the ``enc`` blocks) and the decoder's cross K/V
+(``build_cross_cache``, the cache's ``cross`` subtree), and adds
+sinusoids to the decoder's embeddings in every step.
 
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
@@ -29,24 +33,26 @@ from repro_torch.core.numerics import row_block_matmul
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve import kv_quant
 from . import attention, blocks
-from .common import (Embed, RMSNorm, embed_logits, embed_lookup,
-                     rms_norm_init, rope_tables)
+from .common import (Embed, embed_logits, embed_lookup, norm_init,
+                     norm_module, rope_tables, sinusoid_at,
+                     sinusoid_positions)
 
 LOSS_CHUNK = 1024
 Z_LOSS = 1e-4
 MOE_AUX = 0.01           # weight of the MoE load-balancing loss
+ENC_LEN = 1500           # the reference's default encoder length (30 s)
 
 
 class LM(nn.Module):
-    """Decoder-only LM: embed, blocks, final norm, readout."""
+    """The LM: embed, blocks, final norm, readout; for an encoder-decoder
+    also the frontend projection, the encoder blocks and their final
+    norm."""
 
     def __init__(self, cfg, tree: Dict):
         super().__init__()
-        if cfg.norm != "rms":
-            raise NotImplementedError("only RMSNorm archs are ported")
         self.cfg = cfg
         self.embed = Embed(tree["embed"])
-        self.final_norm = RMSNorm(tree["final_norm"])
+        self.final_norm = norm_module(tree["final_norm"])
         self.lm_head = None if cfg.tie_embeddings else \
             smol.SmolLinear(tree["lm_head"])
         kinds = [kind for kind, count in cfg.layer_plan()
@@ -57,6 +63,16 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             blocks.Block(kind, bt, act=cfg.mlp_act)
             for kind, bt in zip(kinds, tree["blocks"]))
+        self.frontend = self.enc_blocks = self.enc_norm = None
+        if cfg.encoder_layers:
+            if len(tree["enc_blocks"]) != cfg.encoder_layers:
+                raise ValueError(f"{len(tree['enc_blocks'])} encoder blocks "
+                                 f"for {cfg.encoder_layers} layers")
+            self.frontend = smol.SmolLinear(tree["frontend"])
+            self.enc_blocks = nn.ModuleList(
+                blocks.Block("enc", bt, act=cfg.mlp_act)
+                for bt in tree["enc_blocks"])
+            self.enc_norm = norm_module(tree["enc_norm"])
         for name, lin in smol.smol_linears(self):
             lin.path = name
 
@@ -66,6 +82,10 @@ class LM(nn.Module):
                "blocks": [b.tree() for b in self.blocks]}
         if self.lm_head is not None:
             out["lm_head"] = self.lm_head.leaf()
+        if self.enc_blocks is not None:
+            out["enc_blocks"] = [b.tree() for b in self.enc_blocks]
+            out["enc_norm"] = self.enc_norm.tree()
+            out["frontend"] = self.frontend.leaf()
         return out
 
     @property
@@ -86,7 +106,7 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
     table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=dev) * 0.02
     tree: Dict = {"embed": {"table": table.to(dt)},
-                  "final_norm": rms_norm_init(cfg.d_model, device=dev)}
+                  "final_norm": norm_init(cfg, device=dev)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = smol.linear_init(
             cfg.d_model, cfg.vocab_size, qcfg, generator=gen, device=dev,
@@ -95,13 +115,21 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
                                         device=dev)
                       for kind, count in cfg.layer_plan()
                       for _ in range(count)]
+    if cfg.encoder_layers:
+        tree["enc_blocks"] = [blocks.block_init("enc", cfg, qcfg,
+                                                generator=gen, device=dev)
+                              for _ in range(cfg.encoder_layers)]
+        tree["enc_norm"] = norm_init(cfg, device=dev)
+        tree["frontend"] = smol.linear_init(
+            cfg.frontend_dim, cfg.d_model, qcfg, generator=gen, device=dev,
+            quantized=False, dtype=dt)
     return LM(cfg, tree)
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                device: DeviceLike = None, kv_bits: Optional[int] = None,
                kv_layout: str = "ring", page_size: int = 16,
-               num_pages: Optional[int] = None) -> Dict:
+               num_pages: Optional[int] = None, enc_len: int = 0) -> Dict:
     """Decode cache, ``{"layers": [{"kv": {...}}]}`` with one dict per
     layer (a ``mamba`` layer holds ``{"ssm": {"h", "conv"}}`` instead: the
     KV options do not apply to it). ``kv_bits=None`` keeps fp rings in
@@ -111,7 +139,16 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     kernel B5 at 4 bits, the fp ring's plain attention over the gathered
     pages at fp): ``num_pages`` pages of ``page_size`` tokens shared by
     the slots through one page table that every layer reads. The paged
-    layout needs the engine's ``PagePool`` to drive allocation."""
+    layout needs the engine's ``PagePool`` to drive allocation.
+
+    An encoder-decoder's cache also holds ``cross``: every decoder
+    layer's cross K/V stacked ``[L, B, T, ...]`` as the reference lays it
+    out (T = ``enc_len``, default ``ENC_LEN``), zeros until
+    ``build_cross_cache`` fills it (all entries attended: zero K/V give a
+    zero attention output, never NaN): fp ``k``/``v`` in ``dtype`` and
+    ``pos``, or at ``kv_bits=4`` the packed family (codes, fp16 scales,
+    ``pos``), whatever the self-attention's layout. ``pos`` is
+    bookkeeping; cross attention reads every entry."""
     dev = resolve_device(device)
     layers = []
     table = None
@@ -122,13 +159,79 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                 kv_bits=kv_bits, kv_layout=kv_layout, page_size=page_size,
                 num_pages=num_pages, page_table=table))
             table = layers[-1].get("kv", {}).get("page_table")
-    return {"layers": layers}
+    cache: Dict = {"layers": layers}
+    if cfg.encoder_layers:
+        t = enc_len or ENC_LEN
+        shape = (cfg.num_layers, batch, t, cfg.num_kv_heads, cfg.hd)
+        if kv_bits is not None:
+            cross = kv_quant.init_qkv_cache(
+                cfg.num_layers * batch, t, cfg.num_kv_heads, cfg.hd,
+                device=dev)
+            cross = {name: leaf.reshape((cfg.num_layers, batch)
+                                        + leaf.shape[1:])
+                     for name, leaf in cross.items()}
+        else:
+            cross = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=dtype, device=dev),
+                     "pos": torch.zeros(shape[:3], dtype=torch.int32,
+                                        device=dev)}
+        cache["cross"] = cross
+    return cache
+
+
+@torch.no_grad()
+def build_cross_cache(model: LM, cfg, enc_out, *,
+                      kv_bits: Optional[int] = None) -> Dict:
+    """Every decoder layer's cross K/V of the encoder output ``enc_out``
+    [B, T, D]: the cross attention's ``wk``/``wv`` projections stacked
+    [L, B, T, Hk, D] (one segment-GEMM launch each a layer in serving),
+    with ``pos`` [L, B, T] = 0 .. T - 1. ``kv_bits=4`` quantizes the
+    stacked projections to the packed 4-bit family
+    (``kv_quant.quantize_kv``: codes and fp16 scales, the self-attention
+    ring's carriers), once a request batch. Match it to the cache's
+    ``kv_bits``."""
+    if kv_bits not in (None, 4):
+        raise ValueError(f"kv_bits must be None or 4, got {kv_bits}")
+    qcfg = cfg.quant
+    x = _device_tensor(enc_out, model.device)
+    b, t, _ = x.shape
+    dec = [blk for blk in model.blocks if blk.kind == "dec"]
+    ks = torch.stack([blk.cross.wk(x, qcfg).reshape(
+        b, t, cfg.num_kv_heads, cfg.hd) for blk in dec])
+    vs = torch.stack([blk.cross.wv(x, qcfg).reshape(
+        b, t, cfg.num_kv_heads, cfg.hd) for blk in dec])
+    pos = torch.arange(t, dtype=torch.int32, device=x.device)[
+        None, None].expand(len(dec), b, t).contiguous()
+    if kv_bits == 4:
+        kc, ksc = kv_quant.quantize_kv(ks)
+        del ks
+        vc, vsc = kv_quant.quantize_kv(vs)
+        return {"k_codes": kc, "v_codes": vc, "k_scale": ksc,
+                "v_scale": vsc, "pos": pos}
+    return {"k": ks, "v": vs, "pos": pos}
+
+
+def cross_kv_of(cache: Dict, layer: int) -> Optional[Dict]:
+    """Decoder layer ``layer``'s slice of the cache's cross K/V (views of
+    the stacked leaves), or None for a cache without them."""
+    cross = cache.get("cross")
+    if cross is None:
+        return None
+    return {name: leaf[layer] for name, leaf in cross.items()}
 
 
 def has_attention(cfg) -> bool:
-    """Whether the plan holds an attention layer (RoPE tables and a KV
-    write index are built only then)."""
-    return any("attn" in kind for kind, _ in cfg.layer_plan())
+    """Whether the plan holds an attention layer (a KV write index, and
+    RoPE tables where the family takes them, are built only then)."""
+    return any("attn" in kind or kind in ("dec", "enc")
+               for kind, _ in cfg.layer_plan())
+
+
+def _rope(cfg, positions: torch.Tensor):
+    """The step's shared RoPE tables, or None where no layer takes them."""
+    if has_attention(cfg) and blocks.uses_rope(cfg):
+        return rope_tables(positions, cfg.hd, cfg.rope_theta)
+    return None
 
 
 def logits(model: LM, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -147,34 +250,69 @@ def _recompute(cfg) -> bool:
     return cfg.remat != "none" and torch.is_grad_enabled()
 
 
-def forward(model: LM, cfg, tokens, *, positions=None,
+def _run_blocks(stack, x, positions, cfg, noise, rope, cross_x=None):
+    """x through every block of ``stack`` (each recomputed in the backward
+    when training asks for it); returns (x, the summed MoE loss or
+    None)."""
+    aux = None
+    for block in stack:
+        if _recompute(cfg):
+            x, a = checkpoint(blocks.block_apply, block, x, positions, cfg,
+                              cfg.quant, noise, rope=rope, cross_x=cross_x,
+                              use_reentrant=False)
+        else:
+            x, a = blocks.block_apply(block, x, positions, cfg, cfg.quant,
+                                      noise, rope=rope, cross_x=cross_x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def encode(model: LM, cfg, frames,
+           noise: Optional[smol.NoiseSource] = None) -> torch.Tensor:
+    """The encoder: frames [B, T, frontend_dim] -> [B, T, D] in the
+    compute dtype. The stub frontend (one fp projection, as the reference
+    stubs Whisper's conv stem), fixed sinusoids, the bidirectional ``enc``
+    blocks, the encoder's final norm."""
+    if model.enc_blocks is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    dev = model.device
+    dt = getattr(torch, cfg.dtype)
+    x = model.frontend(_device_tensor(frames, dev).to(dt), cfg.quant,
+                       noise)
+    b, t = x.shape[:2]
+    x = x + sinusoid_positions(t, cfg.d_model).to(dev).to(dt)[None]
+    positions = torch.arange(t, device=dev)[None].expand(b, t)
+    x, _ = _run_blocks(model.enc_blocks, x, positions, cfg, noise, None)
+    return model.enc_norm(x, cfg.norm_eps)
+
+
+def forward(model: LM, cfg, tokens, *, positions=None, frames=None,
             noise: Optional[smol.NoiseSource] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence forward: tokens [B, S] -> (the hidden state after the
     final norm [B, S, D], the MoE load-balancing loss summed over the
     blocks, None for a model without MoE blocks). The loss applies the
     readout in chunks. ``noise`` supplies the Phase-I draws
-    (``cfg.quant.mode == "noise"``)."""
+    (``cfg.quant.mode == "noise"``). An encoder-decoder needs ``frames``
+    [B, T, frontend_dim]: the decoder attends their encoding, and its
+    embeddings take the sinusoids of positions 0 .. S - 1."""
     dev = model.device
     tok = torch.as_tensor(tokens, device=dev).long()
     b, s = tok.shape
-    x = embed_lookup(model.embed.table, tok, getattr(torch, cfg.dtype))
+    dt = getattr(torch, cfg.dtype)
+    x = embed_lookup(model.embed.table, tok, dt)
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
     positions = torch.as_tensor(positions, device=dev).long()
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta) \
-        if has_attention(cfg) else None
-    aux = None
-    for block in model.blocks:
-        if _recompute(cfg):
-            x, a = checkpoint(blocks.block_apply, block, x, positions, cfg,
-                              cfg.quant, noise, rope=rope,
-                              use_reentrant=False)
-        else:
-            x, a = blocks.block_apply(block, x, positions, cfg, cfg.quant,
-                                      noise, rope=rope)
-        if a is not None:
-            aux = a if aux is None else aux + a
+    cross_x = None
+    if cfg.encoder_layers:
+        if frames is None:
+            raise ValueError("an encoder-decoder arch needs frames")
+        cross_x = encode(model, cfg, frames, noise)
+        x = x + sinusoid_positions(s, cfg.d_model).to(dev).to(dt)[None]
+    x, aux = _run_blocks(model.blocks, x, positions, cfg, noise,
+                         _rope(cfg, positions), cross_x)
     return model.final_norm(x, cfg.norm_eps), aux
 
 
@@ -219,7 +357,8 @@ def loss_fn(model: LM, batch: Dict, cfg,
     ||log2(1 + e^-s)||_1. Returns (loss, metrics); ``moe_aux`` is 0 for a
     model without MoE blocks."""
     hidden, aux = forward(model, cfg, batch["tokens"],
-                          positions=batch.get("positions"), noise=noise)
+                          positions=batch.get("positions"),
+                          frames=batch.get("frames"), noise=noise)
     loss = lm_loss(model, cfg, hidden, batch["labels"])
     if aux is not None:
         loss = loss + MOE_AUX * aux
@@ -240,15 +379,40 @@ def _decode_core(model: LM, cfg, cache: Dict, x: torch.Tensor,
     reference's does. Returns the hidden state before the final norm."""
     pos_host = np.asarray(pos, np.int64)
     posb = torch.as_tensor(pos_host, device=x.device)
-    rope = write = None
+    write = None
+    rope = _rope(cfg, posb)
     if has_attention(cfg):
-        rope = rope_tables(posb, cfg.hd, cfg.rope_theta)
         kv = next(layer["kv"] for layer in cache["layers"] if "kv" in layer)
         write = attention.cache_write_index(kv, pos_host, x.device)
-    for block, layer_cache in zip(model.blocks, cache["layers"]):
+    for i, (block, layer_cache) in enumerate(zip(model.blocks,
+                                                 cache["layers"])):
         x = blocks.block_decode(block, x, layer_cache, posb, cfg, cfg.quant,
-                                rope=rope, write=write)
+                                rope=rope, write=write,
+                                cross_kv=cross_kv_of(cache, i))
     return x
+
+
+def _embed_step(model: LM, cfg, tokens, pos) -> torch.Tensor:
+    """The embeddings of a step's tokens [B, C] at host positions ``pos``
+    [B, C] in the compute dtype; an encoder-decoder adds the sinusoids of
+    the positions (of -1 too at a masked lane: finite, never read)."""
+    dev = model.device
+    dt = getattr(torch, cfg.dtype)
+    tok = torch.as_tensor(_host_array(tokens), dtype=torch.int64,
+                          device=dev)
+    x = embed_lookup(model.embed.table, tok, dt)
+    if cfg.encoder_layers:
+        p = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
+        x = x + sinusoid_at(p, cfg.d_model).to(dt)
+    return x
+
+
+def _device_tensor(a, device) -> torch.Tensor:
+    """A tensor on ``device``: moved there, or a copy of a host array (which
+    may be read-only, as a JAX array's host view is)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.tensor(np.asarray(a), device=device)
 
 
 def _host_array(a) -> np.ndarray:
@@ -265,11 +429,7 @@ def decode_step(model: LM, cfg, cache: Dict, tokens, pos, *, active=None):
     pos = _host_array(pos).astype(np.int64)
     if active is not None:
         pos = np.where(_host_array(active), pos, -1)
-    dev = model.device
-    dt = getattr(torch, cfg.dtype)
-    tok = torch.as_tensor(_host_array(tokens), dtype=torch.int64,
-                          device=dev)
-    x = embed_lookup(model.embed.table, tok[:, None], dt)
+    x = _embed_step(model, cfg, _host_array(tokens)[:, None], pos[:, None])
     x = _decode_core(model, cfg, cache, x, pos[:, None])
     x = model.final_norm(x[:, 0], cfg.norm_eps)
     return logits(model, cfg, x), cache
@@ -280,11 +440,9 @@ def prefill_step(model: LM, cfg, cache: Dict, tokens, pos, last_idx):
     last_idx [B] the lane of each slot's last real token. Returns (fp32
     logits [B, V] of each slot's last token, cache)."""
     dev = model.device
-    dt = getattr(torch, cfg.dtype)
-    tok = torch.as_tensor(_host_array(tokens), dtype=torch.int64,
-                          device=dev)
-    x = embed_lookup(model.embed.table, tok, dt)
-    x = _decode_core(model, cfg, cache, x, _host_array(pos))
+    pos = _host_array(pos)
+    x = _embed_step(model, cfg, tokens, pos)
+    x = _decode_core(model, cfg, cache, x, pos)
     last = torch.as_tensor(_host_array(last_idx), dtype=torch.int64,
                            device=dev)
     h = x[torch.arange(x.shape[0], device=dev), last]
@@ -297,12 +455,9 @@ def verify_step(model: LM, cfg, cache: Dict, tokens, pos):
     (tokens [B, C], pos [B, C], -1 = padding lane), but fp32 logits of
     every lane, [B, C, V]: lane j scores the token after lane j's input.
     Prefill-phase slots riding the same call read their last real lane."""
-    dev = model.device
-    dt = getattr(torch, cfg.dtype)
-    tok = torch.as_tensor(_host_array(tokens), dtype=torch.int64,
-                          device=dev)
-    x = embed_lookup(model.embed.table, tok, dt)
-    x = _decode_core(model, cfg, cache, x, _host_array(pos))
+    pos = _host_array(pos)
+    x = _embed_step(model, cfg, tokens, pos)
+    x = _decode_core(model, cfg, cache, x, pos)
     x = model.final_norm(x, cfg.norm_eps)
     return logits(model, cfg, x), cache
 
@@ -397,7 +552,9 @@ def reset_cache_slots(cache: Dict, slots) -> Dict:
     recurrent state (``h``, ``conv``) to 0. A paged layer's pool is shared
     state owned by the host allocator: only the slots' page-table rows
     become -1 (every logical page unmapped); ``PagePool.release`` and
-    ``kv_pool.apply_step_ops`` recycle pages."""
+    ``kv_pool.apply_step_ops`` recycle pages. The encoder-decoder's
+    ``cross`` K/V are left as they are: loaded once for the batch
+    (``DecodeEngine.load_cross``), not state a step writes."""
     for layer in cache["layers"]:
         if "ssm" in layer:
             st = layer["ssm"]

@@ -15,9 +15,11 @@ cache is an fp ring, a packed 4-bit ring (``kv_bits=4``, kernel B4) or,
 for the ``DecodeEngine``, a page pool (``kv_layout="paged"``; 4-bit
 through kernel B5, or fp) whose host ``PagePool`` shares prompt-prefix
 pages between requests with copy-on-write. Both serve the dense and the
-MoE decoders (expert banks through the grouped segment GEMM, kernel B6)
-and the SSM (mamba2: the recurrent state in place of KV, the KV options
-ignored). The ``DecodeEngine`` also decodes self-speculatively
+MoE decoders (expert banks through the grouped segment GEMM, kernel B6),
+the SSM (mamba2: the recurrent state in place of KV, the KV options
+ignored) and the encoder-decoder (whisper: the decoder attends the cross
+K/V that ``DecodeEngine.load_cross`` installs, fp or 4-bit through kernel
+B4, beside its self-attention cache). The ``DecodeEngine`` also decodes self-speculatively
 (``spec_tokens``, DESIGN.md §14): k drafts from the low-bit [K2|K1] slice
 of the same packed carriers, verified in one full-mix step of k + 1
 lanes; greedy tokens equal the spec-off tokens. Recurrent state is
@@ -288,6 +290,24 @@ class DecodeEngine(_PackedEngine):
         """Drop all queued/active requests and cache state."""
         self._init_host_state()
         self.cache = None
+
+    @torch.inference_mode()
+    def load_cross(self, enc_out) -> None:
+        """Install an encoder-decoder's cross K/V for the current batch:
+        ``enc_out`` [B, T, D] (``lm.encode``) through every decoder layer's
+        cross ``wk``/``wv`` (``lm.build_cross_cache``), into the cache
+        (built first if there is none). At ``kv_bits=4`` they are packed
+        to 4-bit codes and fp16 scales once here, not per step; fp
+        otherwise. Slot admission never wipes them
+        (``lm.reset_cache_slots``), so one load serves every request
+        decoding against this encoder batch; call again when the encoder
+        output changes."""
+        if self.cache is None:
+            self.cache = self.init_cache(self.ecfg.max_batch)
+            if self.pool is not None:
+                self._table_dirty = True
+        self.cache["cross"] = lm.build_cross_cache(
+            self.model, self.cfg, enc_out, kv_bits=self.ecfg.kv_bits)
 
     # ---------------------------------------------------------- paging ----
     def _flush_pool_ops(self, ops: kv_pool.StepOps):

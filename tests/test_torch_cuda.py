@@ -1225,3 +1225,79 @@ def test_ssm_linears_b7_bitwise_and_b1_within_bound(dev, k, n):
                                          for wp, s, p, o in draft], sx=sx)
     torch.cuda.synchronize()
     assert torch.equal(got, at0)
+
+
+@pytest.mark.parametrize("k,n", [(1024, 4096), (4096, 1024)],
+                         ids=["fc1", "fc2"])
+def test_whisper_encoder_linears_b1_at_6000_rows(dev, k, n):
+    """whisper-medium's encoder MLP linears at M = 6000 (batch 4 x 1500
+    frames: 1500 row tiles over one column tile's carriers; M * K = 24.6 M
+    at fc2): B7 bitwise its plain version, B1 within the fp32 reordering
+    bound of its plain version, one launch; rows 0..15 bitwise the same
+    rows computed alone (a row tile does not depend on the others)."""
+    g = torch.Generator(device=dev).manual_seed(k * 7 + n)
+    w, perm, sc, segs = _pack_operands((k, n), g, dev)
+    carriers = qp.quantize_pack_segments(w, perm, sc, segments=segs)
+    for a, b in zip(carriers, qp.quantize_pack_segments_plain(
+            w, perm, sc, segments=segs)):
+        assert torch.equal(a, b)
+    ops, off = [], 0
+    for wp, p, kp in zip(carriers, (4, 2, 1), segs):
+        if kp:
+            ops.append((wp, sc[off // 16:(off + kp) // 16].contiguous(), p,
+                        off))
+            off += kp
+    m = 6000
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    x[-1, : k // 2] *= 40.0                        # an outlier row, last
+    sx = quant.abs_max_scale(x, dim=-1).float().contiguous()
+    kernels.reset_launch_counts()
+    got = pm.segments_matmul(x, ops, sx=sx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_act_segment_matmul"] == 1
+    want = pm.segments_matmul_plain(x, ops, sx=sx)
+    xq = torch.cat([pm.act_quant(x[:, o:o + wp.shape[0] * 8 // p], sx, p)
+                    for wp, _s, p, o in ops], dim=-1)
+    wd = torch.cat([pm.unpack_dequant(wp, p, s) for wp, s, p, _o in ops])
+    assert torch.isfinite(got).all() and got.shape == (m, n)
+    assert _within_reorder_bound(got, want, xq, wd)
+    alone = pm.segments_matmul(x[:16].contiguous(), ops,
+                               sx=sx[:16].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(alone, got[:16])
+
+
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_whisper_cross_attention_b4(dev, s):
+    """B4 on whisper-medium's cross K/V (batch 4, T = 1500 encoder
+    entries: not a multiple of the 32-entry tile; Hk = 16, G = 1, D = 64)
+    as the decoder reads it: every stored key position 0, the query
+    position 2^30, so every entry is attended. Within the bound of its
+    plain version, finite, and each of S = 4 (verify) or 8 (prefill)
+    lanes bitwise the S = 1 call on its query."""
+    from repro_torch.kernels import attn_decode as ad
+    from repro_torch.models.attention import CROSS_QUERY_POS
+    from repro_torch.serve import kv_quant
+    g = torch.Generator(device=dev).manual_seed(1500 + s)
+    b, t, hk, gq, d = 4, 1500, 16, 1, 64
+    q = torch.randn((b, s, hk, gq, d), generator=g, device=dev)
+    kc, ks = _kv_codes(g, (b, t, hk, d), dev)
+    vc, vs = _kv_codes(g, (b, t, hk, d), dev)
+    kv_pos = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    q_pos = torch.full((b, s), CROSS_QUERY_POS, dtype=torch.int32,
+                       device=dev)
+    kernels.reset_launch_counts()
+    got = ad.qkv_attn_decode(q, kc, vc, ks, vs, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qkv_attn_decode"] == 1
+    want = ad.qkv_attn_decode_plain(q, kc, vc, ks, vs, kv_pos, q_pos)
+    k = kv_quant.dequantize_kv(kc, ks, torch.float32)
+    v = kv_quant.dequantize_kv(vc, vs, torch.float32)
+    bound = ad.error_bound(q, k, v, kv_pos, q_pos)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - want.double()).abs() <= bound).all()
+    for j in range(s):
+        lane = ad.qkv_attn_decode(q[:, j:j + 1].contiguous(), kc, vc, ks,
+                                  vs, kv_pos, q_pos[:, j:j + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(lane[:, 0], got[:, j]), j

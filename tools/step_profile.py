@@ -10,7 +10,8 @@ load (deploy packing), split by the torch op or kernel that did the work
     undo()
 
 An SSM training step installs ``SSM_TRAIN_SPANS`` and reads
-``ssm_train_summary`` (the chunked SSD's forward and backward apart).
+``ssm_train_summary`` (the chunked SSD's forward and backward apart); the
+encoder-decoder's encode pass and serve steps install ``WHISPER_SPANS``.
 
 The port carries no profiler ranges of its own. ``install_spans`` wraps a
 few functions of whichever checkout of ``repro_torch`` is imported (a
@@ -66,6 +67,19 @@ SSM_SPANS = (
     ("repro_torch.models.ssm", "mamba2_decode", "mixer"),
     ("repro_torch.models.ssm", "mamba2_prefill", "mixer"),
     ("repro_torch.models.ssm", "ssd_chunked", "ssd"),
+    ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
+    ("repro_torch.models.lm", "logits", "readout"),
+)
+# The encoder-decoder's encode pass and serve steps (``WHISPER_SPANS``):
+# the attention's float64 scores, softmax and value sums (``sdpa``: the
+# encoder's, the decoder's fp self and cross attention), the LayerNorms,
+# the GELU, the serve linears' driver ops around B1 and the readout; what
+# they leave (the frontend, the sinusoids, residual adds, the 4-bit K/V
+# writes) is ``rest``.
+WHISPER_SPANS = (
+    ("repro_torch.models.attention", "sdpa", "attention"),
+    ("repro_torch.models.common", "layer_norm", "layer_norm"),
+    ("repro_torch.models.common", "gelu", "gelu"),
     ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
     ("repro_torch.models.lm", "logits", "readout"),
 )
