@@ -221,7 +221,9 @@ Phases (none catches an error; any failure exits non-zero):
      subprocesses (quickstart --steps 200, serve_quantized --steps 10,
      train_lm_soniq --preset 100m --steps 4), each timed; each must exit
      0. The ``soniq`` JSON line.
- 18. SSM serve: mamba2-2.7b at full width and depth (64 layers, d_model
+ 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 32
+     of its 64 layers (so the script stays inside its time limit; phase
+     19(d) runs all 64) (d_model
      2560, 80 SSD heads of 64, state 128, ssm_chunk 256; random QAT
      weights of the seed). (a) B7 and B1 at its linears' shapes (in_proj
      2560 x 10576, whose N leaves a partial column tile, and out_proj
@@ -230,7 +232,7 @@ Phases (none catches an error; any failure exits non-zero):
      bitwise the launch at k_off 0; both timed on both rulers beside
      torch.matmul on the dequantized operands. (b) The DecodeEngine
      (default mix, max_batch 4, prefill chunk 8, greedy; 8 requests of
-     16-64 prompt tokens and 16 new): 128 B7 launches at load and 128 B1
+     16-64 prompt tokens and 16 new): 64 B7 launches at load and 64 B1
      a decode step (checked), pack_s and the load's device busy, a second
      run bitwise the first, decode-step host ms, a device profile of a
      decode step and an 8-lane prefill step (kernels, busy, B1 ms, the
@@ -238,7 +240,7 @@ Phases (none catches an error; any failure exits non-zero):
      resident SSM state bytes. (c) The first 4 requests at prefill chunk
      1, through the LockstepEngine (prompts cut to 16 tokens) and
      speculatively (k = 3, draft bits 2;
-     ``spec_stats``, round ms, 640 B1 launches a drafting round checked:
+     ``spec_stats``, round ms, 320 B1 launches a drafting round checked:
      3 drafts, the verify and the recommit): token agreement with the
      chunk-8 run, reported (chunked SSD and the decode recurrence are
      different sums); teacher-forced on the chunk-8 run's tokens, the
@@ -304,19 +306,51 @@ Phases (none catches an error; any failure exits non-zero):
      card vs CPU within 1e-5. The ``whisper_serve`` JSON line.
      ``python3 chip_smoke.py --only 20`` builds the kernels and runs this
      phase alone.
- 21. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 21. Encoder-decoder training: whisper-medium at full width and depth
+     (24 + 24 layers; fp32 parameters, bf16 compute), batches of
+     TokenStream(batch 8, seq 128, seed 0) with mel frames [8, 1500, 80]
+     fp32 from ``default_rng(SEED)``. (a) B9, B8 and both backward
+     kernels against their plain versions at one encoder layer's six
+     linears (B8's activations at M = 8 x 1500 = 12,000 rows) and one
+     decoder layer's ten (M = 1024; the cross wk/wv at 12,000): forward,
+     dw and dx bitwise, ds within its bound, timed on both rulers
+     (``whisper_train_*`` keys). (b) The logits over the 4/2/1-bit
+     bands, 3 Phase-I steps, the freeze and 3 Phase-II steps through
+     ``loop.train``: every step's launches asserted (768 B9 and 384 B9
+     backward a Phase-I step, 1,536 B8 and 768 B8 backward a Phase-II
+     step: 384 linears, each block recomputed), host ms and peak memory a
+     step, the device busy of steps 2 and 5, their split into fp32 GEMMs,
+     B8/B9, their backward kernels, the float64 attention, the LayerNorms
+     and the GELU (forward with the recompute, and backward) and the rest
+     (``step_profile.WHISPER_TRAIN_SPANS``, ``whisper_train_summary``) at
+     2 + 2 layers (a full-depth profile of every host op reads for
+     minutes; at full depth the device alone: busy, kernels); the report
+     in the reference's walk (the encoder first, path by path); a second
+     run at 2 + 2 layers bitwise the first (losses, gradient norms,
+     pbits, every parameter). (c) One full-width encoder and decoder layer, fp32, card
+     vs CPU teacher-forced at NOISE (the same host-made draws) and QAT:
+     each block's y, dx, the cross input's gradient, every leaf's
+     gradient and every linear within relative L2 1e-5. (d) The trained
+     model through ``soniq.to_serve`` (384 B7), one encode of 4 x 1500
+     frames (144 B1), ``load_cross`` and 4 greedy requests on the fp
+     ring, twice bitwise. The ``whisper_training`` JSON line. ``python3
+     chip_smoke.py --only 21`` builds the kernels and runs this phase
+     alone.
+ 22. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
      B8, B9 and the backward rows; phase 18's ``ssm_*`` keys and SSM
      launches on B1 and B7; phase 19's ``ssm_train_*`` keys on B8, B9
      and the backward rows; phase 20's ``whisper_*`` keys and launches
-     on B1, B4, B5 and B7), the ``kv4_serve``, ``training``,
+     on B1, B4, B5 and B7; phase 21's ``whisper_train_*`` keys on B8, B9
+     and the backward rows), the ``kv4_serve``, ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
      ``ssm_serve``, ``ssm_training``, ``whisper_serve``,
-     ``phase_seconds`` and ``phase_cpu_seconds`` JSON lines, the
-     nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+     ``whisper_training``, ``phase_seconds`` and ``phase_cpu_seconds``
+     JSON lines, the nvidia-smi line, and last the ``{"ok": true, ...}``
+     line.
 """
 from __future__ import annotations
 
@@ -1852,16 +1886,19 @@ def b8_act_operands(m, k, gen, dev):
     return x, pb, sx
 
 
-def phase_training_kernels(cfg, gen, dev, reps=10):
+def phase_training_kernels(cfg, gen, dev, reps=10, shapes=None):
     """B9 and B8 against their plain versions (bitwise) on one layer's
-    operands; times one layer's calls (B9: 7 weights; B8: 7 weights and 7
-    activations at 8 x 128 tokens) with CUDA events around a loop of
+    operands; times one layer's calls (B9: its weights; B8: its weights
+    and their activations, at 8 x 128 tokens unless ``shapes`` gives each
+    linear's rows: (name, K, N, M)) with CUDA events around a loop of
     calls (``ms``, as every kernel here is timed, which includes the
     host's launch gaps between these short kernels) and with the host
     queued ahead (``device_ms``, the kernels alone)."""
-    m = TRAIN_BATCH * TRAIN_SEQ
+    if shapes is None:
+        shapes = [(name, k, n, TRAIN_BATCH * TRAIN_SEQ)
+                  for name, k, n in layer_linears(cfg)]
     b9_ops, b8_w, b8_x = [], [], []
-    for _name, k, n in layer_linears(cfg):
+    for _name, k, n, m in shapes:
         w = torch.rand((k, n), generator=gen, device=dev) * 2.2 - 1.1
         w[0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
         s = torch.randn((k // 16,), generator=gen, device=dev) * 2.0 - 0.5
@@ -1999,8 +2036,13 @@ def train_step_launches(cfg, phase):
     """B8/B9 launches a step of one microbatch, unhoisted: every block is
     recomputed in the backward, so each quantized linear runs its forward
     twice: Phase I one B9 a forward and one B9 backward; Phase II two B8
-    (weight and activation) a forward and two B8 backward."""
+    (weight and activation) a forward and two B8 backward. An
+    encoder-decoder counts its encoder's linears and the decoder's cross
+    attention (the frontend is an fp skip linear)."""
     n = len(layer_linears(cfg)) * cfg.num_layers
+    if cfg.encoder_layers:
+        n = (WHISPER_ENC_LINEARS * cfg.encoder_layers
+             + WHISPER_DEC_LINEARS * cfg.num_layers)
     if phase == 1:
         return {"b9": 2 * n, "b9_bwd": n, "b8": 0, "b8_bwd": 0}
     return {"b8": 4 * n, "b8_bwd": 2 * n, "b9": 0, "b9_bwd": 0}
@@ -2012,9 +2054,11 @@ def phase_training(cfg, dev, tag=8, spans=step_profile.SPANS,
     """Full-width two-phase training through ``train.loop.train`` (``t1``
     Phase-I steps of ``t2``), every step's B8/B9 launches checked
     (``train_step_launches``) and its peak memory kept; with ``profiled``,
-    a device profile (``summary`` under ``spans``) of the last step of
-    each phase; with ``mixed_seed``, the logits drawn over the 4/2/1-bit
-    bands first (``set_mixed_logits``). Returns (the trained state,
+    a device profile (``summary`` under ``spans``; ``spans=None``: the
+    device alone, cheap to read, for ``step_profile.device_busy``) of the
+    last step of each phase; with ``mixed_seed``, the logits drawn over the 4/2/1-bit
+    bands first (``set_mixed_logits``). An encoder-decoder's batches
+    carry mel frames (``with_frames``). Returns (the trained state,
     per-step records, profiles, pattern report)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.profiler import schedule as prof_schedule
@@ -2023,6 +2067,9 @@ def phase_training(cfg, dev, tag=8, spans=step_profile.SPANS,
     stream = synthetic.TokenStream(synthetic.TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         batch_size=TRAIN_BATCH, seed=0))
+    batches = stream.batches()
+    if cfg.encoder_layers:
+        batches = with_frames(batches, cfg)
     records, profiles = [], {}
     counted = {"b8": B8, "b9": B9, "b8_bwd": B8_BWD, "b9_bwd": B9_BWD}
     prev = dict.fromkeys(counted.values(), 0)
@@ -2058,20 +2105,23 @@ def phase_training(cfg, dev, tag=8, spans=step_profile.SPANS,
     t0 = time.perf_counter()
     prof = None
     if profiled:
-        undo_spans = step_profile.install_spans(spans)
+        acts = [ProfilerActivity.CUDA]
+        undo_spans = lambda: None  # noqa: E731
+        if spans is not None:
+            acts.insert(0, ProfilerActivity.CPU)
+            undo_spans = step_profile.install_spans(spans)
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
+            with profile(activities=acts,
                          schedule=prof_schedule(wait=t1 - 1, warmup=0,
                                                 active=1, repeat=2),
                          on_trace_ready=on_ready) as prof:
-                out = loop.train(cfg, tcfg, stream.batches(), model=model,
+                out = loop.train(cfg, tcfg, batches, model=model,
                                  device=dev, hooks=[hook])
         finally:
             undo_spans()
     else:
-        out = loop.train(cfg, tcfg, stream.batches(), model=model,
-                         device=dev, hooks=[hook])
+        out = loop.train(cfg, tcfg, batches, model=model, device=dev,
+                         hooks=[hook])
     wall = time.perf_counter() - t0
     for r in records:
         if not math.isfinite(r["loss"]):
@@ -3524,6 +3574,7 @@ def phase_dense_configs(dev, rng, spec_runs):
 # ------------------------------------------------------------- SSM serve ----
 SSM_ARCH = "mamba2-2.7b"
 SSM_LINEARS = 2                 # in_proj, out_proj: one B7 / B1 launch each
+SSM_SERVE_LAYERS = 32           # phase 18's depth (mamba2-2.7b has 64)
 # Phase 18(c)'s cross-form bound: teacher-forced logits of the chunked
 # steps against token-by-token decode, relative L2 at every lane.
 SSM_CROSS_FORM = 1e-2
@@ -3881,23 +3932,27 @@ def ssm_spec_serve(model, cfg, ecfg, reqs, want, dev):
 
 
 def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
-    """Phase 18: serve the SSM family at the full width and depth of
-    mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads of 64, state 128,
-    ssm_chunk 256). (a) B7 and B1 at its linears' shapes
+    """Phase 18: serve the SSM family at the full width of mamba2-2.7b
+    (d_model 2560, 80 SSD heads of 64, state 128, ssm_chunk 256), cut to
+    SSM_SERVE_LAYERS of its 64 layers so the script stays inside its
+    time limit. (a) B7 and B1 at its linears' shapes
     (``phase_ssm_kernels``, into ``results``). (b) DecodeEngine from
     random QAT weights of the seed (default mix, max_batch 4, prefill
-    chunk 8, greedy; 8 requests of 16-64 prompt tokens and 16 new): 128
-    B7 launches at load and 128 B1 a decode step (asserted), the load's
+    chunk 8, greedy; 8 requests of 16-64 prompt tokens and 16 new): one
+    B7 launch a linear at load and one B1 a linear a decode step
+    (asserted), the load's
     pack_s and device busy, a second run bitwise the first, decode-step
     host ms, a device profile of a decode step and an 8-lane prefill step,
     the resident SSM state bytes. (c) The first 4 requests at prefill
     chunk 1, through the LockstepEngine (prompts cut to 16 tokens, one
-    batch) and speculatively (k = 3, draft bits 2; 640 B1 launches a
-    drafting round): token agreement with the chunk-8 run;
+    batch) and speculatively (k = 3, draft bits 2; 5 B1 launches a linear
+    a drafting round): token agreement with the chunk-8 run;
     the teacher-forced cross-form logits within 1e-2 relative L2
     (``ssm_cross_form``). (d) Card vs CPU (``check_ssm_against_cpu``).
     Returns the numbers."""
-    cfg = get_config(SSM_ARCH).with_quant_mode("qat")
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              num_layers=SSM_SERVE_LAYERS).with_quant_mode(
+                                  "qat")
     qcfg = QuantConfig(mode="qat")
     laps, t_lap = {}, [time.perf_counter()]
 
@@ -4039,20 +4094,29 @@ def param_digest(model) -> float:
     return total
 
 
-def _block_grads(block, x, g, cfg, noise, feed=None):
-    """One mamba block's forward and backward on x's device, its linears'
-    inputs fed from ``feed`` (a LinearTape's inputs) when given: (y, dx,
-    {parameter name: gradient}, the LinearTape)."""
+def _block_grads(block, x, g, cfg, noise, feed=None, positions=None,
+                 cross_x=None):
+    """One block's forward and backward on x's device (a ``dec`` block
+    attends ``cross_x``), its linears' inputs fed from ``feed`` (a
+    LinearTape's inputs) when given: (y, dx, {parameter name: gradient,
+    and ``cross_x``'s gradient under that name}, the LinearTape)."""
     from repro_torch.models import blocks as blocks_lib
     tape = LinearTape(block, feed)
     try:
-        xt = x.clone().requires_grad_(True)
-        y, _ = blocks_lib.block_apply(block, xt, None, cfg, cfg.quant, noise)
+        inputs = (x.clone().requires_grad_(True),)
+        if cross_x is not None:
+            inputs += (cross_x.clone().requires_grad_(True),)
+        y, _ = blocks_lib.block_apply(
+            block, inputs[0], positions, cfg, cfg.quant, noise,
+            cross_x=None if cross_x is None else inputs[1])
         names, params = zip(*block.named_parameters())
-        grads = torch.autograd.grad(y, (xt,) + params, g)
+        grads = torch.autograd.grad(y, inputs + params, g)
     finally:
         tape.close()
-    return y.detach(), grads[0], dict(zip(names, grads[1:])), tape
+    out = dict(zip(names, grads[len(inputs):]))
+    if cross_x is not None:
+        out["cross_x"] = grads[1]
+    return y.detach(), grads[0], out, tape
 
 
 def check_ssm_training_against_cpu(dev):
@@ -4390,6 +4454,16 @@ def whisper_frames(cfg, seed, batch=WHISPER_BATCH, frames=None):
     return np.random.default_rng(seed).standard_normal(
         (batch, frames or WHISPER_FRAMES, cfg.frontend_dim)).astype(
             np.float32)
+
+
+def with_frames(batches, cfg, seed=SEED):
+    """Training batches with mel frames [B, WHISPER_FRAMES, frontend_dim]
+    fp32, one draw a batch from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        yield dict(b, frames=rng.standard_normal(
+            (len(b["tokens"]), WHISPER_FRAMES, cfg.frontend_dim)).astype(
+                np.float32))
 
 
 def profile_encode(eng, frames):
@@ -4736,10 +4810,303 @@ def phase_whisper_serve(dev, rng, gen, results, launches, per_step):
     return st
 
 
+# ------------------------------------------------------ whisper training ----
+WHISPER_CPU_FRAMES = 128     # phase 21(c)'s encoder rows a layer (1 x 128)
+WHISPER_CPU_TOKENS = 64      # phase 21(c)'s decoder tokens (1 x 64)
+# Phase 21(b)'s op-split profile and second run: encoder and decoder
+# layers (24 each at full depth, whose profile is read on the device
+# alone).
+WHISPER_PROFILE_LAYERS = 2
+
+
+def whisper_train_shapes(cfg):
+    """(name, K, N, M) of the training linears of one encoder layer (its
+    six on 8 x 1500 frame rows) and one decoder layer (its ten on 8 x 128
+    tokens, but the cross wk/wv, which project the encoder's 12,000
+    rows)."""
+    m_enc, m_dec = TRAIN_BATCH * WHISPER_FRAMES, TRAIN_BATCH * TRAIN_SEQ
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    attn = [("wq", d, hq), ("wk", d, hk), ("wv", d, hk), ("wo", hq, d)]
+    mlp = [("mlp.up", d, f), ("mlp.down", f, d)]
+    enc = [(f"enc.{n}", k, nn, m_enc) for n, k, nn in
+           [(f"attn.{a}", k, nn) for a, k, nn in attn] + mlp]
+    dec = [(f"dec.attn.{a}", k, nn, m_dec) for a, k, nn in attn]
+    dec += [(f"dec.cross.{a}", k, nn, m_enc if a in ("wk", "wv") else m_dec)
+            for a, k, nn in attn]
+    dec += [(f"dec.{n}", k, nn, m_dec) for n, k, nn in mlp]
+    return enc + dec
+
+
+def whisper_freeze_channels(cfg):
+    """Input channels of each row of the freeze's report in the
+    reference's walk: the encoder's stacked linears (``enc_groups``)
+    before the decoder's, path by path (sorted), the layers inside each
+    path."""
+    d, f = cfg.d_model, cfg.d_ff
+    attn = [d] * 4                     # wk, wo, wq, wv sorted; K = d each
+    enc = attn + [f, d]                # mlp.down, mlp.up
+    dec = attn + attn + [f, d]         # attn, cross, mlp
+    return ([k for k in enc for _ in range(cfg.encoder_layers)]
+            + [k for k in dec for _ in range(cfg.num_layers)])
+
+
+def check_whisper_training_against_cpu(dev):
+    """Phase 21(c): full-width whisper-medium cut to one encoder and one
+    decoder layer, fp32, at NOISE (logits over the 4/2/1-bit bands, the
+    same host-made draws) and QAT (the default mix): the encoder block
+    on 1 x 128 frame rows, then the decoder block on 1 x 64 tokens
+    attending the card's encoder-block output, each on the card and on
+    the CPU from the same weights, input and cotangent, teacher-forced:
+    each linear on the card runs on the CPU's input to it
+    (``LinearTape``). Every linear's output and its input as the card's
+    own ops made it, each block's y, dx (and the cross input's gradient)
+    and every leaf's gradient (q/k/v/o and MLP weights, biases, logits,
+    the LayerNorms' g and b; a key bias's gradient, zero up to rounding,
+    against its query bias's) within relative L2 1e-5. Returns the worst
+    of each kind (``grad``: over the leaves; ``linear_in``,
+    ``linear_out``: over the linears) and the four largest by name."""
+    worst, detail = {}, {}
+    wide = dataclasses.replace(get_config(WHISPER_ARCH), num_layers=1,
+                               encoder_layers=1, dtype="float32")
+    for mode in ("noise", "qat"):
+        cfg = wide.with_quant_mode(mode)
+        host = lm.init_params(cfg, seed=SEED + 21, device="cpu")
+        if mode == "noise":
+            set_mixed_logits(host, SEED + 21)
+        card = copy.deepcopy(host).to(dev)
+        host.requires_grad_(True)
+        card.requires_grad_(True)
+        noise = HostNoise((SEED, 21)) if mode == "noise" else None
+        gen = torch.Generator().manual_seed(SEED + 21)
+        x = torch.randn((1, WHISPER_CPU_FRAMES, cfg.d_model), generator=gen)
+        t = torch.randn((1, WHISPER_CPU_TOKENS, cfg.d_model), generator=gen)
+        cross = None
+        for tag, block, inp in (("enc", host.enc_blocks[0], x),
+                                ("dec", host.blocks[0], t)):
+            pos = torch.arange(inp.shape[1])[None]
+            g = torch.randn(inp.shape, generator=gen)
+            twin = card.enc_blocks[0] if tag == "enc" else card.blocks[0]
+            yh, dxh, gh, th = _block_grads(block, inp, g, cfg, noise,
+                                           positions=pos, cross_x=cross)
+            yc, dxc, gc_, tc = _block_grads(
+                twin, inp.to(dev), g.to(dev), cfg, noise, feed=th.inputs,
+                positions=pos.to(dev),
+                cross_x=None if cross is None else cross.to(dev))
+            errs = {"y": rel_l2(yc, yh), "dx": rel_l2(dxc, dxh)}
+            for n in gh:
+                if n.endswith(".wk.b"):
+                    # Zero up to rounding: a constant added to every key
+                    # of a row leaves its softmax unchanged.
+                    ref = gh[n.replace(".wk.b", ".wq.b")].double().norm()
+                    errs[n] = ((gc_[n].cpu().double() - gh[n].double())
+                               .norm() / ref).item()
+                else:
+                    errs[n] = rel_l2(gc_[n], gh[n])
+            for (name, _m, xc), (_n, _mh, xh), oc, oh in zip(
+                    tc.inputs, th.inputs, tc.outputs, th.outputs):
+                kind = ".".join(name.split(".")[-2:])
+                errs[f"{kind}.in"] = rel_l2(xc, xh)
+                errs[f"{kind}.out"] = rel_l2(oc, oh)
+            for what, err in errs.items():
+                detail[f"{mode}.{tag}.{what}"] = err
+                kind = what if what in ("y", "dx", "cross_x") else (
+                    "linear_" + what.rsplit(".", 1)[1]
+                    if what.endswith((".in", ".out")) else "grad")
+                key = f"{mode}.{tag}.{kind}"
+                worst[key] = max(worst.get(key, 0.0), err)
+            cross = yc.cpu()
+        del host, card
+        torch.cuda.empty_cache()
+    bad = {k: v for k, v in detail.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"whisper training card vs CPU over 1e-5: "
+                             f"{bad}")
+    worst["largest"] = sorted(detail.items(), key=lambda kv: -kv[1])[:4]
+    return worst
+
+
+def phase_whisper_training(dev, gen, results, rng):
+    """Phase 21: train the encoder-decoder family at the full width and
+    depth of whisper-medium (24 encoder and 24 decoder layers; fp32
+    parameters, bf16 compute; batches of TokenStream(8, 128, seed 0) with
+    mel frames [8, 1500, 80] from ``default_rng(SEED)``). (a) B9, B8 and
+    both backward kernels against their plain versions at one encoder
+    layer's six linears (activations at M = 8 x 1500 = 12,000 rows) and
+    one decoder layer's ten (M = 1024; the cross wk/wv at 12,000):
+    forward, dw and dx bitwise, ds within ``noise_inject.ds_bound``, timed
+    on both rulers (``whisper_train_*`` keys). (b) The logits over the
+    4/2/1-bit bands, 3 Phase-I steps, the freeze and 3 Phase-II steps
+    through ``loop.train``: every step's launches asserted (768 B9 and
+    384 B9 backward a Phase-I step, 1,536 B8 and 768 B8 backward a
+    Phase-II step: 384 linears, each block recomputed), host ms and peak
+    memory a step, the device busy of steps 2 and 5; the report in the
+    reference's walk (``whisper_freeze_channels``); the same at
+    WHISPER_PROFILE_LAYERS + WHISPER_PROFILE_LAYERS layers with steps 2
+    and 5 split by op (``step_profile.whisper_train_summary``), and a
+    second run at that depth bitwise the first (losses, gradient norms,
+    pbits, every parameter).
+    (c) ``check_whisper_training_against_cpu``. (d) The trained model
+    through ``soniq.to_serve`` (384 B7, asserted), one encode of 4 x 1500
+    frames (144 B1, asserted), ``load_cross`` and 4 greedy requests on the
+    fp ring, twice bitwise. Returns the numbers."""
+    from repro_torch import soniq
+    from repro_torch.api.state import SoniqState
+    from repro_torch.core.phases import Phase
+    out, laps, t_lap = {}, {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    full = get_config(WHISPER_ARCH)
+    shapes = whisper_train_shapes(full)
+    for name, rec in phase_training_kernels(full, gen, dev,
+                                            shapes=shapes).items():
+        results[name].update({f"whisper_train_{k}": v
+                              for k, v in rec.items()})
+    log(f"[21] {B9}, {B8} and both backward kernels at one {WHISPER_ARCH} "
+        f"encoder and decoder layer's training linears ({shapes}): forward,"
+        f" dw and dx bitwise, ds within its bound: "
+        f"{ {n: {k: v for k, v in results[n].items() if k.startswith('whisper_train_')} for n in (B9, B8, B9_BWD, B8_BWD)} }")
+    torch.cuda.empty_cache()
+    lap("kernels")
+
+    state, records, profiles, rep = phase_training(
+        full, dev, tag=21, spans=None, summary=step_profile.device_busy,
+        mixed_seed=SEED + 21)
+    model = state["model"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    channels = [sum(layer["hist"]) for layer in rep["layers"]]
+    if channels != whisper_freeze_channels(full):
+        raise AssertionError(f"freeze order or widths: {channels}")
+    digest = param_digest(model)
+    st = {"layers": [full.encoder_layers, full.num_layers],
+          "frames": [TRAIN_BATCH, WHISPER_FRAMES, full.frontend_dim],
+          "steps": records, "device_busy": profiles,
+          "histogram": precision_histogram(model),
+          "average_bpp": schedule.average_bpp(rep),
+          "allowed_patterns": rep["allowed"], "linears": len(rep["layers"]),
+          "param_digest": digest,
+          "launches_per_step": {p: train_step_launches(full, p)
+                                for p in (1, 2)}}
+    log(f"[21] {full.encoder_layers} + {full.num_layers} layers: the freeze "
+        f"walks the encoder first, path by path; frozen groups by "
+        f"precision {st['histogram']}, average bpp {st['average_bpp']:.4f} "
+        f"over {st['linears']} linears; digest {digest!r}")
+    for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
+                      (B9_BWD, "b9_bwd")):
+        results[name]["whisper_train_run_launches"] = sum(r[key]
+                                                          for r in records)
+        results[name]["whisper_train_launches_per_step"] = max(
+            r[key] for r in records)
+    lap("train")
+
+    # The op split and the second run, at WHISPER_PROFILE_LAYERS: a
+    # profile that records every host op as well reads for minutes at full
+    # depth, and a second full-depth run would take the smoke past its
+    # time.
+    small = dataclasses.replace(full, num_layers=WHISPER_PROFILE_LAYERS,
+                                encoder_layers=WHISPER_PROFILE_LAYERS)
+    runs = []
+    for profiled in (True, False):
+        state, rec, split, rep_small = phase_training(
+            small, dev, tag=21, spans=step_profile.WHISPER_TRAIN_SPANS,
+            summary=step_profile.whisper_train_summary, profiled=profiled,
+            mixed_seed=SEED + 21)
+        runs.append((state["model"], rec, split, rep_small))
+        del state
+    (one, rec, split, rep_small), (again, rec2, _s, rep2) = runs
+    del runs
+    same = [(r["loss"], r["grad_norm"]) for r in rec] == \
+        [(r["loss"], r["grad_norm"]) for r in rec2]
+    params_same = all(torch.equal(a, b) for a, b in zip(
+        one.parameters(), again.parameters()))
+    pbits_same = all(torch.equal(a.pbits, b.pbits) for (_n, a), (_m, b)
+                     in zip(smol.smol_linears(one), smol.smol_linears(again))
+                     if "pbits" in a._names)
+    if not (same and params_same and pbits_same
+            and rep_small["layers"] == rep2["layers"]):
+        raise AssertionError(f"a second whisper training run differs: "
+                             f"losses equal {same}, parameters equal "
+                             f"{params_same}, pbits equal {pbits_same}")
+    del one, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["op_split"] = dict(layers=[WHISPER_PROFILE_LAYERS] * 2,
+                          step_ms=[r["ms"] for r in rec], profiles=split)
+    st["second_run"] = dict(layers=[WHISPER_PROFILE_LAYERS] * 2,
+                            bitwise=True, step_ms=[r["ms"] for r in rec2])
+    log(f"[21] {WHISPER_PROFILE_LAYERS} + {WHISPER_PROFILE_LAYERS} layers: "
+        f"a second run bitwise the first (losses, gradient norms, pbits, "
+        f"parameters)")
+    lap("op_split_and_second_run")
+
+    st["card_vs_cpu"] = check_whisper_training_against_cpu(dev)
+    log(f"[21] one full-width encoder and decoder layer, card vs CPU "
+        f"(fp32, relative L2; y, dx, every leaf's gradient, every linear): "
+        f"{st['card_vs_cpu']}")
+    lap("card_vs_cpu")
+
+    qcfg = full.with_quant_mode("qat")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = soniq.to_serve(SoniqState(Phase.QAT, model, qcfg))
+    torch.cuda.synchronize()
+    st["to_serve_s"] = time.perf_counter() - t0
+    st["to_serve_b7"] = kernels.launch_counts()[B7]
+    want = (WHISPER_ENC_LINEARS * full.encoder_layers
+            + WHISPER_DEC_LINEARS * full.num_layers)
+    if st["to_serve_b7"] != want:
+        raise AssertionError(f"{st['to_serve_b7']} B7 launches at to_serve,"
+                             f" not one a linear ({want})")
+    ecfg = engine.EngineConfig(max_batch=WHISPER_BATCH, cache_len=256,
+                               prefill_chunk=8)
+    eng = engine.DecodeEngine(served.model, qcfg, ecfg, already_serve=True,
+                              device=dev)
+    frames = whisper_frames(full, SEED + 21)
+    kernels.reset_launch_counts()
+    enc = lm.encode(eng.model, eng.cfg, frames)
+    torch.cuda.synchronize()
+    st["encode_b1"] = kernels.launch_counts()[B1]
+    if st["encode_b1"] != WHISPER_ENC_LINEARS * full.encoder_layers \
+            or not torch.isfinite(enc).all():
+        raise AssertionError(f"trained encode: {st['encode_b1']} B1 "
+                             f"launches, finite {torch.isfinite(enc).all()}")
+    reqs = requests(full.vocab_size, rng, n=WHISPER_BATCH, lo=16, hi=16,
+                    new=8)
+    kernels.reset_launch_counts()
+    first, _wall = serve_all(eng, reqs, enc)
+    st["serve_b1"] = kernels.launch_counts()[B1]
+    second, _wall = serve_all(eng, reqs, enc)
+    _same_tokens("trained whisper: a second serve gave other tokens", first,
+                 second)
+    for c in first:
+        if c.new_tokens.size != 8 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < full.vocab_size)).all():
+            raise AssertionError(f"bad trained-whisper completion "
+                                 f"{c.new_tokens}")
+    st["served_tokens"] = [c.new_tokens.tolist() for c in first]
+    log(f"[21] to_serve: {st['to_serve_b7']} B7 launches in "
+        f"{st['to_serve_s']:.3f} s; encode {st['encode_b1']} B1; served 4 "
+        f"requests twice, bitwise ({st['serve_b1']} B1 launches with "
+        f"load_cross): tokens {st['served_tokens']}")
+    del eng, served, model, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+    st["seconds"] = laps
+    log(f"[21] seconds by part: {laps}")
+    return st
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", type=int, choices=[20], default=None,
+    ap.add_argument("--only", type=int, choices=[20, 21], default=None,
                     help="build the kernels and run this phase alone (no "
                          "summary); the default runs every phase")
     args = ap.parse_args(argv)
@@ -4774,6 +5141,18 @@ def main(argv=None) -> int:
         clock.lap(20)
         print(json.dumps({"kernels_whisper": results}))
         print(json.dumps({"whisper_serve": out}))
+        print(json.dumps({"phase_seconds": clock.laps}))
+        print(card)
+        return 0
+    if args.only == 21:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        results = {name: {} for name in (B8, B9, B8_BWD, B9_BWD)}
+        out = phase_whisper_training(dev, gen, results,
+                                     np.random.default_rng(SEED + 21))
+        clock.lap(21)
+        print(json.dumps({"kernels_whisper_training": results}))
+        print(json.dumps({"whisper_training": out}))
         print(json.dumps({"phase_seconds": clock.laps}))
         print(card)
         return 0
@@ -5136,6 +5515,13 @@ def main(argv=None) -> int:
     clock.lap(20)
 
     # ------------------------------------------------------- phase 21 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_train = phase_whisper_training(dev, gen, results,
+                                           np.random.default_rng(SEED + 21))
+    clock.lap(21)
+
+    # ------------------------------------------------------- phase 22 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
@@ -5209,7 +5595,15 @@ def main(argv=None) -> int:
                               "out_proj 5120x2560; B8 also their 8 x 128 "
                               "bf16 activations), ssm_train_run_launches "
                               "and ssm_train_launches_per_step: phase 19's "
-                              "8-layer run and a step of it")
+                              "8-layer run and a step of it; "
+                              "whisper_train_*: one whisper-medium encoder "
+                              "layer's 6 training linears and one decoder "
+                              "layer's 10 (B8 also their bf16 activations: "
+                              "8 x 1500 encoder rows, 8 x 128 decoder "
+                              "tokens, the cross wk/wv on the encoder's "
+                              "rows), whisper_train_run_launches and "
+                              "whisper_train_launches_per_step: phase 21's "
+                              "24 + 24-layer run and a step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -5320,6 +5714,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ssm_serve": ssm_out}))
     print(json.dumps({"ssm_training": ssm_train}))
     print(json.dumps({"whisper_serve": whisper_out}))
+    print(json.dumps({"whisper_training": whisper_train}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)

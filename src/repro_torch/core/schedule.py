@@ -37,8 +37,10 @@ def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
     LM stacks each plan group's layers ([L, ...] leaves under
     ``groups[i]``), so there the order is: plan group, then the path
     within a block (``attn.wk``, ..., ``moe.down``, ``moe.shared.up``,
-    ``moe.up``: sorted part by part), then the layer; a linear outside the
-    blocks sorts by its own path among the tree's top-level keys. Any
+    ``moe.up``: sorted part by part), then the layer; an encoder's layers
+    are one stacked group (``enc_groups[0]``, sorted before the decoder's
+    ``groups``) walked the same way; a linear outside the blocks sorts by
+    its own path among the tree's top-level keys. Any
     other model (the CNN: ``head``, ``stages`` by stage and block,
     ``stem``) sorts by its module path, list indices as numbers."""
     plan = getattr(getattr(model, "cfg", None), "layer_plan", None)
@@ -60,6 +62,9 @@ def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
         if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
             layer = int(parts[1])
             key = ("groups", plan_group[layer], tuple(parts[2:]), layer)
+        elif len(parts) > 2 and parts[0] == "enc_blocks" \
+                and parts[1].isdigit():
+            key = ("enc_groups", 0, tuple(parts[2:]), int(parts[1]))
         else:
             key = (parts[0], 0, tuple(parts[1:]), 0)
         keyed.append((key, lin))

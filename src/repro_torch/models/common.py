@@ -211,10 +211,7 @@ def _const(c: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(c, dtype=like.dtype, device=like.device)
 
 
-def tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.tanh`` as XLA computes it on the CPU, in fp32, cast to x's
-    dtype (torch's tanh differs in the last bits on more than half of all
-    inputs)."""
+def _tanh_forward(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     c = torch.clamp(xf, -TANH_CLAMP, TANH_CLAMP)
     c2 = c * c
@@ -228,18 +225,91 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.where(xf.abs() < TANH_LINEAR, xf, out).to(x.dtype)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (tanh form) op by op in x's dtype:
-    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``. In fp32
-    XLA's CPU lowering fuses ``x + 0.044715 * x**3`` into one multiply-add,
-    and so does this; in bf16 every op rounds."""
+def _tanh_vjp(g: torch.Tensor, ans: torch.Tensor) -> torch.Tensor:
+    """JAX's tanh derivative, ``(g + g * ans) * (1 - ans)`` on the rounded
+    output ``ans``, transposed as XLA computes it: ``w = g * (1 - ans)``,
+    then ``w + w * ans``, one multiply-add in fp32 (XLA's CPU lowering
+    contracts it), op by op in bf16."""
+    w = g * (1 - ans)
+    if g.dtype == torch.float32:
+        return _fma(w, ans, w)
+    return w + w * ans
+
+
+class _Tanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = _tanh_forward(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return _tanh_vjp(g, ans)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` as XLA computes it on the CPU, in fp32, cast to x's
+    dtype (torch's tanh differs in the last bits on more than half of all
+    inputs), with JAX's derivative (autograd of the rational
+    approximation would differentiate its polynomials, its clamp and its
+    linear branch)."""
+    return _Tanh.apply(x)
+
+
+def _gelu_forward(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gelu(x), the tanh it took)."""
     x3 = x * x * x
     a = _const(GELU_A, x)
     if x.dtype == torch.float32:
         inner = _fma(x3, a, x)
     else:
         inner = x + a * x3
-    return x * (0.5 * (1.0 + tanh(_const(GELU_C, x) * inner)))
+    t = _tanh_forward(_const(GELU_C, x) * inner)
+    return x * (0.5 * (1.0 + t)), t
+
+
+def _gelu_vjp(x: torch.Tensor, t: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """The reference's gelu gradient: ``jax.vjp`` of ``jax.nn.gelu`` in the
+    order XLA's CPU lowering evaluates it. In fp32 the constant
+    ``sqrt(2/pi) * 0.044715`` is folded into one fp32 product and two
+    products are contracted into multiply-adds; in bf16 every op
+    rounds."""
+    c = _const(GELU_C, x)
+    x2 = x * x
+    cdf = (t + 1) * 0.5
+    w = ((x * g) * 0.5) * (1 - t)
+    if x.dtype == torch.float32:
+        du = _fma(w, t, w)
+        ca = _const(float(np.float32(GELU_C) * np.float32(GELU_A)), x)
+        return _fma(du * ca, x2 * 3, _fma(g, cdf, du * c))
+    du = w + w * t
+    dc = du * c
+    return (g * cdf + dc) + (dc * _const(GELU_A, x)) * (x2 * 3)
+
+
+class _Gelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out, t = _gelu_forward(x)
+        ctx.save_for_backward(x, t)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        return _gelu_vjp(x, t, g)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) op by op in x's dtype:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``. In fp32
+    XLA's CPU lowering fuses ``x + 0.044715 * x**3`` into one multiply-add,
+    and so does this; in bf16 every op rounds. The gradient is the
+    reference's (:func:`_gelu_vjp`)."""
+    return _Gelu.apply(x)
 
 
 def activation(name: str):

@@ -57,16 +57,21 @@ from repro_torch.train import state as pstate
 
 ARCH = "h2o-danube-1.8b"
 SSM_ARCH = "mamba2-2.7b"
+WHISPER_ARCH = "whisper-medium"
+GELU_ARCH = "starcoder2-7b"       # the dense family's non-gated gelu MLP
 LINEARS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.up",
            "mlp.gate", "mlp.down")
 
 
 # ------------------------------------------------------------- helpers ----
-def _configs(layers=2, arch=ARCH):
+def _configs(layers=2, arch=ARCH, **narrow):
+    """The reduced ``arch`` at ``layers`` layers in both packages;
+    ``narrow`` replaces more fields (an encoder's depth, the widths)."""
     j = jget_config(arch).reduced()
     j = dataclasses.replace(j, num_layers=layers, quant=dataclasses.replace(
-        j.quant, backend="xla_ref"))
-    p = dataclasses.replace(pget_config(arch).reduced(), num_layers=layers)
+        j.quant, backend="xla_ref"), **narrow)
+    p = dataclasses.replace(pget_config(arch).reduced(), num_layers=layers,
+                            **narrow)
     return j, p
 
 
@@ -96,31 +101,69 @@ def _true_division():
         yield
 
 
-def linear_key_paths(rng, num_layers, ssm=False):
+def linear_key_paths(rng, num_layers, ssm=False, enc_layers=0,
+                     gated=True):
     """{port linear path: its JAX key} as ``lm.forward`` splits ``rng``
     (group fold_in, per-layer scan split, block split in 4, attention's
     (qkv, o) split then qkv in 3, the MLP's split in 3; with ``ssm``, the
     block's third key to the mixer, split in 2 for ``in_proj`` and
-    ``out_proj``)."""
-    key = jax.random.fold_in(rng, 0)
+    ``out_proj``). With ``enc_layers`` the encoder-decoder's: the encoder
+    scans its layers under ``rng`` itself (no fold_in), and each decoder
+    block's second key goes to its cross attention. An MLP without a
+    gate (``gated=False``: gelu) takes the first and third of its three
+    keys for ``up`` and ``down``."""
     out = {}
-    for i in range(num_layers):
-        key, sub = jax.random.split(key)
-        rs = jax.random.split(sub, 4)
-        if ssm:
-            kin, kout = jax.random.split(rs[2])
-            out[f"blocks.{i}.mamba.in_proj"] = kin
-            out[f"blocks.{i}.mamba.out_proj"] = kout
-            continue
-        a, ao = jax.random.split(rs[0])
-        q3 = jax.random.split(a, 3)
-        m3 = jax.random.split(rs[3], 3)
-        for name, k in (("attn.wq", q3[0]), ("attn.wk", q3[1]),
-                        ("attn.wv", q3[2]), ("attn.wo", ao),
-                        ("mlp.up", m3[0]), ("mlp.gate", m3[1]),
-                        ("mlp.down", m3[2])):
-            out[f"blocks.{i}.{name}"] = k
+
+    def blocks(key, count, prefix, cross):
+        for i in range(count):
+            key, sub = jax.random.split(key)
+            rs = jax.random.split(sub, 4)
+            if ssm:
+                kin, kout = jax.random.split(rs[2])
+                out[f"{prefix}.{i}.mamba.in_proj"] = kin
+                out[f"{prefix}.{i}.mamba.out_proj"] = kout
+                continue
+            parts = [("attn", rs[0])] + ([("cross", rs[1])] if cross
+                                         else [])
+            for part, k in parts:
+                a, ao = jax.random.split(k)
+                q3 = jax.random.split(a, 3)
+                for name, kk in zip(("wq", "wk", "wv"), q3):
+                    out[f"{prefix}.{i}.{part}.{name}"] = kk
+                out[f"{prefix}.{i}.{part}.wo"] = ao
+            m3 = jax.random.split(rs[3], 3)
+            for name, kk in zip(("up", "gate", "down"), m3):
+                if gated or name != "gate":
+                    out[f"{prefix}.{i}.mlp.{name}"] = kk
+
+    if enc_layers:
+        blocks(rng, enc_layers, "enc_blocks", False)
+    blocks(jax.random.fold_in(rng, 0), num_layers, "blocks",
+           bool(enc_layers))
     return out
+
+
+def key_paths_of(rng, pcfg):
+    """``linear_key_paths`` of the port config's family and depth."""
+    return linear_key_paths(rng, pcfg.num_layers,
+                            ssm=pcfg.family == "ssm",
+                            enc_layers=pcfg.encoder_layers,
+                            gated=pcfg.mlp_act == "swiglu")
+
+
+# Mel frames a batch row of the encoder-decoder's training batches.
+FRAMES = 24
+
+
+def with_frames(batch, cfg, rng):
+    """``batch`` with mel frames [B, FRAMES, frontend_dim] fp32 drawn from
+    ``rng`` (a numpy Generator) where ``cfg`` has an encoder; else
+    ``batch`` itself."""
+    if not cfg.encoder_layers:
+        return batch
+    b = np.asarray(batch["tokens"]).shape[0]
+    return dict(batch, frames=rng.standard_normal(
+        (b, FRAMES, cfg.frontend_dim)).astype(np.float32))
 
 
 def jax_draw(key, shape, dtype=jnp.float32):
@@ -133,13 +176,18 @@ def jax_draw(key, shape, dtype=jnp.float32):
 
 
 class JaxDraws:
-    """A port noise source replaying the reference's draws by path."""
+    """A port noise source replaying the reference's draws by path (each
+    drawn once: a recomputed block reads the same draw)."""
 
     def __init__(self, keys):
         self.keys = keys
+        self.drawn = {}
 
     def draw(self, path, x):
-        return jax_draw(self.keys[path], tuple(x.shape))
+        at = (path, tuple(x.shape))
+        if at not in self.drawn:
+            self.drawn[at] = jax_draw(self.keys[path], tuple(x.shape))
+        return self.drawn[at]
 
 
 def _jax_params(cfg, seed=0):
@@ -154,11 +202,19 @@ def _random_s(tree, rng):
 
 
 def _stacked_linears(tree):
+    """The stacked quantized linears: an encoder's first (its attention
+    and MLP), then the decoder's (attention, cross attention, MLP)."""
     blk = tree["groups"][0]
     if "mamba" in blk:
         return [blk["mamba"][n] for n in ("in_proj", "out_proj")]
-    return [blk["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
-        [blk["mlp"][n] for n in ("up", "gate", "down")]
+    out = []
+    for group in tree.get("enc_groups", []) + [blk]:
+        for part in ("attn", "cross"):
+            if part in group:
+                out += [group[part][n] for n in ("wq", "wk", "wv", "wo")]
+        out += [group["mlp"][n] for n in ("up", "gate", "down")
+                if n in group["mlp"]]
+    return out
 
 
 def _assert_tree_close(port_tree, jax_tree, rtol, atol, path=""):
@@ -307,15 +363,26 @@ def test_solve_problem1_equals_jax(hist, np_patterns):
         (j.num_vectors, j.counts, j.capacity)
 
 
-@pytest.mark.parametrize("arch,num_patterns", [
-    (ARCH, 4), (ARCH, 6), (SSM_ARCH, 4), (SSM_ARCH, 6)],
-    ids=["4", "6", "ssm-4", "ssm-6"])
-def test_freeze_qat_equals_jax(arch, num_patterns):
+# The encoder at 12 layers and narrow width: its layer indices sort
+# differently as strings ("10" before "2").
+DEEP_ENCODER = dict(encoder_layers=12, d_model=64, num_heads=2, d_ff=128)
+
+
+@pytest.mark.parametrize("arch,num_patterns,narrow", [
+    (ARCH, 4, {}), (ARCH, 6, {}), (SSM_ARCH, 4, {}), (SSM_ARCH, 6, {}),
+    (WHISPER_ARCH, 4, {}), (WHISPER_ARCH, 6, {}),
+    (WHISPER_ARCH, 6, DEEP_ENCODER)],
+    ids=["4", "6", "ssm-4", "ssm-6", "whisper-4", "whisper-6",
+         "whisper-enc12-6"])
+def test_freeze_qat_equals_jax(arch, num_patterns, narrow):
     """pattern_match_params / freeze_qat on the same trained logits: the
     same frozen pbits per linear, the same report (per-layer histograms,
     vectors, bpp, allowed patterns). On the SSM the mixer's two linears,
-    ``in_proj`` before ``out_proj``, then the layer."""
-    jcfg, pcfg = _configs(arch=arch)
+    ``in_proj`` before ``out_proj``, then the layer. On the
+    encoder-decoder the encoder's stacked linears first, path by path with
+    the layers inside each path, then the decoder's (cross attention
+    included); the histograms too come in the reference's order."""
+    jcfg, pcfg = _configs(arch=arch, **narrow)
     jcfg = jcfg.with_quant_mode("noise")
     jq = dataclasses.replace(jcfg.quant, num_patterns=num_patterns)
     pq = dataclasses.replace(pcfg.quant, mode="noise",
@@ -323,6 +390,8 @@ def test_freeze_qat_equals_jax(arch, num_patterns):
     tree = _random_s(_jax_params(jcfg), np.random.default_rng(num_patterns))
     jnew, jrep = jtransforms.freeze_qat(tree, jq)
     model = interop.params_from_numpy(tree, pcfg, "cpu")
+    assert pschedule.collect_histograms(model, pq) == \
+        jschedule.collect_histograms(tree, jq)
     _, prep = ptransforms.freeze_qat(model, pq)
     assert prep["allowed"] == jrep["allowed"]
     assert prep["layers"] == jrep["layers"]
@@ -392,8 +461,9 @@ def test_token_stream_equals_jax():
 
 # --------------------------------------------------------- train step ----
 @pytest.mark.parametrize("arch,mode", [
-    (ARCH, "qat"), (ARCH, "noise"), (SSM_ARCH, "qat"), (SSM_ARCH, "noise")],
-    ids=["qat", "noise", "ssm-qat", "ssm-noise"])
+    (ARCH, "qat"), (ARCH, "noise"), (SSM_ARCH, "qat"), (SSM_ARCH, "noise"),
+    (GELU_ARCH, "qat"), (GELU_ARCH, "noise")],
+    ids=["qat", "noise", "ssm-qat", "ssm-noise", "gelu-qat", "gelu-noise"])
 def test_train_step_equals_jax(arch, mode):
     """One step of the 2-layer reduced fp32 model from the same weights
     and batch (NOISE on replayed draws): the loss and the gradient norm
@@ -404,7 +474,7 @@ def test_train_step_equals_jax(arch, mode):
     cancels to within ~1e-8 of zero and eps = 1e-8 makes the update
     sensitive: measured, 1 element of 32,768 of one weight, off by 3.3e-6
     (QAT) and 2.7e-5 (NOISE). On the SSM (the mixer's fp leaves train
-    too) the same bounds."""
+    too) and on starcoder2-7b (the gelu MLP, biases) the same bounds."""
     jcfg, pcfg = _configs(arch=arch)
     jcfg, pcfg = jcfg.with_quant_mode(mode), pcfg.with_quant_mode(mode)
     tree = _jax_params(jcfg)
@@ -424,8 +494,7 @@ def test_train_step_equals_jax(arch, mode):
     model = interop.params_from_numpy(tree, pcfg, "cpu")
     pst = pstate.init_state(pcfg, pt, model=model)
     pst["step"] = 1
-    draws = JaxDraws(linear_key_paths(rng, pcfg.num_layers,
-                                      ssm=arch == SSM_ARCH))
+    draws = JaxDraws(key_paths_of(rng, pcfg))
     pst, pm = pstate.train_step(pst, batch, pcfg, pt,
                                 (lambda i: draws) if mode == "noise"
                                 else None)
@@ -453,9 +522,11 @@ def microbatch_case(arch):
     ``arch``."""
     _, pcfg = _configs(arch=arch)
     pcfg = pcfg.with_quant_mode("qat")
-    batch = next(psynthetic.TokenStream(psynthetic.TokenStreamConfig(
-        vocab_size=pcfg.vocab_size, seq_len=16, batch_size=2,
-        seed=1)).batches())
+    batch = with_frames(next(psynthetic.TokenStream(
+        psynthetic.TokenStreamConfig(vocab_size=pcfg.vocab_size,
+                                     seq_len=16, batch_size=2,
+                                     seed=1)).batches()),
+        pcfg, np.random.default_rng(1))
     tcfg = pstate.TrainConfig(num_microbatches=2, warmup=1, t1=0, t2=4)
     stepped = pstate.init_state(pcfg, tcfg, model=plm.init_params(
         pcfg, seed=0, device="cpu"))
@@ -501,9 +572,11 @@ def recompute_case(arch):
     backward equal the plain backward's, bit for bit (reduced ``arch``)."""
     _, pcfg = _configs(arch=arch)
     pcfg = pcfg.with_quant_mode("noise")
-    batch = next(psynthetic.TokenStream(psynthetic.TokenStreamConfig(
-        vocab_size=pcfg.vocab_size, seq_len=16, batch_size=2,
-        seed=4)).batches())
+    batch = with_frames(next(psynthetic.TokenStream(
+        psynthetic.TokenStreamConfig(vocab_size=pcfg.vocab_size,
+                                     seq_len=16, batch_size=2,
+                                     seed=4)).batches()),
+        pcfg, np.random.default_rng(4))
     grads = {}
     for remat in ("full", "none"):
         cfg = dataclasses.replace(pcfg, remat=remat)
@@ -529,10 +602,13 @@ LOOP_TK = dict(t1=2, t2=4, warmup=1, seed=3)
 
 
 def loop_stream(jcfg):
-    """The loop runs' batches (the reference's token stream)."""
-    return jsynthetic.TokenStream(jsynthetic.TokenStreamConfig(
-        vocab_size=jcfg.vocab_size, seq_len=16, batch_size=2,
-        seed=2)).batches()
+    """The loop runs' batches (the reference's token stream; an
+    encoder-decoder's with mel frames from ``default_rng(2)``)."""
+    rng = np.random.default_rng(2)
+    return (with_frames(b, jcfg, rng) for b in jsynthetic.TokenStream(
+        jsynthetic.TokenStreamConfig(vocab_size=jcfg.vocab_size,
+                                     seq_len=16, batch_size=2,
+                                     seed=2)).batches())
 
 
 def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None):
@@ -560,10 +636,8 @@ def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None):
         jout = jloop.train(jcfg, jt, loop_stream(jcfg))
 
     def noise(step):
-        keys = linear_key_paths(jax.random.fold_in(
-            jax.random.PRNGKey(jt.seed + 1), step), pcfg.num_layers,
-            ssm=arch == SSM_ARCH)
-        draws = JaxDraws(keys)
+        draws = JaxDraws(key_paths_of(jax.random.fold_in(
+            jax.random.PRNGKey(jt.seed + 1), step), pcfg))
         return lambda i: draws
 
     pout = ploop.train(pcfg, pt, loop_stream(jcfg), device="cpu",

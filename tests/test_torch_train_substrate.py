@@ -41,7 +41,7 @@ from repro_torch.train import state as pstate
 
 from test_torch_moe_train import _configs as moe_configs, _tree as moe_tree
 from test_torch_train import (ARCH, _abs_diffs, _configs, _jax_params,
-                              _true_division)
+                              _true_division, with_frames)
 
 
 def _bits(a) -> np.ndarray:
@@ -244,9 +244,11 @@ def test_prequantize_banks_equal_jax():
 def _step_setup(mode="qat", arch=ARCH):
     jcfg, pcfg = _configs(arch=arch)
     jcfg, pcfg = jcfg.with_quant_mode(mode), pcfg.with_quant_mode(mode)
-    batch = next(jsynthetic.TokenStream(jsynthetic.TokenStreamConfig(
-        vocab_size=jcfg.vocab_size, seq_len=16, batch_size=4,
-        seed=1)).batches())
+    batch = with_frames(next(jsynthetic.TokenStream(
+        jsynthetic.TokenStreamConfig(vocab_size=jcfg.vocab_size,
+                                     seq_len=16, batch_size=4,
+                                     seed=1)).batches()),
+        jcfg, np.random.default_rng(1))
     return jcfg, pcfg, _jax_params(jcfg), batch
 
 

@@ -11,7 +11,10 @@ load (deploy packing), split by the torch op or kernel that did the work
 
 An SSM training step installs ``SSM_TRAIN_SPANS`` and reads
 ``ssm_train_summary`` (the chunked SSD's forward and backward apart); the
-encoder-decoder's encode pass and serve steps install ``WHISPER_SPANS``.
+encoder-decoder's encode pass and serve steps install ``WHISPER_SPANS``,
+its training steps ``WHISPER_TRAIN_SPANS`` with ``whisper_train_summary``
+(the float64 attention, the LayerNorms and the GELU, each forward and
+backward apart).
 
 The port carries no profiler ranges of its own. ``install_spans`` wraps a
 few functions of whichever checkout of ``repro_torch`` is imported (a
@@ -88,10 +91,21 @@ WHISPER_SPANS = (
 # and the recompute and to ``ssd_bwd`` in the backward (``SPLIT_BACKWARD``),
 # its float64 GEMMs included.
 SSM_TRAIN_SPANS = SPANS + (("repro_torch.models.ssm", "ssd_chunked", "ssd"),)
+# A training step of the encoder-decoder (``whisper_train_summary``): the
+# training spans, the float64 attention (``sdpa``: scores, softmax, value
+# sums of the encoder's, the decoder's self and the cross attention), the
+# LayerNorms and the GELU, each counted to ``<label>`` in the forward and
+# the recompute and to ``<label>_bwd`` in the backward.
+WHISPER_TRAIN_SPANS = SPANS + (
+    ("repro_torch.models.attention", "sdpa", "attention"),
+    ("repro_torch.models.common", "layer_norm", "layer_norm"),
+    ("repro_torch.models.common", "gelu", "gelu"),
+)
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
-                  "_FakeQuantBackward": "fake_quant_bwd"}
+                  "_FakeQuantBackward": "fake_quant_bwd",
+                  "_GeluBackward": "gelu_bwd"}
 # Ranges whose backward nodes count apart, as ``<label>_bwd``.
-SPLIT_BACKWARD = frozenset({"ssd"})
+SPLIT_BACKWARD = frozenset({"ssd", "attention", "layer_norm", "gelu"})
 
 
 def install_spans(spans=SPANS) -> Callable[[], None]:
@@ -242,26 +256,44 @@ def device_summary(prof, split=None) -> Dict:
                      e.count) for e in top]}
 
 
-def ssm_train_summary(prof) -> Dict:
-    """``device_summary`` of a training step of the SSM profiled under
-    ``SSM_TRAIN_SPANS``, with the chunked SSD apart: ``ssd_ms`` (its
-    forward and recompute) and ``ssd_bwd_ms`` (its backward), every kernel
-    of theirs counted, the float64 GEMMs too; ``fp32_gemm_ms`` the GEMMs
-    outside them; ``rest_ms`` what is left of the busy time after the
-    fp32 GEMMs, B8/B9 and their backward kernels and the SSD."""
+def _summary_apart(prof, labels) -> Dict:
+    """``device_summary`` with each range of ``labels`` apart:
+    ``<label>_ms`` (its forward and recompute) and ``<label>_bwd_ms`` (its
+    backward), every kernel of theirs counted, GEMMs too; ``fp32_gemm_ms``
+    the GEMMs outside them; ``rest_ms`` what is left of the busy time
+    after the fp32 GEMMs, B8/B9 and their backward kernels and those
+    ranges."""
     split = kernel_split(prof.events(), kernel_kind)
     out = device_summary(prof, split)
-    ssd = {k: sum(t for (label, _kind), t in split.items() if label == k)
-           for k in ("ssd", "ssd_bwd")}
-    ssd_gemm = sum(t for (label, kind), t in split.items()
-                   if label in ssd and kind == "gemm")
-    out.update(ssd_ms=round(ssd["ssd"], 3),
-               ssd_bwd_ms=round(ssd["ssd_bwd"], 3),
-               fp32_gemm_ms=round(out["gemm_ms"] - ssd_gemm, 3))
+    keys = [k for label in labels for k in (label, f"{label}_bwd")]
+    apart = {k: sum(t for (label, _kind), t in split.items() if label == k)
+             for k in keys}
+    inner_gemm = sum(t for (label, kind), t in split.items()
+                     if label in apart and kind == "gemm")
+    out.update({f"{k}_ms": round(t, 3) for k, t in apart.items()})
+    out["fp32_gemm_ms"] = round(out["gemm_ms"] - inner_gemm, 3)
     out["rest_ms"] = round(out["device_busy_ms"] - out["fp32_gemm_ms"]
                            - out["b8_b9_ms"] - out["b8_b9_bwd_ms"]
-                           - sum(ssd.values()), 3)
+                           - sum(apart.values()), 3)
     return out
+
+
+def ssm_train_summary(prof) -> Dict:
+    """``device_summary`` of a training step of the SSM profiled under
+    ``SSM_TRAIN_SPANS``, with the chunked SSD apart (``ssd_ms``,
+    ``ssd_bwd_ms``: its float64 GEMMs included; ``_summary_apart``)."""
+    return _summary_apart(prof, ("ssd",))
+
+
+def whisper_train_summary(prof) -> Dict:
+    """``device_summary`` of a training step of the encoder-decoder
+    profiled under ``WHISPER_TRAIN_SPANS``, with the float64 attention,
+    the LayerNorms and the GELU apart, forward (with the recompute) and
+    backward: ``attention_ms``, ``attention_bwd_ms`` (the float64 score
+    and value GEMMs included), ``layer_norm_ms``, ``layer_norm_bwd_ms``,
+    ``gelu_ms``, ``gelu_bwd_ms``; ``fp32_gemm_ms`` the linears' GEMMs and
+    the readout; ``rest_ms`` the rest (``_summary_apart``)."""
+    return _summary_apart(prof, ("attention", "layer_norm", "gelu"))
 
 
 def device_busy(prof) -> Dict:
