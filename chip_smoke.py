@@ -60,11 +60,11 @@ Phases (none catches an error; any failure exits non-zero):
      scaled_dot_product_attention on the dequantized fp32 K/V (also on
      both rulers). The verify step: at S = 4, each lane of B4 and B5
      bitwise the S = 1 call at its position, at G = 4, 1 and 9.
-  4. Serve: DecodeEngine on full-width, full-depth h2o-danube-1.8b (random
-     weights from a seed, default mix), fp ring KV cache, greedy; packing
-     and serving must go through quantize_pack and the driver-scale
-     segment GEMM, one launch a linear (168 B7 launches at load, 168 B1 a
-     decode step); the load's pack_s, device busy, device events, idle
+  4. Serve: DecodeEngine on full-width h2o-danube-1.8b cut to
+     SERVE_LAYERS = 12 of its 24 layers (random weights from a seed,
+     default mix), fp ring KV cache, greedy; packing and serving must go
+     through quantize_pack and the driver-scale segment GEMM, one launch
+     a linear (84 B7 launches at load, 84 B1 a decode step); the load's pack_s, device busy, device events, idle
      share and split by op (a profiled second load); a second run
      gives the same tokens; lockstep equals
      continuous; the card agrees with the plain versions on the CPU in
@@ -79,14 +79,14 @@ Phases (none catches an error; any failure exits non-zero):
      over the fp ring and the fp pool on the first 4 requests: tokens
      identical to spec-off, ``spec_stats``, round ms, tokens/s beside
      a spec-off run of the same requests (every spec run), the
-     launches of a round (672 B1: one a linear in each of 3 draft steps
+     launches of a round (336 B1: one a linear in each of 3 draft steps
      and the verify) and, on the fp ring, a profile of a round.
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
   6. 4-bit KV serve at full width, cut to KV4_LAYERS = 6 of its 24
      layers (so the script stays inside its time limit; the lockstep
      engine's host-bound steps set the phase's time; the 4-bit ring and
-     pool also serve full-depth starcoder2-7b, deepseek-moe-16b and
+     pool also serve deepseek-moe-16b, starcoder2-7b and full-depth
      whisper-medium in phases 12, 14 and 20): the ring
      DecodeEngine (built
      from the QAT weights, so it packs), the LockstepEngine and the paged
@@ -105,12 +105,16 @@ Phases (none catches an error; any failure exits non-zero):
      width: B9 noise_inject on the four weight shapes of a layer (with
      weights beyond the clip and logits at both ends), B8 fake_quant on
      the same weights with per-group scales (read in place, K along rows)
-     and on [8 * 128, K] bf16 activations with a per-tensor scale
-     broadcast to the rows, precisions {1, 2, 4} mixed per group, with
-     values on rounding ties and beyond the grid. Their backward kernels
-     on the same operands and a random cotangent: dw and dx bitwise (-0
-     included), ds within ``noise_inject.ds_bound``. One layer's calls of
-     each timed on both rulers beside the plain versions. The bank forms:
+     and on [8 * 128, K] bf16 activations with per-row abs-max / 1.875
+     scales (a power of two on the tie row), precisions {1, 2, 4} mixed
+     per group, with values on rounding ties and beyond the grid. Their
+     backward kernels on the same operands and a random cotangent: dw and
+     dx bitwise (-0 included), ds within ``noise_inject.ds_bound``. One
+     layer's calls of each timed on both rulers beside the plain versions,
+     B9 and B8 also alone (their C entries on operands and outputs made
+     before the timed calls: ``alone_device_ms``) and B8 beside torch's
+     ``clone`` of the same tensors (``copy_device_ms``: the bytes alone).
+     The bank forms:
      B9, B8 (weight and activation layouts) and both backward kernels on
      one full-width deepseek-moe-16b MoE layer's three expert banks (E =
      64, every expert its own seed, logits, mixed precisions and scales;
@@ -140,17 +144,17 @@ Phases (none catches an error; any failure exits non-zero):
      draws; output, dx, dw and ds each within relative L2 1e-5.
  11. The launcher, ``repro_torch.launch.train --arch h2o-danube-1.8b
      --steps 2 --batch 8 --seq 128`` in a subprocess, must exit 0.
- 12. MoE serve: full-width, 28-layer deepseek-moe-16b from random QAT
-     weights of the seed (60.8 GiB in fp32, so every earlier model is
-     freed first), packed (B7, one launch a linear and an expert bank:
-     277; the load's profile as in phase 4) and served through the
+ 12. MoE serve: full-width deepseek-moe-16b cut to MOE_SERVE_LAYERS = 14
+     of its 28 layers, from random QAT weights of the seed (30.4 GiB in
+     fp32; every earlier model is freed first), packed (B7, one launch a
+     linear and an expert bank: 137; the load's profile as in phase 4) and served through the
      DecodeEngine with the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
-     must go through B6 (one launch an expert bank: 81 a decode step), B8
+     must go through B6 (one launch an expert bank: 39 a decode step), B8
      and B1; a second run gives the same tokens;
      lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
      give equal tokens. Peak memory, decode step ms and its device
      profile. Speculative decoding on the fp ring (4 requests): tokens
-     identical to spec-off, 324 B6 launches a round (243 of them draft
+     identical to spec-off, 156 B6 launches a round (117 of them draft
      launches over the [K2|K1] slice).
  13. Card vs CPU, teacher-forced, on full-width deepseek-moe-16b cut to
      its dense layer and one MoE layer, and on full-width starcoder2-7b
@@ -218,10 +222,10 @@ Phases (none catches an error; any failure exits non-zero):
      asymmetric padding) 3 + 3 steps, the same checks, one step of each
      phase's loss card vs CPU within 1e-5 relative, and the device busy
      of a Phase-I and a Phase-II step. (d) The port's three examples in
-     subprocesses (quickstart --steps 200, serve_quantized --steps 10,
-     train_lm_soniq --preset 100m --steps 4), each timed; each must exit
-     0. The ``soniq`` JSON line.
- 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 32
+     subprocesses started together (quickstart --steps 200,
+     serve_quantized --steps 10, train_lm_soniq --preset 100m --steps 4),
+     each timed from their start; each must exit 0. The ``soniq`` JSON line.
+ 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 16
      of its 64 layers (so the script stays inside its time limit; phase
      19(d) runs all 64) (d_model
      2560, 80 SSD heads of 64, state 128, ssm_chunk 256; random QAT
@@ -232,7 +236,7 @@ Phases (none catches an error; any failure exits non-zero):
      bitwise the launch at k_off 0; both timed on both rulers beside
      torch.matmul on the dequantized operands. (b) The DecodeEngine
      (default mix, max_batch 4, prefill chunk 8, greedy; 8 requests of
-     16-64 prompt tokens and 16 new): 64 B7 launches at load and 64 B1
+     16-64 prompt tokens and 16 new): 32 B7 launches at load and 32 B1
      a decode step (checked), pack_s and the load's device busy, a second
      run bitwise the first, decode-step host ms, a device profile of a
      decode step and an 8-lane prefill step (kernels, busy, B1 ms, the
@@ -240,7 +244,7 @@ Phases (none catches an error; any failure exits non-zero):
      resident SSM state bytes. (c) The first 4 requests at prefill chunk
      1, through the LockstepEngine (prompts cut to 16 tokens) and
      speculatively (k = 3, draft bits 2;
-     ``spec_stats``, round ms, 320 B1 launches a drafting round checked:
+     ``spec_stats``, round ms, 160 B1 launches a drafting round checked:
      3 drafts, the verify and the recommit): token agreement with the
      chunk-8 run, reported (chunked SSD and the decode recurrence are
      different sums); teacher-forced on the chunk-8 run's tokens, the
@@ -390,6 +394,7 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serve import engine, kv_pool, kv_quant  # noqa: E402
 from repro_torch.serve.scheduler import DECODE, Request  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
+import sass_count  # noqa: E402
 import step_profile  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -404,6 +409,7 @@ B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
+SERVE_LAYERS = 12            # phase 4's depth (h2o-danube-1.8b has 24)
 KV4_LAYERS = 6               # phase 6's depth (h2o-danube-1.8b has 24)
 # Phase 8's depth (phase 11's launcher runs all 24 layers).
 TRAIN_LAYERS = 8
@@ -1873,17 +1879,70 @@ def b8_weight_operands(k, n, gen, dev):
     return w, pb, quant.per_group_weight_scale(w, 16)
 
 
-def b8_act_operands(m, k, gen, dev):
-    """bf16 activations [M, K] with a per-tensor scale that is a power of
-    two, a row of rounding ties and a row beyond the 1- and 2-bit grids."""
+def b8_act_operands(m, k, gen, dev, per_row=True):
+    """bf16 activations [M, K] with a row of rounding ties and a row
+    beyond the 1- and 2-bit grids. ``per_row``: each row's abs-max / 1.875
+    scale (the divisions the kernel must take exactly: every row's
+    abs-max element lands on the grid's top), but the tie row's, a power
+    of two (x / s is exact there); else one per-tensor scale, a power of
+    two."""
     pb = _mixed_pbits(k, gen, dev)
     x = torch.clamp(torch.randn((m, k), generator=gen, device=dev), -7, 7)
     x[0, 0] = 1.875 * 4.0
     x[1] = _tie_values(quant.expand_groups(pb, k, 16), gen) * 4.0
     x[2] = 1.8 * 4.0
     x = x.to(torch.bfloat16)
-    sx = quant.abs_max_scale(x).reshape(1).expand(m).contiguous()
-    return x, pb, sx
+    if not per_row:
+        return x, pb, quant.abs_max_scale(x).reshape(1).expand(m).contiguous()
+    sx = quant.abs_max_scale(x, dim=1).reshape(m)
+    sx[1] = 4.0
+    return x, pb, sx.contiguous()
+
+
+def alone_ms(calls, dev, reps=10):
+    """Device ms (the host queued ahead) of the kernels alone: the C
+    entries of ``calls`` ((entry, *args) without the stream) launched
+    directly on operands and outputs that the caller made before the
+    timed calls and holds. Not counted as launches."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        for fn, *args in calls:
+            _build.check(fn(*args, stream), "kernel alone")
+    return device_ms(run, reps)
+
+
+def b9_alone_ms(b9_ops, dev):
+    """B9's kernel alone on ``b9_ops`` ((w, s, seed), fp32 [K, N]): the
+    per-group sigmoid and the seed tensor, which the wrapper launches
+    ahead of the kernel in each call, are made outside the timed calls."""
+    lib = _build.library(ni.SOURCE, ni._bind)
+    keep, calls = [], []
+    for w, s, seed in b9_ops:
+        sig = ni.group_sigma(s).contiguous()
+        sd = ni.seed_tensor(seed, dev)
+        out = torch.empty_like(w)
+        keep.append((sig, sd, out))
+        calls.append((lib.soniq_noise_inject, w.data_ptr(), sig.data_ptr(),
+                      sd.data_ptr(), out.data_ptr(), 1, *w.shape, 16))
+    return alone_ms(calls, dev)
+
+
+def b8_alone_ms(b8_w, b8_x, dev):
+    """B8's kernel alone on one layer's weights ([K, N] fp32, per-group
+    scales) and activations ([M, K] bf16, per-row scales), outputs made
+    outside the timed calls. The layer's operands exceed the 50 MB L2, so
+    each call finds its own cold."""
+    lib = _build.library(fq.SOURCE, fq._bind)
+    keep, calls = [], []
+    for ops, k_rows, dtype in ((b8_w, 1, 0), (b8_x, 0, 1)):
+        for x, pb, sc in ops:
+            out = torch.empty_like(x)
+            keep.append(out)
+            calls.append((lib.soniq_fake_quant, x.data_ptr(), pb.data_ptr(),
+                          sc.data_ptr(), out.data_ptr(), 1, *x.shape, 16,
+                          k_rows, 1 - k_rows, dtype))
+    return alone_ms(calls, dev)
 
 
 def phase_training_kernels(cfg, gen, dev, reps=10, shapes=None):
@@ -1938,6 +1997,7 @@ def phase_training_kernels(cfg, gen, dev, reps=10, shapes=None):
                        16 * elems)
     out[B9] = dict(max_abs_err=0.0, ms=time_ms(b9, reps),
                    device_ms=device_ms(b9),
+                   alone_device_ms=b9_alone_ms(b9_ops, dev),
                    plain_ms=time_ms(b9p, 2), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None)
     b8 = lambda: ([fq.fake_quant(w, pb, sw, row_scale=False, k_dim=0)  # noqa
@@ -1956,8 +2016,11 @@ def phase_training_kernels(cfg, gen, dev, reps=10, shapes=None):
     b_ms, b_by = bound(nbytes, 12 * nel)
     weights_only = lambda: [fq.fake_quant(  # noqa: E731
         w, pb, sw, row_scale=False, k_dim=0) for w, pb, sw in b8_w]
+    copies = lambda: [t.clone() for t, _p, _s in b8_w + b8_x]  # noqa
     out[B8] = dict(max_abs_err=0.0, ms=time_ms(b8, reps),
                    device_ms=device_ms(b8),
+                   alone_device_ms=b8_alone_ms(b8_w, b8_x, dev),
+                   copy_device_ms=device_ms(copies),
                    plain_ms=time_ms(b8p, 2), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, weights_ms=time_ms(weights_only, reps))
     out.update(training_backward_kernels(b9_ops, b8_w, b8_x, gen, dev, reps))
@@ -2244,7 +2307,7 @@ def b8_bank_operands(e, k, n, c, gen, dev):
     own mixed precisions, weight scales (ties as ``b8_weight_operands``)
     and per-tensor activation scale (``b8_act_operands``)."""
     ws = [b8_weight_operands(k, n, gen, dev) for _ in range(e)]
-    xs = [b8_act_operands(c, k, gen, dev) for _ in range(e)]
+    xs = [b8_act_operands(c, k, gen, dev, per_row=False) for _ in range(e)]
     weight = tuple(torch.stack(t) for t in zip(*ws))
     act = (torch.stack([x for x, _p, _s in xs]),
            torch.stack([p for _x, p, _s in xs]),
@@ -3272,8 +3335,9 @@ def phase_soniq_cnn(dev):
 
 
 def phase_examples():
-    """Phase 17(d): the port's three examples in subprocesses on the card;
-    each must exit 0. Returns their seconds."""
+    """Phase 17(d): the port's three examples in subprocesses on the card,
+    started together; each must exit 0. Returns the seconds from their
+    start to each one's end."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -3283,34 +3347,50 @@ def phase_examples():
                                 "--steps", "10"],
             "train_lm_100m": ["examples/torch_train_lm_soniq.py", "--preset",
                               "100m", "--steps", "4"]}
-    out = {}
-    for tag, args in runs.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *args], capture_output=True,
-                              text=True, env=env, cwd=root, timeout=600)
-        out[tag] = round(time.perf_counter() - t0, 2)
-        lines = proc.stdout.strip().splitlines()
-        log(f"[17d] {tag} exit {proc.returncode} in {out[tag]} s: "
-            f"{[ln for ln in lines if 'err' in ln or 'bpp' in ln or 'bytes' in ln][:3] or lines[-2:]}")
-        if proc.returncode:
-            raise AssertionError(f"{tag} failed:\n{proc.stdout}\n"
-                                 f"{proc.stderr[-4000:]}")
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    for tag, args in runs.items():      # all three at once
+        procs[tag] = subprocess.Popen([sys.executable, *args], env=env,
+                                      cwd=root, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE)
+    try:
+        for tag, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            out[tag] = round(time.perf_counter() - t0, 2)
+            lines = stdout.strip().splitlines()
+            log(f"[17d] {tag} exit {proc.returncode} in {out[tag]} s: "
+                f"{[ln for ln in lines if 'err' in ln or 'bpp' in ln or 'bytes' in ln][:3] or lines[-2:]}")
+            if proc.returncode:
+                raise AssertionError(f"{tag} failed:\n{stdout}\n"
+                                     f"{stderr[-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return out
 
 
 # ------------------------------------------------------------ MoE serve ----
+MOE_SERVE_LAYERS = 14        # phase 12's depth (deepseek-moe-16b has 28)
+
+
 def phase_moe_serve(dev, rng, launches, per_step, spec_runs):
-    """Full-width, 28-layer deepseek-moe-16b from random QAT weights of the
+    """Full-width deepseek-moe-16b cut to MOE_SERVE_LAYERS of its 28 layers
+    (the dense layer first) from random QAT weights of the
     seed, packed (B7) and served through the DecodeEngine with the fp
     ring (B6 for every routed-expert projection after B8 over [E, T, K];
     B1 for attention, the dense layer and the shared experts), then
     lockstep == continuous, and the 4-bit ring (B4) and page pool (B5)
     with equal tokens. Returns the numbers."""
-    cfg = get_config(MOE_ARCH).with_quant_mode("qat")
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS).with_quant_mode(
+                                  "qat")
     ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
     stats = {}
     # Earlier phases' models may sit in reference cycles: free them before
-    # the 60.8 GiB tree is drawn.
+    # the tree (60.8 GiB at 28 layers) is drawn.
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3574,7 +3654,7 @@ def phase_dense_configs(dev, rng, spec_runs):
 # ------------------------------------------------------------- SSM serve ----
 SSM_ARCH = "mamba2-2.7b"
 SSM_LINEARS = 2                 # in_proj, out_proj: one B7 / B1 launch each
-SSM_SERVE_LAYERS = 32           # phase 18's depth (mamba2-2.7b has 64)
+SSM_SERVE_LAYERS = 16           # phase 18's depth (mamba2-2.7b has 64)
 # Phase 18(c)'s cross-form bound: teacher-forced logits of the chunked
 # steps against token-by-token decode, relative L2 at every lane.
 SSM_CROSS_FORM = 1e-2
@@ -5130,6 +5210,17 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"    ptxas {src}: {line.strip()}")
+    try:
+        b8_sass = {tag: v["per_element"] for tag, v in
+                   sass_count.kernel_counts(
+                       str(_build.target(fq.SOURCE)), "fake_quant_kernel",
+                       sass_count.fake_quant_per_pass(
+                           (_build.CSRC / fq.SOURCE).read_text())).items()}
+    except (RuntimeError, subprocess.SubprocessError) as err:
+        b8_sass = f"not measured: {err}"
+    log(f"[1] {B8}: SASS instructions of the forward's main loop an "
+        f"element, by instance (type/K_ROWS/ROW_SCALE/GROUP/ALIGNED): "
+        f"{b8_sass}")
 
     clock.lap(1)
     if args.only == 20:
@@ -5244,7 +5335,8 @@ def main(argv=None) -> int:
 
     # -------------------------------------------------------- phase 4 ----
     launches, per_step = {}, {}
-    qat_cfg = cfg.with_quant_mode("qat")
+    qat_cfg = dataclasses.replace(
+        cfg, num_layers=SERVE_LAYERS).with_quant_mode("qat")
     ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
     params = lm.init_params(qat_cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -5256,9 +5348,9 @@ def main(argv=None) -> int:
     launches[B7] = kernels.launch_counts()[B7]
     load = {"pack_s": pack_s, "b7_launches": launches[B7]}
     if launches[B7] != packed_leaves(eng.model) \
-            or launches[B7] != 7 * cfg.num_layers:
+            or launches[B7] != 7 * qat_cfg.num_layers:
         raise AssertionError(f"{launches[B7]} B7 launches at load, not one "
-                             f"a linear ({7 * cfg.num_layers})")
+                             f"a linear ({7 * qat_cfg.num_layers})")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5277,7 +5369,7 @@ def main(argv=None) -> int:
     first, wall1 = serve_all(eng, reqs)
     counts = kernels.launch_counts()
     launches[B1] = counts[B1]
-    log(f"[4] packed {cfg.num_layers} layers in {pack_s:.2f} s "
+    log(f"[4] packed {qat_cfg.num_layers} layers in {pack_s:.2f} s "
         f"({engine.packed_model_bytes(eng.model):,} bytes; {launches[B7]} "
         f"B7 launches); serve launches {counts}")
     if counts[B1] == 0 or counts[B2] != 0:
@@ -5301,7 +5393,7 @@ def main(argv=None) -> int:
         f"{1 - prof['device_busy_ms_per_step'] / step_ms:.3f} of the "
         f"unprofiled {step_ms:.2f} ms step")
     per_step[B1] = step_launches(eng)[B1]
-    if per_step[B1] != 7 * cfg.num_layers:
+    if per_step[B1] != 7 * qat_cfg.num_layers:
         raise AssertionError(f"{per_step[B1]} {B1} launches a decode step, "
                              f"not one a linear")
     check_lockstep_equals_continuous(eng, qat_cfg, ecfg, cfg.vocab_size,
@@ -5327,7 +5419,7 @@ def main(argv=None) -> int:
     log(f"[4] two-pass tokens == fused tokens; decode step at batch 4: "
         f"{decode_step_ms(two):.2f} ms; {per_step[B1]} {B1} launches a "
         f"fused step, {per_step[B3]} {B3} a two-pass step")
-    if per_step[B3] != 7 * cfg.num_layers:
+    if per_step[B3] != 7 * qat_cfg.num_layers:
         raise AssertionError(f"{per_step[B3]} {B3} launches a two-pass "
                              f"decode step, not one a linear")
     del two
@@ -5359,7 +5451,7 @@ def main(argv=None) -> int:
     for tag, e_cfg in (("h2o_fp_ring", ecfg), ("h2o_fp_paged", paged_ecfg)):
         spec_runs[tag] = spec_serve(
             eng.model, qat_cfg, e_cfg, reqs[:4], second[:4], dev,
-            {B1: (SPEC_TOKENS + 1) * 7 * cfg.num_layers},
+            {B1: (SPEC_TOKENS + 1) * 7 * qat_cfg.num_layers},
             profile=tag == "h2o_fp_ring")
         log(f"[4] spec {tag} tokens == spec-off: {spec_runs[tag]}")
     del eng
@@ -5566,9 +5658,18 @@ def main(argv=None) -> int:
                 "pages",
             B8: "one h2o-danube-1.8b layer of Phase-II fake_quant: 7 "
                 "weights (fp32, group scale) + 7 activations (bf16, "
-                "8 x 128 tokens)",
+                "8 x 128 tokens, per-row abs-max / 1.875 scales); "
+                "alone_device_ms: the kernel's C entry alone on the same "
+                "operands (the layer's exceed the 50 MB L2); "
+                "copy_device_ms: torch's clone of the same tensors (one "
+                "read and one write of each: the bytes alone); "
+                "sass_per_element: static SASS instructions of the "
+                "forward's main loop an element, by template instance",
             B9: "one h2o-danube-1.8b layer of Phase-I noise_inject: 7 "
-                "weights (fp32)",
+                "weights (fp32); device_ms: the wrapper's calls (each "
+                "also launches the group sigmoid and the seed mask); "
+                "alone_device_ms: the kernel alone, those made outside "
+                "the timed calls",
             B8_BWD: "one h2o-danube-1.8b layer of Phase-II fake_quant "
                     "backward: 7 weights (fp32) + 7 activations (bf16, "
                     "8 x 128 tokens); launches_per_train_step: a Phase-II "
@@ -5613,7 +5714,8 @@ def main(argv=None) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "work": work[name]})
-        for key in ("device_ms", "library_device_ms", "prefill_ms",
+        for key in ("device_ms", "alone_device_ms", "copy_device_ms",
+                    "library_device_ms", "prefill_ms",
                     "prefill_device_ms", "prefill_library_ms",
                     "prefill_library_device_ms", "prefill_bound_ms",
                     "rows_ms", "rows_device_ms", "rows_bound_ms",
@@ -5631,6 +5733,8 @@ def main(argv=None) -> int:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
             rows[-1]["launches_per_train_step"] = per_train_step[name]
+        if name == B8:
+            rows[-1]["sass_per_element"] = b8_sass
         if name in (B8, B8_BWD):
             key = "b8" if name == B8 else "b8_bwd"
             for tag in ("hoisted", "unhoisted"):

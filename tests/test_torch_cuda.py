@@ -728,42 +728,138 @@ def test_noise_inject_bit_equal(dev, k, n):
                                                   seed))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
-                                             (False, 0)])
-def test_fake_quant_bit_equal(dev, dtype, row_scale, k_dim):
-    from repro_torch.kernels import fake_quant as fq
-    g = torch.Generator(device=dev).manual_seed(3)
-    r, c = 96, 2560
-    x = (torch.randn((r, c), generator=g, device=dev) * 2).to(dtype)
-    x[1] = 0
-    k = c if k_dim == 1 else r
-    m = r if k_dim == 1 else c
-    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
-        0, 3, (k // 16,), generator=g, device=dev)]
+# B8's edge grid: per precision of the config's bands, 16 values of x / s
+# (column j of a group): the rounding ties next to the grid's ends, the
+# grid's edge 2 - 2^(1-p) and one ulp (of x's dtype) either side of it,
+# -(2 - 2^(1-p)) and one ulp beyond, beyond the clip, +-0, +-inf, NaN, a
+# subnormal x (set after scaling) and two values inside; times scales
+# that are a power of two, abs-max / 1.875 values, other significands,
+# the smallest normal, a subnormal and one near FLT_MAX.
+EDGE_PBITS = (1.0, 2.0, 4.0)
+EDGE_SCALES = (0.25, 7.2 / 1.875, 0.3 / 1.875, 0.1, 2.0 ** -126, 1e-40,
+               3e38)
+
+
+def _edge_values(p, dtype):
+    h = 2.0 ** (1 - p)
+    g = 2.0 - h
+    inf, nan = float("inf"), float("nan")
+    vals = torch.tensor([-g + h, g - h, g, g, g, -g, -g, 2.5, 0.0, -0.0,
+                         inf, -inf, nan, 0.0, 1.5 * h, 0.7]).to(dtype)
+    bits = vals.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    bits[3] += 1      # one ulp above the edge
+    bits[4] -= 1      # one ulp below it
+    bits[6] += 1      # one ulp beyond -(2 - 2^(1-p))
+    return vals
+
+
+def fake_quant_edge_operands(dtype, row_scale, k_dim, scales=EDGE_SCALES):
+    """B8's operands over the edge grid in the layout of (row_scale,
+    k_dim), CPU tensors: (x, pbits, scale). A per-row scale: one row a
+    scale, K = 48 (one group a precision); a per-group scale: one group a
+    (scale, precision), two rows (the second reversed within each
+    group). k_dim 0 is the transposed (weight) layout."""
+    scales = torch.tensor(scales, dtype=torch.float32)
     if row_scale:
-        scale = quant.abs_max_scale(x, dim=k_dim).reshape(m)
+        vals = torch.cat([_edge_values(p, dtype) for p in EDGE_PBITS])
+        x = (vals.float()[None] * scales[:, None]).to(dtype)
+        x[:, 13::16] = _subnormal(dtype)
+        pbits = torch.tensor(EDGE_PBITS)
+        scale = scales
+    else:
+        groups = [(p, s) for s in scales for p in EDGE_PBITS]
+        row = torch.cat([(_edge_values(p, dtype).float() * s).to(dtype)
+                         for p, s in groups])
+        row[13::16] = _subnormal(dtype)
+        x = torch.stack([row, row.reshape(-1, 16).flip(-1).reshape(-1)])
+        pbits = torch.tensor([p for p, _s in groups])
+        scale = torch.stack([s for _p, s in groups])
+    x = x if k_dim == 1 else x.t().contiguous()
+    return x, pbits, scale
+
+
+def _subnormal(dtype):
+    one = torch.ones((), dtype=torch.int16 if dtype == torch.bfloat16
+                     else torch.int32)
+    return one.view(dtype)
+
+
+def _same_bits_or_nan(got, want):
+    """Bitwise equal, NaN in the same places (whatever its payload)."""
+    nan = want.isnan()
+    return (torch.equal(got.isnan(), nan)
+            and torch.equal(_int_view(got)[~nan], _int_view(want)[~nan]))
+
+
+def _fake_quant_case(case, dtype, row_scale, k_dim, g, dev):
+    """(x, pbits, scale, group_size) of one case of B8's bitwise test."""
+    if case == "edge":
+        x, pb, scale = fake_quant_edge_operands(dtype, row_scale, k_dim)
+        return x.to(dev), pb.to(dev), scale.to(dev), 16
+    # random: K = 2560; ragged: C not a multiple of 8 or 4 (K slow: N =
+    # 1001; K fast is a multiple of 16, so its C = K = 2560); offset: x at
+    # an odd element offset of its buffer; narrow: K = 12 < 16, one group.
+    k = 12 if case == "narrow" else 2560
+    m = 1001 if case == "ragged" else 96
+    shape = (k, m) if k_dim == 0 else (m, k)
+    n = shape[0] * shape[1]
+    buf = (torch.randn(n + 1, generator=g, device=dev) * 2).to(dtype)
+    x = (buf[1:] if case == "offset" else buf[:n]).view(shape)
+    x[1] = 0
+    group = min(k, 16)
+    pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+        0, 3, (k // group,), generator=g, device=dev)]
+    if row_scale:
+        scale = quant.abs_max_scale(x, dim=k_dim).reshape(-1)
     else:
         xt = x if k_dim == 0 else x.t()
-        scale = quant.per_group_weight_scale(xt, 16)
-    got = fq.fake_quant(x, pb, scale, row_scale=row_scale, k_dim=k_dim)
+        scale = quant.per_group_weight_scale(xt, group)
+    return x, pb, scale.contiguous(), group
+
+
+@pytest.mark.parametrize("case", ["random", "edge", "ragged", "offset",
+                                  "narrow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_scale,k_dim", [(True, 1), (False, 1),
+                                             (False, 0), (True, 0)])
+def test_fake_quant_bit_equal(dev, dtype, row_scale, k_dim, case):
+    """B8 bitwise its plain version (NaN where it has NaN), one launch a
+    call, on every layout: random values, the edge grid, C not a multiple
+    of the 16-byte vector, x at an odd element offset (unaligned loads)
+    and K < 16 (the generic group instance)."""
+    from repro_torch.kernels import fake_quant as fq
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, pb, scale, group = _fake_quant_case(case, dtype, row_scale, k_dim,
+                                           g, dev)
+    if case == "offset":
+        assert x.data_ptr() % 16
+    kernels.reset_launch_counts()
+    got = fq.fake_quant(x, pb, scale, row_scale=row_scale, k_dim=k_dim,
+                        group_size=group)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fake_quant"] == 1
     want = fq.fake_quant_plain(x, pb, scale, row_scale=row_scale,
-                               k_dim=k_dim)
+                               k_dim=k_dim, group_size=group)
     assert got.dtype == dtype
-    assert torch.equal(got, want)
+    assert _same_bits_or_nan(got, want)
+    if case == "edge":
+        assert want.isnan().any() and want.isinf().any()
 
 
-@pytest.mark.parametrize("k,n", [(2560, 10576), (5120, 2560)])
-def test_fake_quant_bit_equal_at_the_ssm_shapes(dev, k, n):
-    """B8 at mamba2-2.7b's training linears: the fp32 weight [K, N] with
-    per-group scales (K along rows) and the bf16 activations [8 * 128, K]
-    with per-row scales, one launch each, bitwise the plain version."""
+@pytest.mark.parametrize("k,n,m", [(2560, 10576, 1024), (5120, 2560, 1024),
+                                   (1024, 4096, 12000), (4096, 1024, 12000)])
+def test_fake_quant_bit_equal_at_the_ssm_shapes(dev, k, n, m):
+    """B8 at mamba2-2.7b's training linears (M = 8 x 128 tokens) and at
+    whisper-medium's (fc1, fc2; the encoder's M = 8 x 1500 frames): the
+    fp32 weight [K, N] with per-group scales (K along rows) and the bf16
+    activations [M, K] with per-row abs-max / 1.875 scales, one launch
+    each, bitwise the plain version."""
     from repro_torch.kernels import fake_quant as fq
     g = torch.Generator(device=dev).manual_seed(k + n)
     pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
         0, 3, (k // 16,), generator=g, device=dev)]
     w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
-    x = (torch.randn((1024, k), generator=g, device=dev) * 2).to(
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(
         torch.bfloat16)
     cases = ((w, quant.per_group_weight_scale(w, 16), False, 0),
              (x, quant.abs_max_scale(x, dim=1).reshape(-1), True, 1))
@@ -986,22 +1082,24 @@ def test_noise_inject_bank_bitwise_plain_and_per_expert(dev, e, k, n):
         assert torch.equal(ds[i], dsi)
 
 
+@pytest.mark.parametrize("k", [96, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["weight", "per_tensor", "per_token"])
-def test_fake_quant_bank_bitwise_plain_and_per_expert(dev, layout, dtype):
+def test_fake_quant_bank_bitwise_plain_and_per_expert(dev, layout, dtype, k):
     """B8 and its backward over a bank in one launch each: bitwise the
     bank plain versions and E launches on the slices, each expert with its
-    own mixed precisions and scales."""
+    own mixed precisions and scales (K = 12: one group narrower than
+    16)."""
     from repro_torch.kernels import fake_quant as fq
     gen = torch.Generator(device=dev).manual_seed(len(layout))
-    e, r, k = 3, 40, 96
+    e, r, group = 3, 40, min(k, 16)
     pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
-        0, 3, (e, k // 16), generator=gen, device=dev)]
+        0, 3, (e, k // group), generator=gen, device=dev)]
     if layout == "weight":
         x = (torch.randn((e, k, r), generator=gen, device=dev) * 0.1
              ).to(dtype)
-        sc = quant.per_group_weight_scale(x.float(), 16)
-        kw = dict(row_scale=False, k_dim=0)
+        sc = quant.per_group_weight_scale(x.float(), group)
+        kw = dict(row_scale=False, k_dim=0, group_size=group)
     else:
         x = (torch.randn((e, r, k), generator=gen, device=dev)
              * torch.tensor([1.0, 10.0, 0.1], device=dev)[:, None, None]
@@ -1011,7 +1109,7 @@ def test_fake_quant_bank_bitwise_plain_and_per_expert(dev, layout, dtype):
         m = x.float().abs().amax(dim=dims, keepdim=True).expand(e, r, 1)
         sc = (torch.clamp(m, min=quant.ACT_SCALE_EPS) / 1.875).reshape(
             e, r).contiguous()
-        kw = dict(row_scale=True)
+        kw = dict(row_scale=True, group_size=group)
     g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
     kernels.reset_launch_counts()
     y = fq.fake_quant(x, pb, sc, **kw)
@@ -1301,3 +1399,4 @@ def test_whisper_cross_attention_b4(dev, s):
                                   vs, kv_pos, q_pos[:, j:j + 1].contiguous())
         torch.cuda.synchronize()
         assert torch.equal(lane[:, 0], got[:, j]), j
+

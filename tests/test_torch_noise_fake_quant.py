@@ -33,6 +33,8 @@ from repro_torch.kernels import fake_quant as pfq
 from repro_torch.kernels import noise_inject as pni
 from repro_torch.kernels import prng as pprng
 
+from test_torch_cuda import EDGE_SCALES, fake_quant_edge_operands
+
 jni = importlib.import_module("repro.kernels.noise_inject")
 jfq = importlib.import_module("repro.kernels.fake_quant")
 
@@ -173,6 +175,39 @@ def test_fake_quant_plain_equals_pallas(m, k, row_scale, dtype):
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("row_scale", [True, False])
+def test_fake_quant_plain_equals_pallas_on_the_edge_grid(row_scale, dtype):
+    """The plain B8 bitwise the reference's Pallas kernel (interpret mode)
+    on the card tests' edge grid (``test_torch_cuda.
+    fake_quant_edge_operands``: ties, the grid's edge and one ulp either
+    side, +-0, +-inf, NaN, subnormal x, a scale near FLT_MAX), so the
+    kernel's edge cases on the card are tied to the reference: NaN where
+    it has NaN, every other element's bits equal. The grid's two scales
+    under 2^-100 (the smallest normal and a subnormal) are held on the
+    card only: XLA on the CPU flushes subnormals to zero (the TPU has
+    none) and rewrites x / s / h as x / (s h), so the reference returns
+    NaN or 0 where IEEE arithmetic, the plain version's and the
+    kernel's, returns the grid value times s (ROADMAP C)."""
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    x, pbits, scale = fake_quant_edge_operands(
+        tdt, row_scale, 1, [s for s in EDGE_SCALES if s >= 2.0 ** -100])
+    xj = jnp.asarray(x.float().numpy()).astype(dtype)
+    sj = jnp.asarray(scale.numpy())
+    want = np.asarray(jfq.fake_quant(
+        xj, jnp.asarray(pbits.numpy()),
+        sj.reshape(-1, 1) if row_scale else sj, row_scale=row_scale,
+        interpret=True).astype(jnp.float32))
+    got = pfq.fake_quant(x, pbits, scale, row_scale=row_scale)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    nan = np.isnan(want)
+    assert nan.any() and np.isinf(want).any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

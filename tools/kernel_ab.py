@@ -11,15 +11,15 @@ card, so two checkouts, or two builds of one, can be compared in one call:
     python3 tools/kernel_ab.py --src src --label attn --only attn
     python3 tools/kernel_ab.py --src src --label change --only train
 
-``--only gemm``, ``attn``, ``train``, ``step``, ``pack``, ``load`` or
-``serve`` times one family; with
-no ``--only`` the first two run (the others are timed only when asked
-for). ``--set NAME=VALUE``
-times a scratch build of the source (``csrc/segment_gemm.cu`` or
-``csrc/attn_decode.cu``) that declares ``constexpr int NAME`` (one of the
-launch-shape constants at the top of each source, none of which changes a
-bit of the result) with NAME set to VALUE, compiled into the checkout's
-build directory.
+``--only gemm``, ``attn``, ``train``, ``b8``, ``step``, ``pack``,
+``load`` or ``serve`` times one family; with no ``--only`` the first two
+run (the others are timed only when asked for). ``--set NAME=VALUE``
+times a scratch build of the source (``csrc/segment_gemm.cu``,
+``csrc/attn_decode.cu``, ``csrc/quant_pack.cu`` or, with ``train`` and
+``b8``, ``csrc/fake_quant.cu``) that declares ``constexpr int NAME`` (one
+of the launch-shape constants at the top of each source, none of which
+changes a bit of the result) with NAME set to VALUE, compiled into the
+checkout's build directory.
 
 Work per row, at full width with random operands from a fixed seed (the
 same in every checkout): the segment GEMMs of one h2o-danube-1.8b layer
@@ -44,6 +44,20 @@ T = 4096 (window 1024), B5 on 16 and 256 pages of 16 a slot (the latter
 with window 1024); deepseek-moe-16b (Hk = 16, G = 1, D = 128) B4 at
 T = 256 and B5 on 16 pages of 16. Rings hold one wrapped and one half-empty
 row, each query at its row's newest position; tables are shuffled.
+B8 forward rows (``--only train`` and ``--only b8``): the kernel through
+its wrapper, on both rulers, beside torch's ``clone`` of the same tensors
+(``*_clone_device_ms``: one read and one write of each, the bytes alone):
+one h2o-danube-1.8b layer (7 fp32 weights, per-group scales, and their
+[1024, K] bf16 activations, per-row scales), one whisper-medium encoder
+and one decoder layer (16 weights; activations at 12,000 rows for the
+encoder and the cross wk/wv), one mamba2-2.7b layer (in_proj, out_proj)
+and one deepseek-moe-16b MoE layer's serve-step activation banks ([64, 4,
+K]); each layer's operands exceed the L2. Then ``B8_sass`` (the static
+SASS count of the forward's main loop per element, by template instance:
+``tools/sass_count.py``) and ``B8_ptxas`` (registers and spills).
+``--only b8`` adds ``B8_call_*``: each distinct whisper call alone over
+copies of its operands that exceed the L2, beside ``clone``.
+
 Training rows (``--only train``): the backward of one h2o-danube-1.8b
 layer's training ops through autograd (``torch.autograd.grad`` of a
 forward kept alive), so a checkout whose backward is plain torch and one
@@ -170,9 +184,11 @@ def build_variant(_build, mod, settings):
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         src.write_text(text)
         tmp = out.with_name(f"{stem}.{os.getpid()}.tmp.so")
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                        str(tmp), str(src)], check=True,
-                       capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
+        done = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                               "-o", str(tmp), str(src)], check=True,
+                              capture_output=True, text=True,
+                              timeout=_build.BUILD_TIMEOUT_S)
+        out.with_suffix(".ptxas.txt").write_text(done.stdout + done.stderr)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     mod._bind(lib)
@@ -235,6 +251,120 @@ def attention_rows(torch, ad, kv_quant, get_config, dev, gen, rows):
         rows[f"{key}_device_ms"], rows[f"{key}_host_ms"] = queued_ms(
             torch, call, 50)
         rows[f"{key}_loop_ms"] = loop_ms(torch, call, 50)
+
+
+def _b8_layer(torch, quant, dev, gen, shapes):
+    """B8's operands for training linears (K, N, M): the fp32 weight [K,
+    N] with per-group scales and mixed 1/2/4-bit groups, and its bf16
+    activations [M, K] with per-row abs-max / 1.875 scales."""
+    calls = []
+    for k, n, m in shapes:
+        pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+            0, 3, (k // 16,), generator=gen, device=dev)]
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        calls.append(((w, pb, quant.per_group_weight_scale(w, 16)),
+                      dict(row_scale=False, k_dim=0)))
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        calls.append(((x, pb, quant.abs_max_scale(x, dim=1).reshape(m)),
+                      dict(row_scale=True)))
+    return calls
+
+
+def b8_call_rows(torch, fq, quant, dev, gen, shapes, rows):
+    """Each distinct call of a layer set alone: device ms a call over
+    enough copies of its operands to exceed the L2 (so every call finds
+    its operands cold), beside ``clone`` of the same tensors (the bytes
+    alone: one read and one write)."""
+    seen = {}
+    for k, n, m in shapes:
+        seen.setdefault((k, n, m), None)
+    for k, n, m in seen:
+        one = _b8_layer(torch, quant, dev, gen, [(k, n, m)])
+        for (args, kw), kind in zip(one, ("w", "x")):
+            nbytes = args[0].numel() * args[0].element_size()
+            copies = [args] + [(args[0].clone(),) + tuple(args[1:])
+                               for _ in range(-(-100_000_000 // nbytes) - 1)]
+            fn = (lambda c, kw_: lambda: [fq.fake_quant(*a, **kw_)
+                                          for a in c])(copies, kw)
+            cl = (lambda c: lambda: [a[0].clone() for a in c])(copies)
+            key = f"B8_call_{kind}_{k}x{n}x{m}"
+            rows[f"{key}_device_ms"] = device_ms(torch, fn, 5) / len(copies)
+            rows[f"{key}_clone_device_ms"] = device_ms(torch, cl, 5) / len(
+                copies)
+            del copies, fn, cl
+        del one
+        torch.cuda.empty_cache()
+
+
+def b8_rows(torch, fq, quant, _build, settings, get_config, dev, gen,
+            rows, detail=False):
+    """B8's forward kernel alone (the wrapper ``fake_quant.fake_quant``)
+    on both rulers: one h2o-danube-1.8b layer (7 weights and their [1024,
+    K] activations), one whisper-medium encoder layer and one decoder
+    layer (16 weights; activations at 12,000 rows for the encoder and the
+    cross wk/wv, 1,024 else), one mamba2-2.7b layer (in_proj, out_proj)
+    and the MoE serve step's activation banks of one deepseek-moe-16b
+    layer ([64, 4, K] bf16, a scale an expert); each layer's operands
+    exceed the 50 MB L2, so a call finds its operands cold. Then the
+    static SASS count of the forward's main loop per element of each
+    instance (``tools/sass_count.py``) and the build's ``ptxas -v``."""
+    import sass_count
+    h2o = get_config("h2o-danube-1.8b")
+    d, f = h2o.d_model, h2o.d_ff
+    hq, hk = h2o.num_heads * h2o.hd, h2o.num_kv_heads * h2o.hd
+    h2o_shapes = [(k, n, 1024) for k, n in
+                  [(d, hq), (d, hk), (d, hk), (hq, d), (d, f), (d, f),
+                   (f, d)]]
+    wh = get_config("whisper-medium")
+    d, f = wh.d_model, wh.d_ff
+    enc, dec = 8 * 1500, 8 * 128
+    sq = [(d, d)] * 4
+    whisper_shapes = ([(k, n, enc) for k, n in sq + [(d, f), (f, d)]]
+                      + [(k, n, dec) for k, n in sq]
+                      + [(d, d, dec), (d, d, enc), (d, d, enc), (d, d, dec)]
+                      + [(k, n, dec) for k, n in [(d, f), (f, d)]])
+    ssm_shapes = [(2560, 10576, 1024), (5120, 2560, 1024)]
+    for key, shapes in (("B8_h2o_layer", h2o_shapes),
+                        ("B8_whisper_layers", whisper_shapes),
+                        ("B8_ssm_layer", ssm_shapes)):
+        calls = _b8_layer(torch, quant, dev, gen, shapes)
+        fn = (lambda c: lambda: [fq.fake_quant(*a, **kw)
+                                 for a, kw in c])(calls)
+        rows[f"{key}_device_ms"] = device_ms(torch, fn, 10)
+        rows[f"{key}_loop_ms"] = loop_ms(torch, fn, 10)
+        cl = (lambda c: lambda: [a[0].clone() for a, _kw in c])(calls)
+        rows[f"{key}_clone_device_ms"] = device_ms(torch, cl, 10)
+        del calls, fn
+        torch.cuda.empty_cache()
+    if detail:
+        b8_call_rows(torch, fq, quant, dev, gen, whisper_shapes, rows)
+    moe = get_config("deepseek-moe-16b")
+    e, d, f = moe.num_experts, moe.d_model, moe.d_ff
+    calls = []
+    for k in (d, d, f):
+        pb = torch.tensor([1.0, 2.0, 4.0], device=dev)[torch.randint(
+            0, 3, (e, k // 16), generator=gen, device=dev)]
+        x = torch.randn((e, 4, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        sx = quant.abs_max_scale(x, dim=(1, 2)).expand(e, 4, 1)
+        calls.append((x, pb, sx.reshape(-1).contiguous()))
+    fn = lambda: [fq.fake_quant(*a, row_scale=True) for a in calls]  # noqa
+    rows["B8_moe_serve_device_ms"] = device_ms(torch, fn, 50)
+    rows["B8_moe_serve_loop_ms"] = loop_ms(torch, fn, 50)
+    lib = Path(_build.target(fq.SOURCE))
+    text = (_build.CSRC / fq.SOURCE).read_text()
+    if settings:
+        lib = Path(_build._LIBS[fq.SOURCE]._name)
+        text = lib.with_suffix(".cu").read_text()
+    try:
+        rows["B8_sass"] = sass_count.kernel_counts(
+            str(lib), "fake_quant_kernel",
+            sass_count.fake_quant_per_pass(text))
+    except (RuntimeError, subprocess.SubprocessError) as err:
+        rows["B8_sass"] = f"not measured: {err}"
+    ptxas = lib.with_suffix(".ptxas.txt")
+    rows["B8_ptxas"] = sass_count.ptxas_lines(
+        ptxas.read_text() if ptxas.exists() else "", "fake_quant_kernel")
 
 
 def train_rows(torch, backend, get_config, dev, gen, rows):
@@ -666,9 +796,10 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--set", action="append", default=[],
                     help="NAME=VALUE: a launch-shape constant of the "
-                         "segment GEMM or attention build")
+                         "timed family's source")
     ap.add_argument("--only", choices=("gemm", "attn", "train", "step",
-                                       "pack", "load", "b7", "serve"),
+                                       "pack", "load", "b7", "serve",
+                                       "b8"),
                     default=None, help="time one kernel family")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -711,19 +842,26 @@ def main() -> int:
         rows = {}
         serve_rows(torch, dev, rows)
         return report(args, rows, None)
-    if args.only in ("train", "step"):
-        if args.set:
-            raise SystemExit("--set takes no constant of the training "
-                             "kernels")
+    if args.only in ("train", "b8", "step"):
         from repro_torch.backend import base as backend
         from repro_torch.kernels import fake_quant, noise_inject
         _build.build([noise_inject.SOURCE, fake_quant.SOURCE])
+        for item in args.set:
+            if args.only == "step" or not declares(
+                    _build, fake_quant, item.split("=")[0]):
+                raise SystemExit(f"no constant {item} in "
+                                 f"{fake_quant.SOURCE}")
+        if args.set:
+            build_variant(_build, fake_quant, args.set)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         rows = {}
+        if args.only in ("train", "b8"):
+            b8_rows(torch, fake_quant, quant, _build, args.set, get_config,
+                    dev, gen, rows, detail=args.only == "b8")
         if args.only == "train":
             train_rows(torch, backend, get_config, dev, gen, rows)
-        else:
+        elif args.only == "step":
             step_rows(torch, dev, rows)
         return report(args, rows, None)
     families = [m for m, name in ((pm, "gemm"), (ad, "attn"))
