@@ -61,10 +61,10 @@ Phases (none catches an error; any failure exits non-zero):
      both rulers). The verify step: at S = 4, each lane of B4 and B5
      bitwise the S = 1 call at its position, at G = 4, 1 and 9.
   4. Serve: DecodeEngine on full-width h2o-danube-1.8b cut to
-     SERVE_LAYERS = 12 of its 24 layers (random weights from a seed,
+     SERVE_LAYERS = 8 of its 24 layers (random weights from a seed,
      default mix), fp ring KV cache, greedy; packing and serving must go
      through quantize_pack and the driver-scale segment GEMM, one launch
-     a linear (84 B7 launches at load, 84 B1 a decode step); the load's pack_s, device busy, device events, idle
+     a linear (56 B7 launches at load, 56 B1 a decode step); the load's pack_s, device busy, device events, idle
      share and split by op (a profiled second load); a second run
      gives the same tokens; lockstep equals
      continuous; the card agrees with the plain versions on the CPU in
@@ -79,7 +79,7 @@ Phases (none catches an error; any failure exits non-zero):
      over the fp ring and the fp pool on the first 4 requests: tokens
      identical to spec-off, ``spec_stats``, round ms, tokens/s beside
      a spec-off run of the same requests (every spec run), the
-     launches of a round (336 B1: one a linear in each of 3 draft steps
+     launches of a round (224 B1: one a linear in each of 3 draft steps
      and the verify) and, on the fp ring, a profile of a round.
   5. U4: the same arch at depth 2 with every group at 4 bits, which must
      go through the self-scale segment GEMM; lockstep equals continuous.
@@ -144,17 +144,17 @@ Phases (none catches an error; any failure exits non-zero):
      draws; output, dx, dw and ds each within relative L2 1e-5.
  11. The launcher, ``repro_torch.launch.train --arch h2o-danube-1.8b
      --steps 2 --batch 8 --seq 128`` in a subprocess, must exit 0.
- 12. MoE serve: full-width deepseek-moe-16b cut to MOE_SERVE_LAYERS = 14
-     of its 28 layers, from random QAT weights of the seed (30.4 GiB in
+ 12. MoE serve: full-width deepseek-moe-16b cut to MOE_SERVE_LAYERS = 8
+     of its 28 layers, from random QAT weights of the seed (~17 GiB in
      fp32; every earlier model is freed first), packed (B7, one launch a
-     linear and an expert bank: 137; the load's profile as in phase 4) and served through the
+     linear and an expert bank: 77; the load's profile as in phase 4) and served through the
      DecodeEngine with the fp ring: 8 requests of 16-32 prompt tokens and 12 new, which
-     must go through B6 (one launch an expert bank: 39 a decode step), B8
+     must go through B6 (one launch an expert bank: 21 a decode step), B8
      and B1; a second run gives the same tokens;
      lockstep equals continuous; the 4-bit ring (B4) and page pool (B5)
      give equal tokens. Peak memory, decode step ms and its device
      profile. Speculative decoding on the fp ring (4 requests): tokens
-     identical to spec-off, 156 B6 launches a round (117 of them draft
+     identical to spec-off, 84 B6 launches a round (63 of them draft
      launches over the [K2|K1] slice).
  13. Card vs CPU, teacher-forced, on full-width deepseek-moe-16b cut to
      its dense layer and one MoE layer, and on full-width starcoder2-7b
@@ -182,15 +182,15 @@ Phases (none catches an error; any failure exits non-zero):
      teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
      1e-5.
  16. Training, the rest: (a) full-width h2o-danube-1.8b cut to
-     REST_LAYERS = 8 of its 24 layers (so phases 19 and 20 fit the time
+     REST_LAYERS = 4 of its 24 layers (so phases 19 to 22 fit the time
      limit), every linear's logits drawn over the 4/2/1-bit bands of the
      default mix,
      through 3 Phase-I and 3 Phase-II steps at 2 microbatches on phase
      8's stream, hoisted (B8 once a weight a step), so the frozen model
      holds 1-, 2- and 4-bit groups (histogram, average bpp) and B8 and
      its backward run at all three inside a step; the B8 and B9 launches
-     of every step checked (hoisted: 56 + 224 B8 and 56 + 112 B8
-     backward a Phase-II step; unhoisted: 448 and 224); the unhoisted
+     of every step checked (hoisted: 28 + 112 B8 and 28 + 56 B8
+     backward a Phase-II step; unhoisted: 224 and 112); the unhoisted
      run bitwise the hoisted one (losses, gradient norms, parameters);
      with int8 gradient compression twice, bitwise (the state holds
      ``err``); host ms and peak GiB a step of each, the device busy of
@@ -202,9 +202,9 @@ Phases (none catches an error; any failure exits non-zero):
      from it fed steps 2-3, run C trains 0-3 uninterrupted; B's pattern
      report, losses and parameters bitwise C's; a save and a restore
      timed, with their bytes. (c) ``repro_torch.launch.train --reduced
-     --steps 4 --t1 2 --ckpt DIR`` twice (the second resumes), then
-     ``repro_torch.launch.serve --reduced --ckpt DIR``, in subprocesses;
-     each must exit 0.
+     --steps 4 --t1 2 --ckpt DIR``, then the same again (it resumes)
+     beside ``repro_torch.launch.serve --reduced --ckpt DIR``, the two
+     started together, in subprocesses; each must exit 0.
  17. The ``soniq`` façade and the CNN: (a) one full-width
      h2o-danube-1.8b q projection (LinearSpec 2560 x 2560) through
      init_linear, 3 Phase-I steps (1 B9 and 1 B9 backward each), to_qat,
@@ -225,7 +225,7 @@ Phases (none catches an error; any failure exits non-zero):
      subprocesses started together (quickstart --steps 200,
      serve_quantized --steps 10, train_lm_soniq --preset 100m --steps 4),
      each timed from their start; each must exit 0. The ``soniq`` JSON line.
- 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 16
+ 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 8
      of its 64 layers (so the script stays inside its time limit; phase
      19(d) runs all 64) (d_model
      2560, 80 SSD heads of 64, state 128, ssm_chunk 256; random QAT
@@ -236,7 +236,7 @@ Phases (none catches an error; any failure exits non-zero):
      bitwise the launch at k_off 0; both timed on both rulers beside
      torch.matmul on the dequantized operands. (b) The DecodeEngine
      (default mix, max_batch 4, prefill chunk 8, greedy; 8 requests of
-     16-64 prompt tokens and 16 new): 32 B7 launches at load and 32 B1
+     16-64 prompt tokens and 16 new): 16 B7 launches at load and 16 B1
      a decode step (checked), pack_s and the load's device busy, a second
      run bitwise the first, decode-step host ms, a device profile of a
      decode step and an 8-lane prefill step (kernels, busy, B1 ms, the
@@ -244,7 +244,7 @@ Phases (none catches an error; any failure exits non-zero):
      resident SSM state bytes. (c) The first 4 requests at prefill chunk
      1, through the LockstepEngine (prompts cut to 16 tokens) and
      speculatively (k = 3, draft bits 2;
-     ``spec_stats``, round ms, 160 B1 launches a drafting round checked:
+     ``spec_stats``, round ms, 80 B1 launches a drafting round checked:
      3 drafts, the verify and the recommit): token agreement with the
      chunk-8 run, reported (chunked SSD and the decode recurrence are
      different sums); teacher-forced on the chunk-8 run's tokens, the
@@ -340,7 +340,35 @@ Phases (none catches an error; any failure exits non-zero):
      ring, twice bitwise. The ``whisper_training`` JSON line. ``python3
      chip_smoke.py --only 21`` builds the kernels and runs this phase
      alone.
- 22. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 22. The VLM family: qwen2-vl-72b at full width (d_model 8192, 64
+     heads of 128 over 8, d_ff 29568, attention and MLP biases, the
+     untied readout over 152064, M-RoPE sections (16, 24, 24); random
+     weights from the seed). (a) B1 on one layer's seven linears at M = 4
+     and 2304 and on the readout's shape (8192 x 152064, packed as a
+     stand-in) at M = 4 and 2304, within the fp32 bound, beside
+     torch.matmul; B7 on one layer and on the readout's shape, bitwise;
+     B9, B8 and both backward kernels on one layer's training linears and
+     on a weight of the readout's shape (1.246e9 elements, held band by
+     band: ``vlm_*`` keys). (b) Serve at VLM_SERVE_LAYERS = 4 of 80
+     layers: the load (28 B7 launches, ``pack_s``, peak), 8 text requests
+     over the fp ring (28 B1 a step; lockstep == continuous), the 4-bit
+     ring and pool (4 B4 / 4 B5 a step; pool == ring) and speculatively
+     (k = 3; tokens == spec-off). (c) ``soniq.apply`` on the packed state
+     over a 2304-token multimodal prompt (text, a 4 x 16 x 16 video, text,
+     a 24 x 40 image, text; embeddings bf16, M-RoPE streams [3, 1, 2304]
+     as Qwen2-VL lays them): 28 B1 at M = 2304, the chunked attention,
+     finite logits, host ms and a device profile by op; table-row
+     embeddings at three equal streams bitwise the tokens path; one
+     full-width layer card vs CPU, teacher-forced, every op within
+     relative L2 1e-5. (d) Training at VLM_TRAIN_LAYERS = 1 layer beside
+     the table and readout (3.37 B parameters) on embeddings [4, 384,
+     8192] with labels -1 on the image: 3 Phase-I steps, the freeze, 3
+     Phase-II steps (launches asserted), one 2-microbatch Phase-II step
+     hoisted, a second run bitwise, the unread table decayed as AdamW
+     decays a zero gradient, ``soniq.to_serve`` (7 B7) and an apply. The
+     ``vlm`` JSON line. ``python3 chip_smoke.py --only 22`` builds the
+     kernels and runs this phase alone.
+ 23. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
@@ -348,11 +376,14 @@ Phases (none catches an error; any failure exits non-zero):
      launches on B1 and B7; phase 19's ``ssm_train_*`` keys on B8, B9
      and the backward rows; phase 20's ``whisper_*`` keys and launches
      on B1, B4, B5 and B7; phase 21's ``whisper_train_*`` keys on B8, B9
-     and the backward rows), the ``kv4_serve``, ``training``,
+     and the backward rows; phase 22's ``vlm_*`` keys and launches on
+     B1, B4, B5, B7, B8, B9 and the backward rows), the ``kv4_serve``,
+     ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
      ``ssm_serve``, ``ssm_training``, ``whisper_serve``,
-     ``whisper_training``, ``phase_seconds`` and ``phase_cpu_seconds``
+     ``whisper_training``, ``vlm``, ``phase_seconds`` and
+     ``phase_cpu_seconds``
      JSON lines, the nvidia-smi line, and last the ``{"ok": true, ...}``
      line.
 """
@@ -409,7 +440,7 @@ B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
-SERVE_LAYERS = 12            # phase 4's depth (h2o-danube-1.8b has 24)
+SERVE_LAYERS = 8             # phase 4's depth (h2o-danube-1.8b has 24)
 KV4_LAYERS = 6               # phase 6's depth (h2o-danube-1.8b has 24)
 # Phase 8's depth (phase 11's launcher runs all 24 layers).
 TRAIN_LAYERS = 8
@@ -533,14 +564,15 @@ def segment_shapes(qcfg, k):
 
 
 class LayerOperands:
-    """Random operands of one layer's seven linears at batch M: per linear
-    the bf16 input x [M, K] (an outlier row), its per-token scale and the
-    leaf's non-empty segments [(carriers, group scales, p, k_off)], as
-    ``backend.packed_matmul`` passes them to one launch."""
+    """Random operands of one layer's seven linears (or of ``shapes``,
+    (name, K, N) each) at batch M: per linear the bf16 input x [M, K] (an
+    outlier row), its per-token scale and the leaf's non-empty segments
+    [(carriers, group scales, p, k_off)], as ``backend.packed_matmul``
+    passes them to one launch."""
 
-    def __init__(self, cfg, qcfg, m, gen, dev):
+    def __init__(self, cfg, qcfg, m, gen, dev, shapes=None):
         self.linears = []
-        for _name, k, n in layer_linears(cfg):
+        for _name, k, n in shapes or layer_linears(cfg):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             x[0, : k // 2] *= 40.0                     # an outlier row
@@ -2714,7 +2746,7 @@ def phase_launcher():
 
 # ----------------------------------------------------- training, the rest ----
 REST_MB = 2                  # phase 16's microbatches a step
-REST_LAYERS = 8              # phase 16(a)'s depth (h2o-danube-1.8b has 24)
+REST_LAYERS = 4              # phase 16(a)'s depth (h2o-danube-1.8b has 24)
 CKPT_LAYERS = 2              # phase 16(b)'s depth (full width)
 # The middle of each precision's band of the logit s, where p = 1 +
 # round(log2(1 + e^-s)): (-2.33, -1.54] gives 4 bits, (-0.60, 0.88] 2 and
@@ -3013,9 +3045,9 @@ def phase_checkpoint_restart(dev):
 
 
 def phase_rest_launchers():
-    """Phase 16(c): the train launcher twice on one checkpoint directory
-    (the second resumes), then the serve launcher on it; each must exit 0
-    in a subprocess."""
+    """Phase 16(c): the train launcher on one checkpoint directory, then
+    the train launcher again (it resumes) and the serve launcher on it,
+    those two started together; each must exit 0 in a subprocess."""
     import shutil
     d = SMOKE_DIR / "launch"
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -3028,24 +3060,34 @@ def phase_rest_launchers():
     serve = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
              ARCH, "--reduced", "--ckpt", str(d), "--requests", "2",
              "--prompt-len", "6", "--new-tokens", "4", "--cache-len", "32"]
-    out = {}
+    out, procs = {}, {}
     try:
-        for tag, cmd in (("train", train), ("train_again", train),
-                         ("serve", serve)):
+        # The second train run resumes at its last step and writes nothing,
+        # so it and the serve launcher read the directory together.
+        for wave in ((("train", train),),
+                     (("train_again", train), ("serve", serve))):
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  env=env, timeout=600)
-            out[tag] = round(time.perf_counter() - t0, 2)
-            tail = (proc.stdout.strip().splitlines() or [""])[-2:]
-            log(f"[16] {tag} launcher exit {proc.returncode} in "
-                f"{out[tag]} s: {tail}")
-            if proc.returncode:
-                raise AssertionError(f"{tag} launcher failed:\n"
-                                     f"{proc.stdout}\n{proc.stderr[-4000:]}")
-            if tag == "train_again" and "resumed from step" not in \
-                    proc.stdout:
-                raise AssertionError(f"no resume:\n{proc.stdout}")
+            procs = {tag: subprocess.Popen(cmd, env=env, text=True,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE)
+                     for tag, cmd in wave}
+            for tag, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                out[tag] = round(time.perf_counter() - t0, 2)
+                tail = (stdout.strip().splitlines() or [""])[-2:]
+                log(f"[16] {tag} launcher exit {proc.returncode} in "
+                    f"{out[tag]} s: {tail}")
+                if proc.returncode:
+                    raise AssertionError(f"{tag} launcher failed:\n"
+                                         f"{stdout}\n{stderr[-4000:]}")
+                if tag == "train_again" and "resumed from step" not in \
+                        stdout:
+                    raise AssertionError(f"no resume:\n{stdout}")
     finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     return out
 
@@ -3373,7 +3415,7 @@ def phase_examples():
 
 
 # ------------------------------------------------------------ MoE serve ----
-MOE_SERVE_LAYERS = 14        # phase 12's depth (deepseek-moe-16b has 28)
+MOE_SERVE_LAYERS = 8         # phase 12's depth (deepseek-moe-16b has 28)
 
 
 def phase_moe_serve(dev, rng, launches, per_step, spec_runs):
@@ -3654,7 +3696,7 @@ def phase_dense_configs(dev, rng, spec_runs):
 # ------------------------------------------------------------- SSM serve ----
 SSM_ARCH = "mamba2-2.7b"
 SSM_LINEARS = 2                 # in_proj, out_proj: one B7 / B1 launch each
-SSM_SERVE_LAYERS = 16           # phase 18's depth (mamba2-2.7b has 64)
+SSM_SERVE_LAYERS = 8            # phase 18's depth (mamba2-2.7b has 64)
 # Phase 18(c)'s cross-form bound: teacher-forced logits of the chunked
 # steps against token-by-token decode, relative L2 at every lane.
 SSM_CROSS_FORM = 1e-2
@@ -5183,10 +5225,735 @@ def phase_whisper_training(dev, gen, results, rng):
     return st
 
 
+# ------------------------------------------------------------------- VLM ----
+VLM_ARCH = "qwen2-vl-72b"
+VLM_SERVE_LAYERS = 4         # phase 22(b)'s depth (qwen2-vl-72b has 80)
+VLM_TRAIN_LAYERS = 1         # phase 22(d)'s depth, beside the table and head
+VLM_LINEARS = 7              # q, k, v, o, gate, up, down
+# The multimodal prompt of phase 22(c), laid out as Qwen2-VL lays its
+# inputs (arXiv:2409.12191 §2.1): text, a video of 4 frames of 16 x 16
+# merged patches, text, an image of 24 x 40, text; 2304 tokens, past the
+# chunked attention's threshold.
+VLM_PREFILL = (("text", 64), ("vision", 4, 16, 16), ("text", 64),
+               ("vision", 1, 24, 40), ("text", 192))
+# A training row of phase 22(d): text, a 16 x 16 image, text (384).
+VLM_TRAIN = (("text", 64), ("vision", 1, 16, 16), ("text", 64))
+VLM_TRAIN_BATCH = 4
+# The card-vs-CPU layout of phase 22(c): an image and a video of 2 frames.
+VLM_CPU = (("text", 16), ("vision", 1, 4, 8), ("text", 16),
+           ("vision", 2, 4, 4), ("text", 16))
+VLM_TABLE_SCALE = 0.02       # the embedding table's init scale
+
+
+def mrope_positions(layout) -> np.ndarray:
+    """int32 [3, S] M-RoPE position streams (temporal, height, width) of a
+    layout of ("text", n) and ("vision", t, h, w) segments: text runs on
+    all three streams; a vision block's (t, h, w) grid is offset from the
+    previous maximum plus 1, and the text after it starts at the block's
+    maximum plus 1."""
+    parts, start = [], 0
+    for seg in layout:
+        if seg[0] == "text":
+            p = start + np.arange(seg[1])
+            parts.append(np.stack([p, p, p]))
+            start += seg[1]
+        else:
+            t, h, w = seg[1:]
+            grid = np.meshgrid(np.arange(t), np.arange(h), np.arange(w),
+                               indexing="ij")
+            parts.append(np.stack([g.ravel() for g in grid]) + start)
+            start += max(t, h, w)
+    return np.concatenate(parts, axis=1).astype(np.int32)
+
+
+def vision_mask(layout) -> np.ndarray:
+    """bool [S]: True at a vision segment's patches."""
+    return np.concatenate([np.full(seg[1] if seg[0] == "text"
+                                   else int(np.prod(seg[1:])),
+                                   seg[0] != "text") for seg in layout])
+
+
+def vlm_inputs(table, layout, seed, batch=1, dtype=torch.bfloat16):
+    """(embeds [batch, S, D] in ``dtype``: the table's rows of seeded
+    tokens at the text positions, seeded normals at the table's scale at
+    the patches (the vision tower is a stub); positions int64 [3, batch,
+    S]; the tokens [batch, S]), on the table's device."""
+    dev = table.device
+    mask = torch.as_tensor(vision_mask(layout), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = mask.numel()
+    tokens = torch.randint(0, table.shape[0], (batch, s), generator=g,
+                           device=dev)
+    emb = torch.nn.functional.embedding(tokens, table).float()
+    patches = torch.randn(emb.shape, generator=g, device=dev) \
+        * VLM_TABLE_SCALE
+    emb = torch.where(mask[None, :, None], patches, emb).to(dtype)
+    pos = torch.as_tensor(mrope_positions(layout), device=dev).long()
+    return emb, pos[:, None].expand(3, batch, s).contiguous(), tokens
+
+
+def vlm_head_training_kernels(k, n, gen, dev, band=1024, reps=5):
+    """B9, B8 and both backward kernels on one weight of the ``lm_head``'s
+    shape ([K, N] fp32, K * N = 1.246e9 elements, 4.98 GB: fp32 byte
+    offsets past 2^32): each call's output against its plain version a
+    band of ``band`` rows at a time (the plain versions' int64 hash
+    temporaries do not fit the card at once; B9's ``row0`` keeps the
+    element index of the whole weight): forward, dw and dx bitwise, ds
+    within ``noise_inject.ds_bound``. Timed on both rulers; ``plain_ms``
+    is the plain versions over every band. Returns {kernel: numbers}."""
+    out = {}
+    bands = [(r, min(r + band, k)) for r in range(0, k, band)]
+    w = torch.rand((k, n), generator=gen, device=dev) * 2.2 - 1.1
+    s = torch.randn((k // 16,), generator=gen, device=dev) * 2.0 - 0.5
+    seed = torch.randint(0, 1 << 32, (1,), generator=gen, device=dev)
+    sig = ni.group_sigma(s)
+    got = ni.noise_inject(w, s, seed)
+    for a, b in bands:
+        want = ni.noise_inject_plain(w[a:b], sig[a // 16:b // 16], seed,
+                                     row0=a)
+        if not torch.equal(got[a:b], want):
+            raise AssertionError(f"noise_inject [{k}, {n}] rows {a}:{b}: "
+                                 f"{(got[a:b] != want).sum().item()} "
+                                 f"elements differ from the plain version")
+    del got, want
+    elems = k * n
+
+    def plain_b9():
+        for a, b in bands:
+            ni.noise_inject_plain(w[a:b], sig[a // 16:b // 16], seed, row0=a)
+
+    kern = lambda: ni.noise_inject(w, s, seed)  # noqa: E731
+    b_ms, b_by = bound(8 * elems + 4 * s.numel() + 8, 16 * elems)
+    out[B9] = dict(max_abs_err=0.0, ms=time_ms(kern, reps),
+                   device_ms=device_ms(kern, reps),
+                   plain_ms=time_ms(plain_b9, 1), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+    g = torch.randn((k, n), generator=gen, device=dev)
+    dw, ds = ni.noise_inject_bwd(w, s, seed, g)
+    ds_err = 0.0
+    for a, b in bands:
+        sl = slice(a // 16, b // 16)
+        dw_p, ds_p = ni.noise_inject_bwd_plain(w[a:b], s[sl], seed, g[a:b],
+                                               row0=a)
+        if not torch.equal(_bits(dw[a:b]), _bits(dw_p)):
+            raise AssertionError(f"noise_inject_bwd [{k}, {n}] rows {a}:{b}"
+                                 f": dw differs from the plain version")
+        err = (ds[sl] - ds_p).abs()
+        if not (err <= ni.ds_bound(w[a:b], s[sl], seed, g[a:b],
+                                   row0=a)).all():
+            raise AssertionError(f"noise_inject_bwd [{k}, {n}] rows {a}:{b}"
+                                 f": ds off the plain version by "
+                                 f"{err.max().item()}")
+        ds_err = max(ds_err, err.max().item())
+    del dw, ds, dw_p, ds_p
+
+    def plain_b9_bwd():
+        for a, b in bands:
+            ni.noise_inject_bwd_plain(w[a:b], s[a // 16:b // 16], seed,
+                                      g[a:b], row0=a)
+
+    kern = lambda: ni.noise_inject_bwd(w, s, seed, g)  # noqa: E731
+    b_ms, b_by = bound(12 * elems + 8 * s.numel() + 8, 20 * elems)
+    out[B9_BWD] = dict(max_abs_err=ds_err, ms=time_ms(kern, reps),
+                       device_ms=device_ms(kern, reps),
+                       plain_ms=time_ms(plain_b9_bwd, 1), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+    del w, s, seed, sig
+    w, pb, sw = b8_weight_operands(k, n, gen, dev)
+    kw = dict(row_scale=False, k_dim=0)
+    got = fq.fake_quant(w, pb, sw, **kw)
+    dx = fq.fake_quant_bwd(w, pb, sw, g, **kw)
+    for a, b in bands:
+        sl = slice(a // 16, b // 16)
+        if not torch.equal(got[a:b], fq.fake_quant_plain(
+                w[a:b], pb[sl], sw[sl], **kw)):
+            raise AssertionError(f"fake_quant [{k}, {n}] rows {a}:{b} "
+                                 f"differ from the plain version")
+        if not torch.equal(_bits(dx[a:b]), _bits(fq.fake_quant_bwd_plain(
+                w[a:b], pb[sl], sw[sl], g[a:b], **kw))):
+            raise AssertionError(f"fake_quant_bwd [{k}, {n}] rows {a}:{b} "
+                                 f"differ from the plain version")
+    del got, dx
+
+    def plain_b8(bwd):
+        for a, b in bands:
+            sl = slice(a // 16, b // 16)
+            if bwd:
+                fq.fake_quant_bwd_plain(w[a:b], pb[sl], sw[sl], g[a:b], **kw)
+            else:
+                fq.fake_quant_plain(w[a:b], pb[sl], sw[sl], **kw)
+
+    kern = lambda: fq.fake_quant(w, pb, sw, **kw)  # noqa: E731
+    b_ms, b_by = bound(8 * elems + 8 * pb.numel(), 12 * elems)
+    out[B8] = dict(max_abs_err=0.0, ms=time_ms(kern, reps),
+                   device_ms=device_ms(kern, reps),
+                   copy_device_ms=device_ms(lambda: w.clone(), reps),
+                   plain_ms=time_ms(lambda: plain_b8(False), 1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    kern = lambda: fq.fake_quant_bwd(w, pb, sw, g, **kw)  # noqa: E731
+    b_ms, b_by = bound(12 * elems + 8 * pb.numel(), 6 * elems)
+    out[B8_BWD] = dict(max_abs_err=0.0, ms=time_ms(kern, reps),
+                       device_ms=device_ms(kern, reps),
+                       plain_ms=time_ms(lambda: plain_b8(True), 1),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def phase_vlm_kernels(cfg, qcfg, gen, dev, results):
+    """Phase 22(a), into ``results`` (``vlm_*`` keys): at qwen2-vl-72b's
+    full width (d_model 8192, 64 heads of 128 over 8, d_ff 29568: the
+    down projection's K holds 1848 groups, 924 / 693 / 231 at 4 / 2 / 1
+    bits, so the 2- and 1-bit segments hold an odd number of groups and
+    the 1-bit segment starts at k_off 25872, off every 32-channel tile),
+    B1 on one layer's seven linears at M = 4 (decode) and M = 2304 (the
+    multimodal prefill) and on the untied readout's shape (8192 x 152064,
+    fp in the model: a packed stand-in, the widest GEMM any config gives
+    B1) at M = 4 and 2304, each within the fp32 reordering bound and
+    timed on both rulers beside torch.matmul of the dequantized operands;
+    B7 on one layer (7 launches) and on the readout's shape, bitwise;
+    B9, B8 and both backward kernels on one layer's training linears
+    (activations at M = 4 x 384) and on the readout's shape
+    (``vlm_head_training_kernels``)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    head = [("lm_head", d, v)]
+    m_pre = int(mrope_positions(VLM_PREFILL).shape[1])
+    for tag, shapes, m, nsets, reps in (
+            ("layer_M4", None, 4, 2, 10), ("layer_M2304", None, m_pre, 1, 1),
+            ("head_M4", head, 4, 1, 10), ("head_M2304", head, m_pre, 1, 1)):
+        sets = [LayerOperands(cfg, qcfg, m, gen, dev, shapes)
+                for _ in range(nsets)]
+        err = check_segment_gemm(B1, sets[:1])
+        res = time_segment_gemm(B1, sets, reps=reps)
+        results[B1].update({f"vlm_{tag}_{k}": x for k, x in res.items()},
+                           **{f"vlm_{tag}_max_abs_err": err})
+        log(f"[22] {B1} {tag} ({len(sets[0].linears)} launches): max |err| "
+            f"{err:.3e} within the fp32 bound; {res}")
+        del sets
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag, shapes in (("layer", layer_linears(cfg)), ("head", head)):
+        calls = [pack_operands((k, n), qcfg, gen, dev)
+                 for _name, k, n in shapes]
+        _check_pack(calls)
+        b_ms, b_by = _pack_bound(calls)
+        reps = 10 if tag == "layer" else 3
+        results[B7].update({
+            f"vlm_{tag}_ms": time_ms(lambda: _pack_layer(calls), reps),
+            f"vlm_{tag}_device_ms": device_ms(lambda: _pack_layer(calls),
+                                              reps),
+            f"vlm_{tag}_plain_ms": time_ms(lambda: _pack_layer_plain(calls),
+                                           1),
+            f"vlm_{tag}_bound_ms": b_ms, f"vlm_{tag}_bound_by": b_by,
+            f"vlm_{tag}_launches": len(calls)})
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[22] {B7} bitwise on one layer (7 launches) and the readout's "
+        f"shape: { {k: x for k, x in results[B7].items() if 'vlm' in k} }")
+    shapes = [(name, k, n, VLM_TRAIN_BATCH * len(vision_mask(VLM_TRAIN)))
+              for name, k, n in layer_linears(cfg)]
+    for name, rec in phase_training_kernels(cfg, gen, dev,
+                                            shapes=shapes).items():
+        results[name].update({f"vlm_train_{k}": x for k, x in rec.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, rec in vlm_head_training_kernels(d, v, gen, dev).items():
+        results[name].update({f"vlm_head_{k}": x for k, x in rec.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[22] {B9}, {B8} and both backward kernels on one layer's training "
+        f"linears and on the readout's shape: forward, dw and dx bitwise, "
+        f"ds within its bound: "
+        f"{ {n: {k: x for k, x in results[n].items() if k.startswith(('vlm_train_', 'vlm_head_'))} for n in (B9, B8, B9_BWD, B8_BWD)} }")
+
+
+def check_vlm_against_cpu(dev, ecfg):
+    """Phase 22(c)'s card vs CPU: qwen2-vl-72b at full width cut to one
+    layer, fp32, packed on the card, the packed model copied to the CPU;
+    ``forward(embeds=, positions=[3, 1, S])`` over ``VLM_CPU`` (an image
+    and a 2-frame video, M-RoPE streams) and the readout, teacher-forced
+    (``LinearTape``): each of the layer's seven linears on the CPU's input
+    to it, and each input as the card's own ops made it (the RMS norms,
+    M-RoPE, the float64 attention under the temporal stream's mask,
+    SwiGLU, residual adds), the hidden state and the logits, within
+    relative L2 1e-5. Returns the numbers."""
+    wide = dataclasses.replace(get_config(VLM_ARCH), num_layers=1,
+                               dtype="float32").with_quant_mode("qat")
+    eng = engine.DecodeEngine(lm.init_params(wide, seed=SEED + 24,
+                                             device=dev), wide, ecfg,
+                              device=dev)
+    host = copy.deepcopy(eng.model).to("cpu")
+    emb, pos, _tok = vlm_inputs(eng.model.embed.table, VLM_CPU, SEED + 24,
+                                dtype=torch.float32)
+
+    def run(model, device):
+        with torch.no_grad():
+            h, _ = lm.forward(model, eng.cfg, embeds=emb.to(device),
+                              positions=pos.to(device))
+            return [h.double().cpu(),
+                    lm.logits(model, eng.cfg, h).double().cpu()]
+
+    tape_cpu = LinearTape(host)
+    try:
+        ref = run(host, "cpu")
+    finally:
+        tape_cpu.close()
+    tape_card = LinearTape(eng.model, feed=tape_cpu.inputs)
+    try:
+        got = run(eng.model, dev)
+    finally:
+        tape_card.close()
+    calls = len(tape_cpu.inputs)
+    if len(tape_card.inputs) != calls or calls != VLM_LINEARS:
+        raise AssertionError(f"linear calls: card {len(tape_card.inputs)}, "
+                             f"CPU {calls}, expected {VLM_LINEARS}")
+    worst = {}
+    for (name, _lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        kind = ".".join(name.split(".")[-2:])
+        worst[f"{kind}.out"] = rel_l2(y_card, y_cpu)
+        worst[f"{kind}.in"] = rel_l2(x_card, x_cpu)
+    worst["hidden"], worst["logits"] = (rel_l2(a, b)
+                                        for a, b in zip(got, ref))
+    del eng, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = {k: x for k, x in worst.items() if not x <= 1e-5}
+    if bad:
+        raise AssertionError(f"qwen2-vl card vs CPU over 1e-5: {bad}")
+    return worst
+
+
+def profile_apply(state, emb, pos):
+    """One ``soniq.apply`` of the served VLM (after a first one): host-clock
+    ms and a device profile split by op (``step_profile.VLM_SPANS``)."""
+    from repro_torch import soniq
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        soniq.apply(state, embeds=emb, positions=pos)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    undo = step_profile.install_spans(step_profile.VLM_SPANS)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                torch.no_grad():
+            soniq.apply(state, embeds=emb, positions=pos)
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    return profile_summary(prof, host_ms)
+
+
+def phase_vlm_serve(dev, rng, results, launches, per_step):
+    """Phase 22(b) and (c): serve qwen2-vl-72b at full width cut to
+    VLM_SERVE_LAYERS of its 80 layers (d_model 8192, 64 heads of 128 over
+    8, d_ff 29568, attention and MLP biases, the untied readout over
+    152064; random QAT weights of the seed, default mix, bf16 compute).
+    (b) The DecodeEngine's load (max_batch 4, cache_len 256, prefill
+    chunk 8): one B7 launch a linear (28; the readout is an fp linear, as
+    in the reference), ``pack_s``, peak memory; 8 text requests of 16-64
+    prompt tokens and 16 new over the fp ring (28 B1 a decode step;
+    lockstep == continuous), the 4-bit ring (4 B4 a step) and the 4-bit
+    pool (4 B5 a step; tokens == the 4-bit ring's), and the first 4,
+    prompts cut to 16 tokens, speculatively (k = 3, draft bits 2; tokens
+    == spec-off; 112 B1 a round). (c) ``soniq.apply`` on the packed
+    state over the multimodal prompt (``VLM_PREFILL``, 2304 tokens,
+    embeddings [1, 2304, 8192] bf16, M-RoPE streams [3, 1, 2304]): 28 B1
+    launches at M = 2304, the chunked attention, finite logits, host ms
+    and a device profile by op; the table's rows of 2304 seeded tokens as
+    embeddings at three equal streams give bitwise the tokens path's
+    logits at [1, S] positions; one layer card vs CPU
+    (``check_vlm_against_cpu``). Returns the numbers."""
+    from repro_torch import soniq
+    from repro_torch.core.phases import Phase
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              num_layers=VLM_SERVE_LAYERS
+                              ).with_quant_mode("qat")
+    n_lin = VLM_LINEARS * cfg.num_layers
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    st = {"layers": cfg.num_layers}
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=SEED + 22, device=dev)
+    torch.cuda.synchronize()
+    st["qat_tree_gib"] = sum(p.numel() * p.element_size()
+                             for p in params.parameters()) / 2 ** 30
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.DecodeEngine(params, cfg, ecfg)
+    torch.cuda.synchronize()
+    st["pack_s"] = time.perf_counter() - t0
+    launches["b7_vlm_load"] = kernels.launch_counts()[B7]
+    if launches["b7_vlm_load"] != n_lin or packed_leaves(eng.model) != n_lin:
+        raise AssertionError(f"{launches['b7_vlm_load']} B7 launches at the "
+                             f"qwen2-vl load, not one a linear ({n_lin})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["peak_gib_init_and_pack"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    st["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    log(f"[22] {VLM_ARCH} at {cfg.num_layers} layers: QAT tree "
+        f"{st['qat_tree_gib']:.2f} GiB, pack_s {st['pack_s']:.3f}, "
+        f"{launches['b7_vlm_load']} B7 launches, peak "
+        f"{st['peak_gib_init_and_pack']:.2f} GiB, packed "
+        f"{st['packed_bytes']:,} bytes")
+    lap("load")
+    reqs = requests(cfg.vocab_size, rng)
+    kernels.reset_launch_counts()
+    ring, wall = serve_all(eng, reqs)
+    counts = kernels.launch_counts()
+    launches["b1_vlm_serve"] = counts[B1]
+    if counts[B1] == 0 or counts[B2] or counts[B3] or counts[B8] \
+            or counts[B4] or counts[B5]:
+        raise AssertionError(f"qwen2-vl fp serve launches {counts}")
+    for c in ring:
+        if c.new_tokens.size != 16 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad qwen2-vl completion {c.new_tokens}")
+    new = sum(c.new_tokens.size for c in ring)
+    per_step["b1_vlm"] = step_launches(eng)[B1]
+    if per_step["b1_vlm"] != n_lin:
+        raise AssertionError(f"{per_step['b1_vlm']} {B1} launches a "
+                             f"qwen2-vl decode step, not {n_lin}")
+    st["fp_ring"] = dict(tok_s=new / wall, wall_s=wall,
+                         steps=eng.sched.step_count,
+                         decode_step_ms=decode_step_ms(eng))
+    check_lockstep_equals_continuous(eng, cfg, ecfg, cfg.vocab_size, rng,
+                                     16, 8)
+    log(f"[22] fp ring: {len(reqs)} requests ({new} new tokens): "
+        f"{st['fp_ring']}; {per_step['b1_vlm']} B1 a step; lockstep == "
+        f"continuous; tokens[0] {ring[0].new_tokens[:8]}")
+    lap("fp_ring")
+    e4 = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, kv_bits=4), already_serve=True, device=dev)
+    kernels.reset_launch_counts()
+    ring4, wall4 = serve_all(e4, reqs)
+    counts = kernels.launch_counts()
+    launches["b4_vlm_kv4_serve"] = counts[B4]
+    per_step["b4_vlm"] = step_launches(e4)[B4]
+    if counts[B4] == 0 or counts[B5] or per_step["b4_vlm"] != cfg.num_layers:
+        raise AssertionError(f"qwen2-vl 4-bit ring launches {counts}, "
+                             f"{per_step['b4_vlm']} B4 a step")
+    del e4
+    paged = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, kv_bits=4, kv_layout="paged", page_size=16),
+        already_serve=True, device=dev)
+    kernels.reset_launch_counts()
+    pool, wallp = serve_all(paged, reqs)
+    counts = kernels.launch_counts()
+    launches["b5_vlm_paged_serve"] = counts[B5]
+    _same_tokens("qwen2-vl 4-bit pool != 4-bit ring", ring4, pool)
+    paged.pool.check()
+    step = step_launches(paged)
+    per_step["b5_vlm"] = step[B5]
+    if step[B5] != cfg.num_layers or step[B4]:
+        raise AssertionError(f"a qwen2-vl 4-bit pool step: {step[B5]} B5, "
+                             f"{step[B4]} B4")
+    new4 = sum(c.new_tokens.size for c in ring4)
+    st["kv4"] = dict(ring_tok_s=new4 / wall4, pool_tok_s=new4 / wallp,
+                     pool=paged.paged_kv_stats(),
+                     agreement_with_fp=_agreement(
+                         [c.new_tokens for c in ring],
+                         [c.new_tokens for c in ring4]))
+    del paged
+    log(f"[22] 4-bit ring and pool (tokens == ring): {st['kv4']}")
+    lap("kv4")
+    short = [dataclasses.replace(r, prompt=r.prompt[:16]) for r in reqs[:4]]
+    st["spec"] = spec_serve(eng.model, cfg, ecfg, short, None, dev,
+                            {B1: (SPEC_TOKENS + 1) * n_lin})
+    st["spec"].pop("launches")
+    per_step["b1_vlm_spec_round"] = st["spec"]["round_launches"][B1]
+    log(f"[22] spec (tokens == spec-off): {st['spec']}")
+    lap("spec")
+    # (c) The multimodal prefill on the packed state.
+    state = soniq.SoniqState(Phase.SERVE, eng.model, eng.cfg)
+    emb, pos, _tok = vlm_inputs(eng.model.embed.table, VLM_PREFILL,
+                                SEED + 22)
+    s = emb.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        logits = soniq.apply(state, embeds=emb, positions=pos)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches["b1_vlm_prefill"] = counts[B1]
+    if counts[B1] != n_lin or counts[B2] or counts[B3] or counts[B8]:
+        raise AssertionError(f"multimodal prefill launches {counts}")
+    if logits.shape != (1, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"multimodal logits {tuple(logits.shape)} not "
+                             f"finite")
+    del logits
+    st["prefill"] = profile_apply(state, emb, pos)
+    st["prefill"].update(tokens=s, peak_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30, layout=[list(x) for x in VLM_PREFILL])
+    log(f"[22] multimodal prefill ({s} tokens, M-RoPE streams, chunked "
+        f"attention): {counts[B1]} B1 launches; {st['prefill']}")
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 23))
+    rows = torch.nn.functional.embedding(tokens, eng.model.embed.table).to(
+        torch.bfloat16)
+    flat = torch.arange(s, device=dev)[None]
+    with torch.no_grad():
+        a = soniq.apply(state, tokens, positions=flat)
+        b = soniq.apply(state, embeds=rows, positions=flat[None].expand(
+            3, 1, s))
+    if not torch.equal(a, b):
+        raise AssertionError(f"table-row embeds at equal streams != the "
+                             f"tokens path: max |diff| "
+                             f"{(a - b).abs().max().item()}")
+    st["equal_streams_bitwise"] = True
+    del a, b, rows, state, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[22] table-row embeddings at three equal streams == the tokens path "
+        "at [1, S] positions, bitwise")
+    lap("prefill")
+    st["card_vs_cpu"] = check_vlm_against_cpu(dev, ecfg)
+    log(f"[22] one full-width layer, card vs CPU (fp32, relative L2): "
+        f"{st['card_vs_cpu']}")
+    lap("card_vs_cpu")
+    st["seconds"] = laps
+    return st
+
+
+def vlm_batches(table, n, seed):
+    """``n`` training batches of VLM_TRAIN_BATCH rows of ``VLM_TRAIN``:
+    embeddings bf16 (``vlm_inputs``), M-RoPE streams, labels (the text's
+    tokens, -1 on the image)."""
+    mask = torch.as_tensor(vision_mask(VLM_TRAIN), device=table.device)
+    out = []
+    for i in range(n):
+        emb, pos, tok = vlm_inputs(table, VLM_TRAIN, seed + i,
+                                   batch=VLM_TRAIN_BATCH)
+        out.append({"embeds": emb, "positions": pos,
+                    "labels": torch.where(mask[None], -1, tok)})
+    return out
+
+
+def _vlm_train(cfg, dev, tag="22"):
+    """Phase 22(d)'s run: a model from the seed (mixed logits) and
+    T2 + 1 batches made from its table (``vlm_batches``); T1 Phase-I
+    steps, the freeze and T2 - T1 Phase-II steps through ``loop.train``,
+    every step's B8/B9 launches checked, then one 2-microbatch Phase-II
+    step hoisted. Returns (the state, per-step records, the report, the
+    table's first 64 rows before training, on the host)."""
+    from repro_torch.train import state as state_lib
+    tcfg = state_lib.TrainConfig(t1=T1, t2=T2, warmup=1, seed=SEED)
+    counted = {"b8": B8, "b9": B9, "b8_bwd": B8_BWD, "b9_bwd": B9_BWD}
+    records, prev = [], dict.fromkeys(counted.values(), 0)
+
+    def record(step, phase, met):
+        counts = kernels.launch_counts()
+        rec = dict(step=step, phase=phase, loss=float(met["loss"]),
+                   grad_norm=float(met["grad_norm"]),
+                   lr_scale=float(met["lr_scale"]),
+                   ms=float(met.get("wall", 0.0)) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        rec.update({key: counts[name] - prev[name]
+                    for key, name in counted.items()})
+        prev.update({name: counts[name] for name in counted.values()})
+        records.append(rec)
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[{tag}] step {step} phase {phase}: loss {rec['loss']:.4f} "
+            f"gnorm {rec['grad_norm']:.4f} {rec['ms']:.1f} ms, launches "
+            f"{ {k: rec[k] for k in counted} }, peak "
+            f"{rec['peak_gib']:.2f} GiB")
+
+    model = lm.init_params(cfg.with_quant_mode("noise"), seed=SEED + 22,
+                           device=dev)
+    set_mixed_logits(model, SEED + 22)
+    table0 = model.embed.table[:64].detach().cpu()
+    batches = vlm_batches(model.embed.table.detach(), T2 + 1, SEED + 25)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = loop.train(cfg, tcfg, iter(batches[:T2]), model=model, device=dev,
+                     hooks=[lambda s, _st, m: record(s, m["phase"], m)])
+    del model
+    state = out["state"]
+    for r in records:
+        want = train_step_launches(cfg, r["phase"])
+        if not math.isfinite(r["loss"]) or any(r[k] != x
+                                               for k, x in want.items()):
+            raise AssertionError(f"step {r['step']}: loss {r['loss']}, "
+                                 f"launches {r}, wanted {want}")
+    qcfg = cfg.with_quant_mode("qat")
+    mb = state_lib.TrainConfig(t1=T1, t2=T2 + 1, warmup=1, seed=SEED,
+                               num_microbatches=2, hoist_weight_quant=True)
+    t0 = time.perf_counter()
+    state, met = state_lib.train_step(state, batches[T2], qcfg, mb)
+    torch.cuda.synchronize()
+    record(T2, 2, dict(met, wall=time.perf_counter() - t0))
+    n = VLM_LINEARS * cfg.num_layers
+    if records[-1]["b8"] != 5 * n or records[-1]["b8_bwd"] != 3 * n \
+            or not math.isfinite(records[-1]["loss"]):
+        raise AssertionError(f"the hoisted 2-microbatch step: "
+                             f"{records[-1]}")
+    return state, records, out["pattern_report"], table0
+
+
+def _table_decayed(table0, table, records, adamw_cfg):
+    """The trained table's first rows against the host's replay of AdamW's
+    decoupled decay on a zero gradient (the update ``mu / c1 / (sqrt(nu /
+    c2) + eps)`` is 0), step by step at each step's lr scale: bitwise."""
+    p = table0.clone()
+    for r in records:
+        lr = torch.tensor(adamw_cfg.lr, dtype=torch.float32) * torch.tensor(
+            r["lr_scale"], dtype=torch.float32)
+        update = torch.zeros_like(p) + adamw_cfg.weight_decay * p.float()
+        p = (p.float() - lr * update).to(p.dtype)
+    return torch.equal(p, table), (table - table0).abs().max().item()
+
+
+def phase_vlm_training(dev, results):
+    """Phase 22(d): train qwen2-vl-72b at full width cut to
+    VLM_TRAIN_LAYERS layer beside the embedding table and the untied
+    readout (3.37 B parameters: ~54 GB of fp32 parameters, gradients and
+    AdamW moments; two layers would need ~68 GB before activations) on
+    embeddings [4, 384, 8192] bf16 (64 text, a 16 x 16 image, 64 text;
+    labels -1 on the image) and M-RoPE streams: the logits over the
+    4/2/1-bit bands, T1 Phase-I steps, the freeze, T2 - T1 Phase-II steps
+    through ``loop.train`` (every step's launches checked), then one
+    2-microbatch Phase-II step hoisted (peak memory kept); a second run
+    bitwise the first (losses, gradient norms, pbits, every parameter);
+    the table, which no step reads, decayed as AdamW decays it on a zero
+    gradient (bitwise the host's replay on its first rows); then
+    ``soniq.to_serve`` (7 B7) and ``soniq.apply`` on the served model over
+    ``VLM_CPU``. Returns the numbers."""
+    from repro_torch import soniq
+    from repro_torch.api.state import SoniqState
+    from repro_torch.core.phases import Phase
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              num_layers=VLM_TRAIN_LAYERS)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    for i in range(2):
+        state, records, rep, table0 = _vlm_train(cfg, dev)
+        model = state["model"]
+        state["opt"] = None
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        decayed, moved = _table_decayed(
+            table0, model.embed.table[:64].detach().cpu(), records,
+            AdamWConfig())
+        if not decayed:
+            raise AssertionError(f"run {i}: the table's decay differs from "
+                                 f"AdamW's on a zero gradient")
+        if i == 0:
+            first = ([p.detach().cpu() for p in model.parameters()],
+                     [lin.pbits.cpu() for _n, lin in smol.smol_linears(model)
+                      if "pbits" in lin._names], records, rep)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        lap(f"run_{i}")
+    params, pbits, rec1, rep1 = first
+    same = [(r["loss"], r["grad_norm"]) for r in rec1] == \
+        [(r["loss"], r["grad_norm"]) for r in records]
+    params_same = all(torch.equal(a.to(dev), b.detach())
+                      for a, b in zip(params, model.parameters()))
+    pbits_same = all(torch.equal(a, lin.pbits.cpu()) for a, (_n, lin) in zip(
+        pbits, [x for x in smol.smol_linears(model) if "pbits" in x[1]._names]))
+    if not (same and params_same and pbits_same
+            and rep1["layers"] == rep["layers"]):
+        raise AssertionError(f"a second qwen2-vl training run differs: "
+                             f"losses {same}, parameters {params_same}, "
+                             f"pbits {pbits_same}")
+    del params, first
+    out = {"layers": cfg.num_layers, "params": sum(
+        p.numel() for p in model.parameters()),
+        "batch": [VLM_TRAIN_BATCH, len(vision_mask(VLM_TRAIN)), cfg.d_model],
+        "steps": records, "peak_gib": max(r["peak_gib"] for r in records),
+        "histogram": precision_histogram(model),
+        "average_bpp": schedule.average_bpp(rep),
+        "second_run_bitwise": True, "table_decay_bitwise": True,
+        "table_max_move": moved,
+        "launches_per_step": {p: train_step_launches(cfg, p)
+                              for p in (1, 2)}}
+    for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
+                      (B9_BWD, "b9_bwd")):
+        results[name]["vlm_train_run_launches"] = sum(r[key]
+                                                      for r in records)
+        results[name]["vlm_train_launches_per_step"] = max(
+            r[key] for r in records[:-1])
+    log(f"[22] {cfg.num_layers} layer + table + readout "
+        f"({out['params']:,} parameters): peak {out['peak_gib']:.2f} GiB; "
+        f"a second run bitwise (losses, gradient norms, pbits, parameters);"
+        f" the table decayed as AdamW on a zero gradient (bitwise); frozen "
+        f"groups {out['histogram']}, average bpp {out['average_bpp']:.4f}")
+    lap("second_run_check")
+    qcfg = cfg.with_quant_mode("qat")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = soniq.to_serve(SoniqState(Phase.QAT, model, qcfg))
+    torch.cuda.synchronize()
+    out["to_serve_s"] = time.perf_counter() - t0
+    out["to_serve_b7"] = kernels.launch_counts()[B7]
+    if out["to_serve_b7"] != VLM_LINEARS * cfg.num_layers:
+        raise AssertionError(f"{out['to_serve_b7']} B7 launches at to_serve")
+    emb, pos, _tok = vlm_inputs(served.model.embed.table, VLM_CPU, SEED + 26)
+    with torch.no_grad():
+        lg = soniq.apply(served, embeds=emb, positions=pos)
+    if lg.shape != (1, emb.shape[1], cfg.vocab_size) \
+            or not torch.isfinite(lg).all():
+        raise AssertionError("served trained qwen2-vl: logits not finite")
+    out["served_argmax"] = lg[0, -8:].argmax(-1).tolist()
+    del served, model, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[22] to_serve: {out['to_serve_b7']} B7 launches in "
+        f"{out['to_serve_s']:.3f} s; apply over {emb.shape[1]} multimodal "
+        f"tokens finite")
+    lap("serve")
+    out["seconds"] = laps
+    return out
+
+
+def phase_vlm(dev, gen, results, launches, per_step):
+    """Phase 22: the VLM family (qwen2-vl-72b). (a) the kernels at its
+    shapes (``phase_vlm_kernels``); (b), (c) serving, the multimodal
+    prefill and the card-vs-CPU check (``phase_vlm_serve``); (d) training
+    (``phase_vlm_training``). Returns the ``vlm`` JSON line's numbers."""
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    phase_vlm_kernels(cfg, QuantConfig(mode="qat"), gen, dev, results)
+    kernels_s = round(time.perf_counter() - t0, 2)
+    out = {"serve": phase_vlm_serve(dev, np.random.default_rng(SEED + 22),
+                                    results, launches, per_step)}
+    out["training"] = phase_vlm_training(dev, results)
+    out["serve"]["seconds"]["kernels"] = kernels_s
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", type=int, choices=[20, 21], default=None,
+    ap.add_argument("--only", type=int, choices=[20, 21, 22], default=None,
                     help="build the kernels and run this phase alone (no "
                          "summary); the default runs every phase")
     args = ap.parse_args(argv)
@@ -5244,6 +6011,19 @@ def main(argv=None) -> int:
         clock.lap(21)
         print(json.dumps({"kernels_whisper_training": results}))
         print(json.dumps({"whisper_training": out}))
+        print(json.dumps({"phase_seconds": clock.laps}))
+        print(card)
+        return 0
+    if args.only == 22:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        results = {name: {} for name in (B1, B7, B8, B9, B8_BWD, B9_BWD)}
+        launches, per_step = {}, {}
+        out = phase_vlm(dev, gen, results, launches, per_step)
+        clock.lap(22)
+        print(json.dumps({"kernels_vlm": results}))
+        print(json.dumps({"vlm": out, "launches": launches,
+                          "per_step": per_step}))
         print(json.dumps({"phase_seconds": clock.laps}))
         print(card)
         return 0
@@ -5614,6 +6394,12 @@ def main(argv=None) -> int:
     clock.lap(21)
 
     # ------------------------------------------------------- phase 22 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = phase_vlm(dev, gen, results, launches, per_step)
+    clock.lap(22)
+
+    # ------------------------------------------------------- phase 23 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
@@ -5621,7 +6407,10 @@ def main(argv=None) -> int:
                 "whisper-medium decoder layer, 10 launches; launches: "
                 "the h2o-danube-1.8b load, moe_load_launches: the "
                 "deepseek-moe-16b load, ssm_load_launches: the mamba2-2.7b "
-                "load, whisper_load_launches: the whisper-medium load)",
+                "load, whisper_load_launches: the whisper-medium load; "
+                "vlm_layer_*: one qwen2-vl-72b layer, 7 launches; "
+                "vlm_head_*: its readout's shape, 8192x152064, 1 launch; "
+                "vlm_load_launches: the 4-layer qwen2-vl-72b load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
                 "launches, one a linear; prefill_*: M=32; verify_*: M=16, "
                 "the verify step of k=3 at batch 4; draft_*: the draft "
@@ -5632,7 +6421,13 @@ def main(argv=None) -> int:
                 "whisper-medium layer's 6 linear shapes (q/k/v/o 1024x1024,"
                 " fc1 1024x4096, fc2 4096x1024), M=6000 the encoder's 4 x "
                 "1500 frames; whisper_{encode,load_cross,serve}_launches: "
-                "one encode pass, one load_cross, the fp ring serve run)",
+                "one encode pass, one load_cross, the fp ring serve run; "
+                "vlm_layer_M{4,2304}_*: one qwen2-vl-72b layer's 7 linears "
+                "(K = 29568 down: odd 2- and 1-bit group counts), "
+                "vlm_head_M{4,2304}_*: its readout's shape 8192x152064 "
+                "packed, M=2304 the multimodal prefill; vlm_serve_launches,"
+                " vlm_prefill_launches: the 4-layer fp ring serve run and "
+                "the multimodal soniq.apply)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
                 "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
@@ -5704,7 +6499,15 @@ def main(argv=None) -> int:
                               "tokens, the cross wk/wv on the encoder's "
                               "rows), whisper_train_run_launches and "
                               "whisper_train_launches_per_step: phase 21's "
-                              "24 + 24-layer run and a step of it")
+                              "24 + 24-layer run and a step of it; "
+                              "vlm_train_*: one qwen2-vl-72b layer's 7 "
+                              "training linears (B8 also their 4 x 384 "
+                              "bf16 activations); vlm_head_*: one fp32 "
+                              "weight of its readout's shape, 8192x152064 "
+                              "(1.246e9 elements; plain_ms band by band); "
+                              "vlm_train_run_launches, "
+                              "vlm_train_launches_per_step: phase 22's "
+                              "1-layer run and a step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -5728,7 +6531,7 @@ def main(argv=None) -> int:
                 rows[-1][key] = r[key]
         rows[-1].update((k, v) for k, v in r.items()
                         if k.startswith(("verify_", "draft_", "ssm_",
-                                         "whisper_")))
+                                         "whisper_", "vlm_")))
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
@@ -5744,6 +6547,7 @@ def main(argv=None) -> int:
             rows[-1]["moe_load_launches"] = launches["b7_moe_load"]
             rows[-1]["ssm_load_launches"] = launches["b7_ssm_load"]
             rows[-1]["whisper_load_launches"] = launches["b7_whisper_load"]
+            rows[-1]["vlm_load_launches"] = launches["b7_vlm_load"]
         if name == B1:
             rows[-1]["ssm_serve_launches"] = launches["b1_ssm_serve"]
             rows[-1]["ssm_launches_per_decode_step"] = per_step["b1_ssm"]
@@ -5756,16 +6560,27 @@ def main(argv=None) -> int:
                 per_step["b1_whisper"]
             rows[-1]["whisper_launches_per_spec_round"] = \
                 per_step["b1_whisper_spec_round"]
+            for key in ("serve", "prefill"):
+                rows[-1][f"vlm_{key}_launches"] = launches[f"b1_vlm_{key}"]
+            rows[-1]["vlm_launches_per_decode_step"] = per_step["b1_vlm"]
+            rows[-1]["vlm_launches_per_spec_round"] = \
+                per_step["b1_vlm_spec_round"]
         if name == B4:
             rows[-1]["whisper_kv4_serve_launches"] = \
                 launches["b4_whisper_kv4_serve"]
             rows[-1]["whisper_launches_per_kv4_decode_step"] = \
                 per_step["b4_whisper"]
+            rows[-1]["vlm_kv4_serve_launches"] = launches["b4_vlm_kv4_serve"]
+            rows[-1]["vlm_launches_per_kv4_decode_step"] = per_step["b4_vlm"]
         if name == B5:
             rows[-1]["whisper_paged_serve_launches"] = \
                 launches["b5_whisper_paged_serve"]
             rows[-1]["whisper_launches_per_paged_decode_step"] = \
                 per_step["b5_whisper"]
+            rows[-1]["vlm_paged_serve_launches"] = \
+                launches["b5_vlm_paged_serve"]
+            rows[-1]["vlm_launches_per_paged_decode_step"] = \
+                per_step["b5_vlm"]
         if name in SOLO:
             lin = soniq_out["linear"]["launches"][name]
             if lin:
@@ -5819,6 +6634,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ssm_training": ssm_train}))
     print(json.dumps({"whisper_serve": whisper_out}))
     print(json.dumps({"whisper_training": whisper_train}))
+    print(json.dumps({"vlm": vlm}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)

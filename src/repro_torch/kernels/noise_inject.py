@@ -80,11 +80,13 @@ def group_sigma(s: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(s.float())
 
 
-def hash_eps(k: int, n: int, seed: SeedLike, device) -> torch.Tensor:
+def hash_eps(k: int, n: int, seed: SeedLike, device,
+             row0: int = 0) -> torch.Tensor:
     """eps fp32 of the element index within a [K, N] weight and the seed:
     [K, N] for one seed, [E, K, N] for E seeds (a bank: each expert's
-    index restarts at 0)."""
-    idx = prng.element_index(k, n, device)
+    index restarts at 0); with ``row0``, of rows row0 .. row0 + K - 1 of a
+    taller weight."""
+    idx = prng.element_index(k, n, device, row0)
     seeds = seed_tensor(seed, device)
     if seeds.numel() == 1:
         return prng.uniform_pm1(idx, seeds)
@@ -97,26 +99,31 @@ def _sigma_rows(sig: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
 
 
 def noise_inject_plain(w: torch.Tensor, sig: torch.Tensor, seed: SeedLike,
-                       group_size: int = GROUP_SIZE) -> torch.Tensor:
+                       group_size: int = GROUP_SIZE,
+                       row0: int = 0) -> torch.Tensor:
     """Plain version: ``sig`` [K // group_size] is sigmoid(s) per group (a
-    bank w [E, K, N]: sig [E, K // group_size], seeds [E])."""
+    bank w [E, K, N]: sig [E, K // group_size], seeds [E]). ``row0``: w
+    (and sig) are the band of rows from row0 (a multiple of the group) of
+    a taller weight, whose element index the noise takes: the plain
+    version of a large weight, a band at a time."""
     k, n = w.shape[-2:]
     sg = _sigma_rows(sig, k, group_size)
-    out = w.float() + sg * hash_eps(k, n, seed, w.device)
+    out = w.float() + sg * hash_eps(k, n, seed, w.device, row0)
     lim = 2.0 - sg
     return torch.minimum(torch.maximum(out, -lim), lim).to(w.dtype)
 
 
 def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
                            seed: SeedLike, g: torch.Tensor,
-                           group_size: int = GROUP_SIZE
+                           group_size: int = GROUP_SIZE, row0: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain backward: (dw [..., K, N] in w's dtype, ds [..., K //
-    group_size] in s's dtype) for the cotangent g of w's shape."""
+    group_size] in s's dtype) for the cotangent g of w's shape (``row0``:
+    a band of a taller weight, as in :func:`noise_inject_plain`)."""
     k, n = w.shape[-2:]
     sig_g = group_sigma(s)
     sig = _sigma_rows(sig_g, k, group_size)
-    eps = hash_eps(k, n, seed, w.device)
+    eps = hash_eps(k, n, seed, w.device, row0)
     z = w.float() + sig * eps
     inside = z.abs() <= 2.0 - sig
     g32 = g.float()
@@ -133,14 +140,15 @@ def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
 
 
 def ds_bound(w: torch.Tensor, s: torch.Tensor, seed: SeedLike,
-             g: torch.Tensor, group_size: int = GROUP_SIZE) -> torch.Tensor:
+             g: torch.Tensor, group_size: int = GROUP_SIZE,
+             row0: int = 0) -> torch.Tensor:
     """The bound [..., K // group_size] a kernel's ds is held to against
     the plain version's: ``DS_RTOL`` * sig (1 - sig) * the group's sum of
-    |g * d out / d sig|."""
+    |g * d out / d sig| (``row0``: a band of a taller weight)."""
     k, n = w.shape[-2:]
     sig_g = group_sigma(s)
     sig = _sigma_rows(sig_g, k, group_size)
-    eps = hash_eps(k, n, seed, w.device)
+    eps = hash_eps(k, n, seed, w.device, row0)
     inside = (w.float() + sig * eps).abs() <= 2.0 - sig
     mag = g.float().abs() * torch.where(inside, eps.abs(), 1.0)
     per_group = mag.sum(dim=-1).reshape(sig_g.shape + (group_size,)).sum(

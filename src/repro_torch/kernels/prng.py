@@ -48,10 +48,13 @@ def uniform_pm1(idx: torch.Tensor, seed: Union[int, torch.Tensor]
     return bits.float() * (2.0 / (1 << 24)) - 1.0
 
 
-def element_index(k: int, n: int, device) -> torch.Tensor:
+def element_index(k: int, n: int, device, row0: int = 0) -> torch.Tensor:
     """The global index ``k_i * n + n_j`` of every element of a [k, n]
-    array, int64 (the reference's uint32 index; k * n < 2^32)."""
-    if k * n >= 1 << 32:
-        raise ValueError(f"[{k}, {n}] has more elements than a uint32 index")
-    rows = torch.arange(k, dtype=torch.int64, device=device)[:, None] * n
+    array, int64 (the reference's uint32 index; k * n < 2^32); with
+    ``row0``, of rows row0 .. row0 + k - 1 of a taller array."""
+    if (row0 + k) * n >= 1 << 32:
+        raise ValueError(f"[{row0 + k}, {n}] has more elements than a "
+                         f"uint32 index")
+    rows = torch.arange(row0, row0 + k, dtype=torch.int64,
+                        device=device)[:, None] * n
     return rows + torch.arange(n, dtype=torch.int64, device=device)[None, :]

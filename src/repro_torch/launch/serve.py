@@ -5,6 +5,7 @@ a request queue, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b
 
 Initializes random QAT weights from ``--seed`` (or loads the JAX
 package's checkpoint with ``--ckpt``), packs them to the 1/2/4-bit serve
@@ -17,8 +18,10 @@ keeps its recurrent state instead (the KV options do not apply to it)
 and reports that state's bytes. An encoder-decoder serves as the
 reference's launcher serves it: with no frames, its decoder attends the
 zero cross K/V of a fresh cache (``DecodeEngine.load_cross`` installs an
-encoder's). ``--device cpu`` runs the kernels' plain versions (use with
-``--reduced``).
+encoder's); the VLM serves text requests, as the reference's launcher
+does (image and video prompts go through ``soniq.apply(embeds=,
+positions=)``). ``--device cpu`` runs the kernels' plain versions (use
+with ``--reduced``).
 """
 from __future__ import annotations
 

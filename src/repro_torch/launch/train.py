@@ -10,11 +10,14 @@ tokens, on the card by default.
         --batch 2 --seq 16                                 # MoE, CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
         --reduced --device cpu --steps 4 --t1 2 --batch 2 --seq 16  # SSM
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-72b \
+        --reduced --device cpu --steps 4 --t1 2 --batch 2 --seq 16  # VLM
 
 Runs ``--t1`` Phase-I (noise) steps, the boundary, then Phase II (QAT) up
 to ``--steps``, on random weights from ``--seed`` and ``TokenStream``
 batches from the same seed, printing one line per step (with the MoE
-load-balancing loss on the MoE archs). ``--device cpu``
+load-balancing loss on the MoE archs; the VLM trains on the text tokens,
+as the reference's launcher feeds it). ``--device cpu``
 runs the kernels' plain versions (use with ``--reduced``). Exits non-zero
 if a loss is not finite.
 

@@ -159,41 +159,48 @@ class Attention(nn.Module):
 def attn_apply(attn: Attention, x: torch.Tensor, positions: torch.Tensor, *,
                num_heads: int, num_kv_heads: int, head_dim: int,
                qcfg: QuantConfig, noise: Optional[smol.NoiseSource] = None,
-               rope_theta: float = 1e4, window: Optional[int] = None,
+               rope_theta: float = 1e4, mrope_sections=None,
+               window: Optional[int] = None,
                causal: bool = True, q_block: int = Q_BLOCK,
                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                use_rope: bool = True,
                cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention (training, prefill, the encoder, cross
-    attention). x [B, S, D], positions [B, S]; ``rope`` the (cos, sin)
-    tables of the positions when the caller shares them across layers
-    (``use_rope=False``: none, the encoder-decoder's sinusoids are added
-    to the embeddings instead). ``causal=False`` attends every position
-    (the encoder). With ``cross_x`` [B, T, D] the keys and values are its
-    projections at positions 0 .. T - 1, attended without a mask. Above
-    ``CHUNK_THRESHOLD`` positions the attention runs in query blocks."""
+    attention). x [B, S, D], positions [B, S], or [3, B, S] for M-RoPE
+    (``mrope_sections``: the VLM's temporal, height and width streams);
+    ``rope`` the (cos, sin) tables of the positions when the caller
+    shares them across layers (``use_rope=False``: none, the
+    encoder-decoder's sinusoids are added to the embeddings instead). The
+    causal mask and the key positions are the temporal stream's
+    (``positions[0]``), as in the reference: the patches of one image
+    share it and attend each other both ways. ``causal=False`` attends
+    every position (the encoder). With ``cross_x`` [B, T, D] the keys and
+    values are its projections at positions 0 .. T - 1, attended without
+    a mask. Above ``CHUNK_THRESHOLD`` positions the attention runs in
+    query blocks."""
     b, s, _ = x.shape
     xkv = x if cross_x is None else cross_x
     t = xkv.shape[1]
     q = attn.wq(x, qcfg, noise).reshape(b, s, num_heads, head_dim)
     k = attn.wk(xkv, qcfg, noise).reshape(b, t, num_kv_heads, head_dim)
     v = attn.wv(xkv, qcfg, noise).reshape(b, t, num_kv_heads, head_dim)
+    pos2d = positions if positions.dim() == 2 else positions[0]
     if cross_x is None:
         if use_rope:
             cos, sin = rope if rope is not None else rope_tables(
-                positions, head_dim, rope_theta)
+                positions, head_dim, rope_theta, mrope_sections)
             q = apply_rope_tables(q, cos, sin)
             k = apply_rope_tables(k, cos, sin)
-        k_pos = positions
+        k_pos = pos2d
     else:
         k_pos = torch.arange(t, device=x.device)[None].expand(b, t)
         causal = False
     q = q.reshape(b, s, num_kv_heads, num_heads // num_kv_heads, head_dim)
     if s > q_block and s > CHUNK_THRESHOLD:
-        o = chunked_attention(q, k, v, positions, k_pos, causal=causal,
+        o = chunked_attention(q, k, v, pos2d, k_pos, causal=causal,
                               window=window, q_block=q_block)
     else:
-        o = full_attention(q, k, v, positions, k_pos, causal=causal,
+        o = full_attention(q, k, v, pos2d, k_pos, causal=causal,
                            window=window)
     return attn.wo(o.reshape(b, s, num_heads * head_dim), qcfg, noise)
 

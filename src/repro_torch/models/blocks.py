@@ -178,14 +178,16 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence pre-norm residual block (training forward; the
     encoder's blocks; a ``dec`` block attends ``cross_x``, the encoder's
-    output). Returns (x, the MoE load-balancing loss or None)."""
+    output). ``positions`` [B, S], or the VLM's [3, B, S] streams. Returns
+    (x, the MoE load-balancing loss or None)."""
     if block.kind == "mamba":
         h = block.ln_mixer(x, cfg.norm_eps)
         return x + ssm_lib.mamba2_apply(
             block.mamba, h, qcfg, noise, d_state=cfg.ssm_state,
             expand=cfg.ssm_expand, chunk=cfg.ssm_chunk), None
     kw = dict(_attn_kwargs(cfg, qcfg), noise=noise,
-              rope_theta=cfg.rope_theta, window=cfg.window,
+              rope_theta=cfg.rope_theta,
+              mrope_sections=cfg.mrope_sections, window=cfg.window,
               q_block=cfg.q_block, use_rope=uses_rope(cfg))
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_apply(block.attn, h, positions, rope=rope,

@@ -9,7 +9,7 @@ The RMS and LayerNorm means follow the port's row-reduction rule
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,12 +117,32 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions [B, S] -> fp32 (cos, sin) [B, S, 1, head_dim / 2]."""
+    """positions [B, S], or [3, B, S] for M-RoPE -> fp32 (cos, sin) [B, S,
+    1, head_dim / 2]. M-RoPE splits the head_dim / 2 frequencies into
+    ``mrope_sections`` (temporal, height, width) and takes each section's
+    angles from its own position stream, concatenated in that order, as
+    the reference's ``apply_rope`` does: with three equal streams the
+    tables are bitwise the [B, S] tables (each angle is the same fp32
+    product)."""
     freqs = torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
                             device=positions.device)
-    ang = positions.float()[..., None] * freqs
+    if positions.dim() == 2:
+        ang = positions.float()[..., None] * freqs
+    else:
+        if mrope_sections is None or positions.shape[0] != 3:
+            raise ValueError(f"positions {tuple(positions.shape)} need three "
+                             f"streams and mrope_sections")
+        if sum(mrope_sections) != head_dim // 2:
+            raise ValueError(f"mrope_sections {mrope_sections} do not sum to "
+                             f"head_dim / 2 = {head_dim // 2}")
+        parts, off = [], 0
+        for stream, sec in zip(positions, mrope_sections):
+            parts.append(stream.float()[..., None] * freqs[off:off + sec])
+            off += sec
+        ang = torch.cat(parts, dim=-1)
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 

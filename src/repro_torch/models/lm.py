@@ -5,7 +5,11 @@ verify steps, and the serving capabilities of a family. Counterpart of
 (``encode``: the stub frontend, one fp projection of mel frames, fixed
 sinusoids and the ``enc`` blocks) and the decoder's cross K/V
 (``build_cross_cache``, the cache's ``cross`` subtree), and adds
-sinusoids to the decoder's embeddings in every step.
+sinusoids to the decoder's embeddings in every step. The VLM (qwen2-vl)
+takes its patch and text embeddings precomputed (``forward(embeds=)``,
+the vision tower a stub as in the reference) and M-RoPE's [3, B, S]
+position streams in the full-sequence forward; its serve steps take
+[B, S] positions, which M-RoPE reduces to RoPE.
 
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
@@ -228,9 +232,11 @@ def has_attention(cfg) -> bool:
 
 
 def _rope(cfg, positions: torch.Tensor):
-    """The step's shared RoPE tables, or None where no layer takes them."""
+    """The step's shared RoPE tables (of [B, S] positions, or of the VLM's
+    [3, B, S] M-RoPE streams), or None where no layer takes them."""
     if has_attention(cfg) and blocks.uses_rope(cfg):
-        return rope_tables(positions, cfg.hd, cfg.rope_theta)
+        return rope_tables(positions, cfg.hd, cfg.rope_theta,
+                           cfg.mrope_sections)
     return None
 
 
@@ -287,24 +293,32 @@ def encode(model: LM, cfg, frames,
     return model.enc_norm(x, cfg.norm_eps)
 
 
-def forward(model: LM, cfg, tokens, *, positions=None, frames=None,
-            noise: Optional[smol.NoiseSource] = None
+def forward(model: LM, cfg, tokens=None, *, embeds=None, positions=None,
+            frames=None, noise: Optional[smol.NoiseSource] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Full-sequence forward: tokens [B, S] -> (the hidden state after the
-    final norm [B, S, D], the MoE load-balancing loss summed over the
-    blocks, None for a model without MoE blocks). The loss applies the
-    readout in chunks. ``noise`` supplies the Phase-I draws
+    """Full-sequence forward: tokens [B, S], or precomputed embeddings
+    ``embeds`` [B, S, D] (the VLM's patch and text embeddings, cast to the
+    compute dtype in place of the table lookup) -> (the hidden state after
+    the final norm [B, S, D], the MoE load-balancing loss summed over the
+    blocks, None for a model without MoE blocks). ``positions`` [B, S]
+    (default 0 .. S - 1), or the VLM's [3, B, S] M-RoPE streams. The loss
+    applies the readout in chunks. ``noise`` supplies the Phase-I draws
     (``cfg.quant.mode == "noise"``). An encoder-decoder needs ``frames``
     [B, T, frontend_dim]: the decoder attends their encoding, and its
     embeddings take the sinusoids of positions 0 .. S - 1."""
     dev = model.device
-    tok = torch.as_tensor(tokens, device=dev).long()
-    b, s = tok.shape
     dt = getattr(torch, cfg.dtype)
-    x = embed_lookup(model.embed.table, tok, dt)
+    if embeds is not None:
+        x = _device_tensor(embeds, dev).to(dt)
+    elif tokens is not None:
+        x = embed_lookup(model.embed.table,
+                         torch.as_tensor(tokens, device=dev).long(), dt)
+    else:
+        raise ValueError("forward needs tokens or embeds")
+    b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
-    positions = torch.as_tensor(positions, device=dev).long()
+    positions = _device_tensor(positions, dev).long()
     cross_x = None
     if cfg.encoder_layers:
         if frames is None:
@@ -354,9 +368,11 @@ def loss_fn(model: LM, batch: Dict, cfg,
             noise: Optional[smol.NoiseSource] = None):
     """Scalar training loss: CE + z-loss + ``MOE_AUX`` * the MoE
     load-balancing loss + (Phase I) the SONIQ bit regularizer lambda *
-    ||log2(1 + e^-s)||_1. Returns (loss, metrics); ``moe_aux`` is 0 for a
-    model without MoE blocks."""
-    hidden, aux = forward(model, cfg, batch["tokens"],
+    ||log2(1 + e^-s)||_1. The batch holds ``tokens`` or ``embeds``,
+    ``labels``, and optionally ``positions`` and ``frames``. Returns
+    (loss, metrics); ``moe_aux`` is 0 for a model without MoE blocks."""
+    hidden, aux = forward(model, cfg, batch.get("tokens"),
+                          embeds=batch.get("embeds"),
                           positions=batch.get("positions"),
                           frames=batch.get("frames"), noise=noise)
     loss = lm_loss(model, cfg, hidden, batch["labels"])

@@ -90,17 +90,41 @@ def apply_updates(model: nn.Module, grads: Dict[str, torch.Tensor],
         if g is None:
             continue
         name = leaf_name(path)
-        mu, nu = state["mu"][path], state["nu"][path]
-        gf = g.float() * scale
-        mu_new = cfg.b1 * mu.float() + (1 - cfg.b1) * gf
-        nu_new = cfg.b2 * nu.float() + (1 - cfg.b2) * torch.square(gf)
-        update = (mu_new / c1) / (torch.sqrt(nu_new / c2) + cfg.eps)
-        lr = lr0
-        if name == "s":
-            lr = lr * cfg.s_lr_mult
-        elif cfg.weight_decay and name in ("w", "table"):
-            update = update + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * update).to(p.dtype))
-        mu.copy_(mu_new)
-        nu.copy_(nu_new)
+        lr = lr0 * cfg.s_lr_mult if name == "s" else lr0
+        decay = bool(cfg.weight_decay) and name in ("w", "table")
+        leaf = (p, g, state["mu"][path], state["nu"][path])
+        # Element by element, so in chunks: a leaf's fp32 temporaries
+        # (five of its size at once) would not fit beside a full-width
+        # model's table.
+        if all(t.is_contiguous() for t in leaf):
+            flat = [t.view(-1) for t in leaf]
+            parts = [[t[sl] for t in flat] for sl in _chunks(p.numel())]
+        else:
+            parts = [leaf]
+        for part in parts:
+            _update(*part, scale, c1, c2, lr, cfg, decay)
     return {"grad_norm": gn}
+
+
+# Elements of a leaf updated at once (256 MB of fp32).
+UPDATE_CHUNK = 1 << 26
+
+
+def _chunks(n: int):
+    return [slice(a, min(a + UPDATE_CHUNK, n))
+            for a in range(0, n, UPDATE_CHUNK)]
+
+
+def _update(p, g, mu, nu, scale, c1, c2, lr, cfg: AdamWConfig,
+            decay: bool) -> None:
+    """One AdamW step of flat views of a parameter, its gradient and its
+    moments, in place, in the reference's order of operations."""
+    gf = g.float() * scale
+    mu_new = cfg.b1 * mu.float() + (1 - cfg.b1) * gf
+    nu_new = cfg.b2 * nu.float() + (1 - cfg.b2) * torch.square(gf)
+    update = (mu_new / c1) / (torch.sqrt(nu_new / c2) + cfg.eps)
+    if decay:
+        update = update + cfg.weight_decay * p.float()
+    p.copy_((p.float() - lr * update).to(p.dtype))
+    mu.copy_(mu_new)
+    nu.copy_(nu_new)

@@ -62,16 +62,21 @@ def init_state(arch_cfg, tcfg: TrainConfig, *, model: Optional[lm.LM] = None,
 
 
 def split_microbatches(batch: Dict, n: int) -> List[Dict]:
-    """Split the global batch into n microbatches along the batch axis."""
+    """Split the global batch into n microbatches along the batch axis
+    (axis 1 of the M-RoPE ``positions`` [3, B, S], as the reference
+    splits them)."""
     out: List[Dict] = [{} for _ in range(n)]
     for k, x in batch.items():
         x = np.asarray(x) if not isinstance(x, torch.Tensor) else x
-        if x.shape[0] % n:
+        axis = 1 if k == "positions" and x.ndim == 3 and x.shape[0] == 3 \
+            else 0
+        if x.shape[axis] % n:
             raise ValueError(f"batch {k} {tuple(x.shape)} does not split "
                              f"into {n} microbatches")
-        m = x.shape[0] // n
+        m = x.shape[axis] // n
         for i in range(n):
-            out[i][k] = x[i * m:(i + 1) * m]
+            out[i][k] = x[i * m:(i + 1) * m] if axis == 0 else \
+                x[:, i * m:(i + 1) * m]
     return out
 
 
@@ -131,6 +136,11 @@ def train_step(state: Dict, batch: Dict, arch_cfg, tcfg: TrainConfig,
                          for a, b in zip(grads, g)]
                 loss, aux = loss + part, aux + apart
     del leaves
+    # A parameter the loss does not reach (the embedding table when the
+    # batch holds embeds) takes a zero gradient, as jax.grad gives it, so
+    # AdamW still decays it.
+    grads = [torch.zeros_like(p) if g is None and n not in weight_of
+             else g for (n, p), g in zip(params, grads)]
     if hoist:
         # One backward through the step's quantization (B8 backward once
         # a linear or bank).

@@ -110,6 +110,33 @@ def test_noise_inject_rejects_overflowing_index():
         pprng.element_index(1 << 16, 1 << 16, "cpu")
 
 
+@pytest.mark.parametrize("k,n", SHAPES[1:])
+def test_noise_inject_plain_band_by_band(k, n):
+    """The plain versions a band of rows at a time (``row0``: the band's
+    first row in the whole weight, whose element index the noise takes)
+    equal the whole weight's, forward, dw, ds and ds's bound bitwise: how
+    the on-card smoke holds B9 at the readout's 1.246e9 elements."""
+    w, s = _noise_operands(k, n, 4)
+    w, s = torch.tensor(w), torch.tensor(s)
+    g = torch.randn((k, n), generator=torch.Generator().manual_seed(6))
+    seed = 4242
+    sig = pni.group_sigma(s)
+    out = pni.noise_inject_plain(w, sig, seed)
+    dw, ds = pni.noise_inject_bwd_plain(w, s, seed, g)
+    bnd = pni.ds_bound(w, s, seed, g)
+    for a in range(0, k, 32):
+        b, gs = a + 32, slice(a // 16, a // 16 + 2)
+        assert torch.equal(out[a:b], pni.noise_inject_plain(
+            w[a:b], sig[gs], seed, row0=a))
+        dw_b, ds_b = pni.noise_inject_bwd_plain(w[a:b], s[gs], seed, g[a:b],
+                                                row0=a)
+        assert torch.equal(dw[a:b], dw_b) and torch.equal(ds[gs], ds_b)
+        assert torch.equal(bnd[gs], pni.ds_bound(w[a:b], s[gs], seed,
+                                                 g[a:b], row0=a))
+    with pytest.raises(ValueError):
+        pprng.element_index(16, 1 << 16, "cpu", row0=(1 << 16) - 8)
+
+
 @pytest.mark.parametrize("k,n", SHAPES[:2])
 def test_noise_inject_backward_equals_jax_grad(k, n):
     w, s = _noise_operands(k, n, 3)

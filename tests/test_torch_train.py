@@ -428,6 +428,33 @@ def test_adamw_step_equals_jax():
                        rtol=1e-6, atol=1e-6)
 
 
+def test_adamw_chunked_update_is_the_whole_leaf_update(monkeypatch):
+    """AdamW updates a leaf in chunks of ``UPDATE_CHUNK`` elements (the
+    fp32 temporaries of a full-width table would not fit beside it on the
+    card); every chunking gives the whole leaf's update bitwise: the
+    parameters and both moments, with decay (``w``) and at the ``s``
+    rate."""
+    _, pcfg = _configs(layers=1)
+    rng = np.random.default_rng(9)
+    runs = []
+    for chunk in (1 << 26, 1000, 7):
+        monkeypatch.setattr(padamw, "UPDATE_CHUNK", chunk)
+        model = plm.init_params(pcfg.with_quant_mode("noise"), seed=0,
+                                device="cpu")
+        grads = {n: torch.tensor(rng.standard_normal(p.shape).astype(
+            np.float32)) for n, p in padamw.trainable(model)}
+        rng = np.random.default_rng(9)
+        st = padamw.init_state(model)
+        for lr_scale in (0.7, 0.5):
+            padamw.apply_updates(model, grads, st, padamw.AdamWConfig(),
+                                 lr_scale=lr_scale)
+        runs.append([t.clone() for _n, p in padamw.trainable(model)
+                     for t in (p, st["mu"][_n], st["nu"][_n])])
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
 def _flat_port(tree, pcfg):
     """A JAX-layout tree -> (port parameter path, array) pairs."""
     out = [("embed.table", tree["embed"]["table"]),
@@ -611,12 +638,14 @@ def loop_stream(jcfg):
                                      seed=2)).batches())
 
 
-def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None):
+def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None, stream=None):
     """The reference's ``loop.train`` and the port's on the reduced
     ``arch`` (``LOOP_TK``) from the reference's initial model, its logits
-    spread, on the same batches and replayed draws; each checkpoints
-    every 2 steps into its directory when given one. Returns (the
-    reference's output, the port's)."""
+    spread, on the same batches (``stream(jcfg)``, default
+    ``loop_stream``) and replayed draws; each checkpoints every 2 steps
+    into its directory when given one. Returns (the reference's output,
+    the port's)."""
+    stream = stream or loop_stream
     jcfg, pcfg = _configs(arch=arch)
     ck = dict(checkpoint_every=2)
     jt = jstate.TrainConfig(ckpt_dir=jax_ckpt, **ck, **LOOP_TK)
@@ -633,14 +662,14 @@ def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None):
 
     with _true_division(), mock.patch.object(jstate, "init_state",
                                              init_with):
-        jout = jloop.train(jcfg, jt, loop_stream(jcfg))
+        jout = jloop.train(jcfg, jt, stream(jcfg))
 
     def noise(step):
         draws = JaxDraws(key_paths_of(jax.random.fold_in(
             jax.random.PRNGKey(jt.seed + 1), step), pcfg))
         return lambda i: draws
 
-    pout = ploop.train(pcfg, pt, loop_stream(jcfg), device="cpu",
+    pout = ploop.train(pcfg, pt, stream(jcfg), device="cpu",
                        noise=noise,
                        model=interop.params_from_numpy(tree, pcfg, "cpu"))
     return jout, pout

@@ -86,6 +86,17 @@ WHISPER_SPANS = (
     ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
     ("repro_torch.models.lm", "logits", "readout"),
 )
+# The VLM's full-sequence serve forward (``soniq.apply(embeds=,
+# positions=)`` on packed weights): the float64 attention (``sdpa``, in
+# query blocks past 2048 positions), the RMS norms, the serve linears'
+# driver ops around B1 and the untied readout in 16-row blocks; what they
+# leave (M-RoPE's tables and rotation, SwiGLU, residual adds) is ``rest``.
+VLM_SPANS = (
+    ("repro_torch.models.attention", "sdpa", "attention"),
+    ("repro_torch.models.common", "rms_norm", "rms_norm"),
+    ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
+    ("repro_torch.models.lm", "logits", "readout"),
+)
 # A training step of the SSM (``ssm_train_summary``): the training spans
 # and the chunked SSD scan, whose kernels count to ``ssd`` in the forward
 # and the recompute and to ``ssd_bwd`` in the backward (``SPLIT_BACKWARD``),
