@@ -86,7 +86,7 @@ Phases (none catches an error; any failure exits non-zero):
   6. 4-bit KV serve at full width, cut to KV4_LAYERS = 6 of its 24
      layers (so the script stays inside its time limit; the lockstep
      engine's host-bound steps set the phase's time; the 4-bit ring and
-     pool also serve deepseek-moe-16b, starcoder2-7b and full-depth
+     pool also serve deepseek-moe-16b, starcoder2-7b and
      whisper-medium in phases 12, 14 and 20): the ring
      DecodeEngine (built
      from the QAT weights, so it packs), the LockstepEngine and the paged
@@ -169,13 +169,13 @@ Phases (none catches an error; any failure exits non-zero):
      (tokens identical to spec-off) and over the 4-bit ring and pool
      (equal tokens).
  15. MoE training: full-width deepseek-moe-16b cut to MOE_TRAIN_LAYERS =
-     4 layers (the dense layer and three MoE layers of 64 experts; ~35 GB
-     of parameters, gradients and moments) through Phase I (steps 0-2),
+     2 layers (the dense layer and one MoE layer of 64 experts) through
+     Phase I (steps 0-2),
      the freeze and Phase II (steps 3-5) on TokenStream(batch 8, seq 128,
      seed 0): per step the loss, load-balancing loss, gradient norm, step
      ms, launches and peak memory, a device profile of one step of each
-     phase; one B9 launch a linear or bank a forward (74 a Phase-I step
-     with the recompute, 37 B9 backward), 148 B8 and 74 B8 backward a
+     phase; one B9 launch a linear or bank a forward (34 a Phase-I step
+     with the recompute, 17 B9 backward), 68 B8 and 34 B8 backward a
      Phase-II step, checked; a second run bitwise the first; the trained
      model packed (B7) and served (B6, B1), lockstep equal to continuous.
      Then one MoE layer's three banks (16 experts each), card vs CPU,
@@ -279,10 +279,11 @@ Phases (none catches an error; any failure exits non-zero):
      relative L2 1e-5. (d) Full depth (64 layers): one Phase-I step, the
      freeze and one Phase-II step (launches asserted), each step's peak
      memory under the card's. The ``ssm_training`` JSON line.
- 20. Encoder-decoder serve: whisper-medium at full width and depth (24
-     encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff
-     4096, GELU, LayerNorm, tied vocab 51865; random QAT weights of the
-     seed, bf16 compute). (a) B1 at the encoder's six linears at M = 4 x
+ 20. Encoder-decoder serve: whisper-medium at full width, cut to
+     WHISPER_SERVE_LAYERS = 12 of its 24 encoder and 24 decoder layers
+     (d_model 1024, 16 heads of 64, d_ff 4096, GELU, LayerNorm, tied
+     vocab 51865; random QAT weights of the seed, bf16 compute). (a) B1
+     at the encoder's six linears at M = 4 x
      1500 frames = 6000 rows and at the decoder's M = 4, 16 and 32,
      within the fp32 reordering bound; B7 on one decoder layer's ten
      linears, bitwise; B4 on the cross K/V (T = 1500, Hk = 16, G = 1,
@@ -290,18 +291,18 @@ Phases (none catches an error; any failure exits non-zero):
      8 within its bound and each lane bitwise the S = 1 call; B4 and B5
      on the self ring and pool at this geometry; each timed on both
      rulers beside its plain version and torch.matmul / SDPA. (b) The
-     DecodeEngine's load: 384 B7 launches (asserted), pack_s, device
-     busy, peak memory. (c) One encode pass of 4 x 1500 mel frames: 144
+     DecodeEngine's load: 192 B7 launches (asserted), pack_s, device
+     busy, peak memory. (c) One encode pass of 4 x 1500 mel frames: 72
      B1 launches (asserted), host ms and device ms by op (B1, the
      float64 attention, LayerNorm, GELU, the rest). (d) ``load_cross`` at
-     fp and at 4 bits: 48 B1 launches each (asserted), the cross
+     fp and at 4 bits: 24 B1 launches each (asserted), the cross
      payload bytes. (e) 8 requests of 16-64 prompt tokens and 16 new
      over the fp ring (twice, bitwise); the first 4 over the 4-bit ring
      and the 4-bit pool (tokens equal the ring's) and, prompts cut to 16
      tokens, speculatively (k = 3, draft bits 2; tokens equal spec-off,
-     768 B1 a round); per decode
-     step 192 B1 (the cross layer's wk/wv of x are not projected), 48 B4
-     on the 4-bit ring, 24 B5 and 24 B4 on the pool (asserted); a device
+     384 B1 a round); per decode
+     step 96 B1 (the cross layer's wk/wv of x are not projected), 24 B4
+     on the 4-bit ring, 12 B5 and 12 B4 on the pool (asserted); a device
      profile of a decode and an 8-lane prefill step. (f) Card vs CPU,
      fp32: the reduced config's encoder output within relative L2 1e-5
      and its tokens identical; one full-width encoder and decoder layer
@@ -310,8 +311,9 @@ Phases (none catches an error; any failure exits non-zero):
      card vs CPU within 1e-5. The ``whisper_serve`` JSON line.
      ``python3 chip_smoke.py --only 20`` builds the kernels and runs this
      phase alone.
- 21. Encoder-decoder training: whisper-medium at full width and depth
-     (24 + 24 layers; fp32 parameters, bf16 compute), batches of
+ 21. Encoder-decoder training: whisper-medium at full width, cut to
+     WHISPER_TRAIN_LAYERS = 12 + 12 of its 24 + 24 layers (fp32
+     parameters, bf16 compute), batches of
      TokenStream(batch 8, seq 128, seed 0) with mel frames [8, 1500, 80]
      fp32 from ``default_rng(SEED)``. (a) B9, B8 and both backward
      kernels against their plain versions at one encoder layer's six
@@ -320,23 +322,23 @@ Phases (none catches an error; any failure exits non-zero):
      dw and dx bitwise, ds within its bound, timed on both rulers
      (``whisper_train_*`` keys). (b) The logits over the 4/2/1-bit
      bands, 3 Phase-I steps, the freeze and 3 Phase-II steps through
-     ``loop.train``: every step's launches asserted (768 B9 and 384 B9
-     backward a Phase-I step, 1,536 B8 and 768 B8 backward a Phase-II
-     step: 384 linears, each block recomputed), host ms and peak memory a
+     ``loop.train``: every step's launches asserted (384 B9 and 192 B9
+     backward a Phase-I step, 768 B8 and 384 B8 backward a Phase-II
+     step: 192 linears, each block recomputed), host ms and peak memory a
      step, the device busy of steps 2 and 5, their split into fp32 GEMMs,
      B8/B9, their backward kernels, the float64 attention, the LayerNorms
      and the GELU (forward with the recompute, and backward) and the rest
      (``step_profile.WHISPER_TRAIN_SPANS``, ``whisper_train_summary``) at
-     2 + 2 layers (a full-depth profile of every host op reads for
-     minutes; at full depth the device alone: busy, kernels); the report
+     2 + 2 layers (a profile of every host op at 12 + 12 reads for
+     minutes; there the device alone: busy, kernels); the report
      in the reference's walk (the encoder first, path by path); a second
      run at 2 + 2 layers bitwise the first (losses, gradient norms,
      pbits, every parameter). (c) One full-width encoder and decoder layer, fp32, card
      vs CPU teacher-forced at NOISE (the same host-made draws) and QAT:
      each block's y, dx, the cross input's gradient, every leaf's
      gradient and every linear within relative L2 1e-5. (d) The trained
-     model through ``soniq.to_serve`` (384 B7), one encode of 4 x 1500
-     frames (144 B1), ``load_cross`` and 4 greedy requests on the fp
+     model through ``soniq.to_serve`` (192 B7), one encode of 4 x 1500
+     frames (72 B1), ``load_cross`` and 4 greedy requests on the fp
      ring, twice bitwise. The ``whisper_training`` JSON line. ``python3
      chip_smoke.py --only 21`` builds the kernels and runs this phase
      alone.
@@ -368,7 +370,38 @@ Phases (none catches an error; any failure exits non-zero):
      decays a zero gradient, ``soniq.to_serve`` (7 B7) and an apply. The
      ``vlm`` JSON line. ``python3 chip_smoke.py --only 22`` builds the
      kernels and runs this phase alone.
- 23. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 23. The hybrid family: jamba-1.5-large-398b at its published widths
+     (d_model 8192, 64 heads of 128 over 8, d_ff 24576, d_inner 16384,
+     256 SSD heads of 64, state 128, vocab 65536 untied, top-2 routing,
+     bf16 parameters and compute), cut to HYBRID_UNITS = 1 unit of its 9
+     (8 sublayers: 7 Mamba2 mixers and one attention sublayer, 4 dense
+     MLPs and 4 MoEs) and HYBRID_EXPERTS = 8 of 16 experts; random
+     weights of the seed. (a) B7 on bf16 weights (one mixer, one
+     attention sublayer, one dense MLP, one 8-expert bank), bitwise its
+     plain version and the fp32 launch on the widened weights, timed
+     against the byte bound at 2 bytes an element beside the fp32 launch
+     and torch's group abs-max; B1 on in_proj, out_proj and the MLP at
+     M = 4, 16, 32 within the fp32 bound beside torch.matmul; B6 on one
+     MoE sublayer's banks (every row live; the live rows of a top-2
+     route of 4 tokens) beside torch.bmm (``jamba_*`` keys). (b) The
+     DecodeEngine's load of the bf16 QAT tree: 42 B7 launches (asserted),
+     ``pack_s``, device busy, peak memory. (c) 8 requests of 16-64 prompt
+     tokens and 16 new at batch 4: the fp ring at chunk 8 twice
+     (bitwise), chunk 1 and lockstep (agreement reported), the 4-bit ring
+     and pool (tokens equal), the fp pool (tokens equal the fp ring's),
+     speculatively (k = 3) on the fp ring and the 4-bit pool (tokens
+     equal spec-off's; 150 B1 and 60 B6 a drafting round asserted); 30
+     B1, 12 B6, 12 B8 and 1 B4 / B5
+     a decode step asserted; the snapshot's bytes. (d) A decode step and
+     an 8-lane prefill step profiled by op (``step_profile.HYBRID_SPANS``,
+     ``hybrid_summary``). (e) Card vs CPU: the reduced config's tokens
+     identical; two full-width sublayers (a mixer with the MLP, attention
+     with the MoE) at fp32 over 4 tokens,
+     teacher-forced: every linear, router, bank, the chunked SSD and each
+     sublayer's output within relative L2 1e-5. The ``hybrid`` JSON
+     line. ``python3 chip_smoke.py --only 23`` builds the kernels and
+     runs this phase alone.
+ 24. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
@@ -377,12 +410,13 @@ Phases (none catches an error; any failure exits non-zero):
      and the backward rows; phase 20's ``whisper_*`` keys and launches
      on B1, B4, B5 and B7; phase 21's ``whisper_train_*`` keys on B8, B9
      and the backward rows; phase 22's ``vlm_*`` keys and launches on
-     B1, B4, B5, B7, B8, B9 and the backward rows), the ``kv4_serve``,
+     B1, B4, B5, B7, B8, B9 and the backward rows; phase 23's ``jamba_*``
+     keys and launches on B1, B4, B5, B6, B7 and B8), the ``kv4_serve``,
      ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
      ``ssm_serve``, ``ssm_training``, ``whisper_serve``,
-     ``whisper_training``, ``vlm``, ``phase_seconds`` and
+     ``whisper_training``, ``vlm``, ``hybrid``, ``phase_seconds`` and
      ``phase_cpu_seconds``
      JSON lines, the nvidia-smi line, and last the ``{"ok": true, ...}``
      line.
@@ -420,6 +454,8 @@ from repro_torch.kernels import fake_quant as fq  # noqa: E402
 from repro_torch.kernels import noise_inject as ni  # noqa: E402
 from repro_torch.kernels import packed_matmul as pm  # noqa: E402
 from repro_torch.kernels import quant_pack as qp  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import blocks as blocks_lib  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serve import engine, kv_pool, kv_quant  # noqa: E402
@@ -883,9 +919,10 @@ def _check_pack(calls):
 
 
 def _pack_bound(calls):
-    """Each weight, perm and scale read once, each carrier byte written
-    once; ~6 operations an element."""
-    nbytes = sum(w.numel() * 4 + perm.numel() * 4 + sc.numel() * 4
+    """Each weight (in its own dtype), perm and scale read once, each
+    carrier byte written once; ~6 operations an element."""
+    nbytes = sum(w.numel() * w.element_size() + perm.numel() * 4
+                 + sc.numel() * 4
                  + sum(kp * p // 8 for p, kp in zip((4, 2, 1), segs))
                  * w.shape[-1] * (w.shape[0] if w.dim() == 3 else 1)
                  for w, perm, sc, segs in calls)
@@ -2520,7 +2557,7 @@ def phase_bank_kernels(moe_cfg, big_cfg, gen, dev, reps=5):
 
 
 # --------------------------------------------------------- MoE training ----
-MOE_TRAIN_LAYERS = 4         # the dense layer and three MoE layers
+MOE_TRAIN_LAYERS = 2         # the dense layer and one MoE layer
 
 
 def _quantized_linears(model) -> int:
@@ -3781,9 +3818,11 @@ def profile_summary(prof, host_ms):
                      e.count) for e in top]}
 
 
-def ssm_profile_steps(eng, spans=step_profile.SSM_SPANS):
+def ssm_profile_steps(eng, spans=step_profile.SSM_SPANS,
+                      summary=None):
     """Device view (torch profiler, ``spans``: ``step_profile.SSM_SPANS``
-    by default) of one
+    by default; ``summary(prof, host_ms)``: ``profile_summary`` by
+    default) of one
     greedy decode step and of one 8-lane prefill step at batch max_batch on
     a fresh cache, beside the host-clock ms of each unprofiled: kernels,
     busy ms, idle share (1 - busy / host ms), B1 ms and the plain ops
@@ -3819,7 +3858,8 @@ def ssm_profile_steps(eng, spans=step_profile.SSM_SPANS):
                                      ProfilerActivity.CUDA]) as prof:
                 fn(cache)
                 torch.cuda.synchronize()
-            out[name] = profile_summary(prof, float(np.median(times)))
+            out[name] = (summary or profile_summary)(
+                prof, float(np.median(times)))
     finally:
         undo()
     return out
@@ -4045,12 +4085,10 @@ def ssm_spec_serve(model, cfg, ecfg, reqs, want, dev):
     if round_counts.get(B1) != per_round:
         raise AssertionError(f"{round_counts.get(B1)} {B1} launches a "
                              f"drafting round, not {per_round}")
+    _same_tokens("jamba spec tokens != spec-off tokens", want, out)
     new = sum(c.new_tokens.size for c in out)
     return dict(spec=st, tok_s=new / wall, wall_s=wall, round_ms=round_ms,
-                round_launches=round_counts,
-                agreement_with_spec_off=_agreement(
-                    [c.new_tokens for c in want],
-                    [c.new_tokens for c in out]))
+                round_launches=round_counts)
 
 
 def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
@@ -4464,6 +4502,8 @@ WHISPER_DEC_LINEARS = 10     # self q, k, v, o; cross q, k, v, o; up, down
 # The linears a decode step runs a decoder layer: self q, k, v, o, cross q
 # and o, up, down (the cross wk/wv run once a batch, in load_cross).
 WHISPER_STEP_LINEARS = 8
+# Phase 20's depth, encoder and decoder (whisper-medium has 24 + 24).
+WHISPER_SERVE_LAYERS = 12
 
 
 class CrossOperands(RingOperands):
@@ -4729,26 +4769,32 @@ def check_whisper_against_cpu(dev, ecfg):
 
 
 def phase_whisper_serve(dev, rng, gen, results, launches, per_step):
-    """Phase 20: serve the encoder-decoder family at the full width and
-    depth of whisper-medium (24 encoder and 24 decoder layers, d_model
-    1024, 16 heads of 64, d_ff 4096, GELU, LayerNorm, tied vocab 51865;
-    random QAT weights of the seed, default mix, bf16 compute). (a) The
+    """Phase 20: serve the encoder-decoder family at the full width of
+    whisper-medium, cut to WHISPER_SERVE_LAYERS of its 24 encoder and 24
+    decoder layers (d_model 1024, 16 heads of 64, d_ff 4096, GELU,
+    LayerNorm, tied vocab 51865; random QAT weights of the seed, default
+    mix, bf16 compute). (a) The
     kernels at its shapes (``phase_whisper_kernels``). (b) The
-    DecodeEngine's load (max_batch 4, cache_len 256, prefill chunk 8): 384
-    B7 launches (asserted), pack_s, the load's device busy, peak memory.
-    (c) One encode pass of 4 x 1500 mel frames: 144 B1 launches (asserted),
-    host ms and a device profile by op. (d) ``load_cross`` of its output
-    at fp and at 4 bits: 48 B1 launches each (asserted), the cross
+    DecodeEngine's load (max_batch 4, cache_len 256, prefill chunk 8): one
+    B7 launch a linear (asserted), pack_s, the load's device busy, peak
+    memory. (c) One encode pass of 4 x 1500 mel frames: one B1 launch an
+    encoder linear (asserted), host ms and a device profile by op. (d)
+    ``load_cross`` of its output at fp and at 4 bits: 2 B1 launches a
+    decoder layer each (asserted), the cross
     payload bytes. (e) 8 requests of 16-64 prompt tokens and 16 new over
     the fp ring (twice: bitwise), the 4-bit ring and the 4-bit pool
     (the first 4: tokens equal to the ring's), and the first 4, prompts
     cut to 16 tokens, speculatively (k = 3, draft bits 2; tokens equal
-    spec-off; 768 B1 a round); 192 B1 launches
-    a decode step (asserted: the step skips the cross wk/wv of x), 48 B4
-    a 4-bit ring step, 24 B5 and 24 B4 a pool step; decode-step host ms
+    spec-off; 32 B1 a decoder layer a round); 8 B1 launches a decoder
+    layer a decode step (asserted: the step skips the cross wk/wv of x),
+    2 B4 a layer a 4-bit ring step, one B5 and one B4 a layer a pool step;
+    decode-step host ms
     and a device profile of a decode and an 8-lane prefill step. (f), (g)
     Card vs CPU (``check_whisper_against_cpu``). Returns the numbers."""
-    cfg = get_config(WHISPER_ARCH).with_quant_mode("qat")
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH),
+                              num_layers=WHISPER_SERVE_LAYERS,
+                              encoder_layers=WHISPER_SERVE_LAYERS
+                              ).with_quant_mode("qat")
     qcfg = QuantConfig(mode="qat")
     laps, t_lap = {}, [time.perf_counter()]
 
@@ -4935,9 +4981,10 @@ def phase_whisper_serve(dev, rng, gen, results, launches, per_step):
 # ------------------------------------------------------ whisper training ----
 WHISPER_CPU_FRAMES = 128     # phase 21(c)'s encoder rows a layer (1 x 128)
 WHISPER_CPU_TOKENS = 64      # phase 21(c)'s decoder tokens (1 x 64)
-# Phase 21(b)'s op-split profile and second run: encoder and decoder
-# layers (24 each at full depth, whose profile is read on the device
-# alone).
+# Phase 21(b)'s training run: encoder and decoder layers (whisper-medium
+# has 24 + 24), whose profile is read on the device alone; its op-split
+# profile and second run at WHISPER_PROFILE_LAYERS each.
+WHISPER_TRAIN_LAYERS = 12
 WHISPER_PROFILE_LAYERS = 2
 
 
@@ -5049,9 +5096,10 @@ def check_whisper_training_against_cpu(dev):
 
 
 def phase_whisper_training(dev, gen, results, rng):
-    """Phase 21: train the encoder-decoder family at the full width and
-    depth of whisper-medium (24 encoder and 24 decoder layers; fp32
-    parameters, bf16 compute; batches of TokenStream(8, 128, seed 0) with
+    """Phase 21: train the encoder-decoder family at the full width of
+    whisper-medium, cut to WHISPER_TRAIN_LAYERS of its 24 encoder and 24
+    decoder layers (fp32 parameters, bf16 compute; batches of
+    TokenStream(8, 128, seed 0) with
     mel frames [8, 1500, 80] from ``default_rng(SEED)``). (a) B9, B8 and
     both backward kernels against their plain versions at one encoder
     layer's six linears (activations at M = 8 x 1500 = 12,000 rows) and
@@ -5059,9 +5107,9 @@ def phase_whisper_training(dev, gen, results, rng):
     forward, dw and dx bitwise, ds within ``noise_inject.ds_bound``, timed
     on both rulers (``whisper_train_*`` keys). (b) The logits over the
     4/2/1-bit bands, 3 Phase-I steps, the freeze and 3 Phase-II steps
-    through ``loop.train``: every step's launches asserted (768 B9 and
-    384 B9 backward a Phase-I step, 1,536 B8 and 768 B8 backward a
-    Phase-II step: 384 linears, each block recomputed), host ms and peak
+    through ``loop.train``: every step's launches asserted (two B9 and
+    one B9 backward a linear a Phase-I step, four B8 and two B8 backward
+    a Phase-II step: each block recomputed), host ms and peak
     memory a step, the device busy of steps 2 and 5; the report in the
     reference's walk (``whisper_freeze_channels``); the same at
     WHISPER_PROFILE_LAYERS + WHISPER_PROFILE_LAYERS layers with steps 2
@@ -5069,8 +5117,9 @@ def phase_whisper_training(dev, gen, results, rng):
     second run at that depth bitwise the first (losses, gradient norms,
     pbits, every parameter).
     (c) ``check_whisper_training_against_cpu``. (d) The trained model
-    through ``soniq.to_serve`` (384 B7, asserted), one encode of 4 x 1500
-    frames (144 B1, asserted), ``load_cross`` and 4 greedy requests on the
+    through ``soniq.to_serve`` (one B7 a linear, asserted), one encode of
+    4 x 1500 frames (one B1 an encoder linear, asserted), ``load_cross``
+    and 4 greedy requests on the
     fp ring, twice bitwise. Returns the numbers."""
     from repro_torch import soniq
     from repro_torch.api.state import SoniqState
@@ -5082,7 +5131,9 @@ def phase_whisper_training(dev, gen, results, rng):
         laps[name] = round(now - t_lap[0], 2)
         t_lap[0] = now
 
-    full = get_config(WHISPER_ARCH)
+    full = dataclasses.replace(get_config(WHISPER_ARCH),
+                               num_layers=WHISPER_TRAIN_LAYERS,
+                               encoder_layers=WHISPER_TRAIN_LAYERS)
     shapes = whisper_train_shapes(full)
     for name, rec in phase_training_kernels(full, gen, dev,
                                             shapes=shapes).items():
@@ -5128,9 +5179,9 @@ def phase_whisper_training(dev, gen, results, rng):
     lap("train")
 
     # The op split and the second run, at WHISPER_PROFILE_LAYERS: a
-    # profile that records every host op as well reads for minutes at full
-    # depth, and a second full-depth run would take the smoke past its
-    # time.
+    # profile that records every host op as well reads for minutes at
+    # WHISPER_TRAIN_LAYERS, and a second run there would take the smoke
+    # past its time.
     small = dataclasses.replace(full, num_layers=WHISPER_PROFILE_LAYERS,
                                 encoder_layers=WHISPER_PROFILE_LAYERS)
     runs = []
@@ -5950,10 +6001,495 @@ def phase_vlm(dev, gen, results, launches, per_step):
     return out
 
 
+# ---------------------------------------------------------------- hybrid ----
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_UNITS = 1             # phase 23's depth: one 8-sublayer unit of 9
+HYBRID_EXPERTS = 8           # experts a MoE sublayer (the config has 16)
+# Phase 23(e)'s teacher-forced sublayers of the unit: a Mamba2 mixer with
+# the MLP and the attention sublayer with the MoE, every part of a unit.
+HYBRID_CPU_SUBLAYERS = (0, 3)
+HYBRID_CPU_TOKENS = 4
+
+
+def hybrid_cfg():
+    """jamba-1.5-large-398b at its published widths, cut to HYBRID_UNITS
+    units of 8 sublayers and HYBRID_EXPERTS experts a MoE sublayer (the
+    router narrowed to them); bf16 parameters and compute; QAT (the
+    engine packs it)."""
+    base = get_config(HYBRID_ARCH)
+    return dataclasses.replace(base, num_layers=base.attn_every
+                               * HYBRID_UNITS,
+                               num_experts=HYBRID_EXPERTS
+                               ).with_quant_mode("qat")
+
+
+def hybrid_plan(cfg):
+    """Per unit: the packed leaves (one B7 launch each at load), and a
+    decode step's B1 (every dense linear), B6 and B8 (one each an expert
+    bank: B8 over its dispatch buffer) and attention launches."""
+    kinds = cfg.hybrid_unit_kinds()
+    mixers = sum(k.startswith("mamba") for k in kinds)
+    attn = len(kinds) - mixers
+    moe = sum(k.endswith("moe") for k in kinds)
+    mlp = len(kinds) - moe
+    b1 = 2 * mixers + 4 * attn + 3 * mlp
+    units = cfg.num_layers // cfg.attn_every
+    return dict(b7=units * (b1 + 3 * moe), b1=units * b1, b6=units * 3 * moe,
+                b8=units * 3 * moe, attn=units * attn)
+
+
+def hybrid_shapes(cfg):
+    """{group: [(name, K, N) or (name, E, K, N)]}: one mixer's, one
+    attention sublayer's and one dense MLP's serve linears, and one
+    expert bank."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    di, n = cfg.d_inner, cfg.ssm_state
+    hq, hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    return {"mixer": [("in_proj", d, 2 * di + 2 * n + di // 64),
+                      ("out_proj", di, d)],
+            "attention": [("wq", d, hq), ("wk", d, hk), ("wv", d, hk),
+                          ("wo", hq, d)],
+            "mlp": [("gate", d, f), ("up", d, f), ("down", f, d)],
+            "bank": [("up", e, d, f)]}
+
+
+def hybrid_pack(shapes, qcfg, gen, dev):
+    """B7 on bf16 weights of ``shapes`` (one launch each, rows read
+    through a random channel perm): bitwise its plain version and bitwise
+    the fp32 launch on the widened weights; timed on both rulers against
+    the byte bound at 2 bytes an element read, beside the fp32 launches
+    on the widened weights and torch's group abs-max over the same bf16
+    weights (``transforms.group_absmax``, one read of each: the
+    yardstick)."""
+    calls = []
+    for _name, *shape in shapes:
+        w, perm, sc, segs = pack_operands(tuple(shape), qcfg, gen, dev)
+        calls.append((w.bfloat16(), perm, sc, segs))
+        del w
+    _check_pack(calls)
+    wide = [(w.float(), perm, sc, segs) for w, perm, sc, segs in calls]
+    for (w, *_r, segs), got, want in zip(calls, _pack_layer(calls),
+                                          _pack_layer(wide)):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"B7 on bf16 {tuple(w.shape)} {segs} "
+                                     f"!= the fp32 launch on its widening")
+    b_ms, b_by = _pack_bound(calls)
+    reps = 3 if calls[0][0].numel() > 1e9 else 10
+    from repro_torch.api.transforms import group_absmax
+    def absmax():
+        return [group_absmax(w.reshape((-1,) + w.shape[-2:]), 16)
+                for w, *_r in calls]
+
+    out = dict(ms=time_ms(lambda: _pack_layer(calls), reps),
+               device_ms=device_ms(lambda: _pack_layer(calls), reps),
+               fp32_device_ms=device_ms(lambda: _pack_layer(wide), reps),
+               plain_ms=time_ms(lambda: _pack_layer_plain(calls), 1),
+               bound_ms=b_ms, bound_by=b_by, launches=len(calls),
+               absmax_ms=time_ms(absmax, reps),
+               absmax_device_ms=device_ms(absmax, reps),
+               weight_bytes=sum(w.numel() * 2 for w, *_r in calls))
+    del calls, wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_kernels(cfg, qcfg, gen, dev, results):
+    """Phase 23(a), into ``results`` (``jamba_*`` keys): B7 on bf16
+    weights (``hybrid_pack``) of one mixer (in_proj 8192 x 33280, out_proj
+    16384 x 8192), one attention sublayer (8192 x 8192 q/o, 8192 x 1024
+    k/v), one dense MLP (8192 <-> 24576) and one expert bank [8, 8192,
+    24576]; B1 on the mixer's and the MLP's linears at M = 4 (decode), 16
+    (the verify of k = 3 at batch 4) and 32 (an 8-lane prefill at batch
+    4) within the fp32 reordering bound, beside torch.matmul; B6 on one
+    MoE sublayer's three banks (E = 8, T = 4: every row live, and the
+    live rows of a top-2 route of 4 tokens) within the bound, beside
+    torch.bmm."""
+    shapes = hybrid_shapes(cfg)
+    for group, sh in shapes.items():
+        rec = hybrid_pack(sh, qcfg, gen, dev)
+        results[B7].update({f"jamba_{group}_{k}": v for k, v in rec.items()})
+        log(f"[23] {B7} on bf16, one {group} ({rec['launches']} launches, "
+            f"{rec['weight_bytes']:,} weight bytes): bitwise plain and the "
+            f"fp32 launch; {rec}")
+    b1_shapes = shapes["mixer"] + shapes["mlp"]
+    for m in (4, 4 * (SPEC_TOKENS + 1), 32):
+        sets = [LayerOperands(cfg, qcfg, m, gen, dev, b1_shapes)
+                for _ in range(2)]
+        err = check_segment_gemm(B1, sets[:1])
+        res = time_segment_gemm(B1, sets)
+        results[B1].update({f"jamba_M{m}_{k}": v for k, v in res.items()},
+                           **{f"jamba_M{m}_max_abs_err": err})
+        log(f"[23] {B1} at M={m} on in_proj, out_proj, gate, up, down "
+            f"(5 launches): max |err| {err:.3e} within the fp32 bound; {res}")
+        del sets
+        gc.collect()
+        torch.cuda.empty_cache()
+    ops = GroupedOperands(cfg, qcfg, 4, gen, dev)
+    res = phase_grouped_segment(ops)
+    results[B6].update({f"jamba_{k}": v for k, v in res.items()})
+    log(f"[23] {B6} on one MoE sublayer's 3 banks (E={cfg.num_experts}, "
+        f"T=4): within the fp32 bound, each expert bitwise the dense "
+        f"launch, rows= bitwise on live rows; {res}")
+    del ops
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_spec_serve(model, cfg, ecfg, reqs, want, dev, plan):
+    """Speculative decoding (k = SPEC_TOKENS, draft bits DRAFT_BITS) of the
+    hybrid on ``reqs`` over ``ecfg``'s cache: the snapshot/recommit round
+    drafts k steps, verifies k + 1 lanes and re-feeds the accepted ones,
+    five forwards a drafting round (one B1 launch a dense linear and one
+    B6 an expert bank each: asserted). Its greedy tokens must equal
+    ``want`` (spec-off). The verify lanes run the mixers' chunked SSD
+    where spec-off decodes token by token, different sums that agree
+    until an activation code flips (none does on these requests; the
+    SSM's phase 18 reports agreement instead at 8 layers of 64).
+    Returns ``spec_stats``, round ms, tokens/s and the launches of a
+    round."""
+    eng = engine.DecodeEngine(model, cfg, dataclasses.replace(
+        ecfg, spec_tokens=SPEC_TOKENS, spec_draft_bits=DRAFT_BITS),
+        already_serve=True, device=dev)
+    drafts = backend.draft_matmul_call_count()
+    round_counts = {}
+    out, wall, round_ms = timed_serve(eng, reqs, round_counts)
+    st = eng.spec_stats()
+    if st["rounds"] == 0 or backend.draft_matmul_call_count() == drafts:
+        raise AssertionError(f"no draft ran: {st}")
+    forwards = SPEC_TOKENS + 2
+    for name, per in ((B1, plan["b1"]), (B6, plan["b6"])):
+        if round_counts.get(name) != forwards * per:
+            raise AssertionError(f"{round_counts.get(name)} {name} launches "
+                                 f"a drafting round, not {forwards * per}")
+    _same_tokens("jamba spec tokens != spec-off tokens", want, out)
+    new = sum(c.new_tokens.size for c in out)
+    return dict(spec=st, tok_s=new / wall, wall_s=wall, round_ms=round_ms,
+                round_launches=round_counts)
+
+
+def hybrid_sublayers(stack, cfg, x, dev):
+    """x [1, S, D] through the sublayers of ``stack`` (a chunked step at
+    positions 0 .. S - 1 from fresh caches, as ``lm.prefill_step`` runs
+    them): each sublayer's output in float64 on the host."""
+    s = x.shape[1]
+    pos = np.arange(s)[None]
+    posb = torch.as_tensor(pos, device=dev)
+    caches = [blocks_lib.block_cache_init(b.kind, cfg, 1, 64,
+                                          torch.float32, device=dev)
+              for b in stack]
+    kv = next(c["kv"] for c in caches if "kv" in c)
+    rope = lm._rope(cfg, posb)
+    write = attention.cache_write_index(kv, pos, dev)
+    out = []
+    with torch.no_grad():
+        for b, c in zip(stack, caches):
+            x = blocks_lib.block_decode(b, x, c, posb, cfg, cfg.quant,
+                                        rope=rope, write=write)
+            out.append(x.double().cpu())
+    return out
+
+
+def check_hybrid_against_cpu(dev, ecfg, model, cfg):
+    """Phase 23(e): the card against the plain versions on the CPU.
+    (1) The reduced config (one unit at d_model 128, 4 experts, fp32):
+    the greedy tokens of 4 requests identical. (2) Full width: the served
+    model's sublayers HYBRID_CPU_SUBLAYERS (a mixer with the MLP, the
+    attention sublayer with the MoE: every part of the unit) copied to
+    the host, packed as they are, at fp32
+    compute over HYBRID_CPU_TOKENS tokens, teacher-forced (``LinearTape``,
+    ``SSDTape``): every serve linear, router and expert bank on the CPU's
+    input and each input as the card's own ops made it, the chunked SSD's
+    output and state on the CPU's arguments, each sublayer's output,
+    within relative L2 1e-5. Returns the numbers."""
+    out = {}
+    small = get_config(HYBRID_ARCH).reduced().with_quant_mode("qat")
+    red = engine.DecodeEngine(lm.init_params(small, seed=SEED + 23,
+                                             device=dev), small, ecfg,
+                              device=dev)
+    host = engine.DecodeEngine(copy.deepcopy(red.model).to("cpu"), small,
+                               ecfg, already_serve=True, device="cpu")
+    reqs = requests(small.vocab_size, np.random.default_rng(SEED + 23),
+                    n=4, lo=8, hi=16, new=8)
+    card_out, _ = serve_all(red, reqs)
+    cpu_out = {c.request_id: c for c in host.serve(
+        [dataclasses.replace(r) for r in reqs])}
+    base = min(cpu_out)
+    for i, c in enumerate(card_out):
+        if not np.array_equal(c.tokens, cpu_out[base + i].tokens):
+            raise AssertionError(f"reduced hybrid card != CPU tokens "
+                                 f"(request {i}): {c.new_tokens} vs "
+                                 f"{cpu_out[base + i].new_tokens}")
+    out["reduced_tokens_identical"] = len(reqs)
+    del red, host
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    card = torch.nn.ModuleList(model.blocks[i]
+                               for i in HYBRID_CPU_SUBLAYERS)
+    cpu = copy.deepcopy(card).to("cpu")
+    x = torch.randn((1, HYBRID_CPU_TOKENS, cfg.d_model),
+                    generator=torch.Generator().manual_seed(SEED + 23))
+    tape_cpu, ssd_cpu = LinearTape(cpu), SSDTape()
+    t0 = time.perf_counter()
+    try:
+        want = hybrid_sublayers(cpu, cfg32, x, "cpu")
+    finally:
+        tape_cpu.close()
+        ssd_cpu.close()
+    out["cpu_s"] = time.perf_counter() - t0
+    tape_card, ssd_card = LinearTape(card, feed=tape_cpu.inputs), \
+        SSDTape(feed=ssd_cpu)
+    try:
+        got = hybrid_sublayers(card, cfg32, x.to(dev), dev)
+    finally:
+        tape_card.close()
+        ssd_card.close()
+    calls = len(tape_cpu.inputs)
+    mixers = sum(model.blocks[i].mixer == "mamba"
+                 for i in HYBRID_CPU_SUBLAYERS)
+    if len(tape_card.inputs) != calls or len(ssd_card.outputs) != mixers \
+            or len(ssd_cpu.outputs) != mixers:
+        raise AssertionError(f"calls: card {len(tape_card.inputs)}, CPU "
+                             f"{calls}; SSD {len(ssd_card.outputs)}, "
+                             f"{len(ssd_cpu.outputs)}")
+    worst = {}
+    for (name, _lin, x_card), (_n, _l, x_cpu), y_card, y_cpu in zip(
+            tape_card.inputs, tape_cpu.inputs, tape_card.outputs,
+            tape_cpu.outputs):
+        kind = ".".join(name.split(".")[-2:])
+        for what, a, b in (("out", y_card, y_cpu), ("in", x_card, x_cpu)):
+            key = f"{kind}.{what}"
+            worst[key] = max(worst.get(key, 0.0), rel_l2(a, b))
+    for (y_c, h_c), (y_h, h_h) in zip(ssd_card.outputs, ssd_cpu.outputs):
+        worst["ssd.y"] = max(worst.get("ssd.y", 0.0), rel_l2(y_c, y_h))
+        worst["ssd.h"] = max(worst.get("ssd.h", 0.0), rel_l2(h_c, h_h))
+    for i, a, b in zip(HYBRID_CPU_SUBLAYERS, got, want):
+        worst[f"sublayer{i}.out"] = rel_l2(a, b)
+    out["full_width_sublayers"] = worst
+    out["full_width_calls"] = calls
+    del card, cpu
+    gc.collect()
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"hybrid card vs CPU over 1e-5: {bad}")
+    return out
+
+
+def phase_hybrid(dev, gen, results, launches, per_step):
+    """Phase 23: serve the hybrid family, jamba-1.5-large-398b at its
+    published widths (d_model 8192, 64 heads of 128 over 8, d_ff 24576,
+    d_inner 16384, 256 SSD heads of 64, state 128, vocab 65536 untied,
+    top-2 routing, bf16 parameters and compute), cut to HYBRID_UNITS unit
+    of 8 sublayers (Mamba2 mixers, one attention sublayer; MLPs and MoEs)
+    and HYBRID_EXPERTS experts a MoE sublayer. (a) The kernels at its
+    shapes (``phase_hybrid_kernels``). (b) The DecodeEngine's load of the
+    bf16 QAT tree (random weights of the seed): one B7 launch a linear
+    and a bank (asserted), ``pack_s``, device busy, peak memory. (c) 8
+    requests of 16-64 prompt tokens and 16 new at batch 4 (cache_len
+    256): the fp ring at chunk 8 twice (bitwise), chunk 1 and lockstep
+    (agreement reported), the 4-bit ring and pool (tokens equal), the fp
+    pool (tokens equal the fp ring's), speculatively (k = 3) on the fp
+    ring and the 4-bit pool (tokens equal spec-off's); every
+    decode step's B1, B6, B8 and B4/B5 launches asserted from the plan;
+    the snapshot's bytes. (d) A decode step and an 8-lane prefill step
+    profiled by op (``step_profile.HYBRID_SPANS``). (e) Card vs CPU
+    (``check_hybrid_against_cpu``). Returns the ``hybrid`` JSON line's
+    numbers."""
+    cfg = hybrid_cfg()
+    qcfg = QuantConfig(mode="qat")
+    plan = hybrid_plan(cfg)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    phase_hybrid_kernels(cfg, qcfg, gen, dev, results)
+    lap("kernels")
+    st = {"units": cfg.num_layers // cfg.attn_every,
+          "sublayers": list(cfg.hybrid_unit_kinds()),
+          "experts": cfg.num_experts, "plan": plan}
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=SEED + 23, device=dev)
+    torch.cuda.synchronize()
+    st["parameters"] = sum(p.numel() for p in params.parameters())
+    st["qat_tree_gib"] = sum(p.numel() * p.element_size()
+                             for p in params.parameters()) / 2 ** 30
+    st["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.DecodeEngine(params, cfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    st["pack_s"] = time.perf_counter() - t0
+    st["peak_gib_init_and_pack"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches["b7_jamba_load"] = kernels.launch_counts()[B7]
+    if launches["b7_jamba_load"] != plan["b7"] \
+            or packed_leaves(eng.model) != plan["b7"]:
+        raise AssertionError(f"{launches['b7_jamba_load']} B7 launches at "
+                             f"the jamba load, not one a linear and a bank "
+                             f"({plan['b7']})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, prof = profile_load(lambda: engine.DecodeEngine(params, cfg, ecfg,
+                                                         device=dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["load"] = dict(device_busy_ms=prof["device_busy_ms"],
+                      device_events=prof["device_events"],
+                      idle_share=1 - prof["device_busy_ms"]
+                      / (st["pack_s"] * 1e3), by_op=prof["by_op"])
+    st["packed_bytes"] = engine.packed_model_bytes(eng.model)
+    st["resident_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[23] {HYBRID_ARCH}, {st['units']} unit x 8 sublayers, "
+        f"{cfg.num_experts} experts: {st['parameters']:,} parameters "
+        f"({st['qat_tree_gib']:.2f} GiB bf16); pack_s {st['pack_s']:.3f}, "
+        f"{launches['b7_jamba_load']} B7 launches, peak "
+        f"{st['peak_gib_init_and_pack']:.2f} GiB; packed "
+        f"{st['packed_bytes']:,} bytes; {st['load']}")
+    if st["peak_gib_init_and_pack"] * 2 ** 30 > 80e9:
+        raise AssertionError(f"load peak {st['peak_gib_init_and_pack']:.2f} "
+                             f"GiB over 80 GB")
+    lap("load")
+    # (c) Serving.
+    rng = np.random.default_rng(SEED + 23)
+    reqs = requests(cfg.vocab_size, rng)
+    kernels.reset_launch_counts()
+    ring, wall1 = serve_all(eng, reqs)
+    counts = kernels.launch_counts()
+    launches.update(b1_jamba_serve=counts[B1], b6_jamba_serve=counts[B6],
+                    b8_jamba_serve=counts[B8])
+    if counts[B1] == 0 or counts[B6] == 0 or counts[B8] == 0 or counts[B2] \
+            or counts[B3] or counts[B4] or counts[B5]:
+        raise AssertionError(f"jamba fp ring launches {counts}")
+    for c in ring:
+        if c.new_tokens.size != 16 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad jamba completion {c.new_tokens}")
+    again, wall2 = serve_all(eng, reqs)
+    _same_tokens("jamba: a second identical run gave other tokens", ring,
+                 again)
+    new = sum(c.new_tokens.size for c in ring)
+    step = step_launches(eng)
+    for name, key in ((B1, "b1"), (B6, "b6"), (B8, "b8")):
+        per_step[f"{key}_jamba"] = step[name]
+        if step[name] != plan[key]:
+            raise AssertionError(f"{step[name]} {name} launches a jamba "
+                                 f"decode step, not {plan[key]}")
+    if step[B4] or step[B5]:
+        raise AssertionError(f"jamba fp decode step launches {step}")
+    st["fp_ring"] = dict(tok_s=new / wall2, wall_s=[wall1, wall2],
+                         steps=eng.sched.step_count,
+                         decode_step_ms=decode_step_ms(eng),
+                         snapshot_bytes=lm.seq_state_bytes(
+                             lm.extract_seq_state(eng.cache)),
+                         launches_per_decode_step={
+                             k: v for k, v in step.items() if v})
+    log(f"[23] fp ring: {len(reqs)} requests ({new} new tokens; a second "
+        f"run bitwise): {st['fp_ring']}; tokens[0] "
+        f"{ring[0].new_tokens[:8]}")
+    lap("fp_ring")
+    st["profile"] = ssm_profile_steps(eng, spans=step_profile.HYBRID_SPANS,
+                                      summary=step_profile.hybrid_summary)
+    log(f"[23] step profiles: {st['profile']}")
+    lap("profiles")
+    one = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+        ecfg, prefill_chunk=1), already_serve=True, device=dev)
+    out1, wall = serve_all(one, reqs[:4])
+    st["chunk1"] = dict(
+        tok_s=sum(c.new_tokens.size for c in out1) / wall,
+        agreement=_agreement([c.new_tokens for c in ring[:4]],
+                             [c.new_tokens for c in out1]))
+    del one
+    cut = [dataclasses.replace(r, prompt=r.prompt[:16]) for r in reqs[:4]]
+    cut_out, _ = serve_all(eng, cut)
+    lock = engine.LockstepEngine(eng.model, cfg, ecfg, already_serve=True,
+                                 device=dev)
+    t0 = time.perf_counter()
+    grid = lock.generate(np.stack([r.prompt for r in cut]), 16)
+    wall = time.perf_counter() - t0
+    st["lockstep"] = dict(tok_s=grid[:, 16:].size / wall,
+                          agreement=_agreement(
+                              [c.new_tokens for c in cut_out], grid[:, 16:]))
+    del lock
+    log(f"[23] chunk 1: {st['chunk1']}; lockstep: {st['lockstep']}")
+    lap("chunk1_lockstep")
+    forms = {}
+    for tag, kw in (("kv4_ring", dict(kv_bits=4)),
+                    ("kv4_pool", dict(kv_bits=4, kv_layout="paged",
+                                      page_size=16)),
+                    ("fp_pool", dict(kv_layout="paged", page_size=16))):
+        e = engine.DecodeEngine(eng.model, cfg, dataclasses.replace(
+            ecfg, **kw), already_serve=True, device=dev)
+        kernels.reset_launch_counts()
+        forms[tag], wall = serve_all(e, reqs)
+        counts = kernels.launch_counts()
+        step = step_launches(e)
+        want = {"kv4_ring": (plan["attn"], 0), "kv4_pool": (0, plan["attn"]),
+                "fp_pool": (0, 0)}[tag]
+        if (step[B4], step[B5]) != want or step[B1] != plan["b1"] \
+                or step[B6] != plan["b6"]:
+            raise AssertionError(f"jamba {tag} decode step launches {step}")
+        st[tag] = dict(tok_s=new / wall, wall_s=wall, serve_launches={
+            k: v for k, v in counts.items() if v})
+        if e.pool is not None:
+            e.pool.check()
+            st[tag]["pool"] = e.paged_kv_stats()
+        if tag == "kv4_ring":
+            launches["b4_jamba_kv4_serve"] = counts[B4]
+            per_step["b4_jamba"] = step[B4]
+        elif tag == "kv4_pool":
+            launches["b5_jamba_paged_serve"] = counts[B5]
+            per_step["b5_jamba"] = step[B5]
+        del e
+    _same_tokens("jamba 4-bit pool != 4-bit ring", forms["kv4_ring"],
+                 forms["kv4_pool"])
+    _same_tokens("jamba fp pool != fp ring", ring, forms["fp_pool"])
+    st["kv4_ring"]["agreement_with_fp"] = _agreement(
+        [c.new_tokens for c in ring],
+        [c.new_tokens for c in forms["kv4_ring"]])
+    log(f"[23] 4-bit ring, 4-bit pool (== ring), fp pool (== fp ring): "
+        f"{ {k: st[k] for k in forms} }")
+    lap("kv_forms")
+    pool_ecfg = dataclasses.replace(ecfg, kv_bits=4, kv_layout="paged",
+                                    page_size=16)
+    e = engine.DecodeEngine(eng.model, cfg, pool_ecfg, already_serve=True,
+                            device=dev)
+    cut_pool, _ = serve_all(e, cut)
+    del e
+    st["spec"] = {}
+    for tag, e_cfg, want in (("fp_ring", ecfg, cut_out),
+                             ("kv4_pool", pool_ecfg, cut_pool)):
+        st["spec"][tag] = hybrid_spec_serve(eng.model, cfg, e_cfg, cut,
+                                            want, dev, plan)
+        log(f"[23] spec {tag}: {st['spec'][tag]}")
+    per_step["b1_jamba_spec_round"] = \
+        st["spec"]["fp_ring"]["round_launches"][B1]
+    per_step["b6_jamba_spec_round"] = \
+        st["spec"]["fp_ring"]["round_launches"][B6]
+    lap("spec")
+    st["card_vs_cpu"] = check_hybrid_against_cpu(dev, ecfg, eng.model,
+                                                 eng.cfg)
+    log(f"[23] card vs CPU (relative L2): {st['card_vs_cpu']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("card_vs_cpu")
+    st["seconds"] = laps
+    log(f"[23] seconds by part: {laps}")
+    return st
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", type=int, choices=[20, 21, 22], default=None,
+    ap.add_argument("--only", type=int, choices=[20, 21, 22, 23],
+                    default=None,
                     help="build the kernels and run this phase alone (no "
                          "summary); the default runs every phase")
     args = ap.parse_args(argv)
@@ -6023,6 +6559,19 @@ def main(argv=None) -> int:
         clock.lap(22)
         print(json.dumps({"kernels_vlm": results}))
         print(json.dumps({"vlm": out, "launches": launches,
+                          "per_step": per_step}))
+        print(json.dumps({"phase_seconds": clock.laps}))
+        print(card)
+        return 0
+    if args.only == 23:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        results = {name: {} for name in (B1, B6, B7)}
+        launches, per_step = {}, {}
+        out = phase_hybrid(dev, gen, results, launches, per_step)
+        clock.lap(23)
+        print(json.dumps({"kernels_hybrid": results}))
+        print(json.dumps({"hybrid": out, "launches": launches,
                           "per_step": per_step}))
         print(json.dumps({"phase_seconds": clock.laps}))
         print(card)
@@ -6400,6 +6949,12 @@ def main(argv=None) -> int:
     clock.lap(22)
 
     # ------------------------------------------------------- phase 23 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid(dev, gen, results, launches, per_step)
+    clock.lap(23)
+
+    # ------------------------------------------------------- phase 24 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
@@ -6410,7 +6965,14 @@ def main(argv=None) -> int:
                 "load, whisper_load_launches: the whisper-medium load; "
                 "vlm_layer_*: one qwen2-vl-72b layer, 7 launches; "
                 "vlm_head_*: its readout's shape, 8192x152064, 1 launch; "
-                "vlm_load_launches: the 4-layer qwen2-vl-72b load)",
+                "vlm_load_launches: the 4-layer qwen2-vl-72b load; "
+                "jamba_{mixer,attention,mlp,bank}_*: jamba-1.5-large-398b's "
+                "bf16 weights, one mixer (in_proj 8192x33280, out_proj "
+                "16384x8192), one attention sublayer, one dense MLP, one "
+                "8-expert bank [8, 8192, 24576], read as bf16 "
+                "(fp32_device_ms: the fp32 launch on the widened weights; "
+                "absmax_*: torch's group abs-max of the same bf16 weights); "
+                "jamba_load_launches: the one-unit jamba load)",
             B1: "one h2o-danube-1.8b layer of decode GEMMs at M=4 (7 "
                 "launches, one a linear; prefill_*: M=32; verify_*: M=16, "
                 "the verify step of k=3 at batch 4; draft_*: the draft "
@@ -6427,7 +6989,10 @@ def main(argv=None) -> int:
                 "vlm_head_M{4,2304}_*: its readout's shape 8192x152064 "
                 "packed, M=2304 the multimodal prefill; vlm_serve_launches,"
                 " vlm_prefill_launches: the 4-layer fp ring serve run and "
-                "the multimodal soniq.apply)",
+                "the multimodal soniq.apply; jamba_M{4,16,32}_*: "
+                "jamba-1.5-large-398b's in_proj 8192x33280, out_proj "
+                "16384x8192 and MLP 8192<->24576, 5 launches; "
+                "jamba_serve_launches: its one-unit fp ring serve run)",
             B2: "one uniform 4-bit h2o-danube-1.8b layer of decode GEMMs "
                 "at M=4 (7 launches; prefill_*: M=32)",
             B3: "one h2o-danube-1.8b layer of plain segment GEMMs at M=4 "
@@ -6437,7 +7002,10 @@ def main(argv=None) -> int:
                 "E=64, T=4, every row live (3 launches, one a projection; "
                 "rows_*: the same with the live rows of a top-6 route of "
                 "4 tokens; launches: the fp ring MoE serve run; draft_*: "
-                "the same over the [K2|K1] slice)",
+                "the same over the [K2|K1] slice; jamba_*: one "
+                "jamba-1.5-large-398b MoE sublayer's 3 banks at E=8, T=4, "
+                "jamba_rows_*: the live rows of a top-2 route of 4 tokens; "
+                "jamba_serve_launches: its one-unit fp ring serve run)",
             B4: "one decode attention call: B=4, S=1, Hk=8, G=4, D=80, "
                 "T=256 (the kv4 serve ring); shapes: T=4096 with window "
                 "1024, deepseek-moe-16b (Hk=16, G=1, D=128) and "
@@ -6499,7 +7067,7 @@ def main(argv=None) -> int:
                               "tokens, the cross wk/wv on the encoder's "
                               "rows), whisper_train_run_launches and "
                               "whisper_train_launches_per_step: phase 21's "
-                              "24 + 24-layer run and a step of it; "
+                              "12 + 12-layer run and a step of it; "
                               "vlm_train_*: one qwen2-vl-72b layer's 7 "
                               "training linears (B8 also their 4 x 384 "
                               "bf16 activations); vlm_head_*: one fp32 "
@@ -6531,13 +7099,15 @@ def main(argv=None) -> int:
                 rows[-1][key] = r[key]
         rows[-1].update((k, v) for k, v in r.items()
                         if k.startswith(("verify_", "draft_", "ssm_",
-                                         "whisper_", "vlm_")))
+                                         "whisper_", "vlm_", "jamba_")))
         if name in per_step:
             rows[-1]["launches_per_decode_step"] = per_step[name]
         if name in per_train_step:
             rows[-1]["launches_per_train_step"] = per_train_step[name]
         if name == B8:
             rows[-1]["sass_per_element"] = b8_sass
+            rows[-1]["jamba_serve_launches"] = launches["b8_jamba_serve"]
+            rows[-1]["jamba_launches_per_decode_step"] = per_step["b8_jamba"]
         if name in (B8, B8_BWD):
             key = "b8" if name == B8 else "b8_bwd"
             for tag in ("hoisted", "unhoisted"):
@@ -6548,6 +7118,7 @@ def main(argv=None) -> int:
             rows[-1]["ssm_load_launches"] = launches["b7_ssm_load"]
             rows[-1]["whisper_load_launches"] = launches["b7_whisper_load"]
             rows[-1]["vlm_load_launches"] = launches["b7_vlm_load"]
+            rows[-1]["jamba_load_launches"] = launches["b7_jamba_load"]
         if name == B1:
             rows[-1]["ssm_serve_launches"] = launches["b1_ssm_serve"]
             rows[-1]["ssm_launches_per_decode_step"] = per_step["b1_ssm"]
@@ -6565,6 +7136,15 @@ def main(argv=None) -> int:
             rows[-1]["vlm_launches_per_decode_step"] = per_step["b1_vlm"]
             rows[-1]["vlm_launches_per_spec_round"] = \
                 per_step["b1_vlm_spec_round"]
+            rows[-1]["jamba_serve_launches"] = launches["b1_jamba_serve"]
+            rows[-1]["jamba_launches_per_decode_step"] = per_step["b1_jamba"]
+            rows[-1]["jamba_launches_per_spec_round"] = \
+                per_step["b1_jamba_spec_round"]
+        if name == B6:
+            rows[-1]["jamba_serve_launches"] = launches["b6_jamba_serve"]
+            rows[-1]["jamba_launches_per_decode_step"] = per_step["b6_jamba"]
+            rows[-1]["jamba_launches_per_spec_round"] = \
+                per_step["b6_jamba_spec_round"]
         if name == B4:
             rows[-1]["whisper_kv4_serve_launches"] = \
                 launches["b4_whisper_kv4_serve"]
@@ -6572,6 +7152,10 @@ def main(argv=None) -> int:
                 per_step["b4_whisper"]
             rows[-1]["vlm_kv4_serve_launches"] = launches["b4_vlm_kv4_serve"]
             rows[-1]["vlm_launches_per_kv4_decode_step"] = per_step["b4_vlm"]
+            rows[-1]["jamba_kv4_serve_launches"] = \
+                launches["b4_jamba_kv4_serve"]
+            rows[-1]["jamba_launches_per_kv4_decode_step"] = \
+                per_step["b4_jamba"]
         if name == B5:
             rows[-1]["whisper_paged_serve_launches"] = \
                 launches["b5_whisper_paged_serve"]
@@ -6581,6 +7165,10 @@ def main(argv=None) -> int:
                 launches["b5_vlm_paged_serve"]
             rows[-1]["vlm_launches_per_paged_decode_step"] = \
                 per_step["b5_vlm"]
+            rows[-1]["jamba_paged_serve_launches"] = \
+                launches["b5_jamba_paged_serve"]
+            rows[-1]["jamba_launches_per_paged_decode_step"] = \
+                per_step["b5_jamba"]
         if name in SOLO:
             lin = soniq_out["linear"]["launches"][name]
             if lin:
@@ -6635,6 +7223,7 @@ def main(argv=None) -> int:
     print(json.dumps({"whisper_serve": whisper_out}))
     print(json.dumps({"whisper_training": whisper_train}))
     print(json.dumps({"vlm": vlm}))
+    print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)

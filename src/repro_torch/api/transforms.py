@@ -79,10 +79,12 @@ def rebudget_pbits(pbits, w: torch.Tensor, qcfg: QuantConfig) -> np.ndarray:
 def group_absmax(w: torch.Tensor, g: int) -> torch.Tensor:
     """max |w| over each group of ``g`` rows of each slice: w [S, K, N] ->
     fp32 [S, K // g], in one pass on w's device and with no temporary of
-    w's size (``vector_norm`` at ord inf is the exact abs-max)."""
+    w's size (``vector_norm`` at ord inf is the exact abs-max). The
+    reduction runs in w's own dtype: an abs-max is one of its values,
+    exact in any float dtype, so only the [S, K // g] result is cast."""
     s, k = w.shape[:2]
-    return torch.linalg.vector_norm(w.float().reshape(s, k // g, -1),
-                                    ord=float("inf"), dim=-1)
+    return torch.linalg.vector_norm(w.reshape(s, k // g, -1),
+                                    ord=float("inf"), dim=-1).float()
 
 
 def rebudget_pbits_host(pbits: np.ndarray, mag: np.ndarray, k: int,

@@ -208,8 +208,11 @@ def quantize_pack_mixed(w: torch.Tensor, pbits: np.ndarray,
     ``quantize_pack`` launch. ``perm`` (int32 [K] or [S, K] on w's
     device): the sorted row k is w's row perm[k], read in place; None:
     w is sorted already. ``scales`` are in sorted order. ``out``: the
-    three carriers to write (else allocated)."""
-    w = w.float()
+    three carriers to write (else allocated). An fp32 or bf16 ``w`` is
+    read as it is stored (the kernel widens bf16 in registers); another
+    float dtype is widened to fp32 first."""
+    if w.dtype not in qp.ENTRIES:
+        w = w.float()
     k, n = w.shape[-2:]
     pbits = np.asarray(pbits)
     if pbits.ndim != w.dim() - 1 or pbits.shape[-1] * group_size != k:

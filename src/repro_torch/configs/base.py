@@ -2,8 +2,9 @@
 ``repro.configs.base`` — same fields, so a config built for the JAX
 package maps onto the port field by field; the port serves the dense
 ``attn_mlp`` plan, the MoE plan (``attn_mlp`` then ``attn_moe``), the
-SSM plan (``mamba``) and the encoder-decoder's (``enc`` blocks beside the
-``dec`` plan) so far."""
+SSM plan (``mamba``), the encoder-decoder's (``enc`` blocks beside the
+``dec`` plan) and the hybrid's (``hybrid_unit``: ``attn_every``
+sublayers of the kinds :meth:`ArchConfig.hybrid_unit_kinds` names)."""
 from __future__ import annotations
 
 import dataclasses
@@ -94,6 +95,19 @@ class ArchConfig:
             plan.append(("attn_moe", l - self.first_dense_layers))
             return tuple(plan)
         return (("attn_mlp", l),)
+
+    def hybrid_unit_kinds(self) -> Tuple[str, ...]:
+        """The sublayer kinds of one hybrid (Jamba) unit, mixer x FFN:
+        attention at ``attn_offset``, a Mamba2 mixer elsewhere; the MoE
+        at every ``moe_every``-th FFN, a dense MLP elsewhere."""
+        kinds = []
+        for i in range(self.attn_every):
+            mixer = "attn" if i == self.attn_offset else "mamba"
+            ffn = "moe" if (self.num_experts and
+                            i % self.moe_every == self.moe_every - 1) \
+                else "mlp"
+            kinds.append(f"{mixer}_{ffn}")
+        return tuple(kinds)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (fp32 compute)."""

@@ -1,7 +1,9 @@
 // SMOL quantize + bit-pack for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernel src/repro/kernels/quant_pack.py::_kernel
-// (quantize_pack): w[K, N] fp32, optionally divided by per-group scales,
+// (quantize_pack): w[K, N] of any float type, cast to fp32 in the kernel
+// (here fp32 or bf16: the two parameter types of the models), optionally
+// divided by per-group scales,
 // rounds to p-bit SMOL codes clip(rint((w/h + 2^p - 1) / 2), 0, 2^p - 1)
 // and packs 8/p codes per byte along K, little-endian (code j of a byte at
 // bit p*j): out[K*p/8, N] uint8. Bit-exact with the reference.
@@ -13,23 +15,31 @@
 // by the scale of its sorted group, (off_p + r*VPB + j) / G. With no perm
 // and one segment it is the TPU kernel exactly.
 //
-// What bounds it on the H100: bytes — it reads 4 bytes of weight for every
-// p/8 byte it writes and does a handful of ALU operations per element, so
-// the fp32 read stream sets the floor. The design keeps that stream wide
-// and every index cheap:
+// What bounds it on the H100: the fp32 read stream (4 bytes of weight
+// for every p/8 byte written) nearly — the launch runs at ~70% of that
+// byte bound at full width — and the per-element work, the IEEE division
+// by the group scale above all. A bf16 weight is read as it is stored and
+// widened in registers (exact: its bits are the high half of the fp32
+// word), so its launch reads half the bytes and gives carriers bitwise
+// those of the fp32 launch on the widened weight. Measured at
+// jamba-1.5-large-398b's widths on an H100, a bf16 launch takes the fp32
+// launch's time, so there the per-element work, not the read stream,
+// bounds it (8 columns a thread with 16-byte bf16 loads was slower). The
+// design keeps the read stream wide and every index cheap:
 //  - a block covers 32 source rows x 128 columns of one segment of one
 //    slice (grid x: column tiles; y: the row tiles of the three segments
 //    end to end, so p is uniform in a block; z: slices). Each thread takes
-//    8 source rows x 4 adjacent columns: 8 independent 16-byte loads in
-//    flight, whatever p, then one 4-byte store per byte row (p of them);
+//    8 source rows x 4 adjacent columns: 8 independent 16-byte (fp32) or
+//    8-byte (bf16) loads in flight, whatever p, then one 4-byte store per
+//    byte row (p of them);
 //  - the row index perm[.] and the group scale are loaded once per source
 //    row and are warp-uniform (a warp spans columns), so each is one
 //    broadcast; the rows are read in place, with no sorted copy;
 //  - index math is 32-bit inside a slice, with one 64-bit slice offset a
 //    block and no per-element division or modulo.
-// A scalar body covers N % 4 != 0, weights that are not 16-byte aligned
-// (a slice stride K*N*4 is a multiple of 16 only when N % 4 == 0) and
-// carriers that are not 4-byte aligned.
+// A scalar body covers N % 4 != 0, weights whose rows of 4 columns are not
+// aligned to their load (a slice stride is a multiple of it only when
+// N % 4 == 0) and carriers that are not 4-byte aligned.
 //
 // Numerics: the division by the group scale is an IEEE division
 // (__fdiv_rn; a reciprocal multiply is one ulp off), rounding is half to
@@ -48,8 +58,11 @@ constexpr int ROWS = 8;                // source rows a thread
 constexpr int TILE_COLS = TX * COLS;   // 128 columns a block
 constexpr int TILE_ROWS = TY * ROWS;   // 32 source rows a block
 
+// A bf16 value is its 16 bits; widened to fp32 by a shift.
+using bf16_bits = uint16_t;
+
 struct Args {
-  const float* w;
+  const void* w;         // float or bf16_bits
   long long w_slice;     // elements between slices
   int w_row;             // elements between rows
   const int* perm;       // [S, K] or null (identity)
@@ -60,14 +73,31 @@ struct Args {
   int K, N, NG, G;
 };
 
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* p, int left) {
-  if (VEC) return __ldg(reinterpret_cast<const float4*>(p));
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_bits v) {
+  return __uint_as_float((unsigned int)v << 16);
+}
+
+// Four adjacent columns: one 16-byte (fp32) or 8-byte (bf16) load.
+__device__ __forceinline__ float4 load4_vec(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4_vec(const bf16_bits* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4(const T* p, int left) {
+  if (VEC) return load4_vec(p);
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (left > 0) v.x = __ldg(p);
-  if (left > 1) v.y = __ldg(p + 1);
-  if (left > 2) v.z = __ldg(p + 2);
-  if (left > 3) v.w = __ldg(p + 3);
+  if (left > 0) v.x = widen(__ldg(p));
+  if (left > 1) v.y = widen(__ldg(p + 1));
+  if (left > 2) v.z = widen(__ldg(p + 2));
+  if (left > 3) v.w = widen(__ldg(p + 3));
   return v;
 }
 
@@ -83,7 +113,7 @@ __device__ __forceinline__ unsigned int code(float v, bool scaled,
 
 // Segment `seg` (precision P, first sorted row `off`), row tile `tile`, of
 // slice `s`.
-template <int P, bool VEC>
+template <int P, bool VEC, typename T>
 __device__ __forceinline__ void pack_tile(const Args& a, int seg, int off,
                                           int tile, int s) {
   constexpr int VPB = 8 / P;
@@ -95,7 +125,7 @@ __device__ __forceinline__ void pack_tile(const Args& a, int seg, int off,
   // Segments are whole groups, so a thread's rows are all inside one
   // unless the layer is narrower than a group (then whole bytes are).
   const int nrows = min(ROWS, kp - r0);
-  const float* w = a.w + (long long)s * a.w_slice;
+  const T* w = static_cast<const T*>(a.w) + (long long)s * a.w_slice;
   const int* perm = a.perm == nullptr ? nullptr
                                       : a.perm + (long long)s * a.K;
   const float* scales = a.scales == nullptr ? nullptr
@@ -139,36 +169,27 @@ __device__ __forceinline__ void pack_tile(const Args& a, int seg, int off,
   }
 }
 
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
 quant_pack_segments_kernel(const Args a) {
   int t = blockIdx.y;
   const int s = blockIdx.z;
   if (t < a.tiles[0]) {
-    pack_tile<4, VEC>(a, 0, 0, t, s);
+    pack_tile<4, VEC, T>(a, 0, 0, t, s);
     return;
   }
   t -= a.tiles[0];
   if (t < a.tiles[1]) {
-    pack_tile<2, VEC>(a, 1, a.rows[0], t, s);
+    pack_tile<2, VEC, T>(a, 1, a.rows[0], t, s);
     return;
   }
-  pack_tile<1, VEC>(a, 2, a.rows[0] + a.rows[1], t - a.tiles[1], s);
+  pack_tile<1, VEC, T>(a, 2, a.rows[0] + a.rows[1], t - a.tiles[1], s);
 }
 
-}  // namespace
-
-// Packs S slices of w (slice s at w + s * w_slice, row k at + k * w_row,
-// N contiguous columns) into out4 [S, K4/2, N], out2 [S, K2/4, N] and out1
-// [S, K1/8, N] (contiguous uint8; a null pointer for an empty segment),
-// reading sorted row k of slice s from perm[s * K + k] (perm null: row k)
-// and dividing by scales[s * (K / G) + k / G] (scales null: no division).
-// K = K4 + K2 + K1; each segment a multiple of its 8/p. Returns the CUDA
-// error code of the launch (0 on success).
-extern "C" int soniq_quant_pack_segments(
-    const void* w, long long w_slice, int w_row, const void* perm,
-    const void* scales, void* out4, void* out2, void* out1, int k4, int k2,
-    int k1, int N, int S, int G, void* stream) {
+template <typename T>
+int launch(const void* w, long long w_slice, int w_row, const void* perm,
+           const void* scales, void* out4, void* out2, void* out1, int k4,
+           int k2, int k1, int N, int S, int G, void* stream) {
   const int K = k4 + k2 + k1;
   if (K <= 0 || N <= 0 || S <= 0 || G <= 0 || k4 < 0 || k2 < 0 || k1 < 0 ||
       k4 % 2 || k2 % 4 || k1 % 8 || w_row < N || S > 65535 ||
@@ -176,7 +197,7 @@ extern "C" int soniq_quant_pack_segments(
       (long long)K * N >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.w = static_cast<const float*>(w);
+  a.w = w;
   a.w_slice = w_slice;
   a.w_row = w_row;
   a.perm = static_cast<const int*>(perm);
@@ -197,10 +218,10 @@ extern "C" int soniq_quant_pack_segments(
   a.N = N;
   a.G = G;
   a.NG = (K + G - 1) / G;
-  // 16-byte loads need w 16-byte aligned; 4-byte stores, each carrier
-  // 4-byte aligned.
+  // Vector loads of 4 columns need w aligned to 4 * sizeof(T); 4-byte
+  // stores, each carrier 4-byte aligned.
   const bool vec = N % 4 == 0 && w_row % 4 == 0 && w_slice % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % (4 * sizeof(T)) == 0 &&
                    (reinterpret_cast<uintptr_t>(out4) |
                     reinterpret_cast<uintptr_t>(out2) |
                     reinterpret_cast<uintptr_t>(out1)) % 4 == 0;
@@ -208,8 +229,35 @@ extern "C" int soniq_quant_pack_segments(
   const dim3 block(TX, TY);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
-    quant_pack_segments_kernel<true><<<grid, block, 0, st>>>(a);
+    quant_pack_segments_kernel<true, T><<<grid, block, 0, st>>>(a);
   else
-    quant_pack_segments_kernel<false><<<grid, block, 0, st>>>(a);
+    quant_pack_segments_kernel<false, T><<<grid, block, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Packs S slices of w (slice s at w + s * w_slice, row k at + k * w_row,
+// N contiguous columns) into out4 [S, K4/2, N], out2 [S, K2/4, N] and out1
+// [S, K1/8, N] (contiguous uint8; a null pointer for an empty segment),
+// reading sorted row k of slice s from perm[s * K + k] (perm null: row k)
+// and dividing by scales[s * (K / G) + k / G] (scales null: no division).
+// K = K4 + K2 + K1; each segment a multiple of its 8/p. Returns the CUDA
+// error code of the launch (0 on success).
+extern "C" int soniq_quant_pack_segments(
+    const void* w, long long w_slice, int w_row, const void* perm,
+    const void* scales, void* out4, void* out2, void* out1, int k4, int k2,
+    int k1, int N, int S, int G, void* stream) {
+  return launch<float>(w, w_slice, w_row, perm, scales, out4, out2, out1, k4,
+                       k2, k1, N, S, G, stream);
+}
+
+// The same on a bf16 weight (strides in elements), widened to fp32 in the
+// kernel: carriers bitwise those of the fp32 entry on the widened weight.
+extern "C" int soniq_quant_pack_segments_bf16(
+    const void* w, long long w_slice, int w_row, const void* perm,
+    const void* scales, void* out4, void* out2, void* out1, int k4, int k2,
+    int k1, int N, int S, int G, void* stream) {
+  return launch<bf16_bits>(w, w_slice, w_row, perm, scales, out4, out2, out1,
+                           k4, k2, k1, N, S, G, stream);
 }

@@ -5,7 +5,8 @@ the weight bridge of a single linear and of the CNN (the reference's
 
 The JAX package keeps each plan group's layers stacked ``[L, ...]`` in a
 nested dict/list of arrays (an encoder-decoder's encoder layers too, under
-``enc_groups``) — QAT leaves (``w``, ``pbits``) from
+``enc_groups``; a hybrid unit's sublayers under ``sub0`` .. ``sub7``,
+stacked over units) — QAT leaves (``w``, ``pbits``) from
 ``lm.init_params`` or serve leaves (``w4/w2/w1/perm/pbits_sorted/wscale``,
 ``b``) from ``convert_tree``, or Phase-I leaves (``w``, ``s``). The port
 holds one module per layer, so stacked leaves are unstacked here (into
@@ -40,6 +41,12 @@ def _tensor(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):        # a bf16 leaf of a checkpoint
         return a.to(device, copy=True)
     a = np.asarray(a)
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
+                                  or a.dtype.name == "bfloat16"):
+        # A bf16 leaf: two raw bytes a value (``jax.device_get``'s
+        # bfloat16, or ``|V2`` from an npz), read as its bits.
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.tensor(bits, device=device).view(torch.bfloat16)
     if a.dtype.kind not in "biuf":
         raise TypeError(f"unsupported leaf dtype {a.dtype}")
     return torch.tensor(a, device=device)      # a copy: leaves may be read-only
@@ -53,13 +60,24 @@ def _map(node, fn):
     return None if node is None else fn(node)
 
 
-def _unstack(groups, counts, fn) -> list:
-    """Stacked layer groups -> one tree a layer, ``fn`` applied to every
+def _group_layers(group, kind: str, count: int, cfg) -> list:
+    """One plan group's (subtree, index) per port block, in block order:
+    layer i of ``group``, or for a hybrid unit group sublayer i of unit u
+    (``group["sub{i}"]`` at index u) as block ``u * attn_every + i``."""
+    if kind != "hybrid_unit":
+        return [(group, i) for i in range(count)]
+    subs = range(len(cfg.hybrid_unit_kinds()))
+    return [(group[f"sub{i}"], u) for u in range(count) for i in subs]
+
+
+def _unstack(groups, plan, cfg, fn) -> list:
+    """Stacked layer groups -> one tree a block, ``fn`` applied to every
     leaf."""
-    if len(groups) != len(counts):
-        raise ValueError(f"{len(groups)} layer groups for {len(counts)}")
-    return [_map(group, lambda a, i=i: fn(a[i]))
-            for count, group in zip(counts, groups) for i in range(count)]
+    if len(groups) != len(plan):
+        raise ValueError(f"{len(groups)} layer groups for plan {plan}")
+    return [_map(sub, lambda a, i=i: fn(a[i]))
+            for (kind, count), group in zip(plan, groups)
+            for sub, i in _group_layers(group, kind, count, cfg)]
 
 
 def _port_layout(tree: Dict, cfg, fn) -> Dict:
@@ -69,25 +87,31 @@ def _port_layout(tree: Dict, cfg, fn) -> Dict:
     None)."""
     out = {k: _map(v, fn) for k, v in tree.items()
            if k not in ("groups", "enc_groups")}
-    out["blocks"] = _unstack(tree["groups"],
-                             [count for _kind, count in cfg.layer_plan()],
-                             fn)
+    out["blocks"] = _unstack(tree["groups"], cfg.layer_plan(), cfg, fn)
     if "enc_groups" in tree:
         out["enc_blocks"] = _unstack(tree["enc_groups"],
-                                     [cfg.encoder_layers], fn)
+                                     (("enc", cfg.encoder_layers),), cfg, fn)
     return out
 
 
 def _jax_layout(tree: Dict, cfg) -> Dict:
     """The port's layout (numpy leaves, ``blocks`` and ``enc_blocks``
     lists) -> the JAX package's (one stacked ``groups`` entry per plan
-    group; the encoder's layers in one ``enc_groups`` entry)."""
+    group, a hybrid unit's sublayers under ``sub{i}``; the encoder's
+    layers in one ``enc_groups`` entry)."""
     out = {k: v for k, v in tree.items()
            if k not in ("blocks", "enc_blocks")}
     groups, start = [], 0
-    for _kind, count in cfg.layer_plan():
-        groups.append(_stack_leaves(tree["blocks"][start:start + count]))
-        start += count
+    for kind, count in cfg.layer_plan():
+        if kind == "hybrid_unit":
+            n = len(cfg.hybrid_unit_kinds())
+            groups.append({f"sub{i}": _stack_leaves(
+                tree["blocks"][start + i:start + n * count:n])
+                for i in range(n)})
+            start += n * count
+        else:
+            groups.append(_stack_leaves(tree["blocks"][start:start + count]))
+            start += count
     out["groups"] = groups
     if "enc_blocks" in tree:
         out["enc_groups"] = [_stack_leaves(tree["enc_blocks"])]
@@ -220,10 +244,12 @@ def state_from_tree(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
 
 def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
     """The JAX package's decode cache (numpy leaves, each plan group's
-    layers stacked ``[L, ...]`` under ``groups``) -> the port's
-    ``{"layers": [...]}`` on ``device``: a layer's ``kv`` (fp ring, packed
-    4-bit ring or packed 4-bit page pool) and its ``ssm`` state (``h``
-    fp32, the ``conv`` window in the cache dtype). The fp ring's ``pos``
+    layers stacked ``[L, ...]`` under ``groups``; a hybrid unit's
+    sublayers under ``sub{i}``, stacked over units) -> the port's
+    ``{"layers": [...]}`` on ``device``, one a block: a layer's ``kv`` (fp
+    ring, packed 4-bit ring or packed 4-bit page pool) and its ``ssm``
+    state (``h`` fp32, the ``conv`` window in the cache dtype). The fp
+    ring's ``pos``
     becomes int64 (the port's fp ring stamps); the paged layers share one
     page table, as the reference broadcasts one table to every layer. An
     encoder-decoder's ``cross`` K/V (fp or packed 4-bit, stacked over the
@@ -235,15 +261,15 @@ def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
                          f"{plan}")
     layers = []
     table = None
-    for (_kind, count), group in zip(plan, tree["groups"]):
-        for i in range(count):
+    for (kind, count), group in zip(plan, tree["groups"]):
+        for sub, i in _group_layers(group, kind, count, cfg):
             layer = {}
-            if "ssm" in group:
+            if "ssm" in sub:
                 layer["ssm"] = {name: _tensor(a[i], dev)
-                                for name, a in group["ssm"].items()}
-            if "kv" in group:
+                                for name, a in sub["ssm"].items()}
+            if "kv" in sub:
                 kv = {name: _tensor(a[i], dev)
-                      for name, a in group["kv"].items()}
+                      for name, a in sub["kv"].items()}
                 if "k" in kv:
                     kv["pos"] = kv["pos"].long()
                 if "page_table" in kv:
@@ -259,6 +285,23 @@ def cache_from_numpy(tree: Dict, cfg, device: DeviceLike = None) -> Dict:
     if tree.get("cross") is not None:
         out["cross"] = {name: _tensor(a, dev)
                         for name, a in tree["cross"].items()}
+    return out
+
+
+def cache_to_numpy(cache: Dict, cfg) -> Dict:
+    """The port's decode cache -> the JAX package's layout with numpy host
+    copies (the inverse of :func:`cache_from_numpy`): each plan group's
+    layers stacked under ``groups`` (a hybrid unit's sublayers under
+    ``sub{i}``), the fp ring's ``pos`` int32, every paged layer holding
+    the shared page table, ``cross`` as it is."""
+    layers = [_map(layer, host_copy) for layer in cache["layers"]]
+    for layer in layers:
+        kv = layer.get("kv")
+        if kv is not None and "k" in kv:
+            kv["pos"] = kv["pos"].astype(np.int32)
+    out = {"groups": _jax_layout({"blocks": layers}, cfg)["groups"]}
+    if cache.get("cross") is not None:
+        out["cross"] = _map(cache["cross"], host_copy)
     return out
 
 

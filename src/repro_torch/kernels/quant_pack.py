@@ -1,8 +1,10 @@
 """SMOL quantize + bit-pack (B7) and its plain versions.
 
-Counterpart of ``repro.kernels.quant_pack``: w [K, N] fp32, optionally
-divided by per-group scales, -> SMOL codes packed 8/p per byte along K,
-little-endian -> uint8 [K*p//8, N]. Bit-exact with the reference.
+Counterpart of ``repro.kernels.quant_pack``: w [K, N] (fp32 or bf16, cast
+to fp32 as the TPU kernel casts whatever it is given), optionally divided
+by per-group scales, -> SMOL codes packed 8/p per byte along K,
+little-endian -> uint8 [K*p//8, N]. Bit-exact with the reference; a bf16
+weight packs bitwise as its fp32 widening does.
 
 ``quantize_pack_segments`` packs a whole linear, or an [S, K, N] stack of
 slices (an expert bank), into its [K4|K2|K1] segments in one launch,
@@ -31,18 +33,25 @@ PRECISIONS = (4, 2, 1)          # segment order of the carriers
 LAUNCHES: Dict[str, int] = {"quantize_pack": 0}
 
 
+# The C entry of each weight dtype the kernel reads.
+ENTRIES = {torch.float32: "soniq_quant_pack_segments",
+           torch.bfloat16: "soniq_quant_pack_segments_bf16"}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = lib.soniq_quant_pack_segments
-    fn.argtypes = [ptr, ctypes.c_longlong, i32, ptr, ptr, ptr, ptr, ptr,
-                   i32, i32, i32, i32, i32, i32, ptr]
-    fn.restype = i32
+    for name in ENTRIES.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ctypes.c_longlong, i32, ptr, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
 
 
 def quantize_pack_plain(w: torch.Tensor, scales: Optional[torch.Tensor] = None,
                         *, p: int, group_size: int = GROUP_SIZE
                         ) -> torch.Tensor:
-    """Plain version: divide by the group scales, round to codes, pack."""
+    """Plain version: widen to fp32, divide by the group scales, round to
+    codes, pack."""
     k = w.shape[0]
     ws = w.float()
     if scales is not None:
@@ -109,9 +118,10 @@ def quantize_pack_segments(w: torch.Tensor,
                            group_size: int = GROUP_SIZE,
                            out: Optional[Sequence[torch.Tensor]] = None
                            ) -> Tuple[torch.Tensor, ...]:
-    """B7 over a whole linear: w [K, N] (or [S, K, N]) fp32 -> the
-    carriers (w4, w2, w1) uint8 [Kp * p // 8, N] (or [S, ...]) of the
-    ``segments`` (K4, K2, K1). Sorted row k of slice s is w's row
+    """B7 over a whole linear: w [K, N] (or [S, K, N]) fp32 or bf16 (read
+    as it is stored, widened in the kernel) -> the carriers (w4, w2, w1)
+    uint8 [Kp * p // 8, N] (or [S, ...]) of the ``segments`` (K4, K2,
+    K1). Sorted row k of slice s is w's row
     ``perm[s, k]`` (int32 [S, K]; None: row k), divided by
     ``scales[s, k // group_size]`` (fp32 [S, K // G], in sorted order;
     None: no division). ``out``: the three contiguous carriers to write
@@ -132,8 +142,9 @@ def quantize_pack_segments(w: torch.Tensor,
                                              for o, g in zip(out, got))
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
-    if w.dtype != torch.float32 or w.stride(-1) != 1:
-        raise ValueError("w must be fp32 with contiguous rows")
+    if w.dtype not in ENTRIES or w.stride(-1) != 1:
+        raise ValueError(f"w must be fp32 or bf16 with contiguous rows, got "
+                         f"{w.dtype}")
     for t in (perm, scales):
         if t is not None and not t.is_contiguous():
             raise ValueError("perm and scales must be contiguous")
@@ -143,22 +154,23 @@ def quantize_pack_segments(w: torch.Tensor,
     if w.numel() == 0:
         return outs
     lib = _build.library(SOURCE, _bind)
+    entry = ENTRIES[w.dtype]
     code = _build.launch(
-        w.device, lib.soniq_quant_pack_segments, w.data_ptr(),
+        w.device, getattr(lib, entry), w.data_ptr(),
         w.stride(0) if lead else 0, w.stride(-2) if k > 1 else n,
         None if perm is None else perm.data_ptr(),
         None if scales is None else scales.data_ptr(),
         *(o.data_ptr() if o.numel() else None for o in outs), *segments, n,
         s, group_size)
-    _build.check(code, "soniq_quant_pack_segments")
+    _build.check(code, entry)
     LAUNCHES["quantize_pack"] += 1
     return outs
 
 
 def quantize_pack(w: torch.Tensor, scales: Optional[torch.Tensor] = None, *,
                   p: int, group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """w [K, N] fp32 -> uint8 [K*p//8, N] SMOL codes (packed along K): the
-    one-segment, identity-permutation case of
+    """w [K, N] fp32 or bf16 -> uint8 [K*p//8, N] SMOL codes (packed along
+    K): the one-segment, identity-permutation case of
     :func:`quantize_pack_segments`."""
     if w.dim() != 2:
         raise ValueError(f"w must be 2-D, got {tuple(w.shape)}")

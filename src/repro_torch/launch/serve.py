@@ -4,6 +4,8 @@ a request queue, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b
 
@@ -15,8 +17,9 @@ synthetic workload through the continuous-batching ``DecodeEngine``.
 keeps the KV cache as packed 4-bit codes, and ``--kv-layout paged`` (with
 ``--page-size``) in a page pool shared by prompt prefixes; an SSM arch
 keeps its recurrent state instead (the KV options do not apply to it)
-and reports that state's bytes. An encoder-decoder serves as the
-reference's launcher serves it: with no frames, its decoder attends the
+and reports that state's bytes; the hybrid keeps both (the KV options
+apply to its attention sublayers) and reports both. An encoder-decoder
+serves as the reference's launcher serves it: with no frames, its decoder attends the
 zero cross K/V of a fresh cache (``DecodeEngine.load_cross`` installs an
 encoder's); the VLM serves text requests, as the reference's launcher
 does (image and video prompts go through ``soniq.apply(embeds=,
@@ -104,16 +107,16 @@ def main(argv=None):
                                kv_layout=args.kv_layout,
                                page_size=args.page_size)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    ssm = lm.serve_capabilities(cfg).state == "ssm"
-    if ssm:
-        state = (f"ssm state: h fp32 + conv window "
+    kind = lm.serve_capabilities(cfg).state
+    ssm_state = (f"ssm state: h fp32 + conv window "
                  f"{engine.EngineConfig.cache_dtype}")
-    else:
-        state = (f"kv cache: "
-                 f"{'fp' if args.kv_bits is None else f'q{args.kv_bits}'}, "
-                 f"layout: {args.kv_layout}"
-                 + (f" (page_size {args.page_size})"
-                    if args.kv_layout == "paged" else ""))
+    kv_state = (f"kv cache: "
+                f"{'fp' if args.kv_bits is None else f'q{args.kv_bits}'}, "
+                f"layout: {args.kv_layout}"
+                + (f" (page_size {args.page_size})"
+                   if args.kv_layout == "paged" else ""))
+    state = {"ssm": ssm_state, "kv": kv_state}.get(
+        kind, f"{kv_state}; {ssm_state}")
     print(f"device: {name}, arch {cfg.name}, {cfg.num_layers} layers; "
           f"{state}")
     rng = np.random.default_rng(args.seed)
@@ -156,10 +159,10 @@ def main(argv=None):
     print(f"[continuous] {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s, {eng.sched.step_count} engine "
           f"steps, max_batch {args.max_batch})")
-    if ssm:
+    if kind != "kv":
         print(f"[ssm-state] {lm.seq_state_bytes(eng.cache):,} bytes "
               f"resident at max_batch {args.max_batch}")
-    elif args.kv_layout == "paged":
+    if kind != "ssm" and args.kv_layout == "paged":
         st = eng.paged_kv_stats()
         eng.pool.check()
         print(f"[paged-kv] {st['num_pages']} pages x {st['page_size']} "

@@ -1,15 +1,20 @@
 """Block assembly: the dense ``attn_mlp`` kind, the MoE ``attn_moe``
-kind, the SSM ``mamba`` kind (an RMS-normed Mamba2 mixer, no FFN) and the
-encoder-decoder's ``enc`` (bidirectional self-attention and the MLP) and
-``dec`` (causal self-attention, cross attention over the encoder's
-output, the MLP). Counterpart of ``repro.models.blocks``: the
-full-sequence forward (``block_apply``) and the decode step over the
-layer's cache (KV for attention, the recurrent state for the mixer; a
-``dec`` layer also reads its cross K/V); the other kinds arrive with their
-families. Norms are RMSNorm or LayerNorm as ``cfg.norm`` says; the
-encoder-decoder family has no rotary encoding (sinusoids are added to its
-embeddings). As in the reference, every ``attn_mlp`` layer is
-``cfg.d_ff`` wide (the reference's plan never selects ``dense_d_ff``)."""
+kind, the SSM ``mamba`` kind (an RMS-normed Mamba2 mixer, no FFN), the
+hybrid's ``mamba_mlp`` and ``mamba_moe`` kinds (a Mamba2 mixer, then the
+MLP or the MoE; a hybrid unit's attention sublayer is an ``attn_mlp`` or
+``attn_moe``), and the encoder-decoder's ``enc`` (bidirectional
+self-attention and the MLP) and ``dec`` (causal self-attention, cross
+attention over the encoder's output, the MLP). A kind is a mixer
+(:func:`mixer_of`) and an FFN (:func:`ffn_of`). Counterpart of
+``repro.models.blocks``: the full-sequence forward (``block_apply``) and
+the decode step over the layer's cache (KV for attention, the recurrent
+state for the mixer; a ``dec`` layer also reads its cross K/V). The
+reference nests a hybrid unit's sublayers (``sub0`` .. ``sub7``); the
+port's model lists them flat (``models/lm.py``). Norms are RMSNorm or
+LayerNorm as ``cfg.norm`` says; the encoder-decoder family has no rotary
+encoding (sinusoids are added to its embeddings). As in the reference,
+every ``attn_mlp`` layer is ``cfg.d_ff`` wide (the reference's plan never
+selects ``dense_d_ff``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -23,9 +28,10 @@ from . import attention
 from . import mlp as mlp_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .common import RMSNorm, norm_init, norm_module, rms_norm_init
+from .common import norm_init, norm_module
 
-KINDS = ("attn_mlp", "attn_moe", "mamba", "enc", "dec")
+KINDS = ("attn_mlp", "attn_moe", "mamba", "mamba_mlp", "mamba_moe", "enc",
+         "dec")
 
 
 def _check_kind(kind: str) -> None:
@@ -33,6 +39,18 @@ def _check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} belongs to a later port slice (the port "
             f"serves {KINDS} so far)")
+
+
+def mixer_of(kind: str) -> str:
+    """The kind's sequence mixer: "mamba" or "attn"."""
+    return "mamba" if kind.startswith("mamba") else "attn"
+
+
+def ffn_of(kind: str) -> Optional[str]:
+    """The kind's feed-forward: "moe", "mlp", or None (``mamba``)."""
+    if kind.endswith("moe"):
+        return "moe"
+    return None if kind == "mamba" else "mlp"
 
 
 def uses_rope(cfg) -> bool:
@@ -45,11 +63,6 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
                device) -> Dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
-    if kind == "mamba":
-        return {"ln_mixer": rms_norm_init(cfg.d_model, device=device),
-                "mamba": ssm_lib.mamba2_init(
-                    cfg.d_model, cfg.ssm_state, qcfg, generator=generator,
-                    device=device, expand=cfg.ssm_expand, dtype=dt)}
 
     def attn():
         return attention.attn_init(
@@ -57,17 +70,27 @@ def block_init(kind: str, cfg, qcfg: QuantConfig, *, generator,
             generator=generator, device=device, use_bias=cfg.attn_bias,
             dtype=dt)
 
-    p = {"ln_attn": norm_init(cfg, device=device), "attn": attn()}
+    p: Dict = {}
+    if mixer_of(kind) == "attn":
+        p["ln_attn"] = norm_init(cfg, device=device)
+        p["attn"] = attn()
     if kind == "dec":
         p["ln_cross"] = norm_init(cfg, device=device)
         p["cross"] = attn()
-    p["ln_ffn"] = norm_init(cfg, device=device)
-    if kind == "attn_moe":
+    if mixer_of(kind) == "mamba":
+        p["ln_mixer"] = norm_init(cfg, device=device)
+        p["mamba"] = ssm_lib.mamba2_init(
+            cfg.d_model, cfg.ssm_state, qcfg, generator=generator,
+            device=device, expand=cfg.ssm_expand, dtype=dt)
+    ffn = ffn_of(kind)
+    if ffn is not None:
+        p["ln_ffn"] = norm_init(cfg, device=device)
+    if ffn == "moe":
         p["moe"] = moe_lib.moe_init(
             cfg.d_model, cfg.d_ff, cfg.num_experts, qcfg,
             generator=generator, device=device,
             num_shared=cfg.num_shared_experts, act=cfg.mlp_act, dtype=dt)
-    else:
+    elif ffn == "mlp":
         p["mlp"] = mlp_lib.mlp_init(
             cfg.d_model, cfg.d_ff, qcfg, generator=generator, device=device,
             act=cfg.mlp_act, use_bias=cfg.attn_bias, dtype=dt)
@@ -79,7 +102,7 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
                      kv_bits: Optional[int] = None, kv_layout: str = "ring",
                      page_size: int = 16, num_pages: Optional[int] = None,
                      page_table: Optional[torch.Tensor] = None) -> Dict:
-    """Cache of one layer: the recurrent state of a ``mamba`` layer
+    """Cache of one layer: the recurrent state of a Mamba2 mixer
     (``{"ssm": {"h", "conv"}}``: h fp32, the conv window in ``dtype``; the
     KV options do not apply, the state stays fp as in the reference,
     DESIGN.md §5), else the KV cache. The ring length is ``cache_len``
@@ -96,7 +119,7 @@ def block_cache_init(kind: str, cfg, batch: int, cache_len: int,
     if kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r} (expected "
                          f"'ring' or 'paged')")
-    if kind == "mamba":
+    if mixer_of(kind) == "mamba":
         return {"ssm": ssm_lib.init_ssm_cache(
             batch, cfg.d_model, cfg.ssm_state, expand=cfg.ssm_expand,
             dtype=dtype, device=device)}
@@ -126,34 +149,37 @@ class Block(nn.Module):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
-        if kind == "mamba":
-            self.ln_mixer = RMSNorm(tree["ln_mixer"])
-            self.mamba = ssm_lib.Mamba2(tree["mamba"])
-            return
-        self.ln_attn = norm_module(tree["ln_attn"])
-        self.attn = attention.Attention(tree["attn"])
+        self.mixer, self.ffn = mixer_of(kind), ffn_of(kind)
+        if self.mixer == "attn":
+            self.ln_attn = norm_module(tree["ln_attn"])
+            self.attn = attention.Attention(tree["attn"])
         if kind == "dec":
             self.ln_cross = norm_module(tree["ln_cross"])
             self.cross = attention.Attention(tree["cross"])
-        self.ln_ffn = norm_module(tree["ln_ffn"])
-        if kind == "attn_moe":
+        if self.mixer == "mamba":
+            self.ln_mixer = norm_module(tree["ln_mixer"])
+            self.mamba = ssm_lib.Mamba2(tree["mamba"])
+        if self.ffn is not None:
+            self.ln_ffn = norm_module(tree["ln_ffn"])
+        if self.ffn == "moe":
             self.moe = moe_lib.MoE(tree["moe"], act=act)
-        else:
+        elif self.ffn == "mlp":
             self.mlp = mlp_lib.MLP(tree["mlp"], act=act)
 
     def tree(self) -> Dict:
-        if self.kind == "mamba":
-            return {"ln_mixer": self.ln_mixer.tree(),
-                    "mamba": self.mamba.tree()}
-        out = {"ln_attn": self.ln_attn.tree(), "attn": self.attn.tree()}
+        out = {}
+        if self.mixer == "attn":
+            out["ln_attn"] = self.ln_attn.tree()
+            out["attn"] = self.attn.tree()
         if self.kind == "dec":
             out["ln_cross"] = self.ln_cross.tree()
             out["cross"] = self.cross.tree()
-        out["ln_ffn"] = self.ln_ffn.tree()
-        if self.kind == "attn_moe":
-            out["moe"] = self.moe.tree()
-        else:
-            out["mlp"] = self.mlp.tree()
+        if self.mixer == "mamba":
+            out["ln_mixer"] = self.ln_mixer.tree()
+            out["mamba"] = self.mamba.tree()
+        if self.ffn is not None:
+            out["ln_ffn"] = self.ln_ffn.tree()
+            out[self.ffn] = getattr(self, self.ffn).tree()
         return out
 
 
@@ -161,11 +187,21 @@ def _ffn(block: Block, h: torch.Tensor, cfg, qcfg: QuantConfig,
          noise=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's feed-forward and its MoE load-balancing loss (None for
     a dense block and in serving)."""
-    if block.kind == "attn_moe":
+    if block.ffn == "moe":
         return moe_lib.moe_apply(block.moe, h, qcfg,
                                  num_experts=cfg.num_experts,
                                  top_k=cfg.top_k, noise=noise)
     return block.mlp(h, qcfg, noise), None
+
+
+def _ffn_residual(block: Block, x: torch.Tensor, cfg, qcfg: QuantConfig,
+                  noise=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x plus the block's pre-normed FFN (x itself for a ``mamba``
+    block), and the MoE loss or None."""
+    if block.ffn is None:
+        return x, None
+    y, aux = _ffn(block, block.ln_ffn(x, cfg.norm_eps), cfg, qcfg, noise)
+    return x + y, aux
 
 
 def _attn_kwargs(cfg, qcfg: QuantConfig) -> Dict:
@@ -180,11 +216,12 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
     encoder's blocks; a ``dec`` block attends ``cross_x``, the encoder's
     output). ``positions`` [B, S], or the VLM's [3, B, S] streams. Returns
     (x, the MoE load-balancing loss or None)."""
-    if block.kind == "mamba":
+    if block.mixer == "mamba":
         h = block.ln_mixer(x, cfg.norm_eps)
-        return x + ssm_lib.mamba2_apply(
+        x = x + ssm_lib.mamba2_apply(
             block.mamba, h, qcfg, noise, d_state=cfg.ssm_state,
-            expand=cfg.ssm_expand, chunk=cfg.ssm_chunk), None
+            expand=cfg.ssm_expand, chunk=cfg.ssm_chunk)
+        return _ffn_residual(block, x, cfg, qcfg, noise)
     kw = dict(_attn_kwargs(cfg, qcfg), noise=noise,
               rope_theta=cfg.rope_theta,
               mrope_sections=cfg.mrope_sections, window=cfg.window,
@@ -196,9 +233,7 @@ def block_apply(block: Block, x: torch.Tensor, positions: torch.Tensor, cfg,
         h = block.ln_cross(x, cfg.norm_eps)
         x = x + attention.attn_apply(block.cross, h, positions,
                                      cross_x=cross_x, **kw)
-    h = block.ln_ffn(x, cfg.norm_eps)
-    y, aux = _ffn(block, h, cfg, qcfg, noise)
-    return x + y, aux
+    return _ffn_residual(block, x, cfg, qcfg, noise)
 
 
 def block_decode(block: Block, x: torch.Tensor, cache: Dict,
@@ -206,13 +241,13 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
                  write, cross_kv: Optional[Dict] = None) -> torch.Tensor:
     """Pre-norm residual block over an S-token chunk at positions ``pos``
     [B, S] (< 0: a masked lane); updates the layer's cache in place. A
-    ``mamba`` layer dispatches as the reference does: S > 1 through the
+    Mamba2 mixer dispatches as the reference does: S > 1 through the
     chunked prefill (its padding lanes state-neutral), S = 1 through the
     O(1) decode, which advances every row; ``rope`` and ``write`` are the
     attention's and unused there. A ``dec`` layer attends its cross K/V
     ``cross_kv`` (one layer's slice of the cache's ``cross`` subtree)
     after its self-attention."""
-    if block.kind == "mamba":
+    if block.mixer == "mamba":
         h = block.ln_mixer(x, cfg.norm_eps)
         kw = dict(d_state=cfg.ssm_state, expand=cfg.ssm_expand)
         if x.shape[1] > 1:
@@ -221,7 +256,7 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
         else:
             y = ssm_lib.mamba2_decode(block.mamba, h, cache["ssm"], qcfg,
                                       **kw)
-        return x + y
+        return _ffn_residual(block, x + y, cfg, qcfg)[0]
     h = block.ln_attn(x, cfg.norm_eps)
     x = x + attention.attn_decode(
         block.attn, h, cache["kv"], pos, rope=rope, write=write,
@@ -230,5 +265,4 @@ def block_decode(block: Block, x: torch.Tensor, cache: Dict,
         h = block.ln_cross(x, cfg.norm_eps)
         x = x + attention.cross_attn_decode(block.cross, h, cross_kv,
                                             **_attn_kwargs(cfg, qcfg))
-    h = block.ln_ffn(x, cfg.norm_eps)
-    return x + _ffn(block, h, cfg, qcfg)[0]
+    return _ffn_residual(block, x, cfg, qcfg)[0]

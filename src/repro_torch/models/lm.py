@@ -9,7 +9,11 @@ sinusoids to the decoder's embeddings in every step. The VLM (qwen2-vl)
 takes its patch and text embeddings precomputed (``forward(embeds=)``,
 the vision tower a stub as in the reference) and M-RoPE's [3, B, S]
 position streams in the full-sequence forward; its serve steps take
-[B, S] positions, which M-RoPE reduces to RoPE.
+[B, S] positions, which M-RoPE reduces to RoPE. The hybrid (jamba) lists
+each unit's ``attn_every`` sublayers as blocks of their own
+(:func:`block_kinds`): block ``u * attn_every + i`` is the reference's
+``groups[0]["sub{i}"]`` of unit u, so every loop over blocks and cache
+layers walks the sublayers, and only the attention sublayer holds K/V.
 
 The model state is an :class:`LM` module; its ``tree()`` is the nested
 dict of tensors the transforms and the weight bridge speak (per-layer
@@ -59,8 +63,7 @@ class LM(nn.Module):
         self.final_norm = norm_module(tree["final_norm"])
         self.lm_head = None if cfg.tie_embeddings else \
             smol.SmolLinear(tree["lm_head"])
-        kinds = [kind for kind, count in cfg.layer_plan()
-                 for _ in range(count)]
+        kinds = block_kinds(cfg)
         if len(kinds) != len(tree["blocks"]):
             raise ValueError(f"{len(tree['blocks'])} blocks for a plan of "
                              f"{len(kinds)} layers")
@@ -97,6 +100,16 @@ class LM(nn.Module):
         return self.embed.table.device
 
 
+def block_kinds(cfg) -> list:
+    """The kind of every block of the plan, in order: a hybrid unit
+    expands into its sublayers' kinds (``cfg.hybrid_unit_kinds()``)."""
+    out = []
+    for kind, count in cfg.layer_plan():
+        sub = cfg.hybrid_unit_kinds() if kind == "hybrid_unit" else (kind,)
+        out.extend(sub * count)
+    return out
+
+
 def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
     """Random model in the phase ``cfg.quant.mode`` selects (NOISE to
     start training, QAT for serving: the engine packs it), drawn from a
@@ -117,8 +130,7 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> LM:
             quantized=False, dtype=dt)
     tree["blocks"] = [blocks.block_init(kind, cfg, qcfg, generator=gen,
                                         device=dev)
-                      for kind, count in cfg.layer_plan()
-                      for _ in range(count)]
+                      for kind in block_kinds(cfg)]
     if cfg.encoder_layers:
         tree["enc_blocks"] = [blocks.block_init("enc", cfg, qcfg,
                                                 generator=gen, device=dev)
@@ -135,8 +147,9 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                kv_layout: str = "ring", page_size: int = 16,
                num_pages: Optional[int] = None, enc_len: int = 0) -> Dict:
     """Decode cache, ``{"layers": [{"kv": {...}}]}`` with one dict per
-    layer (a ``mamba`` layer holds ``{"ssm": {"h", "conv"}}`` instead: the
-    KV options do not apply to it). ``kv_bits=None`` keeps fp rings in
+    block (a Mamba2 mixer's holds ``{"ssm": {"h", "conv"}}`` instead: the
+    KV options do not apply to it; in a hybrid, only the attention
+    sublayers hold K/V). ``kv_bits=None`` keeps fp rings in
     ``dtype``; 4 selects the packed 4-bit family (``serve/kv_quant.py``,
     attention through kernel B4). ``kv_layout="paged"`` swaps the
     per-slot rings for a page pool per layer (``serve/kv_pool.py``;
@@ -156,13 +169,12 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     dev = resolve_device(device)
     layers = []
     table = None
-    for kind, count in cfg.layer_plan():
-        for _ in range(count):
-            layers.append(blocks.block_cache_init(
-                kind, cfg, batch, cache_len, dtype, device=dev,
-                kv_bits=kv_bits, kv_layout=kv_layout, page_size=page_size,
-                num_pages=num_pages, page_table=table))
-            table = layers[-1].get("kv", {}).get("page_table")
+    for kind in block_kinds(cfg):
+        layers.append(blocks.block_cache_init(
+            kind, cfg, batch, cache_len, dtype, device=dev,
+            kv_bits=kv_bits, kv_layout=kv_layout, page_size=page_size,
+            num_pages=num_pages, page_table=table))
+        table = layers[-1].get("kv", {}).get("page_table", table)
     cache: Dict = {"layers": layers}
     if cfg.encoder_layers:
         t = enc_len or ENC_LEN
@@ -227,8 +239,7 @@ def cross_kv_of(cache: Dict, layer: int) -> Optional[Dict]:
 def has_attention(cfg) -> bool:
     """Whether the plan holds an attention layer (a KV write index, and
     RoPE tables where the family takes them, are built only then)."""
-    return any("attn" in kind or kind in ("dec", "enc")
-               for kind, _ in cfg.layer_plan())
+    return any(blocks.mixer_of(kind) == "attn" for kind in block_kinds(cfg))
 
 
 def _rope(cfg, positions: torch.Tensor):
@@ -495,18 +506,15 @@ class ServeCaps:
 
 def serve_capabilities(cfg) -> ServeCaps:
     """The capability descriptor of an arch config, as the reference
-    derives it from the layer plan. The hybrid family (attention beside
-    recurrent state) is not ported yet, so it stays refused."""
+    derives it from the layer plan: every family is chunkable and
+    spec-capable; recurrent state (the SSM and the hybrid) takes the
+    snapshot/recommit flavour of speculation."""
     kinds = [kind for kind, _ in cfg.layer_plan()]
     has_ssm = any("mamba" in k or k.startswith("hybrid") for k in kinds)
     has_attn = bool(cfg.encoder_layers) or any(
         "attn" in k or k in ("dec", "enc") or k.startswith("hybrid")
         for k in kinds)
     state = "kv" if not has_ssm else ("hybrid" if has_attn else "ssm")
-    if state == "hybrid":
-        return ServeCaps(family=cfg.family, spec_capable=False, state=state,
-                         note="the hybrid family (attention beside "
-                              "recurrent state) is not ported yet")
     return ServeCaps(family=cfg.family, state=state)
 
 

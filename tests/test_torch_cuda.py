@@ -118,6 +118,35 @@ def test_quantize_pack_segments_scalar_path(dev, scaled, mix, unaligned):
         assert torch.equal(a, b[1])
 
 
+@pytest.mark.parametrize("shape", [(2560, 640), (64, 1408, 2048),
+                                   (3, 48, 13), (3, 64, 20), (8192, 33280)])
+@pytest.mark.parametrize("scaled", [True, False])
+def test_quantize_pack_segments_on_bf16(dev, shape, scaled):
+    """B7 on a bf16 weight (the hybrid's parameters), read as it is stored:
+    bitwise its plain version and bitwise the fp32 launch on the widened
+    weight, one launch; N % 4 != 0 (13) and an unaligned view take the
+    scalar body, N = 20 the vector body with a partial column tile;
+    (8192, 33280) is jamba-1.5-large-398b's in_proj."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + scaled)
+    w, perm, sc, segs = _pack_operands(shape, g, dev)
+    w = w.bfloat16()
+    sc = sc if scaled else None
+    views = [w]
+    if shape[-1] == 13:
+        store = torch.empty(w.numel() + 1, dtype=torch.bfloat16, device=dev)
+        store[1:] = w.reshape(-1)
+        views.append(store[1:].view(w.shape))
+    for wv in views:
+        kernels.reset_launch_counts()
+        got = qp.quantize_pack_segments(wv, perm, sc, segments=segs)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["quantize_pack"] == 1
+        wide = qp.quantize_pack_segments(w.float(), perm, sc, segments=segs)
+        plain = qp.quantize_pack_segments_plain(wv, perm, sc, segments=segs)
+        for a, b, c in zip(got, wide, plain):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_convert_tree_on_the_card_equals_the_cpu():
     """Deploy packing of a reduced deepseek-moe-16b (attention, dense and
     shared MLPs, [E, K, N] banks) on the card: every serve leaf bitwise

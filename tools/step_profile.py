@@ -11,6 +11,8 @@ load (deploy packing), split by the torch op or kernel that did the work
 
 An SSM training step installs ``SSM_TRAIN_SPANS`` and reads
 ``ssm_train_summary`` (the chunked SSD's forward and backward apart); the
+hybrid's serve steps install ``HYBRID_SPANS`` and read ``hybrid_summary``
+(the hand-written kernels apart, B6 from B1 by the range around it); the
 encoder-decoder's encode pass and serve steps install ``WHISPER_SPANS``,
 its training steps ``WHISPER_TRAIN_SPANS`` with ``whisper_train_summary``
 (the float64 attention, the LayerNorms and the GELU, each forward and
@@ -95,6 +97,25 @@ VLM_SPANS = (
     ("repro_torch.models.attention", "sdpa", "attention"),
     ("repro_torch.models.common", "rms_norm", "rms_norm"),
     ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
+    ("repro_torch.models.lm", "logits", "readout"),
+)
+# A serve step of the hybrid (``HYBRID_SPANS``, ``hybrid_summary``): the
+# mixers' plain ops and their chunked SSD scan (``SSM_SPANS``'), the
+# attention sublayer's plain ops (RoPE, the K/V write, the float64 or
+# 4-bit attention), the MoE's routing, dispatch and combine
+# (``moe_routing``), the expert banks' driver (``serve_bank``: B8 over the
+# dispatch buffer, then B6), the serve linears' driver around B1, the RMS
+# norms (the blocks' and the mixers' gate norm) and the readout; what
+# they leave (the embedding, SwiGLU, residual adds) is ``rest``.
+HYBRID_SPANS = (
+    ("repro_torch.models.ssm", "mamba2_decode", "mixer"),
+    ("repro_torch.models.ssm", "mamba2_prefill", "mixer"),
+    ("repro_torch.models.ssm", "ssd_chunked", "ssd"),
+    ("repro_torch.models.attention", "attn_decode", "attention"),
+    ("repro_torch.models.moe", "moe_apply", "moe_routing"),
+    ("repro_torch.backend.base", "packed_matmul_grouped", "serve_bank"),
+    ("repro_torch.backend.base", "packed_matmul", "serve_linear"),
+    ("repro_torch.models.common", "rms_norm", "rms_norm"),
     ("repro_torch.models.lm", "logits", "readout"),
 )
 # A training step of the SSM (``ssm_train_summary``): the training spans
@@ -305,6 +326,57 @@ def whisper_train_summary(prof) -> Dict:
     ``gelu_ms``, ``gelu_bwd_ms``; ``fp32_gemm_ms`` the linears' GEMMs and
     the readout; ``rest_ms`` the rest (``_summary_apart``)."""
     return _summary_apart(prof, ("attention", "layer_norm", "gelu"))
+
+
+def _serve_kernel(name: str) -> str:
+    """A serve step's kernel by what it is: the segment GEMM (B1 or B6),
+    B8, B4/B5, or a plain op."""
+    for key, kind in (("segment_gemm", "segment_gemm"),
+                      ("fake_quant_kernel", "B8"), ("attn_kernel", "B4/B5")):
+        if key in name:
+            return kind
+    return "plain"
+
+
+def hybrid_summary(prof, host_ms: float) -> Dict:
+    """A hybrid serve step profiled under ``HYBRID_SPANS`` beside its
+    host-clock ms unprofiled: kernels, busy ms, idle share (1 - busy /
+    host ms), the hand-written kernels' ms (B1, B6, B8, B4/B5), the plain
+    ops' ms by the op that launched them, and the plain ops the profiler
+    left unlinked to an op. The ranges' own device spans (``soniq::*``)
+    are not kernels. The hand-written kernels launch through
+    ctypes, so the profiler links them to no op: they are told apart by
+    name and, in device order, a segment GEMM whose last hand-written
+    predecessor is B8 is B6 (the grouped driver's B8 over the dispatch
+    buffer, then its GEMM; the serve linears fuse their quantization
+    into B1)."""
+    dev = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.name.startswith(("ProfilerStep", PREFIX))),
+                 key=lambda e: e.time_range.start)
+    hand = {"B1": 0.0, "B6": 0.0, "B8": 0.0, "B4/B5": 0.0}
+    busy, last = 0.0, None
+    for e in dev:
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        kind = _serve_kernel(e.name)
+        if kind == "segment_gemm":
+            kind = "B6" if last == "B8" else "B1"
+        if kind != "plain":
+            hand[kind] += ms
+            last = kind
+    plain: Dict[str, float] = defaultdict(float)
+    for (label, kind), ms in kernel_split(prof.events(),
+                                          _serve_kernel).items():
+        if kind == "plain":
+            plain[label] += ms
+    linked = sum(hand.values()) + sum(plain.values())
+    return {"host_ms": host_ms, "kernels": len(dev),
+            "device_busy_ms": busy, "idle_share": 1 - busy / host_ms,
+            "kernel_ms": {k: round(v, 3) for k, v in hand.items()},
+            "plain_by_op_ms": {k: round(v, 3) for k, v in sorted(
+                plain.items(), key=lambda kv: -kv[1])},
+            "unlinked_plain_ms": round(busy - linked, 3)}
 
 
 def device_busy(prof) -> Dict:
