@@ -61,7 +61,7 @@ Phases (none catches an error; any failure exits non-zero):
      both rulers). The verify step: at S = 4, each lane of B4 and B5
      bitwise the S = 1 call at its position, at G = 4, 1 and 9.
   4. Serve: DecodeEngine on full-width h2o-danube-1.8b cut to
-     SERVE_LAYERS = 8 of its 24 layers (random weights from a seed,
+     SERVE_LAYERS = 4 of its 24 layers (random weights from a seed,
      default mix), fp ring KV cache, greedy; packing and serving must go
      through quantize_pack and the driver-scale segment GEMM, one launch
      a linear (56 B7 launches at load, 56 B1 a decode step); the load's pack_s, device busy, device events, idle
@@ -182,7 +182,7 @@ Phases (none catches an error; any failure exits non-zero):
      teacher-forced in NOISE and QAT: y, dx, dw, ds within relative L2
      1e-5.
  16. Training, the rest: (a) full-width h2o-danube-1.8b cut to
-     REST_LAYERS = 4 of its 24 layers (so phases 19 to 22 fit the time
+     REST_LAYERS = 2 of its 24 layers (so phases 19 to 24 fit the time
      limit), every linear's logits drawn over the 4/2/1-bit bands of the
      default mix,
      through 3 Phase-I and 3 Phase-II steps at 2 microbatches on phase
@@ -225,7 +225,7 @@ Phases (none catches an error; any failure exits non-zero):
      subprocesses started together (quickstart --steps 200,
      serve_quantized --steps 10, train_lm_soniq --preset 100m --steps 4),
      each timed from their start; each must exit 0. The ``soniq`` JSON line.
- 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 8
+ 18. SSM serve: mamba2-2.7b at full width, cut to SSM_SERVE_LAYERS = 4
      of its 64 layers (so the script stays inside its time limit; phase
      19(d) runs all 64) (d_model
      2560, 80 SSD heads of 64, state 128, ssm_chunk 256; random QAT
@@ -263,10 +263,10 @@ Phases (none catches an error; any failure exits non-zero):
      [8 * 128, K] bf16) against their plain versions as in phase 7
      (forward, dw and dx bitwise, ds within its bound), one layer's calls
      timed on both rulers (``ssm_train_*`` keys). (b) SSM_TRAIN_LAYERS =
-     8 layers, the logits drawn over the 4/2/1-bit bands, through 3
+     4 layers, the logits drawn over the 4/2/1-bit bands, through 3
      Phase-I steps, the freeze and 3 Phase-II steps on TokenStream(batch
-     8, seq 128, seed 0): every step's launches asserted (32 B9 and 16
-     B9 backward a Phase-I step, 64 B8 and 32 B8 backward a Phase-II
+     8, seq 128, seed 0): every step's launches asserted (16 B9 and 8
+     B9 backward a Phase-I step, 32 B8 and 16 B8 backward a Phase-II
      step: each block is recomputed), peak memory, a device profile of
      steps 2 and 5 (busy, fp32 GEMMs, B8/B9 and their backward, the
      chunked SSD's forward and backward apart, the rest); a second run
@@ -280,7 +280,7 @@ Phases (none catches an error; any failure exits non-zero):
      freeze and one Phase-II step (launches asserted), each step's peak
      memory under the card's. The ``ssm_training`` JSON line.
  20. Encoder-decoder serve: whisper-medium at full width, cut to
-     WHISPER_SERVE_LAYERS = 12 of its 24 encoder and 24 decoder layers
+     WHISPER_SERVE_LAYERS = 6 of its 24 encoder and 24 decoder layers
      (d_model 1024, 16 heads of 64, d_ff 4096, GELU, LayerNorm, tied
      vocab 51865; random QAT weights of the seed, bf16 compute). (a) B1
      at the encoder's six linears at M = 4 x
@@ -312,7 +312,7 @@ Phases (none catches an error; any failure exits non-zero):
      ``python3 chip_smoke.py --only 20`` builds the kernels and runs this
      phase alone.
  21. Encoder-decoder training: whisper-medium at full width, cut to
-     WHISPER_TRAIN_LAYERS = 12 + 12 of its 24 + 24 layers (fp32
+     WHISPER_TRAIN_LAYERS = 6 + 6 of its 24 + 24 layers (fp32
      parameters, bf16 compute), batches of
      TokenStream(batch 8, seq 128, seed 0) with mel frames [8, 1500, 80]
      fp32 from ``default_rng(SEED)``. (a) B9, B8 and both backward
@@ -329,7 +329,7 @@ Phases (none catches an error; any failure exits non-zero):
      B8/B9, their backward kernels, the float64 attention, the LayerNorms
      and the GELU (forward with the recompute, and backward) and the rest
      (``step_profile.WHISPER_TRAIN_SPANS``, ``whisper_train_summary``) at
-     2 + 2 layers (a profile of every host op at 12 + 12 reads for
+     2 + 2 layers (a profile of every host op at 6 + 6 reads for
      minutes; there the device alone: busy, kernels); the report
      in the reference's walk (the encoder first, path by path); a second
      run at 2 + 2 layers bitwise the first (losses, gradient norms,
@@ -351,10 +351,10 @@ Phases (none catches an error; any failure exits non-zero):
      torch.matmul; B7 on one layer and on the readout's shape, bitwise;
      B9, B8 and both backward kernels on one layer's training linears and
      on a weight of the readout's shape (1.246e9 elements, held band by
-     band: ``vlm_*`` keys). (b) Serve at VLM_SERVE_LAYERS = 4 of 80
-     layers: the load (28 B7 launches, ``pack_s``, peak), 8 text requests
-     over the fp ring (28 B1 a step; lockstep == continuous), the 4-bit
-     ring and pool (4 B4 / 4 B5 a step; pool == ring) and speculatively
+     band: ``vlm_*`` keys). (b) Serve at VLM_SERVE_LAYERS = 2 of 80
+     layers: the load (14 B7 launches, ``pack_s``, peak), 8 text requests
+     over the fp ring (14 B1 a step; lockstep == continuous), the 4-bit
+     ring and pool (2 B4 / 2 B5 a step; pool == ring) and speculatively
      (k = 3; tokens == spec-off). (c) ``soniq.apply`` on the packed state
      over a 2304-token multimodal prompt (text, a 4 x 16 x 16 video, text,
      a 24 x 40 image, text; embeddings bf16, M-RoPE streams [3, 1, 2304]
@@ -401,7 +401,26 @@ Phases (none catches an error; any failure exits non-zero):
      sublayer's output within relative L2 1e-5. The ``hybrid`` JSON
      line. ``python3 chip_smoke.py --only 23`` builds the kernels and
      runs this phase alone.
- 24. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
+ 24. The hybrid's training (jamba-1.5-large-398b) at its published
+     widths, cut to one unit of two sublayers (a Mamba2 mixer with the
+     dense MLP, GQA attention with the MoE) and 4 of 16 experts, bf16
+     parameters and compute, fp32 moments: B9, B8 and their backward
+     kernels at in_proj (8192 x 33280) and one bank [4, 8192, 24576] (B9
+     on the fp32 widening, B8 on the bf16 weights and on bf16
+     activations) bitwise their plain versions, timed beside the byte
+     bound and torch's ``clone``; 3 + 3 steps of ``loop.train`` through
+     the freeze, every step's launches asserted (24 B9 / 12 B9-backward
+     a Phase-I step, 48 B8 / 24 B8-backward a Phase-II step: 12
+     quantized leaves, each block recomputed), peak memory, steps 2 and
+     5 profiled by op (``step_profile.HYBRID_TRAIN_SPANS``,
+     ``hybrid_train_summary``), the freeze's report in the reference's
+     walk; a second run bitwise; ``soniq.to_serve`` (12 B7) and 4
+     requests twice, bitwise; the two sublayers card vs CPU at fp32
+     (d_ff cut to ``HYBRID_CPU_D_FF``) at NOISE and QAT, teacher-forced,
+     within relative L2 1e-5, flipped QAT activation codes counted. The
+     ``hybrid_training`` JSON line. ``python3 chip_smoke.py --only 24``
+     runs this phase alone.
+ 25. Summary: a ``kernels`` JSON line (B1-B9 and the backward passes of
      B8 and B9; the bank forms' ``bank_*`` keys on B8, B9 and the
      backward rows; the hoisted and unhoisted launches of a 2-microbatch
      Phase-II step on B8 and its backward; phase 17's launches on B1, B7,
@@ -411,12 +430,15 @@ Phases (none catches an error; any failure exits non-zero):
      on B1, B4, B5 and B7; phase 21's ``whisper_train_*`` keys on B8, B9
      and the backward rows; phase 22's ``vlm_*`` keys and launches on
      B1, B4, B5, B7, B8, B9 and the backward rows; phase 23's ``jamba_*``
-     keys and launches on B1, B4, B5, B6, B7 and B8), the ``kv4_serve``,
+     keys and launches on B1, B4, B5, B6, B7 and B8; phase 24's
+     ``jamba_train_*`` keys on B8, B9 and the backward rows), the
+     ``kv4_serve``,
      ``training``,
      ``moe_training``, ``training_rest``, ``moe_serve``, ``load``,
      ``spec_serve``, ``fp_paged_serve``, ``dense_configs``, ``soniq``,
      ``ssm_serve``, ``ssm_training``, ``whisper_serve``,
-     ``whisper_training``, ``vlm``, ``hybrid``, ``phase_seconds`` and
+     ``whisper_training``, ``vlm``, ``hybrid``, ``hybrid_training``,
+     ``phase_seconds`` and
      ``phase_cpu_seconds``
      JSON lines, the nvidia-smi line, and last the ``{"ok": true, ...}``
      line.
@@ -476,7 +498,9 @@ B8_BWD, B9_BWD = "fake_quant_bwd", "noise_inject_bwd"
 B3, B6 = "packed_segment_matmul", "packed_segment_matmul_grouped"
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCH = "starcoder2-7b"
-SERVE_LAYERS = 8             # phase 4's depth (h2o-danube-1.8b has 24)
+# Phase 4's depth (h2o-danube-1.8b has 24; 8 before PR 32, cut for phase
+# 24's time).
+SERVE_LAYERS = 4
 KV4_LAYERS = 6               # phase 6's depth (h2o-danube-1.8b has 24)
 # Phase 8's depth (phase 11's launcher runs all 24 layers).
 TRAIN_LAYERS = 8
@@ -2170,8 +2194,12 @@ def train_step_launches(cfg, phase):
     twice: Phase I one B9 a forward and one B9 backward; Phase II two B8
     (weight and activation) a forward and two B8 backward. An
     encoder-decoder counts its encoder's linears and the decoder's cross
-    attention (the frontend is an fp skip linear)."""
+    attention (the frontend is an fp skip linear); a hybrid its blocks'
+    linears and expert banks (``quantized_leaves``: a bank is one launch
+    each way)."""
     n = len(layer_linears(cfg)) * cfg.num_layers
+    if cfg.family == "hybrid":
+        n = quantized_leaves(cfg)
     if cfg.encoder_layers:
         n = (WHISPER_ENC_LINEARS * cfg.encoder_layers
              + WHISPER_DEC_LINEARS * cfg.num_layers)
@@ -2783,7 +2811,9 @@ def phase_launcher():
 
 # ----------------------------------------------------- training, the rest ----
 REST_MB = 2                  # phase 16's microbatches a step
-REST_LAYERS = 4              # phase 16(a)'s depth (h2o-danube-1.8b has 24)
+# Phase 16(a)'s depth (h2o-danube-1.8b has 24; 4 before PR 32, cut for
+# phase 24's time).
+REST_LAYERS = 2
 CKPT_LAYERS = 2              # phase 16(b)'s depth (full width)
 # The middle of each precision's band of the logit s, where p = 1 +
 # round(log2(1 + e^-s)): (-2.33, -1.54] gives 4 bits, (-0.60, 0.88] 2 and
@@ -3733,7 +3763,9 @@ def phase_dense_configs(dev, rng, spec_runs):
 # ------------------------------------------------------------- SSM serve ----
 SSM_ARCH = "mamba2-2.7b"
 SSM_LINEARS = 2                 # in_proj, out_proj: one B7 / B1 launch each
-SSM_SERVE_LAYERS = 8            # phase 18's depth (mamba2-2.7b has 64)
+# Phase 18's depth (mamba2-2.7b has 64; 8 before PR 32, cut for phase
+# 24's time).
+SSM_SERVE_LAYERS = 4
 # Phase 18(c)'s cross-form bound: teacher-forced logits of the chunked
 # steps against token-by-token decode, relative L2 at every lane.
 SSM_CROSS_FORM = 1e-2
@@ -4240,7 +4272,9 @@ def phase_ssm_serve(dev, rng, gen, results, launches, per_step):
 
 
 # ---------------------------------------------------------- SSM training ----
-SSM_TRAIN_LAYERS = 8         # phase 19(b)'s depth (mamba2-2.7b has 64)
+# Phase 19(b)'s depth (mamba2-2.7b has 64; 8 before PR 32, cut for phase
+# 24's time).
+SSM_TRAIN_LAYERS = 4
 SSM_CPU_TOKENS = 128         # phase 19(c)'s tokens a layer (1 x 128)
 
 
@@ -4502,8 +4536,9 @@ WHISPER_DEC_LINEARS = 10     # self q, k, v, o; cross q, k, v, o; up, down
 # The linears a decode step runs a decoder layer: self q, k, v, o, cross q
 # and o, up, down (the cross wk/wv run once a batch, in load_cross).
 WHISPER_STEP_LINEARS = 8
-# Phase 20's depth, encoder and decoder (whisper-medium has 24 + 24).
-WHISPER_SERVE_LAYERS = 12
+# Phase 20's depth, encoder and decoder (whisper-medium has 24 + 24; 12
+# before PR 32, cut for phase 24's time).
+WHISPER_SERVE_LAYERS = 6
 
 
 class CrossOperands(RingOperands):
@@ -4983,8 +5018,9 @@ WHISPER_CPU_FRAMES = 128     # phase 21(c)'s encoder rows a layer (1 x 128)
 WHISPER_CPU_TOKENS = 64      # phase 21(c)'s decoder tokens (1 x 64)
 # Phase 21(b)'s training run: encoder and decoder layers (whisper-medium
 # has 24 + 24), whose profile is read on the device alone; its op-split
-# profile and second run at WHISPER_PROFILE_LAYERS each.
-WHISPER_TRAIN_LAYERS = 12
+# profile and second run at WHISPER_PROFILE_LAYERS each (12 before PR 32,
+# cut for phase 24's time).
+WHISPER_TRAIN_LAYERS = 6
 WHISPER_PROFILE_LAYERS = 2
 
 
@@ -5278,7 +5314,9 @@ def phase_whisper_training(dev, gen, results, rng):
 
 # ------------------------------------------------------------------- VLM ----
 VLM_ARCH = "qwen2-vl-72b"
-VLM_SERVE_LAYERS = 4         # phase 22(b)'s depth (qwen2-vl-72b has 80)
+# Phase 22(b)'s depth (qwen2-vl-72b has 80; 4 before PR 32, cut for phase
+# 24's time).
+VLM_SERVE_LAYERS = 2
 VLM_TRAIN_LAYERS = 1         # phase 22(d)'s depth, beside the table and head
 VLM_LINEARS = 7              # q, k, v, o, gate, up, down
 # The multimodal prompt of phase 22(c), laid out as Qwen2-VL lays its
@@ -6485,10 +6523,459 @@ def phase_hybrid(dev, gen, results, launches, per_step):
     return st
 
 
+# ------------------------------------------------------- hybrid training ----
+# Phase 24's card configuration: jamba-1.5-large-398b at its published
+# widths (d_model 8192, 64 heads of 128 over 8, d_ff 24576, d_inner 16384,
+# 256 SSD heads of 64, state 128, vocab 65536 untied, bf16 parameters and
+# compute, fp32 moments), cut to one unit of two sublayers, a Mamba2 mixer
+# with the dense MLP and GQA attention with the MoE (the kinds of the
+# published unit's sublayers 2 and 3; attention 1:1 with the mixers, not
+# 1:7), and 4 of its 16 experts (the router narrowed to them, top-2 kept).
+# A whole 8-sublayer unit holds 16.15 B parameters even at 4 experts,
+# ~194 GB of training state at 12 bytes a parameter: past one card.
+HYBRID_TRAIN_CUT = dict(num_layers=2, attn_every=2, attn_offset=1,
+                        moe_every=2, num_experts=4)
+# Phase 24(d)'s FFN width (the MLP's and every expert's d_ff; the config's
+# 24576) for the card-vs-CPU check: the CPU's plain B9 over the full
+# banks would take minutes.
+HYBRID_CPU_D_FF = 1536
+
+
+def hybrid_train_cfg():
+    """jamba-1.5-large-398b at its published widths cut as
+    HYBRID_TRAIN_CUT says (bf16 parameters and compute)."""
+    return dataclasses.replace(get_config(HYBRID_ARCH), **HYBRID_TRAIN_CUT)
+
+
+def quantized_leaves(cfg) -> int:
+    """Quantized linears and expert banks of an LM's blocks, by kind: an
+    attention mixer's 4, a Mamba2 mixer's 2, a gated MLP's 3 (a gelu
+    MLP's 2), a MoE's 3 banks (and its shared MLP's linears)."""
+    mlp = 3 if cfg.mlp_act == "swiglu" else 2
+    n = 0
+    for kind in lm.block_kinds(cfg):
+        n += 4 if blocks_lib.mixer_of(kind) == "attn" else 2
+        ffn = blocks_lib.ffn_of(kind)
+        if ffn == "moe":
+            n += 3 + mlp * (cfg.num_shared_experts > 0)
+        elif ffn == "mlp":
+            n += mlp
+    return n
+
+
+def hybrid_freeze_channels(cfg):
+    """Input channels of each row of the freeze's report in the
+    reference's walk of a hybrid: plan group, sublayer (``sub{i}``), the
+    path within it (sorted), the unit, then a bank's experts."""
+    d, f, di = cfg.d_model, cfg.d_ff, cfg.d_inner
+    units = cfg.num_layers // cfg.attn_every
+    rows = []
+    for kind in cfg.hybrid_unit_kinds():
+        part = []
+        if blocks_lib.mixer_of(kind) == "attn":
+            part += [("attn.wk", d, 1), ("attn.wo", d, 1), ("attn.wq", d, 1),
+                     ("attn.wv", d, 1)]
+        else:
+            part += [("mamba.in_proj", d, 1), ("mamba.out_proj", di, 1)]
+        e = cfg.num_experts if blocks_lib.ffn_of(kind) == "moe" else 1
+        ffn = blocks_lib.ffn_of(kind)
+        part += [(f"{ffn}.down", f, e), (f"{ffn}.gate", d, e),
+                 (f"{ffn}.up", d, e)]
+        for _path, k, rows_a_unit in sorted(part):
+            rows += [k] * (units * rows_a_unit)
+    return rows
+
+
+def hybrid_train_kernels(cfg, gen, dev, reps=5):
+    """Phase 24(a): B9, B8 and their backward kernels at the card
+    configuration's training shapes: the mixer's in_proj (8192 x 33280)
+    and one expert bank [4, 8192, 24576]. B9 runs on the fp32 widening of
+    bf16 weights (as ``smol._linear_noise`` hands them over), B8 on the
+    bf16 weights as stored and on bf16 activations: 1024 rows (8 x 128
+    tokens) of in_proj's input with per-row scales, and the bank's
+    training dispatch buffer [4, 640, 8192] with a per-tensor scale an
+    expert. Each bitwise its plain version (B9's ds within
+    ``noise_inject.ds_bound``), the bank one launch each way and bitwise
+    its experts' single launches; timed on both rulers beside the byte
+    bound and torch's ``clone`` of the same tensors (the copy floor).
+    Returns {kernel: record}."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
+    k_in, n_in = d, 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.d_inner // 64
+    c = moe_capacity(cfg)
+    w = torch.rand((k_in, n_in), generator=gen, device=dev) * 2.2 - 1.1
+    w[0, :4] = torch.tensor([2.5, -2.5, 1.999, -1.0], device=dev)
+    s = torch.randn((k_in // 16,), generator=gen, device=dev) * 2.0 - 0.5
+    s[:2] = torch.tensor([8.0, -8.0], device=dev)
+    seed = torch.randint(0, 1 << 32, (1,), generator=gen, device=dev)
+    wb, sb, seeds = b9_bank_operands(e, d, f, gen, dev)
+    b9_ops = [(w.bfloat16().float(), s, seed), (wb.bfloat16().float(), sb,
+                                                 seeds)]
+    del w, wb
+    g9 = [torch.randn(o[0].shape, generator=gen, device=dev)
+          for o in b9_ops]
+    (w1, s1, sd1), (w2, s2, sd2) = b9_ops
+    _check_equal("jamba in_proj B9 vs plain", ni.noise_inject(w1, s1, sd1),
+                 ni.noise_inject_plain(w1, ni.group_sigma(s1), sd1))
+    dw, ds = ni.noise_inject_bwd(w1, s1, sd1, g9[0])
+    dw_p, ds_p = ni.noise_inject_bwd_plain(w1, s1, sd1, g9[0])
+    _check_equal("jamba in_proj B9 backward dw vs plain", dw, dw_p)
+    e_ds = (ds - ds_p).abs()
+    if not (e_ds <= ni.ds_bound(w1, s1, sd1, g9[0])).all():
+        raise AssertionError(f"jamba in_proj B9 backward ds off the plain "
+                             f"version by {e_ds.max()}")
+    ds_err = max(e_ds.max().item(),
+                 check_bank_b9(w2, s2, sd2, g9[1], "jamba bank"))
+    del dw, ds, dw_p, ds_p, e_ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    w8, pb8, _sw = b8_weight_operands(k_in, n_in, gen, dev)
+    w8 = w8.bfloat16()
+    (wb8, pbb, _swb), (xb, pbxb, sxb) = b8_bank_operands(e, d, f, c, gen,
+                                                         dev)
+    wb8 = wb8.bfloat16()
+    weights = [(w8, pb8, quant.per_group_weight_scale(w8, 16)),
+               (wb8, pbb, quant.per_group_weight_scale(wb8, 16))]
+    acts = [b8_act_operands(TRAIN_BATCH * TRAIN_SEQ, k_in, gen, dev),
+            (xb, pbxb, sxb)]
+    del _sw, _swb
+    wkw, xkw = dict(row_scale=False, k_dim=0), dict(row_scale=True)
+    b8_calls = [(ops, wkw) for ops in weights] + [(ops, xkw) for ops in acts]
+    g8 = [torch.randn(ops[0].shape, generator=gen, device=dev).to(
+        torch.bfloat16) for ops, _kw in b8_calls]
+    for (ops, kw), g in zip(b8_calls, g8):
+        if ops[0].dim() == 3:
+            check_bank_b8(*ops, g, kw, f"jamba {tuple(ops[0].shape)}")
+            continue
+        _check_equal(f"jamba B8 {tuple(ops[0].shape)} vs plain",
+                     fq.fake_quant(*ops, **kw), fq.fake_quant_plain(*ops,
+                                                                    **kw))
+        _check_equal(f"jamba B8 backward {tuple(ops[0].shape)} vs plain",
+                     fq.fake_quant_bwd(*ops, g, **kw),
+                     fq.fake_quant_bwd_plain(*ops, g, **kw))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    elems = sum(o[0].numel() for o in b9_ops)
+    groups = sum(o[1].numel() for o in b9_ops)
+    copies = [o[0] for o in b9_ops]
+
+    def clone(ts):
+        return lambda: [t.clone() for t in ts]
+
+    b_ms, b_by = bound(8 * elems + 4 * groups, 16 * elems)
+    out[B9] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: [ni.noise_inject(*o) for o in b9_ops], reps),
+        device_ms=device_ms(lambda: [ni.noise_inject(*o) for o in b9_ops],
+                            reps),
+        plain_ms=time_ms(lambda: [ni.noise_inject_plain(
+            w_, ni.group_sigma(s_), sd_) for w_, s_, sd_ in b9_ops], 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copy_device_ms=device_ms(clone(copies), reps), launches=2)
+    b_ms, b_by = bound(12 * elems + 8 * groups, 20 * elems)
+    bwd = [o + (g,) for o, g in zip(b9_ops, g9)]
+    out[B9_BWD] = dict(
+        max_abs_err=ds_err,
+        ms=time_ms(lambda: [ni.noise_inject_bwd(*o) for o in bwd], reps),
+        device_ms=device_ms(lambda: [ni.noise_inject_bwd(*o) for o in bwd],
+                            reps),
+        plain_ms=time_ms(lambda: [ni.noise_inject_bwd_plain(*o)
+                                  for o in bwd], 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copy_device_ms=device_ms(clone(copies + g9), reps), launches=2)
+    del bwd, copies
+    nel = sum(ops[0].numel() for ops, _kw in b8_calls)
+    small = sum(4 * (ops[1].numel() + ops[2].numel()) for ops, _kw in b8_calls)
+    b_ms, b_by = bound(4 * nel + small, 12 * nel)
+    xs = [ops[0] for ops, _kw in b8_calls]
+    out[B8] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: [fq.fake_quant(*ops, **kw)
+                            for ops, kw in b8_calls], reps),
+        device_ms=device_ms(lambda: [fq.fake_quant(*ops, **kw)
+                                     for ops, kw in b8_calls], reps),
+        plain_ms=time_ms(lambda: [fq.fake_quant_plain(*ops, **kw)
+                                  for ops, kw in b8_calls], 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copy_device_ms=device_ms(clone(xs), reps), launches=4)
+    b_ms, b_by = bound(6 * nel + small, 6 * nel)
+    bwd = [(ops + (g,), kw) for (ops, kw), g in zip(b8_calls, g8)]
+    out[B8_BWD] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: [fq.fake_quant_bwd(*a, **kw) for a, kw in bwd],
+                   reps),
+        device_ms=device_ms(lambda: [fq.fake_quant_bwd(*a, **kw)
+                                     for a, kw in bwd], reps),
+        plain_ms=time_ms(lambda: [fq.fake_quant_bwd_plain(*a, **kw)
+                                  for a, kw in bwd], 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copy_device_ms=device_ms(clone(xs + g8), reps), launches=4)
+    for rec in out.values():
+        rec["shapes"] = dict(in_proj=[k_in, n_in], bank=[e, d, f],
+                             activations=[TRAIN_BATCH * TRAIN_SEQ, k_in],
+                             dispatch=[e, c, d])
+    del b9_ops, g9, b8_calls, g8, weights, acts, xs, bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def act_code_flips(tape_a, tape_b, qcfg):
+    """Activation codes that differ between two tapes' inputs to each
+    QAT linear and bank (each input's integer codes at its linear's
+    precisions under its own scale, on the host): {linear: count} of the
+    non-zero."""
+    out = {}
+    for (name, lin, xa), (_n, _l, xb) in zip(tape_a.inputs, tape_b.inputs):
+        if "pbits" not in lin._names:
+            continue
+        pb = lin.pbits.float().cpu()
+        bank = pb.dim() == 2
+        codes = []
+        for x in (xa, xb):
+            x = x.float().cpu()
+            p = quant.expand_groups(pb, x.shape[-1], 16)
+            if bank:
+                p = p[:, None, :]
+            codes.append(quant.quantize_to_int(
+                x / smol._act_scale(x, qcfg, bank), p))
+        n = int((codes[0] != codes[1]).sum())
+        if n:
+            out[name] = n
+    return out
+
+
+def check_hybrid_training_against_cpu(dev):
+    """Phase 24(d): the card configuration's two sublayers (a Mamba2
+    mixer with the MLP, attention with the 4-expert MoE) at full width but
+    the FFNs' d_ff, cut to HYBRID_CPU_D_FF, at fp32 parameters and
+    compute, at NOISE (logits over the 4/2/1-bit bands, the same
+    host-made draws) and QAT (the default mix): each sublayer on the card
+    and on the CPU from the same weights, input (HYBRID_CPU_TOKENS
+    tokens) and cotangent, teacher-forced: the attention sublayer takes
+    the card's mixer output on both, and each linear, router and bank on
+    the card runs on the CPU's input to it (``LinearTape``). Every
+    linear's output and its input as the card's own ops made it, each
+    sublayer's y, dx and every leaf's gradient (the mixer's conv, A_log,
+    D, dt_bias, norm_g; the norms; the router; every linear's and bank's
+    w and s) within relative L2 1e-5; the QAT activation codes that the
+    card's own inputs flip against the CPU's are counted
+    (``act_code_flips``). Returns the worst of each kind and the
+    flips."""
+    worst, flips = {}, {}
+    cfg0 = dataclasses.replace(hybrid_train_cfg(), d_ff=HYBRID_CPU_D_FF,
+                               dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    for mode in ("noise", "qat"):
+        cfg = cfg0.with_quant_mode(mode)
+        # Drawn on the card (the host's generator is slow at 0.75e9
+        # weights), then copied: the same weights on both.
+        init = torch.Generator(device=dev).manual_seed(SEED + 24)
+        card = torch.nn.ModuleList(
+            blocks_lib.Block(kind, blocks_lib.block_init(
+                kind, cfg, cfg.quant, generator=init, device=dev),
+                act=cfg.mlp_act) for kind in lm.block_kinds(cfg))
+        for name, lin in smol.smol_linears(card):
+            lin.path = f"blocks.{name}"
+        if mode == "noise":
+            set_mixed_logits(card, SEED + 24)
+        host = copy.deepcopy(card).to("cpu")
+        gen = torch.Generator().manual_seed(SEED + 24)
+        host.requires_grad_(True)
+        card.requires_grad_(True)
+        noise = HostNoise((SEED, 24)) if mode == "noise" else None
+        x = torch.randn((1, HYBRID_CPU_TOKENS, cfg.d_model), generator=gen)
+        pos = torch.arange(HYBRID_CPU_TOKENS)[None]
+        for i in range(len(host)):
+            g = torch.randn(x.shape, generator=gen)
+            yh, dxh, gh, th = _block_grads(host[i], x, g, cfg, noise,
+                                           positions=pos)
+            yc, dxc, gc_, tc = _block_grads(card[i], x.to(dev), g.to(dev),
+                                            cfg, noise, feed=th.inputs,
+                                            positions=pos.to(dev))
+            pairs = [("y", yc, yh), ("dx", dxc, dxh)] + [
+                (n, gc_[n], gh[n]) for n in gh]
+            for (name, _m, xc), (_n, _mh, xh), oc, oh in zip(
+                    tc.inputs, th.inputs, tc.outputs, th.outputs):
+                kind = ".".join(name.split(".")[-2:])
+                pairs += [(f"{kind}.in", xc, xh), (f"{kind}.out", oc, oh)]
+            for what, a, b in pairs:
+                key = f"{mode}.{host[i].kind}.{what}"
+                worst[key] = max(worst.get(key, 0.0), rel_l2(a, b))
+            if mode == "qat":
+                flips.update(act_code_flips(tc, th, cfg.quant))
+            x = yc.cpu()
+        del host, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    bad = {k: v for k, v in worst.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"hybrid training card vs CPU over 1e-5: "
+                             f"{bad}")
+    largest = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    return {"largest": largest, "qat_code_flips": flips,
+            "compared": len(worst), "d_ff": HYBRID_CPU_D_FF,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_hybrid_training(dev, gen, results, rng):
+    """Phase 24: train the hybrid family at jamba-1.5-large-398b's
+    published widths, cut to one unit of two sublayers and 4 experts
+    (HYBRID_TRAIN_CUT; bf16 parameters and compute, fp32 moments;
+    batches of TokenStream(8, 128, seed 0)). (a) ``hybrid_train_kernels``
+    (``jamba_train_*`` keys). (b) The logits over the 4/2/1-bit bands, 3
+    Phase-I steps, the freeze and 3 Phase-II steps through ``loop.train``
+    (``phase_training``): every step's launches asserted (one B9 a
+    quantized leaf in the forward and again in the recompute and one B9
+    backward a Phase-I step; two B8 (weight, activation) each way and two
+    B8 backward a Phase-II step; 12 leaves: 9 linears and 3 banks), host
+    ms and peak memory a step, steps 2 and 5 profiled by op
+    (``step_profile.HYBRID_TRAIN_SPANS``, ``hybrid_train_summary``); the
+    freeze's report in the reference's walk
+    (``hybrid_freeze_channels``), its bpp and histogram. (c) A second run
+    bitwise the first (losses, gradient norms, parameters, pbits). (d)
+    ``check_hybrid_training_against_cpu``. (e) The trained model through
+    ``soniq.to_serve`` (one B7 a leaf, asserted) and a ``DecodeEngine``
+    on 4 requests twice, bitwise (B1, B6 and B8 launched). Returns the
+    ``hybrid_training`` JSON line's numbers."""
+    from repro_torch import soniq
+    from repro_torch.api.state import SoniqState
+    from repro_torch.core.phases import Phase
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    cfg = hybrid_train_cfg()
+    for name, rec in hybrid_train_kernels(cfg, gen, dev).items():
+        results[name].update({f"jamba_train_{k}": v for k, v in rec.items()})
+        log(f"[24] {name} at jamba's training shapes (in_proj and a "
+            f"[4, 8192, 24576] bank; B8 also their activations), bitwise "
+            f"plain: {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+
+    leaves = quantized_leaves(cfg)
+    state, records, profiles, rep = phase_training(
+        cfg, dev, tag=24, spans=step_profile.HYBRID_TRAIN_SPANS,
+        summary=step_profile.hybrid_train_summary, mixed_seed=SEED + 24)
+    model = state["model"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    channels = [sum(layer["hist"]) for layer in rep["layers"]]
+    if channels != hybrid_freeze_channels(cfg):
+        raise AssertionError(f"freeze order or widths: {channels}")
+    st = {"cut": HYBRID_TRAIN_CUT, "sublayers": list(cfg.hybrid_unit_kinds()),
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "quantized_leaves": leaves, "steps": records,
+          "profiles": profiles, "histogram": precision_histogram(model),
+          "average_bpp": schedule.average_bpp(rep),
+          "allowed_patterns": rep["allowed"], "report_rows": len(channels),
+          "peak_gib": max(r["peak_gib"] for r in records),
+          "launches_per_step": {p: train_step_launches(cfg, p)
+                                for p in (1, 2)}}
+    for name, key in ((B8, "b8"), (B9, "b9"), (B8_BWD, "b8_bwd"),
+                      (B9_BWD, "b9_bwd")):
+        results[name]["jamba_train_run_launches"] = sum(r[key]
+                                                        for r in records)
+        results[name]["jamba_train_launches_per_step"] = max(
+            r[key] for r in records)
+    log(f"[24] {st['parameters']:,} parameters, {leaves} quantized leaves; "
+        f"peak {st['peak_gib']:.2f} GiB; frozen groups by precision "
+        f"{st['histogram']}, average bpp {st['average_bpp']:.4f} over "
+        f"{len(channels)} report rows; profiles {profiles}")
+    if st["peak_gib"] * 2 ** 30 > 80e9:
+        raise AssertionError(f"training peak {st['peak_gib']:.2f} GiB over "
+                             f"80 GB")
+    first = ([p.detach().cpu() for p in model.parameters()],
+             [lin.pbits.cpu() for _n, lin in smol.smol_linears(model)
+              if "pbits" in lin._names])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train")
+
+    state, rec2, _p, rep2 = phase_training(cfg, dev, tag=24, profiled=False,
+                                           mixed_seed=SEED + 24)
+    model = state["model"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = [(r["loss"], r["grad_norm"]) for r in records] == \
+        [(r["loss"], r["grad_norm"]) for r in rec2]
+    params_same = all(torch.equal(a, b.detach().cpu())
+                      for a, b in zip(first[0], model.parameters()))
+    pbits_same = all(torch.equal(a, lin.pbits.cpu()) for a, (_n, lin) in zip(
+        first[1], [(n, lin) for n, lin in smol.smol_linears(model)
+                   if "pbits" in lin._names]))
+    if not (same and params_same and pbits_same
+            and rep["layers"] == rep2["layers"]):
+        raise AssertionError(f"a second jamba training run differs: losses "
+                             f"equal {same}, parameters equal "
+                             f"{params_same}, pbits equal {pbits_same}")
+    del first
+    st["second_run"] = dict(bitwise=True, step_ms=[r["ms"] for r in rec2],
+                            peak_gib=max(r["peak_gib"] for r in rec2))
+    log(f"[24] a second run bitwise the first (losses, gradient norms, "
+        f"parameters, pbits): {st['second_run']}")
+    lap("second_run")
+
+    qcfg = cfg.with_quant_mode("qat")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = soniq.to_serve(SoniqState(Phase.QAT, model, qcfg))
+    torch.cuda.synchronize()
+    st["to_serve_s"] = time.perf_counter() - t0
+    st["to_serve_b7"] = kernels.launch_counts()[B7]
+    if st["to_serve_b7"] != leaves:
+        raise AssertionError(f"{st['to_serve_b7']} B7 launches at to_serve, "
+                             f"not one a leaf ({leaves})")
+    ecfg = engine.EngineConfig(max_batch=4, cache_len=256, prefill_chunk=8)
+    eng = engine.DecodeEngine(served.model, qcfg, ecfg, already_serve=True,
+                              device=dev)
+    reqs = requests(cfg.vocab_size, rng, n=4, lo=16, hi=16, new=8)
+    kernels.reset_launch_counts()
+    first_out, _wall = serve_all(eng, reqs)
+    counts = kernels.launch_counts()
+    second_out, _wall = serve_all(eng, reqs)
+    _same_tokens("trained jamba: a second serve gave other tokens",
+                 first_out, second_out)
+    if counts[B1] == 0 or counts[B6] == 0 or counts[B8] == 0:
+        raise AssertionError(f"trained jamba serve launches {counts}")
+    for c in first_out:
+        if c.new_tokens.size != 8 or not (
+                (c.new_tokens >= 0) & (c.new_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"bad trained-jamba completion "
+                                 f"{c.new_tokens}")
+    st["serve_launches"] = {k: v for k, v in counts.items() if v}
+    st["served_tokens"] = [c.new_tokens.tolist() for c in first_out]
+    log(f"[24] to_serve: {st['to_serve_b7']} B7 launches in "
+        f"{st['to_serve_s']:.3f} s; served 4 requests twice, bitwise "
+        f"({st['serve_launches']}): tokens {st['served_tokens']}")
+    del eng, served, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+
+    st["card_vs_cpu"] = check_hybrid_training_against_cpu(dev)
+    log(f"[24] the two sublayers (d_ff {HYBRID_CPU_D_FF}), card vs CPU "
+        f"(fp32, relative L2; y, dx, every leaf's gradient, every linear): "
+        f"{st['card_vs_cpu']}")
+    lap("card_vs_cpu")
+    st["seconds"] = laps
+    log(f"[24] seconds by part: {laps}")
+    return st
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", type=int, choices=[20, 21, 22, 23],
+    ap.add_argument("--only", type=int, choices=[20, 21, 22, 23, 24],
                     default=None,
                     help="build the kernels and run this phase alone (no "
                          "summary); the default runs every phase")
@@ -6573,6 +7060,19 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels_hybrid": results}))
         print(json.dumps({"hybrid": out, "launches": launches,
                           "per_step": per_step}))
+        print(json.dumps({"phase_seconds": clock.laps}))
+        print(card)
+        return 0
+    if args.only == 24:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        results = {name: {} for name in (B8, B9, B8_BWD, B9_BWD, B7)}
+        out = phase_hybrid_training(dev, gen, results,
+                                    np.random.default_rng(SEED + 24))
+        clock.lap(24)
+        print(json.dumps({"kernels_hybrid_training": {
+            k: v for k, v in results.items() if v}}))
+        print(json.dumps({"hybrid_training": out}))
         print(json.dumps({"phase_seconds": clock.laps}))
         print(card)
         return 0
@@ -6955,6 +7455,13 @@ def main(argv=None) -> int:
     clock.lap(23)
 
     # ------------------------------------------------------- phase 24 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_train = phase_hybrid_training(dev, gen, results,
+                                         np.random.default_rng(SEED + 24))
+    clock.lap(24)
+
+    # ------------------------------------------------------- phase 25 ----
     work = {B7: "one h2o-danube-1.8b layer of packing (7 launches, one a "
                 "linear, rows read through the channel perm; moe_layer_*: "
                 "one deepseek-moe-16b MoE layer, 10 launches; ssm_layer_*: "
@@ -7067,7 +7574,7 @@ def main(argv=None) -> int:
                               "tokens, the cross wk/wv on the encoder's "
                               "rows), whisper_train_run_launches and "
                               "whisper_train_launches_per_step: phase 21's "
-                              "12 + 12-layer run and a step of it; "
+                              "6 + 6-layer run and a step of it; "
                               "vlm_train_*: one qwen2-vl-72b layer's 7 "
                               "training linears (B8 also their 4 x 384 "
                               "bf16 activations); vlm_head_*: one fp32 "
@@ -7075,7 +7582,17 @@ def main(argv=None) -> int:
                               "(1.246e9 elements; plain_ms band by band); "
                               "vlm_train_run_launches, "
                               "vlm_train_launches_per_step: phase 22's "
-                              "1-layer run and a step of it")
+                              "1-layer run and a step of it; "
+                              "jamba_train_*: jamba-1.5-large-398b's "
+                              "in_proj 8192x33280 and one bank [4, 8192, "
+                              "24576], B9 on their fp32 widening, B8 on "
+                              "the bf16 weights and on bf16 activations "
+                              "(1024 x 8192 per-row scales; the bank's "
+                              "dispatch buffer [4, 640, 8192]), "
+                              "copy_device_ms: torch's clone of the same "
+                              "tensors; jamba_train_run_launches, "
+                              "jamba_train_launches_per_step: phase 24's "
+                              "run and a step of it")
     rows = []
     for name in (B1, B2, B3, B4, B5, B6, B7, B8, B9, B8_BWD, B9_BWD):
         r = results[name]
@@ -7224,6 +7741,7 @@ def main(argv=None) -> int:
     print(json.dumps({"whisper_training": whisper_train}))
     print(json.dumps({"vlm": vlm}))
     print(json.dumps({"hybrid": hybrid}))
+    print(json.dumps({"hybrid_training": hybrid_train}))
     print(json.dumps({"phase_seconds": clock.laps}))
     print(json.dumps({"phase_cpu_seconds": clock.cpu_s}))
     print(card)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import interop
 from . import patterns as patterns_lib
 from . import smol
 from .qtypes import QuantConfig
@@ -37,13 +38,17 @@ def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
     LM stacks each plan group's layers ([L, ...] leaves under
     ``groups[i]``), so there the order is: plan group, then the path
     within a block (``attn.wk``, ..., ``moe.down``, ``moe.shared.up``,
-    ``moe.up``: sorted part by part), then the layer; an encoder's layers
+    ``moe.up``: sorted part by part), then the layer; a hybrid unit group
+    nests its sublayers (``groups[i]["sub{j}"]``, each stacked over
+    units), so there it is plan group, then sublayer (its key sorted as a
+    string), then the path within it, then the unit; an encoder's layers
     are one stacked group (``enc_groups[0]``, sorted before the decoder's
     ``groups``) walked the same way; a linear outside the blocks sorts by
     its own path among the tree's top-level keys. Any
     other model (the CNN: ``head``, ``stages`` by stage and block,
     ``stem``) sorts by its module path, list indices as numbers."""
-    plan = getattr(getattr(model, "cfg", None), "layer_plan", None)
+    cfg = getattr(model, "cfg", None)
+    plan = getattr(cfg, "layer_plan", None)
     if plan is None:
         def tree_key(name):
             return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
@@ -51,17 +56,22 @@ def _noise_linears(model: nn.Module) -> List[smol.SmolLinear]:
         return [lin for name, lin in sorted(
             smol.smol_linears(model), key=lambda r: tree_key(r[0]))
             if "s" in lin._names]
-    plan_group: List[int] = []
-    for gi, (_kind, count) in enumerate(plan()):
-        plan_group += [gi] * count
+    # Block b's (plan group, key prefix within it, index in its stack).
+    at: List[Tuple[int, Tuple[str, ...], int]] = []
+    for gi, (kind, count) in enumerate(plan()):
+        subs = {f"sub{i}": (f"sub{i}",)
+                for i in range(len(cfg.hybrid_unit_kinds()))} \
+            if kind == "hybrid_unit" else ()
+        at += [(gi, prefix, i) for prefix, i in
+               interop._group_layers(subs, kind, count, cfg)]
     keyed = []
     for name, lin in smol.smol_linears(model):
         if "s" not in lin._names:
             continue
         parts = name.split(".")
         if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
-            layer = int(parts[1])
-            key = ("groups", plan_group[layer], tuple(parts[2:]), layer)
+            gi, prefix, i = at[int(parts[1])]
+            key = ("groups", gi, prefix + tuple(parts[2:]), i)
         elif len(parts) > 2 and parts[0] == "enc_blocks" \
                 and parts[1].isdigit():
             key = ("enc_groups", 0, tuple(parts[2:]), int(parts[1]))

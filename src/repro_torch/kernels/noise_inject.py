@@ -98,6 +98,23 @@ def _sigma_rows(sig: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
     return quant.expand_groups(sig.float(), k, group_size)[..., None]
 
 
+# Rows a band of the plain versions on the CPU: there a band's int64 hash
+# temporaries stay in the caches, several times faster than whole-weight
+# temporaries, and every element is computed alone, so the result is the
+# same bit for bit. On the card the plain versions take the whole weight.
+CPU_BAND_ROWS = 64
+
+
+def _row_bands(w: torch.Tensor, group_size: int):
+    """(rows, their groups, the first row) of each band of w's rows."""
+    k = w.shape[-2]
+    step = CPU_BAND_ROWS if w.device.type == "cpu" \
+        and CPU_BAND_ROWS % group_size == 0 else k
+    return [(slice(r, r + step), slice(r // group_size,
+                                        (r + step) // group_size), r)
+            for r in range(0, k, step)]
+
+
 def noise_inject_plain(w: torch.Tensor, sig: torch.Tensor, seed: SeedLike,
                        group_size: int = GROUP_SIZE,
                        row0: int = 0) -> torch.Tensor:
@@ -106,11 +123,16 @@ def noise_inject_plain(w: torch.Tensor, sig: torch.Tensor, seed: SeedLike,
     (and sig) are the band of rows from row0 (a multiple of the group) of
     a taller weight, whose element index the noise takes: the plain
     version of a large weight, a band at a time."""
-    k, n = w.shape[-2:]
-    sg = _sigma_rows(sig, k, group_size)
-    out = w.float() + sg * hash_eps(k, n, seed, w.device, row0)
-    lim = 2.0 - sg
-    return torch.minimum(torch.maximum(out, -lim), lim).to(w.dtype)
+    n = w.shape[-1]
+    out = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    for rows, groups, r in _row_bands(w, group_size):
+        wb = w[..., rows, :]
+        sg = _sigma_rows(sig[..., groups], wb.shape[-2], group_size)
+        z = wb.float() + sg * hash_eps(wb.shape[-2], n, seed, w.device,
+                                       row0 + r)
+        lim = 2.0 - sg
+        out[..., rows, :] = torch.minimum(torch.maximum(z, -lim), lim)
+    return out
 
 
 def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
@@ -120,20 +142,24 @@ def noise_inject_bwd_plain(w: torch.Tensor, s: torch.Tensor,
     """Plain backward: (dw [..., K, N] in w's dtype, ds [..., K //
     group_size] in s's dtype) for the cotangent g of w's shape (``row0``:
     a band of a taller weight, as in :func:`noise_inject_plain`)."""
-    k, n = w.shape[-2:]
+    n = w.shape[-1]
     sig_g = group_sigma(s)
-    sig = _sigma_rows(sig_g, k, group_size)
-    eps = hash_eps(k, n, seed, w.device, row0)
-    z = w.float() + sig * eps
-    inside = z.abs() <= 2.0 - sig
-    g32 = g.float()
-    dw = torch.where(inside, g32, torch.zeros_like(g32)).to(w.dtype)
-    # d out / d sigma: eps inside the clip; at the clamp the limit
-    # +-(2 - sigma) itself moves with sigma (d/dsigma = -+1). Chain
-    # through sigma'(s) = sigma (1 - sigma) and sum each group's block
-    # (fixed-order reductions: no atomics).
-    dsig = torch.where(inside, eps, -torch.sign(z))
-    per_k = torch.sum(g32 * dsig, dim=-1)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    per_k = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+    for rows, groups, r in _row_bands(w, group_size):
+        wb = w[..., rows, :]
+        sig = _sigma_rows(sig_g[..., groups], wb.shape[-2], group_size)
+        eps = hash_eps(wb.shape[-2], n, seed, w.device, row0 + r)
+        z = wb.float() + sig * eps
+        inside = z.abs() <= 2.0 - sig
+        g32 = g[..., rows, :].float()
+        dw[..., rows, :] = torch.where(inside, g32, torch.zeros_like(g32))
+        # d out / d sigma: eps inside the clip; at the clamp the limit
+        # +-(2 - sigma) itself moves with sigma (d/dsigma = -+1).
+        dsig = torch.where(inside, eps, -torch.sign(z))
+        per_k[..., rows] = torch.sum(g32 * dsig, dim=-1)
+    # Chain through sigma'(s) = sigma (1 - sigma) and sum each group's
+    # block (fixed-order reductions: no atomics).
     per_group = per_k.reshape(sig_g.shape + (group_size,)).sum(dim=-1)
     ds = (per_group * sig_g * (1.0 - sig_g)).to(s.dtype)
     return dw, ds

@@ -81,7 +81,9 @@ def train(arch_cfg, tcfg: state_lib.TrainConfig,
             _, pattern_report = transforms.freeze_qat(state["model"],
                                                       arch_cfg.quant)
             # Fresh fp32 moments, whatever moment_dtype (as the
-            # reference's adamw.init_state(params)).
+            # reference's adamw.init_state(params)); Phase I's are
+            # released first, so the card never holds both.
+            state["opt"] = None
             state["opt"] = adamw.init_state(state["model"])
             if "err" in state:     # the logits s are gone
                 names = {n for n, _ in adamw.trainable(state["model"])}

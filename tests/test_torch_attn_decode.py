@@ -18,6 +18,8 @@ from repro_torch.backend import base as backend
 from repro_torch.kernels import attn_decode as pad
 from repro_torch.serve import kv_pool, kv_quant
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

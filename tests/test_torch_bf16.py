@@ -19,6 +19,8 @@ from repro_torch.core import quant as pquant
 from repro_torch.core.qtypes import QuantConfig as PQuantConfig
 from repro_torch.kernels import quant_pack as pquant_pack
 
+from test_torch_train import _one_thread  # noqa: F401
+
 
 def _bf16(shape, seed, scale=1.0):
     """A JAX bfloat16 host array (``jax.device_get``'s dtype) and the

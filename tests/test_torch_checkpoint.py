@@ -37,6 +37,8 @@ from repro_torch.train import state as pstate
 from test_torch_train import ARCH, SSM_ARCH, _abs_diffs, _configs, \
     _true_division
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TK = dict(t1=0, t2=4, warmup=1, seed=3, checkpoint_every=2)
 
 

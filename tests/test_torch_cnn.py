@@ -38,6 +38,8 @@ from repro_torch.data import synthetic as psynthetic
 from repro_torch.models import cnn as pcnn
 from repro_torch.optim import adamw as padamw
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 # The reference's serve-vs-QAT bound (tests/test_api_lifecycle.py).
 SERVE_TOL = dict(atol=1e-4, rtol=1e-3)

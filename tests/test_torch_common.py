@@ -19,6 +19,8 @@ from repro.models import common as jcommon
 
 from repro_torch.models import common as pcommon
 
+from test_torch_train import _one_thread  # noqa: F401
+
 FLAGS = {"default": {}, "as_written": {"xla_allow_excess_precision": False}}
 
 

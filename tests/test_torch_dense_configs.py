@@ -27,6 +27,8 @@ from repro_torch.models import lm as plm
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 ARCHS = ("starcoder2-7b", "deepseek-67b", "mistral-large-123b")
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 ENGINE = dict(max_batch=3, cache_len=32, prefill_chunk=4)

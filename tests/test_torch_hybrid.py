@@ -43,6 +43,8 @@ from repro_torch.models import lm as plm
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "jamba-1.5-large-398b"
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -16,6 +16,8 @@ from repro.serve.scheduler import Request as JRequest
 from repro_torch.serve import kv_pool as pkp
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 
 def _state(pool):
     return (list(pool.free), pool.refcount.tolist(), pool.table.tolist(),

@@ -20,6 +20,8 @@ from repro_torch.core.qtypes import QuantConfig as PQuantConfig
 from repro_torch.models import lm as plm
 from repro_torch.serve import kv_quant as pkq
 
+from test_torch_train import _one_thread  # noqa: F401
+
 
 def _kv(rng, shape, *, zero_row=True, huge_row=True):
     x = rng.standard_normal(shape).astype(np.float32)

@@ -44,6 +44,8 @@ from repro_torch.models import moe as pmoe
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 AS_WRITTEN = {"xla_allow_excess_precision": False}

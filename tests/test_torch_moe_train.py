@@ -53,6 +53,7 @@ from repro_torch.optim import adamw as padamw
 from repro_torch.train import state as pstate
 
 from test_torch_train import _true_division, jax_draw
+from test_torch_train import _one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("deepseek-moe-16b", "mixtral-8x22b")
@@ -63,13 +64,21 @@ LAYERS = {"deepseek-moe-16b": 2, "mixtral-8x22b": 1}
 # ------------------------------------------------------------- helpers ----
 class MoEDraws:
     """A port noise source replaying the reference's draws by path; a
-    bank's key splits in E, one an expert (``moe._expert_linear``)."""
+    bank's key splits in E, one an expert (``moe._expert_linear``). Each
+    draw is made once: a recomputed block reads the same draw."""
 
     def __init__(self, keys):
         self.keys = keys
+        self.drawn = {}
 
     def draw(self, path, x, experts=None):
-        key = self.keys[path]
+        at = (path, tuple(x.shape), experts)
+        if at not in self.drawn:
+            self.drawn[at] = self._draw(self.keys[path], x, experts)
+        return self.drawn[at]
+
+    @staticmethod
+    def _draw(key, x, experts):
         if experts is None:
             return jax_draw(key, tuple(x.shape))
         draws = [jax_draw(k, tuple(x.shape[1:]))
@@ -91,28 +100,50 @@ def _moe_keys(key, prefix):
     return out
 
 
+def _block_keys(key, kind, p):
+    """{path: key} of one block (prefix ``p``) as ``blocks.block_apply``
+    splits ``key`` in 4: attention (qkv, o), then qkv in 3, from the
+    first; a Mamba2 mixer's (``in_proj``, ``out_proj``) from the third;
+    the MLP (in 3) or the MoE from the fourth."""
+    rs = jax.random.split(key, 4)
+    out = {}
+    if kind.startswith("mamba"):
+        kin, kout = jax.random.split(rs[2])
+        out.update({p + "mamba.in_proj": kin, p + "mamba.out_proj": kout})
+    else:
+        a, ao = jax.random.split(rs[0])
+        q3 = jax.random.split(a, 3)
+        out.update({p + "attn.wq": q3[0], p + "attn.wk": q3[1],
+                    p + "attn.wv": q3[2], p + "attn.wo": ao})
+    if "moe" in kind:
+        out.update(_moe_keys(rs[3], p))
+    elif kind != "mamba":
+        out.update({f"{p}mlp.{n}": k for n, k in zip(
+            ("up", "gate", "down"), jax.random.split(rs[3], 3))})
+    return out
+
+
 def model_key_paths(rng, cfg):
     """{port path: JAX key} of every NOISE linear and bank as ``lm.forward``
     splits ``rng``: a fold_in per plan group, a split per layer of the
-    group's scan, the block's split in 4 (attention: (qkv, o), then qkv in
-    3; the MLP or the MoE: the fourth)."""
+    group's scan, the block's split in 4 (``_block_keys``). A hybrid unit
+    is one layer of its group's scan: its sublayer i (port block ``u *
+    attn_every + i``) takes ``fold_in(the unit's key, i)``
+    (``blocks.py:102``) and splits that in 4."""
     out, layer = {}, 0
     for gi, (kind, count) in enumerate(cfg.layer_plan()):
         key = jax.random.fold_in(rng, gi)
+        subs = cfg.hybrid_unit_kinds() if kind == "hybrid_unit" else None
         for _ in range(count):
             key, sub = jax.random.split(key)
-            rs = jax.random.split(sub, 4)
-            a, ao = jax.random.split(rs[0])
-            q3 = jax.random.split(a, 3)
-            p = f"blocks.{layer}."
-            out.update({p + "attn.wq": q3[0], p + "attn.wk": q3[1],
-                        p + "attn.wv": q3[2], p + "attn.wo": ao})
-            if "moe" in kind:
-                out.update(_moe_keys(rs[3], p))
-            else:
-                out.update({f"{p}mlp.{n}": k for n, k in zip(
-                    ("up", "gate", "down"), jax.random.split(rs[3], 3))})
-            layer += 1
+            if subs is None:
+                out.update(_block_keys(sub, kind, f"blocks.{layer}."))
+                layer += 1
+                continue
+            for i, sub_kind in enumerate(subs):
+                out.update(_block_keys(jax.random.fold_in(sub, i), sub_kind,
+                                       f"blocks.{layer}."))
+                layer += 1
     return out
 
 

@@ -34,6 +34,7 @@ from repro_torch.kernels import noise_inject as pni
 from repro_torch.kernels import prng as pprng
 
 from test_torch_cuda import EDGE_SCALES, fake_quant_edge_operands
+from test_torch_train import _one_thread  # noqa: F401
 
 jni = importlib.import_module("repro.kernels.noise_inject")
 jfq = importlib.import_module("repro.kernels.fake_quant")

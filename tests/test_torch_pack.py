@@ -25,6 +25,8 @@ from repro_torch.core import pack as ppack
 from repro_torch.core.qtypes import QuantConfig as PQuantConfig
 from repro_torch.kernels import quant_pack as pquant_pack
 
+from test_torch_train import _one_thread  # noqa: F401
+
 SERVE_LEAVES = ("w4", "w2", "w1", "perm", "pbits_sorted", "wscale")
 
 

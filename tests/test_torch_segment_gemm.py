@@ -29,6 +29,8 @@ from repro_torch.core import quant as pquant
 from repro_torch.core.qtypes import QuantConfig as PQuantConfig
 from repro_torch.kernels import packed_matmul as ppm
 
+from test_torch_train import _one_thread  # noqa: F401
+
 # The kernels package shadows this module name with a deprecated
 # function; import the module by its dotted path.
 jpm = importlib.import_module("repro.kernels.packed_matmul")

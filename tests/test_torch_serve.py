@@ -44,6 +44,8 @@ from repro_torch.serve.scheduler import Request as PRequest
 from repro_torch.train import loop as ploop
 from repro_torch.train import state as pstate
 
+from test_torch_train import _one_thread  # noqa: F401
+
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 AS_WRITTEN = {"xla_allow_excess_precision": False}
 

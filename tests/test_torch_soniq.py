@@ -26,6 +26,8 @@ from test_torch_cnn import _cnn_true_division
 from test_torch_train import (JaxDraws, _random_s, _true_division, jax_draw,
                               linear_key_paths)
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 K, N = 128, 48
 

@@ -35,6 +35,8 @@ from repro_torch.models import lm as plm
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -39,6 +39,8 @@ from repro_torch.models import ssm as pssm
 from repro_torch.serve import engine as pengine
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "mamba2-2.7b"
 TOL = dict(rtol=1e-5, atol=1e-5)

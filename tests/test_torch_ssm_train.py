@@ -52,6 +52,7 @@ from test_torch_train import (LOOP_TK, SSM_ARCH, JaxDraws, _abs_diffs,
                               loop_train_runs, microbatch_case,
                               recompute_case)
 from test_torch_train_substrate import hoisted_case
+from test_torch_train import _one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 REL_L2 = 1e-5

@@ -63,6 +63,18 @@ LINEARS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.up",
            "mlp.gate", "mlp.down")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch in each of the port's test modules
+    (they import this fixture): the suite runs several workers on the
+    CPU's cores, and a full thread pool in each worker oversubscribes
+    them; the models here are small."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------- helpers ----
 def _configs(layers=2, arch=ARCH, **narrow):
     """The reduced ``arch`` at ``layers`` layers in both packages;
@@ -201,10 +213,23 @@ def _random_s(tree, rng):
     return tree
 
 
+def _quantized_nodes(node):
+    """The (w, s) or (w, pbits) leaves of a subtree, dict keys sorted."""
+    if not isinstance(node, dict):
+        return []
+    if "w" in node and ("s" in node or "pbits" in node):
+        return [node]
+    return [q for k in sorted(node) for q in _quantized_nodes(node[k])]
+
+
 def _stacked_linears(tree):
     """The stacked quantized linears: an encoder's first (its attention
-    and MLP), then the decoder's (attention, cross attention, MLP)."""
+    and MLP), then the decoder's (attention, cross attention, MLP); a
+    hybrid unit's sublayer by sublayer (``sub{i}``, sorted), its linears
+    and expert banks sorted by path."""
     blk = tree["groups"][0]
+    if "sub0" in blk:
+        return _quantized_nodes(blk)
     if "mamba" in blk:
         return [blk["mamba"][n] for n in ("in_proj", "out_proj")]
     out = []
@@ -638,15 +663,19 @@ def loop_stream(jcfg):
                                      seed=2)).batches())
 
 
-def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None, stream=None):
+def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None, stream=None,
+                    narrow=None, draws=None):
     """The reference's ``loop.train`` and the port's on the reduced
-    ``arch`` (``LOOP_TK``) from the reference's initial model, its logits
-    spread, on the same batches (``stream(jcfg)``, default
-    ``loop_stream``) and replayed draws; each checkpoints every 2 steps
+    ``arch`` (``LOOP_TK``; ``narrow``: more config fields, as
+    ``_configs`` takes them) from the reference's initial model, its
+    logits spread, on the same batches (``stream(jcfg)``, default
+    ``loop_stream``) and replayed draws (``draws(key, pcfg)``, default
+    ``JaxDraws`` of ``key_paths_of``); each checkpoints every 2 steps
     into its directory when given one. Returns (the reference's output,
     the port's)."""
     stream = stream or loop_stream
-    jcfg, pcfg = _configs(arch=arch)
+    draws = draws or (lambda key, cfg: JaxDraws(key_paths_of(key, cfg)))
+    jcfg, pcfg = _configs(arch=arch, **(narrow or {}))
     ck = dict(checkpoint_every=2)
     jt = jstate.TrainConfig(ckpt_dir=jax_ckpt, **ck, **LOOP_TK)
     pt = pstate.TrainConfig(ckpt_dir=port_ckpt, **ck, **LOOP_TK)
@@ -665,9 +694,9 @@ def loop_train_runs(arch, jax_ckpt=None, port_ckpt=None, stream=None):
         jout = jloop.train(jcfg, jt, stream(jcfg))
 
     def noise(step):
-        draws = JaxDraws(key_paths_of(jax.random.fold_in(
-            jax.random.PRNGKey(jt.seed + 1), step), pcfg))
-        return lambda i: draws
+        src = draws(jax.random.fold_in(jax.random.PRNGKey(jt.seed + 1),
+                                       step), pcfg)
+        return lambda i: src
 
     pout = ploop.train(pcfg, pt, stream(jcfg), device="cpu",
                        noise=noise,

@@ -43,6 +43,8 @@ from test_torch_moe_train import _configs as moe_configs, _tree as moe_tree
 from test_torch_train import (ARCH, _abs_diffs, _configs, _jax_params,
                               _true_division, with_frames)
 
+from test_torch_train import _one_thread  # noqa: F401
+
 
 def _bits(a) -> np.ndarray:
     a = np.ascontiguousarray(np.asarray(a))

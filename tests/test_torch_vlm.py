@@ -44,6 +44,7 @@ from repro_torch.serve.scheduler import Request as PRequest
 from test_torch_train import (JaxDraws, _stacked_linears, _true_division,
                               key_paths_of)
 from test_torch_whisper import _compile_as_written, _serve_cfg
+from test_torch_train import _one_thread  # noqa: F401
 
 ARCH = "qwen2-vl-72b"
 TOL = dict(rtol=1e-4, atol=1e-4)

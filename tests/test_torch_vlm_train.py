@@ -40,6 +40,7 @@ from test_torch_train import (LOOP_TK, JaxDraws, _configs, _random_s,
                               key_paths_of, loop_train_runs)
 from test_torch_vlm import mrope_positions, vision_mask
 from test_torch_whisper_train import _float_leaves, _jax_tree
+from test_torch_train import _one_thread  # noqa: F401
 
 ARCH = "qwen2-vl-72b"
 REL_L2 = 1e-5

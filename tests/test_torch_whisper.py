@@ -45,6 +45,8 @@ from repro_torch.serve import engine as pengine
 from repro_torch.serve import kv_quant as pkv_quant
 from repro_torch.serve.scheduler import Request as PRequest
 
+from test_torch_train import _one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "whisper-medium"
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -63,6 +63,7 @@ from test_torch_train import (LOOP_TK, WHISPER_ARCH, JaxDraws, _configs,
                               microbatch_case, recompute_case, with_frames)
 from test_torch_train_substrate import hoisted_case
 from test_torch_whisper import _compile_as_written, _requests, _tokens_of
+from test_torch_train import _one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 REL_L2 = 1e-5

@@ -16,7 +16,9 @@ hybrid's serve steps install ``HYBRID_SPANS`` and read ``hybrid_summary``
 encoder-decoder's encode pass and serve steps install ``WHISPER_SPANS``,
 its training steps ``WHISPER_TRAIN_SPANS`` with ``whisper_train_summary``
 (the float64 attention, the LayerNorms and the GELU, each forward and
-backward apart).
+backward apart); the hybrid's training steps install
+``HYBRID_TRAIN_SPANS`` and read ``hybrid_train_summary`` (the SSD, the
+attention, the MoE's routing and AdamW apart).
 
 The port carries no profiler ranges of its own. ``install_spans`` wraps a
 few functions of whichever checkout of ``repro_torch`` is imported (a
@@ -132,6 +134,16 @@ WHISPER_TRAIN_SPANS = SPANS + (
     ("repro_torch.models.attention", "sdpa", "attention"),
     ("repro_torch.models.common", "layer_norm", "layer_norm"),
     ("repro_torch.models.common", "gelu", "gelu"),
+)
+# A training step of the hybrid (``hybrid_train_summary``): the training
+# spans, the Mamba2 mixers' chunked SSD and the attention sublayer's
+# float64 attention (each ``<label>`` in the forward and the recompute,
+# ``<label>_bwd`` in the backward), and AdamW's update (plain ops, leaf by
+# leaf). ``moe_routing`` (in ``SPANS``) counts its backward as its own.
+HYBRID_TRAIN_SPANS = SPANS + (
+    ("repro_torch.models.ssm", "ssd_chunked", "ssd"),
+    ("repro_torch.models.attention", "sdpa", "attention"),
+    ("repro_torch.optim.adamw", "apply_updates", "adamw"),
 )
 BACKWARD_NODES = {"_NoiseInjectBackward": "noise_inject_bwd",
                   "_FakeQuantBackward": "fake_quant_bwd",
@@ -326,6 +338,21 @@ def whisper_train_summary(prof) -> Dict:
     ``gelu_ms``, ``gelu_bwd_ms``; ``fp32_gemm_ms`` the linears' GEMMs and
     the readout; ``rest_ms`` the rest (``_summary_apart``)."""
     return _summary_apart(prof, ("attention", "layer_norm", "gelu"))
+
+
+def hybrid_train_summary(prof) -> Dict:
+    """``device_summary`` of a training step of the hybrid profiled under
+    ``HYBRID_TRAIN_SPANS``: B8/B9 and their backward kernels
+    (``b8_b9_ms``, ``b8_b9_bwd_ms``), the linears' and the readout's fp32
+    GEMMs (``fp32_gemm_ms``), the chunked SSD (``ssd_ms``,
+    ``ssd_bwd_ms``: its float64 GEMMs included), the float64 attention
+    (``attention_ms``, ``attention_bwd_ms``), the MoE's routing, dispatch
+    and combine with their backward (``moe_routing_ms``), AdamW
+    (``adamw_ms``) and the rest (``rest_ms``; ``_summary_apart``)."""
+    out = _summary_apart(prof, ("ssd", "attention", "moe_routing", "adamw"))
+    for label in ("moe_routing", "adamw"):
+        out.pop(f"{label}_bwd_ms")
+    return out
 
 
 def _serve_kernel(name: str) -> str:
